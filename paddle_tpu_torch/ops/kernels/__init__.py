@@ -1,0 +1,131 @@
+"""Hand-written Hopper kernels: build, load, route and count.
+
+Counterpart of ``paddle_tpu/ops/pallas/__init__.py``, without its force
+knob or interpret mode: the device of the tensors decides the route.
+
+- A CUDA tensor goes to the kernel. If the kernel cannot be built or its
+  launch is refused, the call raises; there is no fallback.
+- A CPU tensor goes to the kernel's plain PyTorch version.
+- Any other device raises.
+
+CUDA C++ sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``
+into ``build/kernels/lib<name>.so`` at the root of the checkout, at first
+use, one ``nvcc`` per source, all started together. Each library exposes a
+plain C launcher loaded with ``ctypes``; pointers and the stream travel as
+``c_void_p`` and the launcher returns ``cudaGetLastError()``, which the
+wrapper checks. Triton kernels are compiled by Triton at their first launch.
+
+Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches the
+kernel and nowhere else, so a run can show that its main path went through
+the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+#: kernel name -> launches on CUDA tensors since the last reset
+LAUNCHES = {"paged_attention": 0, "rms_norm": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version). Mixed or other devices raise."""
+    types = {t.device.type for t in tensors}
+    if types == {"cuda"}:
+        return True
+    if types == {"cpu"}:
+        return False
+    raise ValueError(f"kernel operands must all lie on cuda or all on cpu, "
+                     f"got {sorted(types)}")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels of paddle_tpu_torch "
+                       "are built from source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def build(force: bool = False) -> float:
+    """Compile every ``csrc/*.cu`` that has no up-to-date library, one
+    ``nvcc`` per source, in parallel. Returns the seconds it took; raises
+    with the compiler's output when a build fails."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        out = _lib_path(src.stem)
+        if (not force and out.exists()
+                and out.stat().st_mtime >= src.stat().st_mtime):
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``lib<name>.so``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
