@@ -6,8 +6,9 @@
 Phases, each of which fails the run on error:
 
 1. device  - the card's name and power limit; fails without CUDA.
-2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a; Triton
-             compiles the rms_norm kernel at its first launch.
+2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
+             source, in parallel); Triton compiles the rms_norm kernel at
+             its first launch.
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
              version's and one library call's time, and the bound.
@@ -18,10 +19,18 @@ Phases, each of which fails the run on error:
              32 (paged attention) and 65 (rms norm) per decode tick.
 5. consistency - f32, full width, depth 2: the engine's greedy streams
              equal the dense-cache generate token for token.
+6. training - GPT-3 1.3B (config 4) at full width and depth in bf16:
+             GPTForCausalLMPipe -> chunked-CE loss -> AdamW(factored) ->
+             TrainStep, batch 3 x seq 2048, one warm-up and 5 timed steps
+             and one profiled step. Checks finite, falling losses that
+             start near ln(vocab) and the launch counts per step.
+7. training consistency - f32, full width, depth 2: three TrainSteps on
+             the card equal the same three on the CPU (plain versions).
 
-The line before the last lists every kernel with its launch count on the
-serving run; the last line is {"ok": true, "device": {...}}. ``--quick``
-runs phases 1-3 only, with fewer repetitions, and prints no result line.
+The line before the last lists every kernel with its launch counts on the
+serving and training runs; the last line is {"ok": true, "device": {...}}.
+``--quick`` runs phases 1-3 only, with fewer repetitions, and prints no
+result line.
 """
 from __future__ import annotations
 
@@ -89,8 +98,15 @@ def phase_device():
 def phase_build():
     from paddle_tpu_torch.ops import kernels
 
-    secs = kernels.build(force=True)
+    secs, logs = kernels.build(force=True, ptxas_info=True)
     print(f"build: nvcc {secs:.2f} s", flush=True)
+    for src, log in sorted(logs.items()):
+        regs = [ln.split("Used ")[1] for ln in log.splitlines()
+                if "Used " in ln and "registers" in ln]
+        spills = sum("0 bytes spill stores" not in ln
+                     for ln in log.splitlines() if "spill stores" in ln)
+        print(f"build: {src}: {len(regs)} kernels, {spills} with spills; "
+              f"{'; '.join(r.split(',')[0] for r in regs)}", flush=True)
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm_fwd
 
     x = torch.randn(8, 4096, device="cuda")
@@ -99,7 +115,8 @@ def phase_build():
     torch.cuda.synchronize()
     tsecs = time.perf_counter() - t0
     print(f"build: triton rms_norm first launch {tsecs:.2f} s", flush=True)
-    return {"nvcc_s": secs, "triton_first_launch_s": tsecs}
+    return {"nvcc_s": secs, "triton_first_launch_s": tsecs,
+            "ptxas": logs}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -204,10 +221,124 @@ def _rms_case(n, h, dtype, gen):
     }
 
 
+#: error relative to the largest reference value. f32: summation order
+#: (and, in the backward, the run-to-run order of the dq atomics). bf16: p
+#: and ds are rounded from f32 values whose last bits differ between the
+#: routes, and the outputs are rounded to bf16.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: f32: summation order over M; bf16: output rounding (2^-8) and products
+#: rounded from f32 values whose last bits differ
+SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_err(got, want):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    abs_err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+    rel = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max().clamp_min(1e-6)).item()
+              for a, b in zip(got, want))
+    return abs_err, rel
+
+
+def _flash_cases(b, hq, hkv, s, d, dtype, gen):
+    """The forward and the fused backward at [b, s, hq/hkv, d], causal."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    q = torch.randn(b * hq, s, d, generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn(b * hkv, s, d, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(b * hkv, s, d, generator=gen, device=DEVICE).to(dtype)
+    do = torch.randn(b * hq, s, d, generator=gen, device=DEVICE).to(dtype)
+    shape = f"[{b},{s},{hq}/{hkv},{d}] causal"
+    name = str(dtype).replace("torch.", "")
+    o, lse = flash_attention_fwd(q, k, v, True)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(o, ro)
+    lse_err = (lse - rlse).abs().max().item()
+    check(torch.isfinite(o.float()).all().item(), f"flash fwd {shape}: nan")
+    check(rel <= FLASH_TOL[dtype] and lse_err <= 1e-3,
+          f"flash fwd {name} {shape}: rel err {rel}, lse err {lse_err}")
+    grads = flash_attention_bwd(q, k, v, ro, rlse, do, True)
+    want = flash_attention_bwd_plain(q, k, v, ro, rlse, do, True)
+    torch.cuda.synchronize()
+    berr, brel = _rel_err(grads, want)
+    check(all(torch.isfinite(g.float()).all().item() for g in grads),
+          f"flash bwd {shape}: nan")
+    check(brel <= FLASH_TOL[dtype],
+          f"flash bwd {name} {shape}: rel err {brel}")
+    # library yardstick: SDPA on the [B, H, S, D] views of the same data
+    q4, k4, v4, do4 = (t.view(b, -1, s, d) for t in (q, k, v, do))
+    gqa = hq != hkv
+    lib_o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                           enable_gqa=gqa)
+    check(_rel_err(lib_o, ro.view(b, hq, s, d))[1] <= 2 * FLASH_TOL[dtype],
+          "sdpa yardstick disagrees")
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                             enable_gqa=gqa)
+    item = q.element_size()
+    pairs = b * hq * s * (s + 1) // 2          # causal (query, key) pairs
+    io_q, io_kv = b * hq * s * d * item, b * hkv * s * d * item
+    fbms, fby = bound_ms(2 * io_q + 2 * io_kv + b * hq * s * 4,
+                         4 * d * pairs, dtype)
+    bbms, bby = bound_ms(4 * io_q + 4 * io_kv + b * hq * s * 4,
+                         10 * d * pairs, dtype)
+    fwd = {"shape": shape, "dtype": name, "max_abs_err": err,
+           "max_rel_err": rel, "lse_max_abs_err": lse_err,
+           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, True)),
+           "plain_ms": time_ms(
+               lambda: flash_attention_fwd_plain(q, k, v, True)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=True, enable_gqa=gqa)),
+           "bound_ms": fbms, "bound_by": fby}
+    bwd = {"shape": shape, "dtype": name, "max_abs_err": berr,
+           "max_rel_err": brel,
+           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, ro, rlse, do,
+                                                     True)),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
+               q, k, v, ro, rlse, do, True), reps=5, inner=2),
+           "library_ms": time_ms(lambda: torch.autograd.grad(
+               lib_out, (ql, kl, vl), do4, retain_graph=True)),
+           "bound_ms": bbms, "bound_by": bby}
+    return fwd, bwd
+
+
+def _swiglu_case(rows, m, h, dtype, gen):
+    from paddle_tpu_torch.ops.kernels.swiglu_down import (swiglu_down_fwd,
+                                                          swiglu_down_plain)
+
+    g = torch.randn(rows, m, generator=gen, device=DEVICE).to(dtype)
+    u = torch.randn(rows, m, generator=gen, device=DEVICE).to(dtype)
+    wd = (0.02 * torch.randn(m, h, generator=gen, device=DEVICE)).to(dtype)
+    out = swiglu_down_fwd(g, u, wd)
+    want = swiglu_down_plain(g, u, wd)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(out, want)
+    check(torch.isfinite(out.float()).all().item(), "swiglu_down: nan")
+    check(rel <= SWIGLU_TOL[dtype],
+          f"swiglu_down {dtype} [{rows},{m}]x[{m},{h}]: rel err {rel}")
+    item = g.element_size()
+    bms, by = bound_ms((2 * rows * m + m * h + rows * h) * item,
+                       2 * rows * m * h + 4 * rows * m, dtype)
+    return {"shape": f"[{rows},{m}]x[{m},{h}]",
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "max_rel_err": rel,
+            "ms": time_ms(lambda: swiglu_down_fwd(g, u, wd)),
+            "plain_ms": time_ms(lambda: swiglu_down_plain(g, u, wd)),
+            # the unfused pair: F.silu(g) * u, then torch.matmul
+            "library_ms": time_ms(lambda: torch.matmul(F.silu(g) * u, wd)),
+            "bound_ms": bms, "bound_by": by}
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cases = {"paged_attention": [], "rms_norm": []}
+    cases = {"paged_attention": [], "rms_norm": [], "flash_attention_fwd": [],
+             "flash_attention_bwd": [], "swiglu_down": []}
     for dtype in (torch.bfloat16, torch.float32):
         # LLaMA-7B decode: MHA; LLaMA-70B attention: GQA 64/8
         cases["paged_attention"].append(
@@ -216,6 +347,18 @@ def phase_kernels():
             _paged_case(8, 64, 8, 128, 64, 2048, dtype, gen))
         for n in (8, 2048):
             cases["rms_norm"].append(_rms_case(n, 4096, dtype, gen))
+        # config 4's block norms at batch 3 x seq 2048 tokens
+        cases["rms_norm"].append(_rms_case(6144, 2048, dtype, gen))
+        # config 4 (GPT-3 1.3B, MHA 16 heads) and config 5's GQA 32/8, at
+        # batch 3 x seq 2048; f32 at batch 1
+        b = 3 if dtype == torch.bfloat16 else 1
+        for hq, hkv in ((16, 16), (32, 8)):
+            fwd, bwd = _flash_cases(b, hq, hkv, 2048, 128, dtype, gen)
+            cases["flash_attention_fwd"].append(fwd)
+            cases["flash_attention_bwd"].append(bwd)
+        # config 4's FFN seam at batch 3 x seq 2048 tokens
+        cases["swiglu_down"].append(_swiglu_case(6144, 5504, 2048, dtype,
+                                                 gen))
     for name, rows in cases.items():
         for r in rows:
             print(f"kernel {name} {r['dtype']} {r['shape']}: "
@@ -417,6 +560,193 @@ def phase_consistency():
     torch.cuda.empty_cache()
     return {"prompts": [len(p) for p in prompts], "new_tokens": new}
 
+# ---------------------------------------------------------------- phase 6
+def _profile_step(step, batch, wall_ms):
+    """One step under the profiler: device busy time (sum of kernel
+    times), the host share against the unprofiled step wall, the top 8
+    kernels by time (as _decode_window does for serving), and the busy
+    time split into the port's kernels, cuBLAS GEMMs and everything
+    else (elementwise, copies, reductions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*batch)
+        torch.cuda.synchronize()
+    busy = 0.0
+    by_kernel = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dt = ev.time_range.elapsed_us()
+            busy += dt
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for k, v in by_kernel.items():
+        if any(n in k for n in ("flash_fwd_kernel", "flash_bwd_kernel",
+                                "swiglu_down_kernel", "_rms_fwd",
+                                "paged_attention_kernel")):
+            groups["port_kernels"] += v / 1e3
+        elif any(n in k for n in ("nvjet", "gemm", "splitKreduce")):
+            groups["gemm"] += v / 1e3
+        else:
+            groups["other"] += v / 1e3
+    return {"device_busy_ms": busy / 1e3,
+            "host_share": (1 - busy / 1e3 / wall_ms) if busy > 0 else None,
+            "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
+            "by_group_ms": groups}
+
+
+def _train_setup(cfg, dtype, device, seed):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = GPTForCausalLMPipe(cfg, device=device, dtype=dtype).init_weights(
+        gen, std=0.02)
+    opt = AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                factored=True)
+    return model, TrainStep(model, model.loss, opt)
+
+
+def _train_batch(vocab, batch, seq, seed, device):
+    """Seeded random ids and labels, as bench.py:638-639 makes them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, vocab, (batch, seq)).astype(np.int64)
+    return (torch.as_tensor(ids, device=device).long(),
+            torch.as_tensor(labels, device=device))
+
+
+def phase_training():
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops import kernels
+
+    # GPT-3 1.3B, BASELINE.md config 4 (bench.py:259-262)
+    cfg = GPTConfig(vocab_size=32000, hidden_size=2048, num_layers=24,
+                    num_heads=16, max_seq_len=2048, dropout=0.0,
+                    dtype="bfloat16", recompute=True)
+    check((cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+           cfg.intermediate_size, cfg.tie_embeddings)
+          == (32000, 2048, 24, 16, 5504, True), "config 4")
+    batch, seq, timed = 3, 2048, 5
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, step = _train_setup(cfg, torch.bfloat16, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"training: config 4, {nparams / 1e9:.4f} B params bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ids, labels = _train_batch(cfg.vocab_size, batch, seq, 0, DEVICE)
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    losses.append(step(ids, labels).item())          # warm-up
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launch_counts()
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = kernels.launch_counts()
+    health = step.last_health
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.num_layers
+    # full remat: each block's forward runs twice (forward, recompute);
+    # the flash backward once per block; two rms norms per block forward
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+            "swiglu_down": 2 * L, "rms_norm": 4 * L, "paged_attention": 0}
+    formula = ("per step: flash_attention_fwd 2L, flash_attention_bwd L, "
+               "swiglu_down 2L, rms_norm 4L, paged_attention 0; L = "
+               f"{L}, {timed} steps")
+    print(f"training: launches {counts}; {formula}", flush=True)
+    for name, per_step in want.items():
+        check(counts[name] == per_step * timed,
+              f"{name} launches {counts[name]} != {per_step} x {timed}")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    ln_v = float(np.log(cfg.vocab_size))
+    check(ln_v - 0.1 <= losses[0] <= ln_v + 1.5,
+          f"first loss {losses[0]} outside [ln V - 0.1, ln V + 1.5]")
+    check(losses[-1] < losses[0], f"losses do not fall: {losses}")
+    check(health.finite and health.ok, f"health {health}")
+    med = statistics.median(step_ms)
+    tokens = batch * seq
+    tps = tokens / (med / 1e3)
+    mfu = 6.0 * nparams * tps / PEAK_OPS[torch.bfloat16]
+    res = {"config": "gpt3-1.3b (config 4)", "params": nparams,
+           "batch": batch, "seq": seq, "losses": losses,
+           "warmup_step_ms": warm_ms, "step_ms": step_ms,
+           "step_ms_median": med, "tokens_per_s": tps,
+           "model_flops_share": mfu,
+           "model_flops_formula": "6 * params * tokens_per_s / 989e12 "
+                                  "(bench.py:886-895; H100 SXM dense bf16)",
+           "grad_norm": health.grad_norm, "peak_memory_gib": peak_gb,
+           "launches": counts, "launch_formula": formula}
+    print(f"training: losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"training: step median {med:.1f} ms over {timed} "
+          f"({[round(x, 1) for x in step_ms]}), warm-up {warm_ms:.0f} ms, "
+          f"{tps:.0f} tokens/s, model-flops share {mfu:.4f} = "
+          f"{res['model_flops_formula']}; peak memory {peak_gb:.1f} GiB, "
+          f"grad norm {health.grad_norm:.4f}", flush=True)
+    res["profile"] = prof = _profile_step(step, (ids, labels), med)
+    print(f"training: profiled step {prof['device_busy_ms']:.1f} ms device "
+          f"busy, host share {prof['host_share']}; by group "
+          + json.dumps({k: round(v, 2) for k, v in
+                        prof["by_group_ms"].items()}), flush=True)
+    for k, v in prof["top_kernels_ms"]:
+        print(f"training:   {v:9.3f} ms/step  {k}", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------- phase 7
+#: f32 on both devices: matmuls, attention and the CE head sum in other
+#: orders on the card and the CPU, and the card's dq atomics in an order
+#: that changes from run to run
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 5e-4            # of each leaf's norm
+
+
+def phase_train_consistency():
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=32000, hidden_size=2048, num_layers=2,
+                    num_heads=16, max_seq_len=2048, dropout=0.0,
+                    dtype="float32", recompute=True)
+    cpu_model, cpu_step = _train_setup(cfg, torch.float32, "cpu", seed=1)
+    gpu_model, gpu_step = _train_setup(cfg, torch.float32, DEVICE, seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    losses, grads = {}, {}
+    for dev, model, step in (("cpu", cpu_model, cpu_step),
+                             (DEVICE, gpu_model, gpu_step)):
+        ids, labels = _train_batch(cfg.vocab_size, 1, 256, 1, dev)
+        losses[dev] = [step(ids, labels).item()]
+        grads[dev] = {n: p.grad.detach().float().cpu().clone()
+                      for n, p in model.named_parameters()}
+        losses[dev] += [step(ids, labels).item() for _ in range(2)]
+    worst = {}
+    for n, g in grads["cpu"].items():
+        worst[n] = ((grads[DEVICE][n] - g).norm()
+                    / g.norm().clamp_min(1e-30)).item()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[DEVICE],
+                                                losses["cpu"])]
+    print(f"train consistency: f32 depth 2 seq 256, losses card "
+          f"{losses[DEVICE]} cpu {losses['cpu']} (max rel {max(rel):.2e}, "
+          f"tol {TRAIN_LOSS_RTOL}); step-1 grads max rel "
+          f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}, tol "
+          f"{TRAIN_GRAD_RTOL})", flush=True)
+    check(max(rel) <= TRAIN_LOSS_RTOL, f"losses differ: {losses}")
+    check(max(worst.values()) <= TRAIN_GRAD_RTOL, f"grads differ: {worst}")
+    del gpu_model, gpu_step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_rel_err": worst}
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -437,6 +767,8 @@ def main():
     if not args.quick:
         report["serving"] = phase_serving()
         report["consistency"] = phase_consistency()
+        report["training"] = phase_training()
+        report["train_consistency"] = phase_train_consistency()
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -444,18 +776,30 @@ def main():
     if args.quick:
         return 0
     src = "paddle_tpu_torch/ops/kernels/"
+    pallas = "paddle_tpu/ops/pallas/"
     meta = {
         "paged_attention": ("cuda", src + "csrc/paged_attention.cu",
-                            "paddle_tpu/ops/pallas/decode_attention.py:336"),
-        "rms_norm": ("triton", src + "rms_norm.py",
-                     "paddle_tpu/ops/pallas/rms_norm.py:43"),
+                            pallas + "decode_attention.py:336"),
+        "rms_norm": ("triton", src + "rms_norm.py", pallas + "rms_norm.py:43"),
+        "flash_attention_fwd": ("cuda", src + "csrc/flash_attention.cu",
+                                pallas + "flash_attention.py:248"),
+        "flash_attention_bwd": ("cuda", src + "csrc/flash_attention.cu",
+                                pallas + "flash_attention.py:581"),
+        "swiglu_down": ("cuda", src + "csrc/swiglu_down.cu",
+                        pallas + "swiglu_down.py:86"),
     }
     line = []
     for name, (route, source, replaces) in meta.items():
-        main_case = report["kernels"][name][0]     # bf16, the serving shape
+        # bf16 at the main path's shape: serving for the decode kernels,
+        # config 4 training for the others
+        main_case = report["kernels"][name][0]
+        by_path = {"serving": report["serving"]["launches"][name],
+                   "training": report["training"]["launches"][name]}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
-                     "launches": report["serving"]["launches"][name],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "shape": main_case["shape"],
                      "max_abs_err": main_case["max_abs_err"],
                      "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                      "bound_ms": main_case["bound_ms"],

@@ -1,14 +1,19 @@
 """Decoder-only transformer family (GPT / LLaMA style) in PyTorch.
 
 Counterpart of ``paddle_tpu/models/gpt.py``: the config, the pure
-functions every consumer shares (rope, rms norm, plain attention) and the
-module tree with the JAX package's state-dict names
-(``model.layers.{i}.attn.q_proj.weight`` ...). Layers run as a Python loop
-over modules; the JAX package's scan over stacked layers has no
-counterpart here.
+functions every consumer shares (rope, rms norm, plain attention), and
+two module trees:
 
-Projection weights are ``torch.nn.Linear`` weights, ``[out, in]``; the JAX
-package keeps ``[in, out]`` and ``convert.py`` owns the transpose.
+- ``GPTForCausalLM`` (serving): per-layer modules with the JAX package's
+  state-dict names (``model.layers.{i}.attn.q_proj.weight`` ...) and
+  ``torch.nn.Linear`` weights ``[out, in]``; ``convert.py`` owns the
+  transpose from the JAX package's ``[in, out]``.
+- ``GPTForCausalLMPipe`` (training): the flagship ``StackedDecoder`` with
+  the JAX package's stacked ``[L, in, out]`` weights, the block
+  ``_block_pure`` on its single-device path (rms norm and flash attention
+  kernels, ``swiglu_down`` where the JAX package's route takes it), full
+  recompute per block, the tied head and the chunked-CE loss. Layers run
+  as a Python loop; the JAX package's scan has no counterpart here.
 """
 from __future__ import annotations
 
@@ -18,8 +23,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..device import resolve_device
+from ..nn.functional.fused_cross_entropy import chunked_lm_loss_arrays
+from ..nn.norm import RMSNorm as PlainRMSNorm
+from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.rms_norm import rms_norm
+from ..ops.kernels.swiglu_down import swiglu_down, swiglu_down_supported
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -29,7 +40,8 @@ class GPTConfig:
                  num_heads=12, num_kv_heads=None, intermediate_size=None,
                  max_seq_len=2048, norm_type="rmsnorm", act="swiglu",
                  rope=True, dropout=0.0, tie_embeddings=True,
-                 dtype="float32"):
+                 dtype="float32", recompute=False, recompute_policy="full",
+                 head_chunk=None):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -45,6 +57,12 @@ class GPTConfig:
         self.dropout = dropout
         self.tie_embeddings = tie_embeddings
         self.dtype = dtype
+        # recompute: rerun each block in backward (torch.utils.checkpoint);
+        # only the "full" policy is ported (selective remat: ROADMAP A.3)
+        self.recompute = recompute
+        self.recompute_policy = recompute_policy
+        # vocab chunk of the chunked CE head (None = 8192)
+        self.head_chunk = head_chunk
 
 
 def _rope_at_positions(x, pos, base=10000.0):
@@ -101,7 +119,8 @@ def _check_supported(config):
             f"got norm_type={config.norm_type!r} act={config.act!r} "
             f"rope={config.rope!r}")
     if config.dropout:
-        raise NotImplementedError("dropout waits for the training slice")
+        raise NotImplementedError("dropout is not supported (the JAX "
+                                  "StackedDecoder refuses it too)")
 
 
 def _linear(i, o, device, dtype):
@@ -226,3 +245,188 @@ class GPTForCausalLM(nn.Module):
         head = (self.model.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
         return F.linear(hidden, head)
+
+
+# ---------------------------------------------------------------------------
+# Training path: the JAX package's flagship GPTForCausalLMPipe on one device
+# ---------------------------------------------------------------------------
+def compute_loss(hidden, weight, labels, *, config=None, transpose_y=True,
+                 ignore_index=-100, mode="chunked"):
+    """LM-head matmul + CE (``paddle_tpu/models/gpt.py:93``).
+
+    - ``chunked`` (the default): the chunked-CE head, whose f32
+      ``[tokens, vocab]`` logits never exist whole;
+    - ``dense``: full logits and ``F.cross_entropy``, the parity oracle.
+
+    The vocab-sharded and int8 heads are not ported yet (ROADMAP A.4).
+    """
+    if mode == "chunked":
+        return chunked_lm_loss_arrays(
+            hidden, weight, labels, transpose_y=transpose_y,
+            vocab_chunk=getattr(config, "head_chunk", None),
+            ignore_index=ignore_index)
+    if mode == "dense":
+        logits = hidden @ (weight.t() if transpose_y else weight)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                               labels.reshape(-1).long(),
+                               ignore_index=ignore_index)
+    raise ValueError(f"compute_loss mode {mode!r}: expected chunked or dense")
+
+
+def _rope_pure(x, base=10000.0):
+    """Neox-style rope on [B, S, H, D] at positions 0..S-1."""
+    pos = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+    return _rope_at_positions(x, pos, base)
+
+
+def _block_pure(p, x, num_heads):
+    """One decoder block on tensors, ``p = (ln1, wq, wk, wv, wo, ln2, wg,
+    wu, wd)`` with weights ``[in, out]`` (``models/gpt.py:663-809`` on its
+    single-device path): rms -> q/k/v -> rope -> flash attention -> o-proj
+    + residual -> rms -> gate/up -> ``swiglu_down`` (the unfused seam where
+    ``swiglu_down_supported`` refuses the shapes). The reference's
+    ``_sdpa_pure`` dispatch is the flash wrapper's device route: the
+    kernel on CUDA tensors, its plain version on CPU tensors."""
+    ln1, wq, wk, wv, wo, ln2, wg, wu, wd = p
+    b, s, hdim = x.shape
+    hd = hdim // num_heads
+    h = _rms_pure(x, ln1)
+    q = (h @ wq).reshape(b, s, -1, hd)
+    k = (h @ wk).reshape(b, s, -1, hd)
+    v = (h @ wv).reshape(b, s, -1, hd)
+    q, k = _rope_pure(q), _rope_pure(k)
+    o = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+    x = x + o @ wo
+    h2 = _rms_pure(x, ln2)
+    gate = h2 @ wg
+    up = h2 @ wu
+    if swiglu_down_supported(gate.shape, wd.shape):
+        return x + swiglu_down(gate, up, wd)
+    return x + (F.silu(gate) * up) @ wd
+
+
+def _resolve_remat(cfg):
+    """The ported remat policy (``models/gpt.py:858``): "full" only."""
+    pol = cfg.recompute_policy
+    if pol == "full":
+        return pol
+    if isinstance(pol, str) and (pol.startswith("names:")
+                                 or pol in ("dots", "attn", "attn_ffn")):
+        raise NotImplementedError(
+            f"recompute_policy={pol!r}: selective remat is not ported yet "
+            "(ROADMAP A.3); the port runs recompute_policy='full'")
+    raise ValueError(f"unknown recompute_policy {pol!r}")
+
+
+def _make_block(cfg):
+    """One decoder block over (x, per-layer weights); with
+    ``cfg.recompute`` each block is a non-reentrant
+    ``torch.utils.checkpoint`` that reruns it in the backward."""
+
+    def block(x, *p):
+        return _block_pure(p, x, cfg.num_heads)
+
+    if not cfg.recompute:
+        return lambda x, p: block(x, *p)
+    _resolve_remat(cfg)
+    return lambda x, p: checkpoint(block, x, *p, use_reentrant=False)
+
+
+#: _block_pure's parameter order, as StackedDecoder attributes
+BLOCK_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd")
+
+
+class StackedDecoder(nn.Module):
+    """Every decoder block as leading-axis-stacked parameters ``[L, ...]``
+    (``models/gpt.py:1065``), in the JAX package's ``[in, out]`` layout.
+    Projections start as N(0, 0.02^2), norm gains as ones. The layers run
+    as a loop over ``torch.unbind`` slices, whose backward stacks the L
+    per-layer gradients once. Single device: pipeline, tensor parallelism,
+    ZeRO and quantized compute are not ported (ROADMAP A.9, A.10)."""
+
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        _check_supported(config)
+        L, h = config.num_layers, config.hidden_size
+        kv = config.num_kv_heads * (h // config.num_heads)
+        m = config.intermediate_size
+        self.config = config
+        shapes = {"ln1": (L, h), "wq": (L, h, h), "wk": (L, h, kv),
+                  "wv": (L, h, kv), "wo": (L, h, h), "ln2": (L, h),
+                  "wg": (L, h, m), "wu": (L, h, m), "wd": (L, m, h)}
+        for name in BLOCK_PARAMS:
+            t = torch.empty(shapes[name], device=device, dtype=dtype)
+            with torch.no_grad():
+                if name.startswith("ln"):
+                    t.fill_(1.0)
+                else:
+                    t.normal_(0.0, 0.02)
+            setattr(self, name, nn.Parameter(t))
+
+    def apply_tp_placements(self, *args, **kwargs):
+        raise NotImplementedError("tensor parallelism is not ported yet "
+                                  "(ROADMAP A.10)")
+
+    apply_pipeline_placements = apply_tp_placements
+
+    def forward(self, x):
+        block = _make_block(self.config)
+        layers = zip(*(torch.unbind(getattr(self, n)) for n in BLOCK_PARAMS))
+        for p in layers:
+            x = block(x, p)
+        return x
+
+
+class GPTForCausalLMPipe(nn.Module):
+    """Decoder LM with the stacked decoder core and a head tied to the
+    token embedding (``models/gpt.py:1437``). ``device`` defaults to CUDA
+    (raising where there is none); ``dtype`` to ``config.dtype``."""
+
+    def __init__(self, config, device=None, dtype=None):
+        super().__init__()
+        if not config.tie_embeddings:
+            raise ValueError("GPTForCausalLMPipe ties the lm head to the "
+                             "token embedding (tie_embeddings=False is not "
+                             "supported)")
+        device = resolve_device(device)
+        dtype = dtype or _DTYPES[config.dtype]
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size, device=device,
+                                         dtype=dtype)
+        nn.init.xavier_uniform_(self.embed_tokens.weight)
+        self.decoder = StackedDecoder(config, device, dtype)
+        self.final_norm = PlainRMSNorm(config.hidden_size, device=device,
+                                       dtype=dtype)
+
+    @property
+    def device(self):
+        return self.embed_tokens.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, generator, std=0.02):
+        """Random weights from ``generator``: the embedding and every
+        projection ~ N(0, std^2), norm gains 1."""
+        for name, p in self.named_parameters():
+            if name.endswith(("ln1", "ln2", "norm.weight")):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, std, generator=generator)
+        return self
+
+    def shard_lm_head(self, *args, **kwargs):
+        raise NotImplementedError("the vocab-sharded head is not ported yet "
+                                  "(ROADMAP A.10)")
+
+    def _hidden(self, input_ids):
+        x = self.embed_tokens(input_ids)
+        return self.final_norm(self.decoder(x))
+
+    def forward(self, input_ids):
+        return self._hidden(input_ids) @ self.embed_tokens.weight.t()
+
+    def loss(self, input_ids, labels):
+        """Tied-head LM loss through the chunked-CE head: neither the f32
+        logits nor their gradient exists whole."""
+        return compute_loss(self._hidden(input_ids), self.embed_tokens.weight,
+                            labels, config=self.config, transpose_y=True)

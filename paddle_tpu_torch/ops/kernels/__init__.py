@@ -10,7 +10,9 @@ knob or interpret mode: the device of the tensors decides the route.
 
 CUDA C++ sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``
 into ``build/kernels/lib<name>.so`` at the root of the checkout, at first
-use, one ``nvcc`` per source, all started together. Each library exposes a
+use, one ``nvcc`` per source, all started together (a source is rebuilt
+when it or a shared ``csrc/*.cuh`` header is newer than its library).
+Each library exposes a
 plain C launcher loaded with ``ctypes``; pointers and the stream travel as
 ``c_void_p`` and the launcher returns ``cudaGetLastError()``, which the
 wrapper checks. Triton kernels are compiled by Triton at their first launch.
@@ -36,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches on CUDA tensors since the last reset
-LAUNCHES = {"paged_attention": 0, "rms_norm": 0}
+LAUNCHES = {"paged_attention": 0, "rms_norm": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0, "swiglu_down": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -78,33 +81,40 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def build(force: bool = False) -> float:
+def build(force: bool = False,
+          ptxas_info: bool = False) -> tuple[float, dict[str, str]]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, one
-    ``nvcc`` per source, in parallel. Returns the seconds it took; raises
-    with the compiler's output when a build fails."""
+    ``nvcc`` per source, in parallel. Returns the seconds it took and the
+    compiler's output by source name; raises with that output when a
+    build fails. ``ptxas_info`` asks ptxas for each kernel's registers,
+    shared memory and spills."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                  default=0.0)
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         out = _lib_path(src.stem)
-        if (not force and out.exists()
-                and out.stat().st_mtime >= src.stat().st_mtime):
+        newest = max(src.stat().st_mtime, headers)
+        if not force and out.exists() and out.stat().st_mtime >= newest:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if ptxas_info else []),
+               "-o", str(tmp), str(src)]
         jobs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    errors = []
+    errors, logs = [], {}
     for src, out, tmp, proc in jobs:
         log, _ = proc.communicate()
+        logs[src.name] = log
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{log}")
             continue
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,8 +9,11 @@ Bound: it reads each row once and writes it once, a few FLOPs per element,
 so the bytes over the card's memory rate bound it. Design: one Triton
 program per row holds the whole row (H <= 8192) in registers, so the row
 crosses device memory once; no tensor cores and no gathers, which is why
-Triton serves it as well as CUDA would. The backward waits for the
-training slice.
+Triton serves it as well as CUDA would.
+
+The backward is the JAX package's closed form (``rms_norm.py:78-90``, jnp
+there) in plain PyTorch, inside a ``torch.autograd.Function`` that saves
+``(x2, w, rstd)``: the forward's rstd is reused, never recomputed.
 """
 from __future__ import annotations
 
@@ -79,8 +82,29 @@ def rms_norm_fwd(x2, weight, eps=1e-6):
     return o, rstd
 
 
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, weight, eps):
+        o, rstd = rms_norm_fwd(x2, weight, eps)
+        ctx.save_for_backward(x2, weight, rstd)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, rstd = ctx.saved_tensors
+        xf, gf, wf = x2.float(), g.float(), w.float()
+        r = rstd[:, None]
+        xhat = xf * r
+        gw = gf * wf
+        # d/dx of x * rstd(x): rstd * (gw - xhat * mean(gw * xhat))
+        dx = r * (gw - xhat * (gw * xhat).mean(-1, keepdim=True))
+        dw = (gf * xhat).sum(0)
+        return dx.to(x2.dtype), dw.to(w.dtype), None
+
+
 def rms_norm(x, weight, eps=1e-6):
-    """RMS-normalise the last axis of ``x`` and scale by ``weight``."""
+    """RMS-normalise the last axis of ``x`` and scale by ``weight``;
+    differentiable in ``x`` and ``weight``."""
     shape = x.shape
-    o, _ = rms_norm_fwd(x.reshape(-1, shape[-1]).contiguous(), weight, eps)
+    o = _RMSNorm.apply(x.reshape(-1, shape[-1]).contiguous(), weight, eps)
     return o.reshape(shape)

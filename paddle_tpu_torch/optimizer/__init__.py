@@ -1,0 +1,4 @@
+"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``)."""
+from .optimizer import Adam, AdamW
+
+__all__ = ["Adam", "AdamW"]

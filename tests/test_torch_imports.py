@@ -31,7 +31,9 @@ def _forbidden(name):
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"serving.py", "decode_attention.py", "rms_norm.py", "gpt.py",
-            "llama.py", "convert.py", "chip_smoke.py"} <= names
+            "llama.py", "convert.py", "chip_smoke.py", "flash_attention.py",
+            "swiglu_down.py", "fused_cross_entropy.py", "norm.py", "clip.py",
+            "optimizer.py", "train_step.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(

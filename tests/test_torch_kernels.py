@@ -17,7 +17,10 @@ from paddle_tpu.ops.pallas.rms_norm import rms_norm as jax_rms_norm
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     paged_attention, paged_attention_plain)
+from paddle_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention_bwd, flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm, rms_norm_fwd
+from paddle_tpu_torch.ops.kernels.swiglu_down import swiglu_down_fwd
 
 #: f32 on both sides; only the summation order differs
 ATOL_F32 = 1e-5
@@ -82,7 +85,16 @@ def test_cpu_route_never_counts_launches():
     paged_attention(*(torch.from_numpy(a) for a in (q, kp, vp, tables,
                                                     lens)))
     rms_norm(torch.ones(2, 8), torch.ones(8))
-    assert kernels.launch_counts() == {"paged_attention": 0, "rms_norm": 0}
+    x = torch.randn(2, 16, 64)
+    o, lse = flash_attention_fwd(x, x, x, True)
+    flash_attention_bwd(x, x, x, o, lse, x, True)
+    swiglu_down_fwd(torch.ones(4, 128), torch.ones(4, 128),
+                    torch.ones(128, 128))
+    counts = kernels.launch_counts()
+    assert set(counts) == {"paged_attention", "rms_norm",
+                           "flash_attention_fwd", "flash_attention_bwd",
+                           "swiglu_down"}
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_other_devices_raise():
