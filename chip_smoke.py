@@ -17,8 +17,20 @@ Phases, each of which fails the run on error:
              step / run_until_complete with chunked prefill. Checks every
              request's token count and that the kernels' launch counts are
              32 (paged attention) and 65 (rms norm) per decode tick.
+   serving_int8 - the same model, requests and engine with int8_kv=True:
+             paged_attention_int8 32 times per decode tick and
+             paged_attention never, the KV cache at exactly 132/256 of the
+             bf16 bytes; reports the share of tokens equal to phase 4's.
+   incubate - the same model as a decoder built from the incubate fused
+             ops (fused_rms_norm, masked_multihead_attention over a dense
+             [2, 8, 32, 2048, 128] cache per layer, swiglu), 8 rows joining
+             at staggered steps: decode_attention L, add_rms_norm 2L and
+             rms_norm once per token.
 5. consistency - f32, full width, depth 2: the engine's greedy streams
-             equal the dense-cache generate token for token.
+             equal the dense-cache generate token for token; the int8
+             engine on the card equals the same engine on the CPU under
+             group and chunked prefill; the incubate decoder's streams
+             equal generate.
 6. training - GPT-3 1.3B (config 4) at full width and depth in bf16:
              GPTForCausalLMPipe -> chunked-CE loss -> AdamW(factored) ->
              TrainStep, batch 3 x seq 2048, one warm-up and 5 timed steps
@@ -28,7 +40,8 @@ Phases, each of which fails the run on error:
              the card equal the same three on the CPU (plain versions).
 
 The line before the last lists every kernel with its launch counts on the
-serving and training runs; the last line is {"ok": true, "device": {...}}.
+serving, int8 serving, incubate and training runs; the last line is
+{"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 only, with fewer repetitions, and prints no
 result line.
 """
@@ -124,10 +137,9 @@ PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 
 
-def _paged_case(b, hq, hkv, d, page, max_len, dtype, gen):
-    from paddle_tpu_torch.ops.kernels.decode_attention import (
-        paged_attention, paged_attention_plain)
-
+def _paged_inputs(b, hq, hkv, d, page, max_len, dtype, gen):
+    """The serving phase's mixed lengths over shuffled pages, with garbage
+    table entries past each length."""
     pps = max_len // page
     num_pages = b * pps + 1
     lengths = np.linspace(1, max_len, b).astype(np.int64)
@@ -151,6 +163,22 @@ def _paged_case(b, hq, hkv, d, page, max_len, dtype, gen):
                      device=dev).to(dtype)
     tab = torch.as_tensor(tables, dtype=torch.int32, device=dev)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, tab, lens, lengths
+
+
+def _len_mask(lens, s):
+    """SDPA's boolean mask [B, 1, 1, S]: True on the first lens[b] rows."""
+    return (torch.arange(s, device=lens.device)[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+
+
+def _paged_case(b, hq, hkv, d, page, max_len, dtype, gen):
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        paged_attention, paged_attention_plain)
+
+    q, kp, vp, tab, lens, lengths = _paged_inputs(b, hq, hkv, d, page,
+                                                  max_len, dtype, gen)
+    pps, num_pages = max_len // page, kp.shape[1]
     out = paged_attention(q, kp, vp, tab, lens)
     ref = paged_attention_plain(q, kp, vp, tab, lens)
     torch.cuda.synchronize()
@@ -168,8 +196,7 @@ def _paged_case(b, hq, hkv, d, page, max_len, dtype, gen):
         kd = kd.repeat_interleave(rep, 1)
         vd = vd.repeat_interleave(rep, 1)
     kd, vd = kd.contiguous(), vd.contiguous()
-    mask = (torch.arange(pps * page, device=dev)[None, :]
-            < lens.long()[:, None])[:, None, None, :]
+    mask = _len_mask(lens, pps * page)
     q4 = q[:, :, None, :]
     lib = F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)[:, :, 0]
     check((lib.float() - ref.float()).abs().max().item()
@@ -192,6 +219,137 @@ def _paged_case(b, hq, hkv, d, page, max_len, dtype, gen):
         "bound_ms": bms, "bound_by": by,
     }
     return res
+
+
+def _paged_int8_case(b, hq, hkv, d, page, max_len, dtype, gen):
+    """paged_attention_int8 over the pages of _paged_inputs quantized with
+    the engine's quantizer; q and the output in ``dtype``."""
+    from paddle_tpu_torch.memory import (dequantize_rows_int8,
+                                         quantize_rows_int8)
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        paged_attention_int8, paged_attention_int8_plain)
+
+    q, kp, vp, tab, lens, lengths = _paged_inputs(b, hq, hkv, d, page,
+                                                  max_len, dtype, gen)
+    pps, num_pages = max_len // page, kp.shape[1]
+    (kc, ks), (vc, vs) = quantize_rows_int8(kp), quantize_rows_int8(vp)
+    del kp, vp
+    args = (q, kc, ks, vc, vs, tab, lens)
+    out = paged_attention_int8(*args)
+    ref = paged_attention_int8_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "paged_attention_int8: "
+          "nan")
+    check(err <= PAGED_TOL[dtype],
+          f"paged_attention_int8 {dtype} Hq={hq} Hkv={hkv}: max err {err}")
+    # library yardstick, timed as one pair: gather and dequantize the
+    # sequences' pages to q's type, then SDPA over all max_len rows, masked
+    idx = tab.long().clamp(0, num_pages - 1)
+    mask = _len_mask(lens, pps * page)
+    q4 = q[:, :, None, :]
+
+    def library():
+        kd = dequantize_rows_int8(kc[:, idx], ks[:, idx], dtype).reshape(
+            hkv, b, pps * page, d).transpose(0, 1)
+        vd = dequantize_rows_int8(vc[:, idx], vs[:, idx], dtype).reshape(
+            hkv, b, pps * page, d).transpose(0, 1)
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                              enable_gqa=hq != hkv)
+
+    lib = library()[:, :, 0]
+    check((lib.float() - ref.float()).abs().max().item()
+          <= 4 * PAGED_TOL[torch.bfloat16], "sdpa yardstick disagrees")
+    item = q.element_size()
+    live = int(lengths.sum())
+    # codes (D bytes) + one f32 scale per live row, for K and V
+    nbytes = (2 * live * hkv * (d + 4) + 2 * b * hq * d * item
+              + tab.numel() * 4 + b * 4)
+    # q.k and p.v (2 * 2 * D per row and q head), dequantization (D per
+    # row of K and of V and kv head); all in f32
+    ops = 4 * live * hq * d + 2 * live * hkv * d
+    bms, by = bound_ms(nbytes, ops, torch.float32)
+    return {
+        "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} page={page} int8 pages "
+                 f"lengths={lengths.tolist()}",
+        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+        "ms": time_ms(lambda: paged_attention_int8(*args)),
+        "plain_ms": time_ms(lambda: paged_attention_int8_plain(*args)),
+        "library_ms": time_ms(library),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def _decode_case(b, h, s, d, dtype, gen):
+    """decode_attention over a dense [b, h, s, d] cache, mixed lengths."""
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+
+    lengths = np.linspace(1, s, b).astype(np.int64)
+    lengths[1] = 33                          # one row just past a tile
+    lengths = np.sort(lengths)
+    q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(dtype)
+    kc = torch.randn(b, h, s, d, generator=gen, device=DEVICE).to(dtype)
+    vc = torch.randn(b, h, s, d, generator=gen, device=DEVICE).to(dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE)
+    out = decode_attention(q, kc, vc, lens)
+    ref = decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "decode_attention: nan")
+    check(err <= PAGED_TOL[dtype],
+          f"decode_attention {dtype} [{b},{h},{s},{d}]: max err {err}")
+    # library yardstick: SDPA over all s rows with a length mask
+    mask = _len_mask(lens, s)
+    q4 = q[:, :, None, :]
+    lib = F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask)[:, :, 0]
+    check((lib.float() - ref.float()).abs().max().item()
+          <= 4 * PAGED_TOL[dtype], "sdpa yardstick disagrees")
+    item = q.element_size()
+    live = int(lengths.sum())
+    nbytes = (2 * live * h * d + 2 * b * h * d) * item + b * 4
+    bms, by = bound_ms(nbytes, 4 * live * h * d, dtype)
+    return {
+        "shape": f"[{b},{h},{s},{d}] lengths={lengths.tolist()}",
+        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+        "ms": time_ms(lambda: decode_attention(q, kc, vc, lens)),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, kc, vc, lens)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask)),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def _add_rms_case(n, h, dtype, gen):
+    from paddle_tpu_torch.ops.kernels.add_rms_norm import (add_rms_norm_fwd,
+                                                           add_rms_norm_plain)
+
+    x = torch.randn(n, h, generator=gen, device=DEVICE).to(dtype)
+    r = torch.randn(n, h, generator=gen, device=DEVICE).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=DEVICE)).to(dtype)
+    y, o, rstd = add_rms_norm_fwd(x, r, w)
+    ry, ro, rrstd = add_rms_norm_plain(x, r, w)
+    torch.cuda.synchronize()
+    check(torch.equal(y, ry), f"add_rms_norm y {dtype} [{n},{h}]")
+    err = (o.float() - ro.float()).abs().max().item()
+    rtol, atol = RMS_TOL[dtype]
+    check(torch.allclose(o.float(), ro.float(), rtol=rtol, atol=atol),
+          f"add_rms_norm {dtype} [{n},{h}]: max err {err}")
+    check(torch.allclose(rstd, rrstd, rtol=1e-5, atol=1e-6),
+          f"add_rms_norm rstd {dtype} [{n},{h}]")
+    item = x.element_size()
+    # x and r read, y and o written; the add, the square-sum and three
+    # products per element
+    bms, by = bound_ms(4 * n * h * item + h * item + n * 4, 6 * n * h, dtype)
+    return {
+        "shape": f"[{n},{h}]", "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": err,
+        "ms": time_ms(lambda: add_rms_norm_fwd(x, r, w)),
+        "plain_ms": time_ms(lambda: add_rms_norm_plain(x, r, w)),
+        # the unfused pair: x + r, then F.rms_norm
+        "library_ms": time_ms(lambda: F.rms_norm(x + r, (h,), w, 1e-6)),
+        "bound_ms": bms, "bound_by": by,
+    }
 
 
 def _rms_case(n, h, dtype, gen):
@@ -338,7 +496,9 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases = {"paged_attention": [], "rms_norm": [], "flash_attention_fwd": [],
-             "flash_attention_bwd": [], "swiglu_down": []}
+             "flash_attention_bwd": [], "swiglu_down": [],
+             "paged_attention_int8": [], "decode_attention": [],
+             "add_rms_norm": []}
     for dtype in (torch.bfloat16, torch.float32):
         # LLaMA-7B decode: MHA; LLaMA-70B attention: GQA 64/8
         cases["paged_attention"].append(
@@ -359,6 +519,16 @@ def phase_kernels():
         # config 4's FFN seam at batch 3 x seq 2048 tokens
         cases["swiglu_down"].append(_swiglu_case(6144, 5504, 2048, dtype,
                                                  gen))
+        # the int8 engine at LLaMA-7B width, and GQA 32/8
+        for hq, hkv in ((32, 32), (32, 8)):
+            cases["paged_attention_int8"].append(
+                _paged_int8_case(8, hq, hkv, 128, 64, 2048, dtype, gen))
+        # masked_multihead_attention's dense cache at LLaMA-7B width
+        cases["decode_attention"].append(
+            _decode_case(8, 32, 2048, 128, dtype, gen))
+        # the incubate decoder's rows, and a prefill-sized block
+        for n in (8, 4096):
+            cases["add_rms_norm"].append(_add_rms_case(n, 4096, dtype, gen))
     for name, rows in cases.items():
         for r in rows:
             print(f"kernel {name} {r['dtype']} {r['shape']}: "
@@ -414,32 +584,24 @@ def _decode_window(engine, ticks):
                                         for k, v in top]}
 
 
-def phase_serving():
-    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-    from paddle_tpu_torch.models.llama import llama_preset
+SERVE_PROMPT_LENS = (128, 1024, 256, 896, 384, 768, 512, 640)
+
+
+def _serve(eng, cfg, new, tag):
+    """The serving run of one engine: a warm-up request, then 8 greedy
+    requests (five up front, three after two steps), a decode window
+    under the profiler on a second batch. Checks every request's tokens
+    and the launch counts per decode tick; returns the measurements and
+    the streams in prompt order."""
+    from paddle_tpu_torch.inference.serving import _kv_nbytes
     from paddle_tpu_torch.ops import kernels
 
-    cfg = llama_preset("7b")
-    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads,
-           cfg.intermediate_size, cfg.vocab_size, cfg.tie_embeddings)
-          == (4096, 32, 32, 11008, 32000, False), "7b preset")
-    t0 = time.perf_counter()
-    model = _random_model(cfg, torch.bfloat16, seed=0)
-    torch.cuda.synchronize()
-    nparams = sum(p.numel() for p in model.parameters())
-    print(f"serving: LLaMA-7B width, {nparams / 1e9:.3f} B params bf16, "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    new = 32
-    eng = ContinuousBatchingEngine(model, max_slots=8, page_size=64,
-                                   max_seq_len=2048, max_new_tokens=new,
-                                   prefill_chunk=512, seed=0,
-                                   device=DEVICE)
     rng = np.random.default_rng(0)
     # warm-up request (cuBLAS handles, allocator) outside the counted run
     eng.submit(rng.integers(1, cfg.vocab_size, 80).tolist())
     eng.run_until_complete()
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in (128, 1024, 256, 896, 384, 768, 512, 640)]
+               for n in SERVE_PROMPT_LENS]
     ticks0, chunks0 = eng.decode_ticks, eng.prefill_chunk_steps
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -485,9 +647,11 @@ def phase_serving():
         check(all(0 <= t < cfg.vocab_size for t in out[len(p):]),
               f"request {rid}: token out of vocab")
     L = cfg.num_layers
-    check(counts["paged_attention"] == L * ticks,
-          f"paged_attention launches {counts['paged_attention']} != "
-          f"{L} x {ticks} decode ticks")
+    attn, other = (("paged_attention_int8", "paged_attention") if eng.int8_kv
+                   else ("paged_attention", "paged_attention_int8"))
+    check(counts[attn] == L * ticks and counts[other] == 0,
+          f"{attn} launches {counts[attn]} != {L} x {ticks} decode ticks, "
+          f"or {other} launches {counts[other]} != 0")
     check(counts["rms_norm"] == (2 * L + 1) * (ticks + chunks),
           f"rms_norm launches {counts['rms_norm']} != {2 * L + 1} x "
           f"({ticks} decode ticks + {chunks} prefill passes)")
@@ -497,14 +661,15 @@ def phase_serving():
            "tokens_per_s": gen_tokens / wall,
            "decode_tick_ms_median": statistics.median(step_ms),
            "decode_tick_ms_all": step_ms, "launches": counts,
+           "kv_bytes": _kv_nbytes(eng.kc) + _kv_nbytes(eng.vc),
            "ttft_ms": {len(p): (first_t[r] - submit_t[r]) * 1e3
                        for r, p in zip(rids, prompts)}}
-    print(f"serving: 8 requests, {gen_tokens} tokens in {wall:.3f} s = "
+    print(f"{tag}: 8 requests, {gen_tokens} tokens in {wall:.3f} s = "
           f"{res['tokens_per_s']:.1f} tok/s; {ticks} decode ticks, {chunks} "
           f"prefill passes; pure decode tick median "
-          f"{res['decode_tick_ms_median']:.2f} ms over {len(step_ms)}; "
-          f"launches {counts}", flush=True)
-    print("serving: TTFT ms by prompt length "
+          f"{res['decode_tick_ms_median']:.2f} ms over {len(step_ms)}; KV "
+          f"cache {res['kv_bytes']} bytes; launches {counts}", flush=True)
+    print(f"{tag}: TTFT ms by prompt length "
           + json.dumps({k: round(v, 1) for k, v in res["ttft_ms"].items()}),
           flush=True)
     # a second batch for the decode window (outside the counted run)
@@ -516,18 +681,212 @@ def phase_serving():
     res["decode_window"] = _decode_window(eng, 10)
     eng.run_until_complete()
     dw = res["decode_window"]
-    print(f"serving: decode tick {dw['wall_ms_per_tick']:.2f} ms wall, "
+    print(f"{tag}: decode tick {dw['wall_ms_per_tick']:.2f} ms wall, "
           f"{dw['device_busy_ms_per_tick']:.2f} ms device busy, host share "
           f"{dw['host_share']}", flush=True)
     for k, v in dw["top_kernels_ms_per_tick"]:
-        print(f"serving:   {v:8.3f} ms/tick  {k}", flush=True)
-    del eng, model
+        print(f"{tag}:   {v:8.3f} ms/tick  {k}", flush=True)
+    return res, [done[r] for r in rids]
+
+
+SERVE_ENGINE = dict(max_slots=8, page_size=64, max_seq_len=2048,
+                    prefill_chunk=512, seed=0, device=DEVICE)
+
+
+def phase_serving():
+    """Phase 4; returns its results, the model (reused by the int8 and
+    incubate paths) and the greedy streams."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import llama_preset
+
+    cfg = llama_preset("7b")
+    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+           cfg.intermediate_size, cfg.vocab_size, cfg.tie_embeddings)
+          == (4096, 32, 32, 11008, 32000, False), "7b preset")
+    t0 = time.perf_counter()
+    model = _random_model(cfg, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"serving: LLaMA-7B width, {nparams / 1e9:.3f} B params bf16, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    new = 32
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new, **SERVE_ENGINE)
+    res, streams = _serve(eng, cfg, new, "serving")
+    del eng
+    torch.cuda.empty_cache()
+    return res, model, streams
+
+
+def phase_serving_int8(model, exact, exact_streams):
+    """Phase 4 again with int8_kv=True on the same model and requests."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    cfg = model.config
+    new = 32
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new, int8_kv=True,
+                                   **SERVE_ENGINE)
+    check(eng.int8_kv, "int8_kv did not engage")
+    res, streams = _serve(eng, cfg, new, "serving_int8")
+    check(res["kv_bytes"] * 256 == exact["kv_bytes"] * 132,
+          f"int8 KV bytes {res['kv_bytes']} != 132/256 of "
+          f"{exact['kv_bytes']}")
+    same = sum(a == b for s, e in zip(streams, exact_streams)
+               for a, b in zip(s[-new:], e[-new:]))
+    res["tokens_equal_to_exact_share"] = same / (new * len(streams))
+    print(f"serving_int8: KV bytes {res['kv_bytes'] / exact['kv_bytes']:.6f}"
+          f" of bf16 (132/256 = {132 / 256:.6f}); generated tokens equal to "
+          f"the bf16 engine's streams: {same} of {new * len(streams)}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------- incubate decoder
+def incubate_params(model):
+    """The decoder weights of a LlamaForCausalLM as the incubate decoder
+    reads them."""
+    core = model.model
+    return {"layers": model._decode_params(),
+            "embed": core.embed_tokens.weight,
+            "fnorm": core.final_norm.weight,
+            "head": (model.lm_head.weight if model.lm_head is not None
+                     else core.embed_tokens.weight)}
+
+
+def incubate_step(params, cfg, tokens, seq_lens, caches):
+    """One token for each of B rows through the incubate fused ops: per
+    layer fused_rms_norm (with the residual, but for the first norm of the
+    token), q/k/v projections with the model's rope packed as
+    [B, 3 * H * D], masked_multihead_attention over the layer's dense
+    cache [2, B, H, MaxLen, D] at ``seq_lens``, the o projection,
+    fused_rms_norm(residual=), swiglu and the down projection; then a
+    final fused_rms_norm(residual=) and the head. Returns the logits."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_rms_norm, masked_multihead_attention, swiglu)
+    from paddle_tpu_torch.models.gpt import _rope_at_positions
+
+    b, nh = tokens.shape[0], cfg.num_heads
+    hd = cfg.hidden_size // nh
+    x = params["embed"][tokens]                              # [B, H]
+    resid = delta = None
+    for lp, cache in zip(params["layers"], caches):
+        if resid is None:
+            h, resid = fused_rms_norm(x, lp["ln1"]), x
+        else:
+            h, resid = fused_rms_norm(delta, lp["ln1"], residual=resid)
+        q, k = (_rope_at_positions(F.linear(h, w).reshape(b, 1, nh, hd),
+                                   seq_lens).reshape(b, -1)
+                for w in (lp["wq"], lp["wk"]))
+        qkv = torch.cat([q, k, F.linear(h, lp["wv"])], -1)
+        out, _ = masked_multihead_attention(qkv, cache,
+                                            sequence_lengths=seq_lens)
+        h2, resid = fused_rms_norm(F.linear(out, lp["wo"]), lp["ln2"],
+                                   residual=resid)
+        delta = F.linear(swiglu(F.linear(h2, lp["wg"]),
+                                F.linear(h2, lp["wu"])), lp["wd"])
+    xn, _ = fused_rms_norm(delta, params["fnorm"], residual=resid)
+    return F.linear(xn, params["head"])
+
+
+def incubate_generate(model, prompts, starts, new, max_len, step_ms=None):
+    """Greedy streams of the incubate decoder. Row i joins at step
+    ``starts[i]``, feeds its prompt one token per step, then its own
+    argmax, until it holds ``new`` new tokens. Before it joins (and after
+    it ends) a row writes a dummy token at position 0, which its first
+    real step overwrites. Returns prompt + new tokens per row."""
+    cfg = model.config
+    check(cfg.num_kv_heads == cfg.num_heads,
+          "masked_multihead_attention packs H heads for k and v (MHA)")
+    dev = model.model.embed_tokens.weight.device
+    params = incubate_params(model)
+    hd = cfg.hidden_size // cfg.num_heads
+    caches = [torch.zeros(2, len(prompts), cfg.num_heads, max_len, hd,
+                          dtype=params["embed"].dtype, device=dev)
+              for _ in params["layers"]]
+    outs = [list(p) for p in prompts]
+    steps = max(s + len(p) + new - 1 for s, p in zip(starts, prompts))
+    with torch.inference_mode():
+        for t in range(steps):
+            live = [s <= t < s + len(p) + new - 1
+                    for s, p in zip(starts, prompts)]
+            pos = [t - s if on else 0 for s, on in zip(starts, live)]
+            toks = [o[i] if on else 0 for o, i, on in zip(outs, pos, live)]
+            t0 = time.perf_counter()
+            logits = incubate_step(
+                params, cfg, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(pos, dtype=torch.int32, device=dev), caches)
+            nxt = logits.float().argmax(-1).tolist()
+            if step_ms is not None:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            for o, p, i, on, tok in zip(outs, prompts, pos, live, nxt):
+                if on and i + 1 >= len(p):
+                    o.append(tok)
+    return outs, steps
+
+
+def phase_incubate(model):
+    """The incubate decoder at LLaMA-7B width and depth in bf16 over a
+    dense [2, 8, 32, 2048, 128] cache per layer; launch counts per token."""
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = model.config
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, 16).tolist()
+               for _ in range(8)]
+    starts = [4 * i for i in range(8)]
+    new = 32
+    step_ms = []
+    incubate_generate(model, prompts[:1], [0], 2, 64)       # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, steps = incubate_generate(model, prompts, starts, new, 2048,
+                                    step_ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    L = cfg.num_layers
+    want = {"decode_attention": L, "add_rms_norm": 2 * L, "rms_norm": 1}
+    for name, per_token in want.items():
+        check(counts[name] == per_token * steps,
+              f"incubate: {name} launches {counts[name]} != {per_token} x "
+              f"{steps} tokens")
+    for o, p in zip(outs, prompts):
+        check(len(o) == len(p) + new
+              and all(0 <= t < cfg.vocab_size for t in o),
+              f"incubate stream of {len(o)} tokens")
+    res = {"rows": len(prompts), "starts": starts, "steps": steps,
+           "wall_s": wall, "ms_per_token_median": statistics.median(step_ms),
+           "ms_per_token_all": step_ms, "launches": counts,
+           "launch_formula": "per token: decode_attention L, add_rms_norm "
+                             f"2L, rms_norm 1; L = {L}"}
+    print(f"incubate: 8 rows joining at steps {starts}, {steps} tokens in "
+          f"{wall:.3f} s, median {res['ms_per_token_median']:.2f} ms per "
+          f"token; launches {counts}; {res['launch_formula']}", flush=True)
     torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------- phase 5
+def _staggered(eng, prompts):
+    """Two requests, two steps, then the third; every stream by rid."""
+    eng.submit(prompts[0])
+    eng.submit(prompts[1])
+    done = {}
+    done.update(eng.step())
+    done.update(eng.step())
+    eng.submit(prompts[2])
+    done.update(eng.run_until_complete())
+    return done
+
+
+CONSIST_ENGINE = dict(max_slots=2, page_size=64, max_seq_len=512, seed=0)
+
+
 def phase_consistency():
+    """f32, full width, depth 2: the engine on the card equals generate;
+    returns the model for the int8 and incubate checks."""
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.models.llama import llama_preset
 
@@ -539,24 +898,73 @@ def phase_consistency():
     new = 8
     want = {i: model.generate(np.asarray([p]), max_new_tokens=new)[0]
             .tolist() for i, p in enumerate(prompts)}
-    eng = ContinuousBatchingEngine(model, max_slots=2, page_size=64,
-                                   max_seq_len=512, max_new_tokens=new,
-                                   prefill_chunk=64, seed=0,
-                                   device=DEVICE)
-    eng.submit(prompts[0])
-    eng.submit(prompts[1])
-    done = {}
-    done.update(eng.step())
-    done.update(eng.step())
-    eng.submit(prompts[2])
-    done.update(eng.run_until_complete())
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                   prefill_chunk=64, device=DEVICE,
+                                   **CONSIST_ENGINE)
+    done = _staggered(eng, prompts)
     for rid in range(3):
         check(done[rid] == want[rid],
               f"engine vs generate, request {rid}: {done[rid][-new:]} != "
               f"{want[rid][-new:]}")
     print("consistency: f32 depth-2 engine streams == generate on 3 "
           "prompts", flush=True)
-    del eng, model
+    del eng
+    torch.cuda.empty_cache()
+    res = {"prompts": [len(p) for p in prompts], "new_tokens": new}
+    return res, model, prompts, want
+
+
+def phase_int8_consistency(model, prompts):
+    """The int8 engine on the card equals the same engine on the CPU (the
+    plain versions) token for token, under group and chunked prefill."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    cpu_model = LlamaForCausalLM(model.config, device="cpu",
+                                 dtype=torch.float32)
+    cpu_model.load_state_dict(model.state_dict())
+    new = 8
+    res = {}
+    for chunk in (None, 64):
+        streams = {}
+        for dev, m in (("cpu", cpu_model), (DEVICE, model)):
+            eng = ContinuousBatchingEngine(m, max_new_tokens=new,
+                                           prefill_chunk=chunk, device=dev,
+                                           int8_kv=True, **CONSIST_ENGINE)
+            check(eng.int8_kv, "int8_kv did not engage")
+            kernels.reset_launch_counts()
+            streams[dev] = _staggered(eng, prompts)
+            counts = kernels.launch_counts()
+        L = model.config.num_layers
+        check(counts["paged_attention_int8"] == L * eng.decode_ticks
+              and counts["paged_attention"] == 0,
+              f"int8 consistency launches {counts}")
+        mode = "group" if chunk is None else "chunked"
+        for rid in range(3):
+            check(streams[DEVICE][rid] == streams["cpu"][rid],
+                  f"int8 engine {mode} prefill, request {rid}: card "
+                  f"{streams[DEVICE][rid][-new:]} != cpu "
+                  f"{streams['cpu'][rid][-new:]}")
+        res[mode] = {"streams": streams[DEVICE], "launches": counts}
+        del eng
+    print("int8 consistency: f32 depth-2 int8 engine on the card == on the "
+          "CPU under group and chunked prefill, 3 prompts", flush=True)
+    del cpu_model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_incubate_consistency(model, prompts, want):
+    """f32, full width, depth 2: the incubate decoder's greedy streams
+    equal generate, rows joining at staggered steps."""
+    new = 8
+    outs, _ = incubate_generate(model, prompts, [0, 3, 7], new, 256)
+    for i, o in enumerate(outs):
+        check(o == want[i], f"incubate vs generate, row {i}: {o[-new:]} != "
+                            f"{want[i][-new:]}")
+    print("incubate consistency: f32 depth-2 incubate decoder streams == "
+          "generate on 3 prompts", flush=True)
     torch.cuda.empty_cache()
     return {"prompts": [len(p) for p in prompts], "new_tokens": new}
 
@@ -762,13 +1170,38 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    report = {"device": phase_device(), "build": phase_build(),
-              "kernels": phase_kernels()}
+    report = {"phase_seconds": {}}
+
+    def run(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        report["phase_seconds"][name] = time.perf_counter() - t
+        print(f"phase {name}: {report['phase_seconds'][name]:.1f} s",
+              flush=True)
+        return out
+
+    report["device"] = run("device", phase_device)
+    report["build"] = run("build", phase_build)
+    report["kernels"] = run("kernels", phase_kernels)
     if not args.quick:
-        report["serving"] = phase_serving()
-        report["consistency"] = phase_consistency()
-        report["training"] = phase_training()
-        report["train_consistency"] = phase_train_consistency()
+        report["serving"], model, streams = run("serving", phase_serving)
+        report["serving_int8"] = run("serving_int8", phase_serving_int8,
+                                     model, report["serving"], streams)
+        report["incubate"] = run("incubate", phase_incubate, model)
+        del model
+        torch.cuda.empty_cache()
+        report["consistency"], model, prompts, want = run(
+            "consistency", phase_consistency)
+        report["int8_consistency"] = run(
+            "int8_consistency", phase_int8_consistency, model, prompts)
+        report["incubate_consistency"] = run(
+            "incubate_consistency", phase_incubate_consistency, model,
+            prompts, want)
+        del model
+        torch.cuda.empty_cache()
+        report["training"] = run("training", phase_training)
+        report["train_consistency"] = run("train_consistency",
+                                          phase_train_consistency)
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -787,14 +1220,22 @@ def main():
                                 pallas + "flash_attention.py:581"),
         "swiglu_down": ("cuda", src + "csrc/swiglu_down.cu",
                         pallas + "swiglu_down.py:86"),
+        "paged_attention_int8": ("cuda", src + "csrc/paged_attention_int8.cu",
+                                 pallas + "decode_attention.py:267"),
+        "decode_attention": ("cuda", src + "csrc/decode_attention.cu",
+                             pallas + "decode_attention.py:105"),
+        "add_rms_norm": ("triton", src + "add_rms_norm.py",
+                         pallas + "add_rms_norm.py:48"),
     }
     line = []
     for name, (route, source, replaces) in meta.items():
         # bf16 at the main path's shape: serving for the decode kernels,
-        # config 4 training for the others
+        # the incubate decoder for add_rms_norm, config 4 training for the
+        # others
         main_case = report["kernels"][name][0]
-        by_path = {"serving": report["serving"]["launches"][name],
-                   "training": report["training"]["launches"][name]}
+        by_path = {path: report[path]["launches"][name]
+                   for path in ("serving", "serving_int8", "incubate",
+                                "training")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -1,31 +1,44 @@
 """Continuous-batching LLM serving over paged KV caches, in PyTorch.
 
-Counterpart of ``paddle_tpu/inference/serving.py`` (exact-KV mode):
+Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
 
 - KV lives in pages: one cache per K and V, ``[L, Hkv, num_pages + 1,
   page_size, D]``, whose per-layer slices are the layout the paged
-  attention kernel reads. The last page is a non-allocable scratch page
+  attention kernel reads. With ``int8_kv=True`` each cache is a pair
+  ``(codes int8 [L, Hkv, P + 1, page, D], scales f32 [L, Hkv, P + 1,
+  page, 1])``: every written row is quantized with one scale per head_dim
+  row (``memory.quantize_rows_int8``), (D + 4) / (2 D) of the bf16 bytes.
+  The last page is a non-allocable scratch page
   that padded prefill rows write to. A ``PagePool`` hands pages to
   sequences on admission and as they grow, and takes them back on
   completion.
 - ``ContinuousBatchingEngine`` admits waiting requests into free slots
   (group prefill, or chunked prefill of ``prefill_chunk`` tokens per tick)
   and runs one batched decode tick for every live slot per ``step()``.
-  Decode attention is the hand-written CUDA kernel
-  (``ops.kernels.decode_attention.paged_attention``); every RMS norm is the
-  Triton kernel. Prefill attention is plain PyTorch (matmul, masked f32
-  softmax, matmul).
+  Decode attention is a hand-written CUDA kernel
+  (``ops.kernels.decode_attention.paged_attention``, or
+  ``paged_attention_int8`` over an int8 cache, which dequantizes in f32
+  inside the kernel); every RMS norm is the Triton kernel. Prefill
+  attention is plain PyTorch (matmul, masked f32 softmax, matmul). In int8
+  mode group prefill round-trips k and v through the quantizer before both
+  its attention and the cache write, and chunked prefill writes first and
+  reads the prefix back dequantized to the model type, as the JAX package
+  does. The card takes the kernel and the CPU its plain version; the JAX
+  package's ``PTPU_INT8_KV`` and ``PTPU_PAGED_INT8_KERNEL`` knobs are not
+  ported.
 - On pool exhaustion the youngest request is preempted and recomputed:
   its tokens fold into the resume prompt.
 
 Unlike the JAX package, which donates its caches to functional updates,
 the KV writes here happen in place. Layers run as a Python loop (no scan).
-Int8 KV and weights, swap preemption, the prefix cache, deadlines and
-cancellation, speculative decoding, disaggregation and the brownout caps
-are not ported yet.
+Int8 weights, swap preemption, the prefix cache, deadlines and
+cancellation, speculative decoding, disaggregation, the brownout caps and
+the telemetry gauges (``serving_int8_kv_active`` among them) are not
+ported yet.
 """
 from __future__ import annotations
 
+import warnings
 from collections import deque
 
 import numpy as np
@@ -33,33 +46,103 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..memory import dequantize_rows_int8, quantize_rows_int8
 from ..models.gpt import _attention_plain, _rms_pure, _rope_at_positions
-from ..ops.kernels.decode_attention import paged_attention
+from ..ops.kernels.decode_attention import (paged_attention,
+                                            paged_attention_int8)
 
-__all__ = ["PagePool", "ContinuousBatchingEngine"]
+__all__ = ["PagePool", "ContinuousBatchingEngine", "int8_kv_enabled"]
 
 _DECODE_WEIGHT_NAMES = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu",
                         "wd")
 
 
+# ---------------------------------------------------------------- int8 KV
+#: relative round-trip error the int8-KV parity probe tolerates. Row-absmax
+#: int8 holds about 1/254 of the row range per element; 2% is an order of
+#: magnitude of headroom, so a failure means the quantizer itself drifted.
+KV_QUANT_TOL = 0.02
+
+
+def _int8_kv_probe_ok():
+    """Round-trip the quantizer every int8 cache write runs over a skewed
+    tensor with outlier rows; True when the worst error relative to each
+    row's absmax is within ``KV_QUANT_TOL``."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 64)).astype(np.float32)
+    x[0] *= 1e3        # large-magnitude row
+    x[1] *= 1e-3       # tiny row
+    x[2, 5] = 400.0    # in-row outlier (worst case for absmax grids)
+    rt = dequantize_rows_int8(*quantize_rows_int8(torch.from_numpy(x)))
+    absmax = np.maximum(np.abs(x).max(-1, keepdims=True), 1e-12)
+    err = float(np.max(np.abs(rt.numpy() - x) / absmax))
+    return err <= KV_QUANT_TOL
+
+
+def int8_kv_enabled(requested=False):
+    """The int8 paged-KV mode engages when the constructor asks for it
+    AND the parity probe passes. A failing probe warns and the engine
+    serves exact KV instead of drifted KV."""
+    if not requested:
+        return False
+    if _int8_kv_probe_ok():
+        return True
+    warnings.warn(
+        "int8_kv requested but the paged-KV quantization parity probe "
+        "FAILED its round-trip tolerance: serving with exact "
+        f"(non-quantized) KV instead (tol {KV_QUANT_TOL})")
+    return False
+
+
 # ------------------------------------------------------- KV cache helpers
+# A cache is one stacked tensor [L, Hkv, num_pages + 1, page, D] (exact)
+# or a (codes int8 [L, Hkv, P + 1, page, D], scales f32 [L, Hkv, P + 1,
+# page, 1]) pair (int8). The helpers below take either, so every cache
+# consumer is written once.
+def _kv_map(fn, c):
+    return tuple(fn(x) for x in c) if isinstance(c, tuple) else fn(c)
+
+
+def _kv_index(c, li):
+    """Per-layer view of a stacked cache."""
+    return _kv_map(lambda x: x[li], c)
+
+
 def _kv_write(cache_l, pages, offs, vals):
     """Scatter token rows into a PER-LAYER cache [Hkv, P, page, D], in
     place: ``pages``/``offs`` index tensors of one shape S*, ``vals``
-    [Hkv, *S, D]."""
-    cache_l[:, pages, offs, :] = vals.to(cache_l.dtype)
+    [Hkv, *S, D] at the model type. An int8 cache quantizes each row (one
+    f32 scale per head_dim row) at the write."""
+    if isinstance(cache_l, tuple):
+        (q, s), (qv, sv) = cache_l, quantize_rows_int8(vals)
+        q[:, pages, offs, :] = qv
+        s[:, pages, offs, :] = sv
+    else:
+        cache_l[:, pages, offs, :] = vals.to(cache_l.dtype)
 
 
 def _kv_write_layer(cache, li, pages, offs, vals):
     """``_kv_write`` against layer ``li`` of a stacked cache. ``vals`` is
     [Hkv, N, D]; the JAX package's advanced-index payload is [N, Hkv, D]
     and lands in the same cells."""
-    _kv_write(cache[li], pages, offs, vals)
+    _kv_write(_kv_index(cache, li), pages, offs, vals)
 
 
-def _kv_gather_rows(cache_l, idx):
-    """Pages by id from a PER-LAYER cache: [Hkv, *idx.shape, page, D]."""
-    return cache_l[:, idx.long()]
+def _kv_gather_rows(cache_l, idx, dtype):
+    """Pages by id from a PER-LAYER cache -> [Hkv, *idx.shape, page, D] at
+    ``dtype``. An int8 cache dequantizes (codes * scales in f32, then the
+    cast); an exact cache returns its storage as it is."""
+    idx = idx.long()
+    if isinstance(cache_l, tuple):
+        q, s = cache_l
+        return dequantize_rows_int8(q[:, idx], s[:, idx], dtype)
+    return cache_l[:, idx]
+
+
+def _kv_nbytes(c):
+    """Bytes a cache holds on its device (codes and scales together)."""
+    leaves = c if isinstance(c, tuple) else (c,)
+    return sum(x.numel() * x.element_size() for x in leaves)
 
 
 def _pack_weights(model):
@@ -152,12 +235,14 @@ class ContinuousBatchingEngine:
     """Paged-KV continuous batcher over a ``LlamaForCausalLM``.
 
     ``device`` defaults to CUDA and must be where the model's weights are;
-    ``device="cpu"`` runs the kernels' plain versions."""
+    ``device="cpu"`` runs the kernels' plain versions. ``int8_kv=True``
+    stores the paged KV as int8 codes plus one f32 scale per row
+    (``self.int8_kv`` says whether the mode engaged)."""
 
     def __init__(self, model, max_slots=4, page_size=64, num_pages=None,
                  max_seq_len=None, max_new_tokens=32, eos_token_id=None,
                  seed=0, prefill_chunk=None, preempt_policy="recompute",
-                 device=None):
+                 int8_kv=False, device=None):
         self.device = resolve_device(device)
         wdev = model.model.embed_tokens.weight.device
         if wdev.type != self.device.type:
@@ -188,11 +273,24 @@ class ContinuousBatchingEngine:
         self._weights = _pack_weights(model)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # int8 paged KV: codes plus one f32 scale per row, behind the
+        # quantizer's parity probe
+        self.int8_kv = int8_kv_enabled(int8_kv)
         dt = self._weights["embed"].dtype
+        self._kv_dtype = dt
         cache_shape = (cfg.num_layers, self.hkv, num_pages + 1, page_size,
                        self.hd)
-        self.kc = torch.zeros(cache_shape, dtype=dt, device=self.device)
-        self.vc = torch.zeros(cache_shape, dtype=dt, device=self.device)
+
+        def new_cache():
+            if self.int8_kv:
+                return (torch.zeros(cache_shape, dtype=torch.int8,
+                                    device=self.device),
+                        torch.zeros(cache_shape[:-1] + (1,),
+                                    dtype=torch.float32, device=self.device))
+            return torch.zeros(cache_shape, dtype=dt, device=self.device)
+
+        self.kc = new_cache()
+        self.vc = new_cache()
 
         self._slots: list[_Request | None] = [None] * max_slots
         self._waiting: deque[_Request] = deque()
@@ -271,6 +369,13 @@ class ContinuousBatchingEngine:
         offs = self._tensor(poss_np % self.page, torch.long)
 
         def attend(li, q, k, v):
+            if self.int8_kv:
+                # round-trip k and v through the page quantizer BEFORE both
+                # the attention and the cache write, so group prefill,
+                # chunked prefill and decode read the same quantized KV
+                # (re-quantizing a round-tripped row gives the same codes)
+                k = dequantize_rows_int8(*quantize_rows_int8(k), k.dtype)
+                v = dequantize_rows_int8(*quantize_rows_int8(v), v.dtype)
             o = _attention_plain(q, k, v, mask)
             _kv_write_layer(self.kc, li, tok_pages, offs,
                             k[rows, poss].transpose(0, 1))
@@ -291,7 +396,12 @@ class ContinuousBatchingEngine:
 
     def _paged_attend(self, q, kc_l, vc_l, tables, lens):
         """Single-position paged attention over a PER-LAYER cache:
-        q [B, Hq, D] -> [B, Hq, D], through the paged attention kernel."""
+        q [B, Hq, D] -> [B, Hq, D]. An exact cache takes the paged
+        attention kernel, an int8 cache the int8 one (codes * scales
+        dequantized in f32 inside the kernel)."""
+        if isinstance(kc_l, tuple):
+            return paged_attention_int8(q.contiguous(), *kc_l, *vc_l,
+                                        tables, lens)
         return paged_attention(q.contiguous(), kc_l, vc_l, tables, lens)
 
     def _decode_layer(self, li, lp, x, lens, tables, page_ids, offs,
@@ -300,10 +410,10 @@ class ContinuousBatchingEngine:
         token's KV row in place, paged-attend, MLP."""
 
         def attend(li, q, k, v):
-            _kv_write(self.kc[li], page_ids, offs, k[:, 0].transpose(0, 1))
-            _kv_write(self.vc[li], page_ids, offs, v[:, 0].transpose(0, 1))
-            o = self._paged_attend(q[:, 0], self.kc[li], self.vc[li],
-                                   tables, kv_lens)
+            kc_l, vc_l = _kv_index(self.kc, li), _kv_index(self.vc, li)
+            _kv_write(kc_l, page_ids, offs, k[:, 0].transpose(0, 1))
+            _kv_write(vc_l, page_ids, offs, v[:, 0].transpose(0, 1))
+            o = self._paged_attend(q[:, 0], kc_l, vc_l, tables, kv_lens)
             return o[:, None]                         # [B, 1, Hq, D]
 
         return self._layer_forward(li, lp, x, lens, attend)
@@ -402,14 +512,17 @@ class ContinuousBatchingEngine:
         of = offs.reshape(-1)
 
         def attend(li, q, k, v):
-            # write the chunk's kv FIRST, then gather the prefix back
-            _kv_write(self.kc[li], tp, of,
+            # write the chunk's kv FIRST, then gather the prefix back (in
+            # int8 mode dequantized to the model type: what decode reads)
+            kc_l, vc_l = _kv_index(self.kc, li), _kv_index(self.vc, li)
+            _kv_write(kc_l, tp, of,
                       k.reshape(B * c, self.hkv, self.hd).transpose(0, 1))
-            _kv_write(self.vc[li], tp, of,
+            _kv_write(vc_l, tp, of,
                       v.reshape(B * c, self.hkv, self.hd).transpose(0, 1))
-            ck = _kv_gather_rows(self.kc[li], hist).reshape(
+            dt = self._kv_dtype
+            ck = _kv_gather_rows(kc_l, hist, dt).reshape(
                 self.hkv, B, S, self.hd).permute(1, 2, 0, 3)
-            cv = _kv_gather_rows(self.vc[li], hist).reshape(
+            cv = _kv_gather_rows(vc_l, hist, dt).reshape(
                 self.hkv, B, S, self.hd).permute(1, 2, 0, 3)
             return _attention_plain(q, ck, cv, mask[:, None])
 

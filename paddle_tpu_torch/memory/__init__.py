@@ -1,0 +1,5 @@
+"""Memory formats of the port (counterpart of ``paddle_tpu/memory``): the
+row-wise int8 quantizer of the int8 KV cache."""
+from .int8 import SCALE_EPS, dequantize_rows_int8, quantize_rows_int8
+
+__all__ = ["SCALE_EPS", "quantize_rows_int8", "dequantize_rows_int8"]

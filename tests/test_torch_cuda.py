@@ -1,8 +1,10 @@
 """The port's CUDA and Triton kernels on the card (marked ``cuda``).
 
 Each kernel against its plain PyTorch version on the same CUDA tensors,
-the serving engine on the card against the same engine on the CPU, and
-three training steps on the card against the same three on the CPU.
+the serving engine (exact and int8 KV) on the card against the same engine
+on the CPU, the incubate decoder of ``chip_smoke.py`` on the card against
+the CPU, and three training steps on the card against the same three on
+the CPU.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -12,13 +14,19 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import incubate_generate
+from paddle_tpu_torch.incubate.nn import functional as TF
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+from paddle_tpu_torch.memory import quantize_rows_int8
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMPipe
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels.add_rms_norm import (add_rms_norm_fwd,
+                                                       add_rms_norm_plain)
 from paddle_tpu_torch.ops.kernels.decode_attention import (
-    paged_attention, paged_attention_plain)
+    decode_attention, decode_attention_plain, paged_attention,
+    paged_attention_int8, paged_attention_int8_plain, paged_attention_plain)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
@@ -96,8 +104,107 @@ def test_rms_norm_kernel_matches_plain(cuda_device, dtype):
     torch.testing.assert_close(rstd, rrstd, atol=1e-6, rtol=1e-5)
 
 
-def test_engine_on_card_matches_cpu_and_counts_launches(cuda_device):
-    # head_dim 64: the paged attention kernel takes 64 and 128
+#: f32: summation order only; bf16 q: the kernel and the plain version
+#: both compute in f32, so only the output rounding (2^-8) differs
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("hq,hkv,d,page", [(16, 16, 128, 64),
+                                           (16, 2, 64, 16),
+                                           (8, 8, 128, 7)])
+def test_paged_attention_int8_kernel_matches_plain(cuda_device, dtype, atol,
+                                                   hq, hkv, d, page):
+    lengths = [1, page + 1, 3 * page, 6 * page]
+    q, kp, vp, tables, lens = _paged_inputs(4, hq, hkv, d, page, 6, lengths,
+                                            torch.float32, cuda_device)
+    (kc, ks), (vc, vs) = quantize_rows_int8(kp), quantize_rows_int8(vp)
+    args = [q.to(dtype), kc, ks, vc, vs, tables, lens]
+    kernels.reset_launch_counts()
+    got = paged_attention_int8(*args)
+    want = paged_attention_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attention_int8"] == 1
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    # rows past each length are never read: poison the scales of the rest
+    # of each sequence's last page
+    for i, n in enumerate(lengths):
+        pos = torch.arange(n, -(-n // page) * page, device=cuda_device)
+        pages = tables[i].long()[pos // page]
+        ks[:, pages, pos % page] = float("nan")
+        vs[:, pages, pos % page] = float("nan")
+    assert torch.equal(paged_attention_int8(*args), got)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 16, 128), (8, 2, 64)])
+def test_decode_attention_kernel_matches_plain(cuda_device, dtype, atol, hq,
+                                               hkv, d):
+    g = torch.Generator().manual_seed(hq + d)
+    b, s = 4, 300
+    q = torch.randn(b, hq, d, generator=g).to(cuda_device, dtype)
+    kc = torch.randn(b, hkv, s, d, generator=g).to(cuda_device, dtype)
+    vc = torch.randn(b, hkv, s, d, generator=g).to(cuda_device, dtype)
+    lens = torch.tensor([0, 1, 33, s], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    got = decode_attention(q, kc, vc, lens)
+    want = decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 1
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.all(got[0] == 0)
+    for i, n in enumerate(lens.tolist()):       # never read past the length
+        kc[i, :, n:] = float("nan")
+        vc[i, :, n:] = float("nan")
+    assert torch.equal(decode_attention(q, kc, vc, lens), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h", [(8, 4096), (300, 96)])
+def test_add_rms_norm_kernel_matches_plain(cuda_device, dtype, n, h):
+    g = torch.Generator().manual_seed(n + h)
+    x = torch.randn(n, h, generator=g).to(cuda_device, dtype)
+    r = torch.randn(n, h, generator=g).to(cuda_device, dtype)
+    w = (torch.rand(h, generator=g) + 0.5).to(cuda_device, dtype)
+    kernels.reset_launch_counts()
+    y, o, rstd = add_rms_norm_fwd(x, r, w)
+    ry, ro, rrstd = add_rms_norm_plain(x, r, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["add_rms_norm"] == 1
+    assert torch.equal(y, ry)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(o, ro, atol=tol, rtol=tol)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-6, rtol=1e-5)
+
+
+def test_decode_kernels_reject_what_they_do_not_take(cuda_device):
+    q, kp, vp, tables, lens = _paged_inputs(1, 4, 4, 64, 16, 1, [3],
+                                            torch.float32, cuda_device)
+    (kc, ks), (vc, vs) = quantize_rows_int8(kp), quantize_rows_int8(vp)
+    with pytest.raises(TypeError):
+        paged_attention_int8(q.half(), kc, ks, vc, vs, tables, lens)
+    with pytest.raises(TypeError):
+        paged_attention_int8(q, kp, ks, vp, vs, tables, lens)
+    with pytest.raises(ValueError):
+        paged_attention_int8(q[..., :32].contiguous(), kc[..., :32],
+                             ks, vc[..., :32], vs, tables, lens)
+    dense = torch.zeros(1, 4, 16, 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        decode_attention(q.bfloat16(), dense, dense, lens)
+    with pytest.raises(ValueError):
+        decode_attention(q, dense, dense, lens.long())
+    x = torch.ones(2, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        add_rms_norm_fwd(x, x[:1], torch.ones(16, device=cuda_device))
+    with pytest.raises(TypeError):
+        add_rms_norm_fwd(x.half(), x.half(),
+                         torch.ones(16, device=cuda_device).half())
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["exact", "int8"])
+def test_engine_on_card_matches_cpu_and_counts_launches(cuda_device,
+                                                        int8_kv):
+    # head_dim 64: the paged attention kernels take 64 and 128
     cfg = LlamaConfig(vocab_size=96, hidden_size=256, num_layers=2,
                       num_heads=4, num_kv_heads=2, max_seq_len=128)
     cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
@@ -106,20 +213,77 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda_device):
     gpu.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 96, n).tolist() for n in (5, 19, 33)]
-    outs = []
-    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
-        eng = ContinuousBatchingEngine(model, max_slots=2, page_size=16,
-                                       max_seq_len=64, max_new_tokens=6,
-                                       prefill_chunk=8, device=dev)
-        kernels.reset_launch_counts()
-        for p in prompts:
-            eng.submit(p)
-        outs.append(eng.run_until_complete())
-        counts = kernels.launch_counts()
-    assert outs[0] == outs[1]
-    assert counts["paged_attention"] == cfg.num_layers * eng.decode_ticks
-    assert counts["rms_norm"] == (2 * cfg.num_layers + 1) * (
-        eng.decode_ticks + eng.prefill_chunk_steps)
+    for chunk in (None, 8):
+        outs = []
+        for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+            eng = ContinuousBatchingEngine(model, max_slots=2, page_size=16,
+                                           max_seq_len=64, max_new_tokens=6,
+                                           prefill_chunk=chunk, device=dev,
+                                           int8_kv=int8_kv)
+            assert eng.int8_kv == int8_kv
+            kernels.reset_launch_counts()
+            for p in prompts:
+                eng.submit(p)
+            outs.append(eng.run_until_complete())
+            counts = kernels.launch_counts()
+        assert outs[0] == outs[1]
+        attn = "paged_attention_int8" if int8_kv else "paged_attention"
+        assert counts[attn] == cfg.num_layers * eng.decode_ticks
+        assert counts["paged_attention" if int8_kv
+                      else "paged_attention_int8"] == 0
+        assert counts["rms_norm"] == (2 * cfg.num_layers + 1) * (
+            eng.decode_ticks + eng.prefill_chunk_steps + eng.prefill_batches)
+
+
+def test_incubate_ops_on_card_match_cpu(cuda_device):
+    g = torch.Generator().manual_seed(3)
+    x, r = torch.randn(2, 6, 128, generator=g), torch.randn(2, 6, 128,
+                                                             generator=g)
+    w = torch.rand(128, generator=g) + 0.5
+    kernels.reset_launch_counts()
+    out, y = TF.fused_rms_norm(*(t.to(cuda_device) for t in (x, w)),
+                               residual=r.to(cuda_device))
+    plain = TF.fused_rms_norm(x.to(cuda_device), w.to(cuda_device))
+    cout, cy = TF.fused_rms_norm(x, w, residual=r)
+    torch.testing.assert_close(out.cpu(), cout, atol=1e-5, rtol=1e-5)
+    assert torch.equal(y.cpu(), cy)
+    torch.testing.assert_close(plain.cpu(), TF.fused_rms_norm(x, w),
+                               atol=1e-5, rtol=1e-5)
+    qkv = torch.randn(3, 3 * 4 * 64, generator=g)
+    cache = torch.randn(2, 3, 4, 40, 64, generator=g)
+    lens = torch.tensor([0, 7, 39], dtype=torch.int32)
+    gcache = cache.to(cuda_device)
+    gout, _ = TF.masked_multihead_attention(
+        qkv.to(cuda_device), gcache, sequence_lengths=lens.to(cuda_device))
+    cout, _ = TF.masked_multihead_attention(qkv, cache, sequence_lengths=lens)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        **{k: 0 for k in kernels.LAUNCHES}, "add_rms_norm": 1,
+        "rms_norm": 1, "decode_attention": 1}
+    torch.testing.assert_close(gout.cpu(), cout, atol=1e-4, rtol=1e-4)
+    assert torch.equal(gcache.cpu(), cache)
+
+
+def test_incubate_decoder_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's incubate decoder, MHA head_dim 64: greedy streams
+    on the card equal the CPU's; launches per token are decode_attention
+    L, add_rms_norm 2L and rms_norm 1."""
+    cfg = LlamaConfig(vocab_size=96, hidden_size=256, num_layers=2,
+                      num_heads=4, max_seq_len=128)
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(1), std=0.2)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 96, n).tolist() for n in (4, 9, 2)]
+    want, _ = incubate_generate(cpu, prompts, [0, 2, 5], 6, 32)
+    kernels.reset_launch_counts()
+    got, steps = incubate_generate(gpu, prompts, [0, 2, 5], 6, 32)
+    counts = kernels.launch_counts()
+    assert got == want
+    L = cfg.num_layers
+    assert (counts["decode_attention"], counts["add_rms_norm"],
+            counts["rms_norm"]) == (L * steps, 2 * L * steps, steps)
 
 
 def _rel_err(got, want):
@@ -253,7 +417,9 @@ def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device):
     assert out["cpu"][2] == {k: 0 for k in out["cpu"][2]}
     assert out["cuda"][2] == {"paged_attention": 0, "rms_norm": 4 * L,
                               "flash_attention_fwd": 2 * L,
-                              "flash_attention_bwd": L, "swiglu_down": 2 * L}
+                              "flash_attention_bwd": L, "swiglu_down": 2 * L,
+                              "paged_attention_int8": 0,
+                              "decode_attention": 0, "add_rms_norm": 0}
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for n, g in out["cpu"][1].items():
         err = (out["cuda"][1][n] - g).norm() / g.norm()

@@ -33,7 +33,10 @@ def test_scan_covers_the_package():
     assert {"serving.py", "decode_attention.py", "rms_norm.py", "gpt.py",
             "llama.py", "convert.py", "chip_smoke.py", "flash_attention.py",
             "swiglu_down.py", "fused_cross_entropy.py", "norm.py", "clip.py",
-            "optimizer.py", "train_step.py"} <= names
+            "optimizer.py", "train_step.py", "int8.py",
+            "add_rms_norm.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    assert "paddle_tpu_torch/incubate/nn/functional/__init__.py" in rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
