@@ -11,7 +11,11 @@ Phases, each of which fails the run on error:
              its first launch.
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
-             version's and one library call's time, and the bound.
+             version's and one library call's time, and the bound. The
+             split flash backward also at the long-context shape
+             [1, 32768, 16/16, 128] bf16: against its plain versions (one
+             head at a time), against the fused kernel, and twice for the
+             same bits.
 4. serving - LLaMA-7B width and depth in bf16, random weights from a
              seeded generator, through ContinuousBatchingEngine's submit /
              step / run_until_complete with chunked prefill. Checks every
@@ -38,10 +42,20 @@ Phases, each of which fails the run on error:
              start near ln(vocab) and the launch counts per step.
 7. training consistency - f32, full width, depth 2: three TrainSteps on
              the card equal the same three on the CPU (plain versions).
+8. long_context - GPT-3 1.3B at seq 32768 as bench.py:81-86 builds it:
+             selective remat "names:attn_res,attn_lse,attn_q,attn_k,attn_v,
+             resid_mid", AdamW(lr=3e-4), TrainStep, batch 1, one warm-up,
+             3 timed steps and one profiled step. Checks finite, falling
+             losses that start near ln(vocab) and the launch counts per
+             step: flash forward L, split dq L, split dk/dv L, fused
+             backward 0, swiglu_down 2L, rms_norm 4L.
+9. long_context_remat - bf16, full width, depth 2, seq 32768: the step-1
+             loss and gradients under that policy equal those under full
+             remat.
 
 The line before the last lists every kernel with its launch counts on the
-serving, int8 serving, incubate and training runs; the last line is
-{"ok": true, "device": {...}}.
+serving, int8 serving, incubate, training and long-context runs; the last
+line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 only, with fewer repetitions, and prints no
 result line.
 """
@@ -400,8 +414,61 @@ def _rel_err(got, want):
     return abs_err, rel
 
 
+def _split_rows(args, b, hq, hkv, s, d, library_ms, reps, plain_reps):
+    """The split backward's dq and dk/dv kernels on ``args = (q, k, v, do,
+    lse, delta)`` at [b, s, hq/hkv, d], causal: each against its plain
+    version, with times and bounds. Returns the two rows and the kernels'
+    (dq, dk, dv)."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain)
+
+    q, dtype = args[0], args[0].dtype
+    shape = f"[{b},{s},{hq}/{hkv},{d}] causal"
+    name = str(dtype).replace("torch.", "")
+    dq = flash_attention_bwd_dq(*args, True)
+    dk, dv = flash_attention_bwd_dkv(*args, True)
+    want_dq = flash_attention_bwd_dq_plain(*args, True)
+    want_dkv = flash_attention_bwd_dkv_plain(*args, True)
+    torch.cuda.synchronize()
+    qerr, qrel = _rel_err(dq, want_dq)
+    kerr, krel = _rel_err((dk, dv), want_dkv)
+    check(all(torch.isfinite(g.float()).all().item() for g in (dq, dk, dv)),
+          f"flash split bwd {shape}: nan")
+    check(qrel <= FLASH_TOL[dtype] and krel <= FLASH_TOL[dtype],
+          f"flash split bwd {name} {shape}: rel err dq {qrel}, dk/dv {krel}")
+    del want_dq, want_dkv
+    item = q.element_size()
+    pairs = b * hq * s * (s + 1) // 2          # causal (query, key) pairs
+    io_q, io_kv, rows = b * hq * s * d * item, b * hkv * s * d * item, \
+        b * hq * s * 4
+    # dq pass: q, do, k, v, lse, delta read, dq written; S, dP and dS K
+    dq_bound = bound_ms(3 * io_q + 2 * io_kv + 2 * rows, 6 * d * pairs,
+                        dtype)
+    # dk/dv pass: q, do, k, v, lse, delta read, dk, dv written; S, dP,
+    # P^T dO and dS^T Q
+    dkv_bound = bound_ms(2 * io_q + 4 * io_kv + 2 * rows, 8 * d * pairs,
+                         dtype)
+    out = []
+    for kernel, plain, (err, rel), (bms, by) in (
+            (flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+             (qerr, qrel), dq_bound),
+            (flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+             (kerr, krel), dkv_bound)):
+        out.append({
+            "shape": shape, "dtype": name, "max_abs_err": err,
+            "max_rel_err": rel,
+            "ms": time_ms(lambda: kernel(*args, True), reps=reps,
+                          inner=1 if reps < 15 else 5),
+            "plain_ms": time_ms(lambda: plain(*args, True), reps=plain_reps,
+                                inner=1),
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by})
+    return out, (dq, dk, dv)
+
+
 def _flash_cases(b, hq, hkv, s, d, dtype, gen):
-    """The forward and the fused backward at [b, s, hq/hkv, d], causal."""
+    """The forward, the fused backward and the split backward's two
+    kernels at [b, s, hq/hkv, d], causal."""
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
@@ -462,7 +529,73 @@ def _flash_cases(b, hq, hkv, s, d, dtype, gen):
            "library_ms": time_ms(lambda: torch.autograd.grad(
                lib_out, (ql, kl, vl), do4, retain_graph=True)),
            "bound_ms": bbms, "bound_by": bby}
-    return fwd, bwd
+    delta = (do.float() * ro.float()).sum(-1)
+    split, _ = _split_rows((q, k, v, do, rlse, delta), b, hq, hkv, s, d,
+                           bwd["library_ms"], reps=15, plain_reps=3)
+    return fwd, bwd, split
+
+
+#: the long-context line's attention (bench.py:81-86): GPT-3 1.3B heads at
+#: batch 1 x seq 32768, where the router takes the split backward
+LONG_SHAPE = (1, 16, 16, 32768, 128)
+
+
+def _flash_long_cases(gen):
+    """The split pair at the long-context shape in bf16: against the plain
+    versions (one head at a time, every head), against the fused kernel,
+    and run twice for the same bits; the fused kernel's and SDPA's
+    backward times beside them. The inputs' o and lse come from the
+    forward kernel (the plain forward would hold [16, S, S] f32)."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        bwd_route, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_fused, flash_attention_fwd)
+
+    b, hq, hkv, s, d = LONG_SHAPE
+    dtype = torch.bfloat16
+    check(bwd_route(hq // hkv, s, d) == "split", "long shape takes split")
+    q = torch.randn(b * hq, s, d, generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn(b * hkv, s, d, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(b * hkv, s, d, generator=gen, device=DEVICE).to(dtype)
+    do = torch.randn(b * hq, s, d, generator=gen, device=DEVICE).to(dtype)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    q4, k4, v4, do4 = (t.view(b, -1, s, d) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do4, retain_graph=True), reps=3, inner=1)
+    del lib_out, ql, kl, vl
+    rows, split = _split_rows(args, b, hq, hkv, s, d, lib_ms, reps=3,
+                              plain_reps=1)
+    fused = flash_attention_bwd_fused(*args, True)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(split, fused)
+    check(rel <= FLASH_TOL[dtype],
+          f"flash split against fused at {rows[0]['shape']}: rel err {rel}")
+    again = (flash_attention_bwd_dq(*args, True),
+             *flash_attention_bwd_dkv(*args, True))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, c) for a, c in zip(split, again))
+    check(bitwise, "the split backward is not the same bits on a second run")
+    pairs = b * hq * s * (s + 1) // 2
+    item = q.element_size()
+    fbms, fby = bound_ms(4 * b * hq * s * d * item + 4 * b * hkv * s * d
+                         * item + 2 * b * hq * s * 4, 10 * d * pairs, dtype)
+    fused_row = {"shape": rows[0]["shape"], "dtype": "bfloat16",
+                 "max_abs_err": err, "max_rel_err": rel,
+                 "against": "the split pair",
+                 "ms": time_ms(lambda: flash_attention_bwd_fused(*args, True),
+                               reps=3, inner=1),
+                 "plain_ms": None, "library_ms": lib_ms, "bound_ms": fbms,
+                 "bound_by": fby}
+    for r in rows:
+        r.update(plain_check="every head, one [1,32768,1/1,128] problem at "
+                             "a time", split_against_fused_rel_err=rel,
+                 two_runs_bitwise=bitwise)
+    del fused, split, again
+    torch.cuda.empty_cache()
+    return rows, fused_row
 
 
 def _swiglu_case(rows, m, h, dtype, gen):
@@ -498,7 +631,8 @@ def phase_kernels():
     cases = {"paged_attention": [], "rms_norm": [], "flash_attention_fwd": [],
              "flash_attention_bwd": [], "swiglu_down": [],
              "paged_attention_int8": [], "decode_attention": [],
-             "add_rms_norm": []}
+             "add_rms_norm": [], "flash_attention_bwd_dq": [],
+             "flash_attention_bwd_dkv": []}
     for dtype in (torch.bfloat16, torch.float32):
         # LLaMA-7B decode: MHA; LLaMA-70B attention: GQA 64/8
         cases["paged_attention"].append(
@@ -513,9 +647,12 @@ def phase_kernels():
         # batch 3 x seq 2048; f32 at batch 1
         b = 3 if dtype == torch.bfloat16 else 1
         for hq, hkv in ((16, 16), (32, 8)):
-            fwd, bwd = _flash_cases(b, hq, hkv, 2048, 128, dtype, gen)
+            fwd, bwd, (dq, dkv) = _flash_cases(b, hq, hkv, 2048, 128,
+                                               dtype, gen)
             cases["flash_attention_fwd"].append(fwd)
             cases["flash_attention_bwd"].append(bwd)
+            cases["flash_attention_bwd_dq"].append(dq)
+            cases["flash_attention_bwd_dkv"].append(dkv)
         # config 4's FFN seam at batch 3 x seq 2048 tokens
         cases["swiglu_down"].append(_swiglu_case(6144, 5504, 2048, dtype,
                                                  gen))
@@ -529,13 +666,24 @@ def phase_kernels():
         # the incubate decoder's rows, and a prefill-sized block
         for n in (8, 4096):
             cases["add_rms_norm"].append(_add_rms_case(n, 4096, dtype, gen))
+    # the long-context shape first: the split pair's main path
+    (dq, dkv), fused = _flash_long_cases(gen)
+    cases["flash_attention_bwd_dq"].insert(0, dq)
+    cases["flash_attention_bwd_dkv"].insert(0, dkv)
+    cases["flash_attention_bwd"].append(fused)
     for name, rows in cases.items():
         for r in rows:
+            plain = ("none" if r["plain_ms"] is None
+                     else f"{r['plain_ms']:.4f}")
             print(f"kernel {name} {r['dtype']} {r['shape']}: "
-                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+                  f"{r['ms']:.4f} ms (plain {plain}, library "
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}) max_abs_err {r['max_abs_err']:.3g}",
+                  f"{r['bound_by']}) max_abs_err {r['max_abs_err']:.3g}"
+                  + (f" against {r['against']}" if "against" in r else ""),
                   flush=True)
+    print(f"kernel flash split bwd at {dq['shape']}: against fused rel err "
+          f"{dq['split_against_fused_rel_err']:.3g}, two runs bitwise "
+          f"{dq['two_runs_bitwise']}", flush=True)
     return cases
 
 
@@ -993,6 +1141,7 @@ def _profile_step(step, batch, wall_ms):
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for k, v in by_kernel.items():
         if any(n in k for n in ("flash_fwd_kernel", "flash_bwd_kernel",
+                                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                                 "swiglu_down_kernel", "_rms_fwd",
                                 "paged_attention_kernel")):
             groups["port_kernels"] += v / 1e3
@@ -1067,11 +1216,13 @@ def phase_training():
     L = cfg.num_layers
     # full remat: each block's forward runs twice (forward, recompute);
     # the flash backward once per block; two rms norms per block forward
+    # (at seq 2048 the router takes the fused backward)
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
-            "swiglu_down": 2 * L, "rms_norm": 4 * L, "paged_attention": 0}
+            "swiglu_down": 2 * L, "rms_norm": 4 * L, "paged_attention": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     formula = ("per step: flash_attention_fwd 2L, flash_attention_bwd L, "
-               "swiglu_down 2L, rms_norm 4L, paged_attention 0; L = "
-               f"{L}, {timed} steps")
+               "swiglu_down 2L, rms_norm 4L, paged_attention 0, "
+               f"flash_attention_bwd_dq/dkv 0; L = {L}, {timed} steps")
     print(f"training: launches {counts}; {formula}", flush=True)
     for name, per_step in want.items():
         check(counts[name] == per_step * timed,
@@ -1156,6 +1307,182 @@ def phase_train_consistency():
     return {"losses": losses, "grad_rel_err": worst}
 
 
+# ---------------------------------------------------------------- phase 8
+#: bench.py:84-85, the long-context line's selective remat
+LONG_POLICY = "names:attn_res,attn_lse,attn_q,attn_k,attn_v,resid_mid"
+
+
+def _long_config(num_layers, policy=LONG_POLICY):
+    """GPT-3 1.3B at seq 32768 as bench.py:81-86 builds it on one device."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=32000, hidden_size=2048,
+                     num_layers=num_layers, num_heads=16, max_seq_len=32768,
+                     dropout=0.0, dtype="bfloat16", recompute=True,
+                     recompute_policy=policy)
+
+
+def phase_long_context():
+    """The long-context training line at full width, depth and length:
+    GPTForCausalLMPipe under the names: policy -> chunked-CE loss ->
+    AdamW(lr=3e-4) -> TrainStep, batch 1 x seq 32768."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = _long_config(24)
+    check((cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+           cfg.intermediate_size, cfg.tie_embeddings)
+          == (32000, 2048, 24, 16, 5504, True), "long-context config")
+    batch, seq, timed = 1, 32768, 3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    model = GPTForCausalLMPipe(cfg, device=DEVICE,
+                               dtype=torch.bfloat16).init_weights(gen,
+                                                                  std=0.02)
+    # bench.py:112-113: the reference's AdamW defaults (weight decay 0.01,
+    # moments in the parameters' type, not factored)
+    step = TrainStep(model, model.loss, AdamW(model.parameters(), lr=3e-4))
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"long_context: {nparams / 1e9:.4f} B params bf16, policy "
+          f"{LONG_POLICY!r}, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # bench.py:125-131: ids and labels from default_rng(0)
+    ids, labels = _train_batch(cfg.vocab_size, batch, seq, 0, DEVICE)
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    losses.append(step(ids, labels).item())          # warm-up
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launch_counts()
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.num_layers
+    # attn_res/attn_lse saved: the forward runs once per block; the rest
+    # of each block is recomputed (its FFN and both norms run twice); the
+    # router takes the split backward (dq scratch 16 MiB > 8 MiB)
+    want = {name: 0 for name in counts}
+    want.update({"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkv": L, "swiglu_down": 2 * L,
+                 "rms_norm": 4 * L})
+    formula = ("per step: flash_attention_fwd L, flash_attention_bwd_dq L, "
+               "flash_attention_bwd_dkv L, flash_attention_bwd (fused) 0, "
+               f"swiglu_down 2L, rms_norm 4L, the rest 0; L = {L}, {timed} "
+               "steps")
+    print(f"long_context: launches {counts}; {formula}", flush=True)
+    for name, per_step in want.items():
+        check(counts[name] == per_step * timed,
+              f"long_context {name} launches {counts[name]} != {per_step} x "
+              f"{timed}")
+    check(all(np.isfinite(losses)), f"long_context losses {losses}")
+    ln_v = float(np.log(cfg.vocab_size))
+    check(ln_v - 0.1 <= losses[0] <= ln_v + 1.5,
+          f"long_context first loss {losses[0]} outside [ln V - 0.1, "
+          "ln V + 1.5]")
+    check(losses[-1] < losses[0], f"long_context losses do not fall: "
+                                  f"{losses}")
+    health = step.last_health
+    check(health.finite and health.ok, f"long_context health {health}")
+    med = statistics.median(step_ms)
+    tps = batch * seq / (med / 1e3)
+    mfu = 6.0 * nparams * tps / PEAK_OPS[torch.bfloat16]
+    res = {"config": "gpt3-1.3b at seq 32768 (bench.py:81-86)",
+           "policy": LONG_POLICY, "params": nparams, "batch": batch,
+           "seq": seq, "losses": losses, "warmup_step_ms": warm_ms,
+           "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": tps,
+           "model_flops_share": mfu,
+           "model_flops_formula": "6 * params * tokens_per_s / 989e12 "
+                                  "(bench.py:157; H100 SXM dense bf16); it "
+                                  "leaves out attention",
+           "grad_norm": health.grad_norm, "peak_memory_gib": peak_gb,
+           "launches": counts, "launch_formula": formula}
+    print(f"long_context: losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    print(f"long_context: step median {med:.1f} ms over {timed} "
+          f"({[round(x, 1) for x in step_ms]}), warm-up {warm_ms:.0f} ms, "
+          f"{tps:.0f} tokens/s, model-flops share {mfu:.4f} = "
+          f"{res['model_flops_formula']}; peak memory {peak_gb:.1f} GiB",
+          flush=True)
+    res["profile"] = prof = _profile_step(step, (ids, labels), med)
+    print(f"long_context: profiled step {prof['device_busy_ms']:.1f} ms "
+          f"device busy, host share {prof['host_share']}; by group "
+          + json.dumps({k: round(v, 2) for k, v in
+                        prof["by_group_ms"].items()}), flush=True)
+    for k, v in prof["top_kernels_ms"]:
+        print(f"long_context:   {v:9.3f} ms/step  {k}", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
+    return res
+
+
+#: bf16 gradients of a leaf that is not the same bits under the two
+#: policies: a library kernel whose sum order varies between runs (the
+#: split flash backward repeats bit for bit, phase 3)
+REMAT_GRAD_RTOL = 1e-2
+
+
+def phase_long_context_remat():
+    """bf16, full width, depth 2, seq 32768: step-1 loss and gradients
+    under the names: policy equal those under full remat (both take the
+    split backward); the flash forward launches L and 2L times."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+    from paddle_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    ids, labels = _train_batch(_long_config(2).vocab_size, 1, 32768, 0,
+                               DEVICE)
+    state, out = None, {}
+    for policy in (LONG_POLICY, "full"):
+        cfg = _long_config(2, policy)
+        model = GPTForCausalLMPipe(cfg, device=DEVICE, dtype=torch.bfloat16)
+        if state is None:
+            state = model.init_weights(gen, std=0.02).state_dict()
+        else:
+            model.load_state_dict(state)
+        kernels.reset_launch_counts()
+        loss = model.loss(ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[policy] = (loss.detach(), kernels.launch_counts(),
+                       {n: p.grad for n, p in model.named_parameters()})
+        del model
+    L = 2
+    for policy, fwd in ((LONG_POLICY, L), ("full", 2 * L)):
+        c = out[policy][1]
+        check((c["flash_attention_fwd"], c["flash_attention_bwd_dq"],
+               c["flash_attention_bwd_dkv"], c["flash_attention_bwd"])
+              == (fwd, L, L, 0), f"long_context_remat {policy}: launches {c}")
+    (loss_n, _, g_n), (loss_f, _, g_f) = out[LONG_POLICY], out["full"]
+    loss_bitwise = torch.equal(loss_n, loss_f)
+    rel = {n: ((g_n[n].float() - g.float()).norm()
+               / g.float().norm().clamp_min(1e-30)).item()
+           for n, g in g_f.items()}
+    not_bitwise = sorted(n for n, g in g_f.items()
+                         if not torch.equal(g_n[n], g))
+    print(f"long_context_remat: depth 2 seq 32768 bf16, loss {loss_n.item()}"
+          f" (names:) vs {loss_f.item()} (full), bitwise {loss_bitwise}; "
+          f"gradients bitwise except {not_bitwise}, max rel "
+          f"{max(rel.values()):.3g} (tol {REMAT_GRAD_RTOL} where not "
+          "bitwise); flash_attention_fwd launches L and 2L", flush=True)
+    check(loss_bitwise, f"loss differs: {loss_n.item()} {loss_f.item()}")
+    check(max(rel.values()) <= REMAT_GRAD_RTOL, f"grads differ: {rel}")
+    del out
+    torch.cuda.empty_cache()
+    return {"loss": loss_n.item(), "loss_bitwise": loss_bitwise,
+            "grads_not_bitwise": not_bitwise, "grad_rel_err": rel}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -1202,6 +1529,9 @@ def main():
         report["training"] = run("training", phase_training)
         report["train_consistency"] = run("train_consistency",
                                           phase_train_consistency)
+        report["long_context"] = run("long_context", phase_long_context)
+        report["long_context_remat"] = run("long_context_remat",
+                                           phase_long_context_remat)
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1226,16 +1556,22 @@ def main():
                              pallas + "decode_attention.py:105"),
         "add_rms_norm": ("triton", src + "add_rms_norm.py",
                          pallas + "add_rms_norm.py:48"),
+        "flash_attention_bwd_dq": ("cuda",
+                                   src + "csrc/flash_attention_split.cu",
+                                   pallas + "flash_attention.py:515"),
+        "flash_attention_bwd_dkv": ("cuda",
+                                    src + "csrc/flash_attention_split.cu",
+                                    pallas + "flash_attention.py:539"),
     }
     line = []
     for name, (route, source, replaces) in meta.items():
         # bf16 at the main path's shape: serving for the decode kernels,
-        # the incubate decoder for add_rms_norm, config 4 training for the
-        # others
+        # the incubate decoder for add_rms_norm, long-context training for
+        # the split backward, config 4 training for the others
         main_case = report["kernels"][name][0]
         by_path = {path: report[path]["launches"][name]
                    for path in ("serving", "serving_int8", "incubate",
-                                "training")}
+                                "training", "long_context")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -11,21 +11,24 @@ two module trees:
 - ``GPTForCausalLMPipe`` (training): the flagship ``StackedDecoder`` with
   the JAX package's stacked ``[L, in, out]`` weights, the block
   ``_block_pure`` on its single-device path (rms norm and flash attention
-  kernels, ``swiglu_down`` where the JAX package's route takes it), full
-  recompute per block, the tied head and the chunked-CE loss. Layers run
-  as a Python loop; the JAX package's scan has no counterpart here.
+  kernels, ``swiglu_down`` where the JAX package's route takes it),
+  recompute per block (full, or selective by the reference's anchor
+  names), the tied head and the chunked-CE loss. Layers run as a Python
+  loop; the JAX package's scan has no counterpart here.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..memory.remat import anchor, parse_save_names, split_quant_entries
 from ..nn.functional.fused_cross_entropy import chunked_lm_loss_arrays
 from ..nn.norm import RMSNorm as PlainRMSNorm
 from ..ops.kernels.flash_attention import flash_attention
@@ -57,8 +60,9 @@ class GPTConfig:
         self.dropout = dropout
         self.tie_embeddings = tie_embeddings
         self.dtype = dtype
-        # recompute: rerun each block in backward (torch.utils.checkpoint);
-        # only the "full" policy is ported (selective remat: ROADMAP A.3)
+        # recompute: rerun each block in backward (torch.utils.checkpoint)
+        # under recompute_policy "full", "dots", "attn", "attn_ffn" or
+        # "names:<anchors>" (_resolve_remat)
         self.recompute = recompute
         self.recompute_policy = recompute_policy
         # vocab chunk of the chunked CE head (None = 8192)
@@ -279,14 +283,22 @@ def _rope_pure(x, base=10000.0):
     return _rope_at_positions(x, pos, base)
 
 
-def _block_pure(p, x, num_heads):
+def _block_pure(p, x, num_heads, save=frozenset()):
     """One decoder block on tensors, ``p = (ln1, wq, wk, wv, wo, ln2, wg,
     wu, wd)`` with weights ``[in, out]`` (``models/gpt.py:663-809`` on its
     single-device path): rms -> q/k/v -> rope -> flash attention -> o-proj
     + residual -> rms -> gate/up -> ``swiglu_down`` (the unfused seam where
     ``swiglu_down_supported`` refuses the shapes). The reference's
     ``_sdpa_pure`` dispatch is the flash wrapper's device route: the
-    kernel on CUDA tensors, its plain version on CPU tensors."""
+    kernel on CUDA tensors, its plain version on CPU tensors.
+
+    ``save``: the anchors the active remat policy keeps. They are the
+    reference's ``checkpoint_name`` tags at the same points: ``attn_q``,
+    ``attn_k``, ``attn_v`` after rope; ``resid_mid``, ``ln2_out``,
+    ``ffn_gate``, ``ffn_up``; ``ffn_out`` on the unfused FFN only.
+    ``attn_res``/``attn_lse`` are the flash op's outputs, which the policy
+    keeps by op. ``attn_out`` is never tagged: attention here is always the
+    flash op, and the reference tags it only off its Pallas path."""
     ln1, wq, wk, wv, wo, ln2, wg, wu, wd = p
     b, s, hdim = x.shape
     hd = hdim // num_heads
@@ -294,42 +306,96 @@ def _block_pure(p, x, num_heads):
     q = (h @ wq).reshape(b, s, -1, hd)
     k = (h @ wk).reshape(b, s, -1, hd)
     v = (h @ wv).reshape(b, s, -1, hd)
-    q, k = _rope_pure(q), _rope_pure(k)
+    q = anchor(_rope_pure(q), "attn_q", save)
+    k = anchor(_rope_pure(k), "attn_k", save)
+    v = anchor(v, "attn_v", save)
     o = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
-    x = x + o @ wo
-    h2 = _rms_pure(x, ln2)
-    gate = h2 @ wg
-    up = h2 @ wu
+    x = anchor(x + o @ wo, "resid_mid", save)
+    h2 = anchor(_rms_pure(x, ln2), "ln2_out", save)
+    gate = anchor(h2 @ wg, "ffn_gate", save)
+    up = anchor(h2 @ wu, "ffn_up", save)
     if swiglu_down_supported(gate.shape, wd.shape):
         return x + swiglu_down(gate, up, wd)
-    return x + (F.silu(gate) * up) @ wd
+    return x + anchor(F.silu(gate) * up, "ffn_out", save) @ wd
+
+
+#: the anchors of the coarse policies (``models/gpt.py:882-887``)
+_POLICY_NAMES = {"attn": ("attn_out", "attn_res", "attn_lse"),
+                 "attn_ffn": ("attn_out", "attn_res", "attn_lse", "ffn_out")}
 
 
 def _resolve_remat(cfg):
-    """The ported remat policy (``models/gpt.py:858``): "full" only."""
+    """The reference's policy parser (``models/gpt.py:858-888``) ->
+    ``None`` for "full" (save nothing), else ``(save names, dots)``:
+
+    - ``names:<list>``: the listed anchors (``save_only_these_names``); a
+      name the path does not tag saves nothing;
+    - ``attn`` / ``attn_ffn``: the names of ``_POLICY_NAMES``;
+    - ``dots``: the outputs of the 2-D matmuls
+      (``dots_with_no_batch_dims_saveable``).
+
+    ``quant:`` GEMM sites and ``int8:`` saves are not ported and raise."""
     pol = cfg.recompute_policy
     if pol == "full":
-        return pol
-    if isinstance(pol, str) and (pol.startswith("names:")
-                                 or pol in ("dots", "attn", "attn_ffn")):
-        raise NotImplementedError(
-            f"recompute_policy={pol!r}: selective remat is not ported yet "
-            "(ROADMAP A.3); the port runs recompute_policy='full'")
+        return None
+    if pol == "dots":
+        return frozenset(), True
+    if pol in _POLICY_NAMES:
+        return frozenset(_POLICY_NAMES[pol]), False
+    if isinstance(pol, str) and pol.startswith("names:"):
+        spec, sites = split_quant_entries(pol[len("names:"):])
+        if sites:
+            raise NotImplementedError(
+                f"recompute_policy {pol!r}: quant: GEMM sites "
+                f"{sorted(sites)} need the quantized compute path, which is "
+                "not ported yet (ROADMAP A.9)")
+        save, int8 = parse_save_names(spec)
+        if int8:
+            raise NotImplementedError(
+                f"recompute_policy {pol!r}: int8: saves {sorted(int8)} "
+                "(memory/int8_ckpt.py int8_checkpoint) are not ported yet "
+                "(ROADMAP A.3)")
+        return frozenset(save), False
     raise ValueError(f"unknown recompute_policy {pol!r}")
+
+
+def _selective_policy(save, dots):
+    """The ``torch.utils.checkpoint`` policy that keeps the named anchors,
+    the flash op's ``(o, lse)`` when both ``attn_res`` and ``attn_lse``
+    are named (one launch makes both: keeping one alone would not spare
+    the forward's second launch), and under ``dots`` every ``aten.mm``;
+    everything else is recomputed."""
+    keep = {torch.ops.paddle_tpu_torch.remat_anchor.default}
+    if {"attn_res", "attn_lse"} <= save:
+        keep.add(torch.ops.paddle_tpu_torch.flash_fwd.default)
+    if dots:
+        keep.add(torch.ops.aten.mm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def _make_block(cfg):
     """One decoder block over (x, per-layer weights); with
     ``cfg.recompute`` each block is a non-reentrant
-    ``torch.utils.checkpoint`` that reruns it in the backward."""
+    ``torch.utils.checkpoint`` that reruns it in the backward, keeping
+    what the selective policy names."""
+    if not cfg.recompute:
+        return lambda x, p: _block_pure(p, x, cfg.num_heads)
+    remat = _resolve_remat(cfg)
+    save, policy = frozenset(), {}
+    if remat is not None:    # "full" stays a plain checkpoint
+        save, dots = remat
+        policy["context_fn"] = _selective_policy(save, dots)
 
     def block(x, *p):
-        return _block_pure(p, x, cfg.num_heads)
+        return _block_pure(p, x, cfg.num_heads, save)
 
-    if not cfg.recompute:
-        return lambda x, p: block(x, *p)
-    _resolve_remat(cfg)
-    return lambda x, p: checkpoint(block, x, *p, use_reentrant=False)
+    return lambda x, p: checkpoint(block, x, *p, use_reentrant=False,
+                                   **policy)
 
 
 #: _block_pure's parameter order, as StackedDecoder attributes

@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"paged_attention": 0, "rms_norm": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd": 0, "swiglu_down": 0,
             "paged_attention_int8": 0, "decode_attention": 0,
-            "add_rms_norm": 0}
+            "add_rms_norm": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

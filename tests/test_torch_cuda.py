@@ -1,10 +1,11 @@
 """The port's CUDA and Triton kernels on the card (marked ``cuda``).
 
-Each kernel against its plain PyTorch version on the same CUDA tensors,
-the serving engine (exact and int8 KV) on the card against the same engine
-on the CPU, the incubate decoder of ``chip_smoke.py`` on the card against
+Each kernel against its plain PyTorch version on the same CUDA tensors
+(and the split flash backward run twice, bit for bit), the serving
+engine (exact and int8 KV) on the card against the same engine on the
+CPU, the incubate decoder of ``chip_smoke.py`` on the card against
 the CPU, and three training steps on the card against the same three on
-the CPU.
+the CPU, under full and under selective remat.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -28,8 +29,10 @@ from paddle_tpu_torch.ops.kernels.decode_attention import (
     decode_attention, decode_attention_plain, paged_attention,
     paged_attention_int8, paged_attention_int8_plain, paged_attention_plain)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain)
+    flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.rms_norm import (rms_norm_fwd,
                                                    rms_norm_plain)
 from paddle_tpu_torch.ops.kernels.swiglu_down import (swiglu_down_fwd,
@@ -344,6 +347,67 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
         assert _rel_err(a, b) <= FLASH_TOL[dtype], name
 
 
+def _split_inputs(hq, hkv, d, sq, sk, dtype, causal, device):
+    q, k, v, do = _flash_inputs(hq, hkv, d, sq, sk, dtype, device)
+    o, lse = flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES)
+def test_flash_split_kernels_match_plain(cuda_device, dtype, causal, hq, hkv,
+                                         d, sq, sk):
+    """The dq and dk/dv kernels against their plain versions: MHA, GQA and
+    MQA, causal and full, ragged sq (200, 130, 100 rows), sq < sk."""
+    args = _split_inputs(hq, hkv, d, sq, sk, dtype, causal, cuda_device)
+    kernels.reset_launch_counts()
+    dq = flash_attention_bwd_dq(*args, causal)
+    dk, dv = flash_attention_bwd_dkv(*args, causal)
+    want = (flash_attention_bwd_dq_plain(*args, causal),
+            *flash_attention_bwd_dkv_plain(*args, causal))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _rel_err(a, b) <= FLASH_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype):
+    """Each output element is summed by one thread in a fixed order: two
+    runs give the same bits (the fused kernel's dq atomics do not)."""
+    args = _split_inputs(8, 2, 128, 300, 300, dtype, True, cuda_device)
+    first = (flash_attention_bwd_dq(*args, True),
+             *flash_attention_bwd_dkv(*args, True))
+    again = (flash_attention_bwd_dq(*args, True),
+             *flash_attention_bwd_dkv(*args, True))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,route", [
+    (1, 1, 16384, "fused"), (1, 1, 16512, "split"),
+    (4, 1, 4096, "fused"), (4, 1, 4224, "split")])
+def test_flash_bwd_router_takes_split_above_8_mib(cuda_device, hq, hkv, sq,
+                                                  route):
+    """The router by the launch counters, on both sides of the fused
+    kernel's 8 MiB dq scratch (head_dim 128)."""
+    q, k, v, do = _flash_inputs(hq, hkv, 128, sq, sq, torch.bfloat16,
+                                cuda_device, b=1)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    kernels.reset_launch_counts()
+    flash_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    split = int(route == "split")
+    assert (counts["flash_attention_bwd"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (1 - split, split, split)
+
+
 #: f32: summation order over M; bf16: the output rounding (2^-8) and
 #: products rounded from f32 values that differ in their last bits
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -377,6 +441,11 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         flash_attention_bwd(q, k, v, q, torch.zeros(4, 64, device=q.device),
                             do.bfloat16(), True)
+    lse = torch.zeros(4, 64, device=q.device)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dq(q, k, v, do, lse, lse[:, :32], True)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dkv(q, k, v, do, lse.double(), lse, True)
     gate = torch.randn(64, 48, device=cuda_device)
     with pytest.raises(ValueError):
         swiglu_down_fwd(gate, gate, torch.randn(48, 128,
@@ -419,8 +488,44 @@ def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device):
                               "flash_attention_fwd": 2 * L,
                               "flash_attention_bwd": L, "swiglu_down": 2 * L,
                               "paged_attention_int8": 0,
-                              "decode_attention": 0, "add_rms_norm": 0}
+                              "decode_attention": 0, "add_rms_norm": 0,
+                              "flash_attention_bwd_dq": 0,
+                              "flash_attention_bwd_dkv": 0}
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for n, g in out["cpu"][1].items():
         err = (out["cuda"][1][n] - g).norm() / g.norm()
         assert err.item() <= 5e-4, n
+
+
+def test_selective_remat_on_card_matches_cpu_and_launches_fwd_once(
+        cuda_device):
+    """Depth 2, f32, under the long-context names: policy: one TrainStep on
+    the card against the CPU, with the flash forward launched once per
+    block (its o and lse are kept), the FFN and the norms recomputed."""
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256, recompute=True,
+                    recompute_policy="names:attn_res,attn_lse,attn_q,attn_k,"
+                                     "attn_v,resid_mid")
+    cpu = GPTForCausalLMPipe(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(1), std=0.05)
+    gpu = GPTForCausalLMPipe(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    ids = torch.as_tensor(rng.integers(0, 1024, (1, 256)))
+    out = {}
+    for model in (cpu, gpu):
+        dev = model.device
+        step = TrainStep(model, model.loss, AdamW(model.parameters(),
+                                                  lr=3e-4))
+        kernels.reset_launch_counts()
+        loss = step(ids.to(dev), ids.to(dev)).item()
+        out[dev.type] = (loss, kernels.launch_counts(),
+                         {n: p.grad.float().cpu()
+                          for n, p in model.named_parameters()})
+    L = cfg.num_layers
+    counts = out["cuda"][1]
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd"],
+            counts["swiglu_down"], counts["rms_norm"]) == (L, L, 2 * L, 4 * L)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for n, g in out["cpu"][2].items():
+        assert ((out["cuda"][2][n] - g).norm() / g.norm()).item() <= 5e-4, n

@@ -95,15 +95,15 @@ def test_flash_autograd_matches_jax_grad_of_pallas(shape, causal):
 
 
 def test_flash_bwd_takes_delta_from_o_and_do():
-    """flash_attention_bwd on the kernel layout equals the autograd
-    Function's backward (delta = rowsum(do * o) inside)."""
+    """flash_attention_bwd on the kernel layout equals the backward of the
+    differentiable op ``flash_fwd_op`` (delta = rowsum(do * o) inside)."""
     q, k, v, do = (to_bh(_t(a)) for a in _qkv(1, 4, 2, 32, 32, 64, seed=2))
     o, lse = flash_attention_fwd(q, k, v, True)
     dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, True)
     tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
-    from paddle_tpu_torch.ops.kernels.flash_attention import _Flash
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_fwd_op
 
-    out = _Flash.apply(tq, tk, tv, True, 1.0 / 8.0)
+    out, _ = flash_fwd_op(tq, tk, tv, True, 1.0 / 8.0)
     got = torch.autograd.grad(out, (tq, tk, tv), do)
     for a, b_ in zip((dq, dk, dv), got):
         torch.testing.assert_close(a, b_, atol=0, rtol=0)

@@ -30,7 +30,8 @@ from paddle_tpu_torch.ops.kernels.decode_attention import (
     decode_attention, paged_attention, paged_attention_int8,
     paged_attention_int8_plain, paged_attention_plain)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_bwd, flash_attention_fwd)
+    flash_attention_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm, rms_norm_fwd
 from paddle_tpu_torch.ops.kernels.swiglu_down import swiglu_down_fwd
 
@@ -100,6 +101,9 @@ def test_cpu_route_never_counts_launches():
     x = torch.randn(2, 16, 64)
     o, lse = flash_attention_fwd(x, x, x, True)
     flash_attention_bwd(x, x, x, o, lse, x, True)
+    delta = torch.zeros(2, 16)
+    flash_attention_bwd_dq(x, x, x, x, lse, delta, True)
+    flash_attention_bwd_dkv(x, x, x, x, lse, delta, True)
     swiglu_down_fwd(torch.ones(4, 128), torch.ones(4, 128),
                     torch.ones(128, 128))
     (kc, ks), (vc, vs) = (quantize_rows_int8(torch.from_numpy(a))
@@ -114,7 +118,9 @@ def test_cpu_route_never_counts_launches():
     assert set(counts) == {"paged_attention", "rms_norm",
                            "flash_attention_fwd", "flash_attention_bwd",
                            "swiglu_down", "paged_attention_int8",
-                           "decode_attention", "add_rms_norm"}
+                           "decode_attention", "add_rms_norm",
+                           "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"}
     assert all(n == 0 for n in counts.values()), counts
 
 

@@ -24,6 +24,8 @@ from paddle_tpu_torch.convert import (pipe_expected_keys,
                                       pipe_state_dict_from_jax,
                                       pipe_state_dict_to_jax)
 from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.memory import (KERNEL_ANCHORS, parse_save_names,
+                                     split_quant_entries)
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLMPipe,
                                          compute_loss)
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -239,15 +241,149 @@ def test_pipe_state_dict_round_trip():
 
 
 def test_selective_remat_policies_and_parallel_branches_raise():
-    cfg = GPTConfig(**dict(SMOKE, recompute_policy="names:attn_res"))
-    tm = GPTForCausalLMPipe(cfg, device="cpu")
+    """The remat entries that are not ported raise, naming their ROADMAP
+    items: ``int8:`` saves (A.3) and ``quant:`` GEMM sites (A.9); an
+    ``int8:`` kernel anchor is refused as in the reference."""
     ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tm.loss(ids, ids)
+    for policy, exc, item in (
+            ("names:attn_q,int8:resid_mid", NotImplementedError, "A.3"),
+            ("names:attn_res,quant:wq", NotImplementedError, "A.9"),
+            ("names:int8:attn_res", ValueError, "kernel"),
+            ("everything", ValueError, "recompute_policy")):
+        cfg = GPTConfig(**dict(SMOKE, recompute_policy=policy))
+        tm = GPTForCausalLMPipe(cfg, device="cpu")
+        with pytest.raises(exc, match=item):
+            tm.loss(ids, ids)
     with pytest.raises(NotImplementedError, match="A.10"):
         tm.decoder.apply_tp_placements(None)
     with pytest.raises(NotImplementedError, match="A.10"):
         tm.shard_lm_head(None)
+
+
+def test_save_names_parse_as_in_the_reference():
+    from paddle_tpu.memory import parse_save_names as jax_parse
+    from paddle_tpu.memory.int8_ckpt import KERNEL_ANCHORS as JAX_ANCHORS
+    from paddle_tpu.quant import split_quant_entries as jax_split
+
+    spec = " attn_q, int8:resid_mid,,quant:wq,ffn_up"
+    assert split_quant_entries(spec) == jax_split(spec)
+    rest = split_quant_entries(spec)[0]
+    assert parse_save_names(rest) == jax_parse(rest)
+    assert KERNEL_ANCHORS == JAX_ANCHORS
+
+
+#: bench.py:84-85, the long-context line's selective remat
+LONG_CONTEXT_POLICY = ("names:attn_res,attn_lse,attn_q,attn_k,attn_v,"
+                       "resid_mid")
+POLICIES = [LONG_CONTEXT_POLICY, "attn", "attn_ffn", "dots"]
+
+
+@pytest.mark.parametrize("policy", POLICIES,
+                         ids=["long-context-names", "attn", "attn_ffn",
+                              "dots"])
+@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
+def test_selective_remat_loss_and_grads_match_jax(kv_heads, policy):
+    """Under each selective policy the port's loss and every gradient
+    equal the JAX package's under the same policy, and equal the port's
+    own full-remat run bit for bit (f32 on the CPU recomputes the same
+    values it saved)."""
+    cfg_kw = dict(SMOKE, num_kv_heads=kv_heads, recompute_policy=policy)
+    ids, labels = _batch(cfg_kw["vocab_size"])
+    jm, sd = _weights(cfg_kw, seed=9)
+    jloss = jm.loss(paddle.to_tensor(ids.astype(np.int32)),
+                    paddle.to_tensor(labels))
+    jloss.backward()
+    jgrads = {n: p.grad.numpy() for n, p in jm.named_parameters()}
+    got = {}
+    for pol in (policy, "full"):
+        cfg = GPTConfig(**dict(cfg_kw, recompute_policy=pol))
+        tm = GPTForCausalLMPipe(cfg, device="cpu")
+        tm.load_state_dict(pipe_state_dict_from_jax(sd, cfg))
+        loss = tm.loss(torch.from_numpy(ids), torch.from_numpy(labels))
+        loss.backward()
+        got[pol] = (loss.detach(),
+                    {n: p.grad for n, p in tm.named_parameters()})
+    loss, grads = got[policy]
+    # f32; attention, the CE head and the FFN seam sum in other orders
+    np.testing.assert_allclose(loss.item(), float(jloss.numpy()), rtol=1e-5)
+    for n, g in grads.items():
+        assert _rel(g.numpy(), jgrads[n]) < 1e-4, n
+        assert torch.equal(g, got["full"][1][n]), n
+    assert torch.equal(loss, got["full"][0])
+
+
+@pytest.mark.parametrize("policy,fwd_per_block", [
+    ("names:attn_res,attn_lse", 1), (LONG_CONTEXT_POLICY, 1), ("attn", 1),
+    ("names:attn_res", 2), ("dots", 2), ("full", 2)])
+def test_flash_forward_runs_once_per_block_when_its_residuals_are_saved(
+        monkeypatch, policy, fwd_per_block):
+    """Saving ``attn_res`` and ``attn_lse`` keeps the flash forward out of
+    the recompute: it runs once per block and step, against twice under
+    ``full``. The FFN and the norms recompute under every policy:
+    ``swiglu_down`` twice per block, the block's rms norms four times."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.ops.kernels import swiglu_down as sdn
+
+    calls = {}
+    for mod, name in ((fa, "flash_attention_fwd_plain"),
+                      (rn, "rms_norm_plain"), (sdn, "swiglu_down_plain")):
+        def counted(*a, _real=getattr(mod, name), _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    cfg = GPTConfig(**dict(SMOKE, recompute_policy=policy))
+    tm = GPTForCausalLMPipe(cfg, device="cpu")
+    ids, labels = _batch(cfg.vocab_size)
+    tm.loss(torch.from_numpy(ids), torch.from_numpy(labels)).backward()
+    L = cfg.num_layers
+    assert calls == {"flash_attention_fwd_plain": fwd_per_block * L,
+                     "rms_norm_plain": 4 * L, "swiglu_down_plain": 2 * L}
+
+
+def test_adamw_defaults_are_the_reference_adamw():
+    """``AdamW(lr=3e-4)`` as the long-context line builds it
+    (bench.py:112-113): the port's defaults are the reference's."""
+    import inspect
+
+    ours = inspect.signature(AdamW).parameters
+    ref = inspect.signature(paddle.optimizer.AdamW).parameters
+    for port_name, ref_name in (("beta1", "beta1"), ("beta2", "beta2"),
+                                ("epsilon", "epsilon"),
+                                ("weight_decay", "weight_decay"),
+                                ("multi_precision", "multi_precision"),
+                                ("factored", "factored")):
+        assert ours[port_name].default == ref[ref_name].default, port_name
+
+
+def test_long_context_train_steps_match_jax():
+    """The long-context line at the CPU smoke size: GPTForCausalLMPipe
+    under its names: policy, AdamW(lr=3e-4) with its defaults (weight
+    decay 0.01, not factored) and three TrainSteps, in f32, against the
+    JAX package's."""
+    cfg_kw = dict(SMOKE, recompute_policy=LONG_CONTEXT_POLICY)
+    ids, labels = _batch(cfg_kw["vocab_size"])
+    jm, sd = _weights(cfg_kw, seed=10)
+    cfg = GPTConfig(**cfg_kw)
+    tm = GPTForCausalLMPipe(cfg, device="cpu")
+    tm.load_state_dict(pipe_state_dict_from_jax(sd, cfg))
+    jopt = paddle.optimizer.AdamW(learning_rate=3e-4,
+                                  parameters=jm.parameters())
+    jstep = JaxTrainStep(jm, lambda a, b: jm.loss(a, b), jopt)
+    step = TrainStep(tm, tm.loss, AdamW(tm.parameters(), lr=3e-4))
+    jl = [float(jstep(paddle.to_tensor(ids.astype(np.int32)),
+                      paddle.to_tensor(labels)).numpy()) for _ in range(3)]
+    tl = [step(torch.from_numpy(ids), torch.from_numpy(labels)).item()
+          for _ in range(3)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[-1] < tl[0]
+    assert "moment2" in step.optimizer.state[tm.decoder.wq]
+    np.testing.assert_allclose(step.last_health.grad_norm,
+                               jstep.last_health.grad_norm, rtol=1e-4)
+    # three Adam updates amplify the f32 gradient differences a little
+    jstate = jm.state_dict()
+    for n, p in tm.state_dict().items():
+        assert _rel(p.numpy(), jstate[n].numpy()) < 1e-5, n
 
 
 @pytest.mark.parametrize("ffn_env", ["", "interpret"],
