@@ -12,10 +12,14 @@ Phases, each of which fails the run on error:
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
              version's and one library call's time, and the bound. The
-             split flash backward also at the long-context shape
-             [1, 32768, 16/16, 128] bf16: against its plain versions (one
-             head at a time), against the fused kernel, and twice for the
-             same bits.
+             flash forward runs twice at [3, 2048, 16/16, 128] for the same
+             bits. At the long-context shapes in bf16: the split flash
+             backward at [1, 32768, 16/16, 128] against its plain versions
+             (one head at a time), against the fused kernel, and twice for
+             the same bits; the flash forward there against its plain
+             version (one head at a time) and SDPA; swiglu_down at
+             [32768, 5504] x [5504, 2048] against its plain version and the
+             library pair.
 4. serving - LLaMA-7B width and depth in bf16, random weights from a
              seeded generator, through ContinuousBatchingEngine's submit /
              step / run_until_complete with chunked prefill. Checks every
@@ -487,6 +491,11 @@ def _flash_cases(b, hq, hkv, s, d, dtype, gen):
     check(torch.isfinite(o.float()).all().item(), f"flash fwd {shape}: nan")
     check(rel <= FLASH_TOL[dtype] and lse_err <= 1e-3,
           f"flash fwd {name} {shape}: rel err {rel}, lse err {lse_err}")
+    again = flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    fwd_bitwise = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    check(fwd_bitwise, f"flash fwd {name} {shape}: a second run differs")
+    del again
     grads = flash_attention_bwd(q, k, v, ro, rlse, do, True)
     want = flash_attention_bwd_plain(q, k, v, ro, rlse, do, True)
     torch.cuda.synchronize()
@@ -514,6 +523,7 @@ def _flash_cases(b, hq, hkv, s, d, dtype, gen):
                          10 * d * pairs, dtype)
     fwd = {"shape": shape, "dtype": name, "max_abs_err": err,
            "max_rel_err": rel, "lse_max_abs_err": lse_err,
+           "two_runs_bitwise": fwd_bitwise,
            "ms": time_ms(lambda: flash_attention_fwd(q, k, v, True)),
            "plain_ms": time_ms(
                lambda: flash_attention_fwd_plain(q, k, v, True)),
@@ -593,9 +603,57 @@ def _flash_long_cases(gen):
         r.update(plain_check="every head, one [1,32768,1/1,128] problem at "
                              "a time", split_against_fused_rel_err=rel,
                  two_runs_bitwise=bitwise)
-    del fused, split, again
+    del fused, split, again, args, delta, do
     torch.cuda.empty_cache()
-    return rows, fused_row
+    return rows, fused_row, _flash_long_fwd(q, k, v, o, lse)
+
+
+def _flash_long_fwd(q, k, v, o, lse):
+    """The forward at the long-context shape against its plain version one
+    head at a time (all of them; one head's [S, S] f32 is 4 GiB), with its
+    time, SDPA's and the bound."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+
+    b, hq, hkv, s, d = LONG_SHAPE
+    dtype, rep = q.dtype, hq // hkv
+
+    def plain_heads():
+        out = []
+        for i in range(b * hq):
+            j = i // rep
+            out.append(flash_attention_fwd_plain(
+                q[i:i + 1], k[j:j + 1], v[j:j + 1], True))
+        return out
+
+    t0 = time.perf_counter()
+    want = plain_heads()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max((o[i].float() - w[0][0].float()).abs().max().item()
+              for i, w in enumerate(want))
+    rel = err / max(w[0].float().abs().max().item() for w in want)
+    lse_err = max((lse[i] - w[1][0]).abs().max().item()
+                  for i, w in enumerate(want))
+    del want
+    torch.cuda.empty_cache()
+    check(rel <= FLASH_TOL[dtype] and lse_err <= 1e-3,
+          f"flash fwd at the long shape: rel err {rel}, lse err {lse_err}")
+    q4, k4, v4 = (t.view(b, -1, s, d) for t in (q, k, v))
+    pairs = b * hq * s * (s + 1) // 2
+    item = q.element_size()
+    bms, by = bound_ms(2 * b * hq * s * d * item + 2 * b * hkv * s * d * item
+                       + b * hq * s * 4, 4 * d * pairs, dtype)
+    return {"shape": f"[{b},{s},{hq}/{hkv},{d}] causal", "dtype": "bfloat16",
+            "max_abs_err": err, "max_rel_err": rel,
+            "lse_max_abs_err": lse_err,
+            "plain_check": "every head, one at a time",
+            "ms": time_ms(lambda: flash_attention_fwd(q, k, v, True), reps=5,
+                          inner=2),
+            "plain_ms": plain_ms,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), reps=5, inner=2),
+            "bound_ms": bms, "bound_by": by}
 
 
 def _swiglu_case(rows, m, h, dtype, gen):
@@ -667,10 +725,15 @@ def phase_kernels():
         for n in (8, 4096):
             cases["add_rms_norm"].append(_add_rms_case(n, 4096, dtype, gen))
     # the long-context shape first: the split pair's main path
-    (dq, dkv), fused = _flash_long_cases(gen)
+    (dq, dkv), fused, long_fwd = _flash_long_cases(gen)
     cases["flash_attention_bwd_dq"].insert(0, dq)
     cases["flash_attention_bwd_dkv"].insert(0, dkv)
     cases["flash_attention_bwd"].append(fused)
+    # the long-context step's forward and FFN seam (batch 1 x seq 32768);
+    # the config-4 shapes stay the first case of each kernel
+    cases["flash_attention_fwd"].append(long_fwd)
+    cases["swiglu_down"].append(_swiglu_case(32768, 5504, 2048,
+                                             torch.bfloat16, gen))
     for name, rows in cases.items():
         for r in rows:
             plain = ("none" if r["plain_ms"] is None
@@ -681,6 +744,10 @@ def phase_kernels():
                   f"{r['bound_by']}) max_abs_err {r['max_abs_err']:.3g}"
                   + (f" against {r['against']}" if "against" in r else ""),
                   flush=True)
+    print(f"kernel flash fwd at {cases['flash_attention_fwd'][0]['shape']}:"
+          f" two runs bitwise "
+          f"{cases['flash_attention_fwd'][0]['two_runs_bitwise']}",
+          flush=True)
     print(f"kernel flash split bwd at {dq['shape']}: against fused rel err "
           f"{dq['split_against_fused_rel_err']:.3g}, two runs bitwise "
           f"{dq['two_runs_bitwise']}", flush=True)
@@ -1117,6 +1184,15 @@ def phase_incubate_consistency(model, prompts, want):
     return {"prompts": [len(p) for p in prompts], "new_tokens": new}
 
 # ---------------------------------------------------------------- phase 6
+#: the port's kernels as the profiler names them (the bf16 TMA/wgmma
+#: forward and swiglu_down, the first port's bodies for the rest and f32)
+PORT_KERNEL_SYMBOLS = ("flash_fwd_wgmma", "flash_fwd_kernel",
+                       "flash_bwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel", "swiglu_down_wgmma",
+                       "swiglu_down_kernel", "_rms_fwd",
+                       "paged_attention_kernel")
+
+
 def _profile_step(step, batch, wall_ms):
     """One step under the profiler: device busy time (sum of kernel
     times), the host share against the unprofiled step wall, the top 8
@@ -1139,12 +1215,12 @@ def _profile_step(step, batch, wall_ms):
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    port = {}
     for k, v in by_kernel.items():
-        if any(n in k for n in ("flash_fwd_kernel", "flash_bwd_kernel",
-                                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                "swiglu_down_kernel", "_rms_fwd",
-                                "paged_attention_kernel")):
+        name = next((n for n in PORT_KERNEL_SYMBOLS if n in k), None)
+        if name is not None:
             groups["port_kernels"] += v / 1e3
+            port[name] = port.get(name, 0.0) + v / 1e3
         elif any(n in k for n in ("nvjet", "gemm", "splitKreduce")):
             groups["gemm"] += v / 1e3
         else:
@@ -1152,7 +1228,7 @@ def _profile_step(step, batch, wall_ms):
     return {"device_busy_ms": busy / 1e3,
             "host_share": (1 - busy / 1e3 / wall_ms) if busy > 0 else None,
             "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
-            "by_group_ms": groups}
+            "by_group_ms": groups, "port_kernels_ms": port}
 
 
 def _train_setup(cfg, dtype, device, seed):
@@ -1259,6 +1335,9 @@ def phase_training():
                         prof["by_group_ms"].items()}), flush=True)
     for k, v in prof["top_kernels_ms"]:
         print(f"training:   {v:9.3f} ms/step  {k}", flush=True)
+    print(f"training: port kernels ms/step "
+          + json.dumps({k: round(v, 3) for k, v in
+                        prof["port_kernels_ms"].items()}), flush=True)
     del step, model
     torch.cuda.empty_cache()
     return res
@@ -1420,6 +1499,9 @@ def phase_long_context():
                         prof["by_group_ms"].items()}), flush=True)
     for k, v in prof["top_kernels_ms"]:
         print(f"long_context:   {v:9.3f} ms/step  {k}", flush=True)
+    print(f"long_context: port kernels ms/step "
+          + json.dumps({k: round(v, 3) for k, v in
+                        prof["port_kernels_ms"].items()}), flush=True)
     del step, model
     torch.cuda.empty_cache()
     return res

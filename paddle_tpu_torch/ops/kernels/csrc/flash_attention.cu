@@ -14,18 +14,37 @@
 // S/2 multiply-adds per byte they must move, far above the card's
 // ~295 FLOP/byte ridge, so the bf16 tensor-core rate bounds them.
 //
-// Design (simple first; no TMA, no wgmma, no pipelining yet):
-// - Forward: one block of 4 warps per (bh, 64-row q tile). The TPU's
-//   sequential third grid dimension over k tiles becomes a loop inside the
-//   block; tiles wholly above the causal diagonal are never visited (the
-//   `pl.when` at :149). Q, K, V tiles sit in shared memory; each warp owns
-//   16 q rows. S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate); the online softmax (m, l) and O live in f32
-//   registers. p is rounded to v's type before P V (:141). Masked
+// Forward, bf16: an FA3-style kernel (building blocks in sm90.cuh).
+// - One block per (bh, 128-row q tile), the longest causal q tiles first.
+//   The TPU's sequential grid dimension over k tiles becomes a loop; tiles
+//   wholly above the causal diagonal are never loaded (the `pl.when` at
+//   :149).
+// - Warpgroup 0 is the producer: one thread loads the Q tile once by TMA
+//   and keeps 2-stage rings of K tiles and of V tiles (128 x D each) in
+//   flight, each tile completing on its own mbarrier. Its registers drop
+//   to 24 (setmaxnreg).
+// - Warpgroups 1 and 2 are consumers with 240 registers, 64 q rows each:
+//   S = Q K^T by wgmma SS m64n128k16 (K a K-major B); the online softmax
+//   on the accumulator fragment in f32, with scale and log2(e) folded into
+//   one FFMA before ex2.approx, and the row max and sum reduced over the 4
+//   threads of a quad; P rounded to v's type (:141) in registers, which
+//   are the A operand of O += P V by wgmma RS m64nDk16 with V an MN-major
+//   B. Inside a consumer, S of tile j is issued with P V of tile j - 1 and
+//   the softmax of tile j runs while P V is on the tensor cores (FA3's
+//   intra-warpgroup overlap). K is released once S is done, V once P V is.
+//   A consumer skips the k tiles that none of its rows sees.
+// - Only the diagonal tiles and a ragged last k tile are masked: masked
 //   positions carry the JAX package's NEG_INF = -1e30 in the max and
-//   contribute p = 0; a row that sees no key gets o = 0 and lse = m
-//   (the l == 0 guards of :157-161).
-// - Backward: one block per (b * Hkv, 64-row k tile). dK and dV of the
+//   contribute p = 0. A row that sees no key gets o = 0 and lse = -1e30
+//   (the l == 0 guards of :157-161). TMA's zero fill covers rows past Sq
+//   and keys past Sk.
+// - Epilogue: O / l rounded to bf16, staged in the consumer's own rows of
+//   the Q tile and stored by TMA (clipped at Sq); lse by plain stores.
+// - No atomics and a fixed order: runs repeat bit for bit.
+// Forward, f32: the first port's body (one block of 4 warps per 64-row q
+// tile, mma.sync-shaped fragments as FMAs), kept for the f32 checks.
+// Backward (both types):
+// - One block per (b * Hkv, 64-row k tile). dK and dV of the
 //   tile accumulate in f32 registers while the block walks the rep q heads
 //   of its kv head and their q tiles at or below the diagonal (`_clamp_qi`
 //   :227). Per q tile it forms S and P = exp(S*scale - lse), dP = dO V^T
@@ -36,8 +55,9 @@
 //   no order, so scale * dS K goes by f32 atomicAdd into a zeroed
 //   [B*Hq, Sq, D] f32 workspace that the caller casts to q's type. The
 //   order of those sums changes from run to run.
-// - f32 operands run the same fragments with plain FMAs, for the checks.
+// - bf16 runs mma.sync m16n8k16; f32 the same fragments with plain FMAs.
 // - D in {64, 128}; any Sq, Sk (the ragged last tile is masked).
+#include "sm90.cuh"
 #include "warp_tile.cuh"
 
 namespace {
@@ -327,6 +347,8 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bhq, int rep, int sq, int sk,
                        float scale, int causal, cudaStream_t stream) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 takes flash_fwd_wgmma (launch_fwd_bf16)");
   const size_t smem = FwdSmem<T, D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -358,6 +380,286 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ----------------------------------------------- forward, bf16 (wgmma)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct Fa3 {
+  static constexpr int kBoxes = D / 64;               // 64-column boxes
+  static constexpr uint32_t kBox = 128 * 64 * 2;      // [128 rows][64], 16 KB
+  static constexpr uint32_t kTile = kBoxes * kBox;    // a Q, K or V tile
+  static constexpr int kStages = 2;                   // of K and of V
+  static constexpr uint32_t kKOff = kTile;
+  static constexpr uint32_t kVOff = kKOff + kStages * kTile;
+  static constexpr uint32_t kBarOff = kVOff + kStages * kTile;
+  // barriers: K full/empty, V full/empty (kStages each), then Q
+  static constexpr size_t kSmem = kBarOff + (4 * kStages + 1) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap o_map,
+                    float* __restrict__ lse, int rep, int sq, int sk,
+                    float scale, int causal) {
+  using L = Fa3<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(1024) uint8_t tma_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(tma_smem) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t k_full = base + L::kBarOff, k_empty = k_full + 8 * S,
+                 v_full = k_empty + 8 * S, v_empty = v_full + 8 * S,
+                 q_bar = v_empty + 8 * S;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;  // longest tiles first
+  const int offset = sk - sq;
+  // keys visible to the tile's last row bound the walk (causal skip)
+  int k_end = sk;
+  if (causal) k_end = min(sk, min(q0 + 128, sq) + offset);
+  const int n_kt = k_end > 0 ? (k_end + 127) / 128 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(k_full + 8 * i, 1);
+      sm90::mbar_init(v_full + 8 * i, 1);
+      sm90::mbar_init(k_empty + 8 * i, 8);  // lane 0 of each consumer warp
+      sm90::mbar_init(v_empty + 8 * i, 8);
+    }
+    sm90::mbar_init(q_bar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ------------------------------------------- producer
+    sm90::reg_dealloc<24>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(q_bar, L::kTile);
+#pragma unroll
+      for (int b = 0; b < L::kBoxes; ++b)
+        sm90::tma_load_3d(base + b * L::kBox, &q_map, q_bar, 64 * b, q0, bh);
+      const int bhk = bh / rep;
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % S;
+        const uint32_t par = ((j / S) & 1) ^ 1;
+        sm90::mbar_wait(k_empty + 8 * st, par);
+        sm90::mbar_arrive_expect_tx(k_full + 8 * st, L::kTile);
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b)
+          sm90::tma_load_3d(base + L::kKOff + st * L::kTile + b * L::kBox,
+                            &k_map, k_full + 8 * st, 64 * b, 128 * j, bhk);
+        sm90::mbar_wait(v_empty + 8 * st, par);
+        sm90::mbar_arrive_expect_tx(v_full + 8 * st, L::kTile);
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b)
+          sm90::tma_load_3d(base + L::kVOff + st * L::kTile + b * L::kBox,
+                            &v_map, v_full + 8 * st, 64 * b, 128 * j, bhk);
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::reg_alloc<240>();
+    const int c = wg - 1, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + 64 * c;  // this consumer's first row
+    const int rows[2] = {wq0 + 16 * warp + g, wq0 + 16 * warp + g + 8};
+    // k tiles that hold a key some row of this consumer sees
+    int n_wg = n_kt;
+    if (wq0 >= sq)
+      n_wg = 0;
+    else if (causal)
+      n_wg = max(0, min(sk, min(wq0 + 64, sq) + offset) + 127) / 128;
+    const float sl2 = scale * kLog2e;
+
+    float o[D / 2], s[64];
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // running row max of s * scale * log2(e), and row sum of p
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    auto release = [&](uint32_t bar, int j) {
+      if (lane == 0) sm90::mbar_arrive(bar + 8 * (j % S));
+    };
+    // issue S = Q K_j^T: 64 rows x 128 keys, k over D in steps of 16
+    auto scores = [&](int j) {
+      const uint32_t ks = base + L::kKOff + (j % S) * L::kTile;
+      sm90::mbar_wait(k_full + 8 * (j % S), (j / S) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk / 4) * L::kBox + (kk % 4) * 32;
+        sm90::wgmma_ss_n128<0>(
+            s, sm90::desc_b128(base + koff + c * 64 * 128, 16, 1024),
+            sm90::desc_b128(ks + koff, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // issue O += P V_j: k over the 128 keys in steps of 16, V MN-major
+    auto pv = [&](int j) {
+      const uint32_t vs = base + L::kVOff + (j % S) * L::kTile;
+      sm90::mbar_wait(v_full + 8 * (j % S), (j / S) & 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t vd = sm90::desc_b128(vs + kk * 16 * 128, L::kBox, 1024);
+        if constexpr (D == 128)
+          sm90::wgmma_rs_n128<1>(o, pa[kk], vd, 1);
+        else
+          sm90::wgmma_rs_n64<1>(o, pa[kk], vd, 1);
+      }
+      sm90::wgmma_commit();
+    };
+    // the online softmax of tile j on s: p (f32) into s, the new row max
+    // into m, the rescale of the old sums into alpha, the row sums of p
+    // into rs
+    auto softmax = [&](int j, float(&alpha)[2], float(&rs)[2]) {
+      const int k0 = 128 * j;
+      const bool masked =
+          k0 + 128 > sk || (causal && k0 + 127 > wq0 + offset);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if (masked) {
+          const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          const int row = rows[(i >> 1) & 1];
+          if (col >= sk || (causal && col > row + offset)) s[i] = kNegInf;
+        }
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(m[h], quad_max(mx[h]) * sl2);
+        alpha[h] = sm90::ex2_approx(m[h] - mn);
+        m[h] = mn;
+        rs[h] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int h = (i >> 1) & 1;
+        const float p = masked && s[i] == kNegInf
+                            ? 0.f
+                            : sm90::ex2_approx(fmaf(s[i], sl2, -m[h]));
+        s[i] = p;
+        rs[h] += p;
+      }
+    };
+    // P rounded to v's type (:141): the A fragments of O += P V
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] =
+              sm90::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+
+    sm90::mbar_wait(q_bar, 0);
+    if (n_wg > 0) {
+      float alpha[2], rs[2];
+      scores(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      release(k_empty, 0);
+      softmax(0, alpha, rs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = quad_sum(rs[h]);
+      pack_p();
+      // S of tile j runs beside P V of tile j - 1; the softmax of tile j
+      // runs while P V of tile j - 1 is still on the tensor cores
+      for (int j = 1; j < n_wg; ++j) {
+        scores(j);
+        pv(j - 1);
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        release(k_empty, j);
+        softmax(j, alpha, rs);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+        sm90::fence_regs(pa);
+        release(v_empty, j - 1);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(rs[h]);
+        pack_p();
+      }
+      pv(n_wg - 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(pa);
+      release(v_empty, n_wg - 1);
+    }
+    for (int j = n_wg; j < n_kt; ++j) {  // tiles none of these rows sees
+      sm90::mbar_wait(k_full + 8 * (j % S), (j / S) & 1);
+      release(k_empty, j);
+      sm90::mbar_wait(v_full + 8 * (j % S), (j / S) & 1);
+      release(v_empty, j);
+    }
+
+    // epilogue: O / l into this consumer's rows of the Q tile, then TMA
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ls = l[h] == 0.f ? 1.f : l[h];
+      const float inv = 1.f / ls;
+      if (t4 == 0 && rows[h] < sq)
+        lse[(size_t)bh * sq + rows[h]] =
+            l[h] == 0.f ? kNegInf : (m[h] + log2f(ls)) * kLn2;
+      const int row = 64 * c + 16 * warp + g + 8 * h;  // row in the tile
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int chunk = (j & 7) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(smem + (j >> 3) * L::kBox + row * 128 +
+                                     chunk * 16 + 4 * t4) =
+            sm90::pack_bf16x2(o[4 * j + 2 * h] * inv,
+                              o[4 * j + 2 * h + 1] * inv);
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_bar_sync(1 + c, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int b = 0; b < L::kBoxes; ++b)
+        sm90::tma_store_3d(&o_map, base + b * L::kBox + c * 64 * 128, 64 * b,
+                           wq0, bh);
+      sm90::tma_store_commit();
+      sm90::tma_store_wait();
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int bhq, int rep, int sq,
+                            int sk, float scale, int causal,
+                            cudaStream_t stream) {
+  using L = Fa3<D>;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  const uint64_t q_dims[3] = {(uint64_t)D, (uint64_t)sq, (uint64_t)bhq};
+  const uint64_t q_strides[2] = {(uint64_t)D * 2, (uint64_t)sq * D * 2};
+  const uint64_t k_dims[3] = {(uint64_t)D, (uint64_t)sk,
+                              (uint64_t)(bhq / rep)};
+  const uint64_t k_strides[2] = {(uint64_t)D * 2, (uint64_t)sk * D * 2};
+  const uint32_t box[3] = {64, 128, 1};
+  const uint32_t o_box[3] = {64, 64, 1};
+  if (!sm90_host::make_map(&q_map, q, 3, q_dims, q_strides, box) ||
+      !sm90_host::make_map(&k_map, k, 3, k_dims, k_strides, box) ||
+      !sm90_host::make_map(&v_map, v, 3, k_dims, k_strides, box) ||
+      !sm90_host::make_map(&o_map, o, 3, q_dims, q_strides, o_box))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bhq, (sq + 127) / 128);
+  flash_fwd_wgmma<D><<<grid, 384, L::kSmem, stream>>>(
+      q_map, k_map, v_map, o_map, (float*)lse, rep, sq, sk, scale, causal);
+  return cudaGetLastError();
+}
+
 bool valid_shape(int bh, int rep, int sq, int sk, int head_dim, int dtype) {
   return bh >= 1 && bh <= 65535 && rep >= 1 && sq >= 1 && sk >= 1 &&
          (head_dim == 64 || head_dim == 128) && (dtype == 0 || dtype == 1);
@@ -384,11 +686,10 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                      : launch_fwd<float, 128>(q, k, v, o, lse, bhq, rep, sq,
                                               sk, scale, causal, s));
   return (int)(head_dim == 64
-                   ? launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, bhq, rep,
-                                                   sq, sk, scale, causal, s)
-                   : launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, bhq,
-                                                    rep, sq, sk, scale,
-                                                    causal, s));
+                   ? launch_fwd_bf16<64>(q, k, v, o, lse, bhq, rep, sq, sk,
+                                         scale, causal, s)
+                   : launch_fwd_bf16<128>(q, k, v, o, lse, bhq, rep, sq, sk,
+                                          scale, causal, s));
 }
 
 // dq_acc [bhk*rep, sq, D] f32 must be zero on entry; dk/dv [bhk, sk, D].

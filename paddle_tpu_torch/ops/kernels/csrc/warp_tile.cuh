@@ -1,5 +1,6 @@
-// Warp-level tile helpers shared by the training kernels (flash attention
-// forward and backward, swiglu_down), for Hopper (sm_90a).
+// Warp-level tile helpers for Hopper (sm_90a), shared by the flash
+// backward kernels (fused and split) and by the f32 routes of the flash
+// forward and swiglu_down (their bf16 routes are on sm90.cuh).
 //
 // The one primitive is warp_mma: a warp multiplies a 16-row tile of A by
 // the transpose of an (8*NT)-row tile of B, both read from shared memory

@@ -10,7 +10,11 @@ flash_attention.py``:
   at :515) and its dk/dv pass ``_bwd_dkv_kernel`` (:324, ``pallas_call``
   at :539), both in ``csrc/flash_attention_split.cu``.
 
-See the sources for what bounds them and how they are laid out.
+See the sources for what bounds them and how they are laid out. The bf16
+forward is an FA3-style kernel: TMA loads into a ring completing on
+mbarriers, ``wgmma`` for ``Q K^T`` and ``P V`` with ``P`` kept in registers,
+and a producer warpgroup beside two consumer warpgroups (``csrc/sm90.cuh``
+holds the shared building blocks).
 :func:`flash_attention_bwd` routes the backward as ``_bwd_impl`` (:472)
 does: the fused kernel while its dq scratch fits in 8 MiB, the split pair
 above (:498-502, without the ``PTPU_FA_FUSED_BWD`` knob). It computes
@@ -241,6 +245,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     if v.shape != k.shape:
         raise ValueError("flash_attention_fwd: k and v must share a shape")
     scale = _scale(q, scale)
+    if scale < 0 and q.dtype == torch.bfloat16:
+        # the bf16 kernel takes the row max before scaling: (-q) k^T * -scale
+        # is the same product, exactly
+        q, scale = -q, -scale
     o = torch.empty_like(q)
     lse = torch.empty(bhq, sq, dtype=torch.float32, device=q.device)
     rc = _launcher("flash_attention", "flash_attention_fwd_launch", 5)(

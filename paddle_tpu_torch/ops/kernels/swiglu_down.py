@@ -4,9 +4,12 @@ Replaces the Pallas TPU kernel ``_fwd_kernel`` behind ``swiglu_down``
 (``paddle_tpu/ops/pallas/swiglu_down.py:61``, ``pallas_call`` in ``_fwd``
 at ``:86``): ``out = (silu(g) * u rounded to g's type) @ wd`` with f32
 accumulation, so the ``[rows, M]`` product never reaches device memory.
-The kernel is ``csrc/swiglu_down.cu`` (see the source for its bound and
-layout). The backward is the JAX package's jnp rule (``:119-132``) in
-plain PyTorch, with ``torch.matmul`` for its products.
+The kernel is ``csrc/swiglu_down.cu``: for bf16 a persistent,
+warp-specialised GEMM fed by TMA that forms ``silu(g) * u`` in registers as
+the A operand of ``wgmma`` (see the source for its bound and layout); for
+f32 the first port's body, kept for the checks. The backward is the JAX
+package's jnp rule (``:119-132``) in plain PyTorch, with ``torch.matmul``
+for its products.
 """
 from __future__ import annotations
 

@@ -315,9 +315,18 @@ def _flash_inputs(hq, hkv, d, sq, sk, dtype, device, b=2):
     return [t.to(device, dtype) for t in (q, k, v, do)]
 
 
+#: the forward's tile edges (128-row q tiles, 128-key k tiles): sq and sk
+#: off a multiple of 128, sk > sq, sq > sk (causal rows that see no key),
+#: several tiles, GQA 8/2 and D = 64; the last two have more (head, q
+#: tile) items than the card has SMs, so a block walks several
+FWD_EDGE_SHAPES = [  # (hq, hkv, d, sq, sk)
+    (8, 2, 64, 130, 257), (2, 2, 128, 257, 130), (2, 1, 128, 513, 700),
+    (4, 4, 64, 384, 384), (32, 8, 128, 1000, 1000), (16, 16, 64, 700, 900)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES)
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES + FWD_EDGE_SHAPES)
 def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
                                         d, sq, sk):
     q, k, v, _ = _flash_inputs(hq, hkv, d, sq, sk, dtype, cuda_device)
@@ -345,6 +354,28 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert _rel_err(a, b) <= FLASH_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_takes_a_negative_scale(cuda_device, dtype):
+    q, k, v, _ = _flash_inputs(4, 2, 64, 130, 257, dtype, cuda_device)
+    o, lse = flash_attention_fwd(q, k, v, True, -0.2)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, True, -0.2)
+    torch.cuda.synchronize()
+    assert _rel_err(o, ro) <= FLASH_TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_repeats_bitwise(cuda_device, dtype):
+    """No atomics, one fixed order: two forwards give the same bits (the
+    selective-remat check of chip_smoke.py relies on it)."""
+    q, k, v, _ = _flash_inputs(8, 2, 128, 300, 300, dtype, cuda_device)
+    first = flash_attention_fwd(q, k, v, True)
+    again = flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def _split_inputs(hq, hkv, d, sq, sk, dtype, causal, device):
@@ -412,7 +443,10 @@ def test_flash_bwd_router_takes_split_above_8_mib(cuda_device, hq, hkv, sq,
 #: products rounded from f32 values that differ in their last bits
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("rows,m,h", [(200, 256, 128), (256, 384, 256)])
+@pytest.mark.parametrize("rows,m,h", [
+    (200, 256, 128), (256, 384, 256),
+    # the bf16 kernel's tile edges: 128 x 256 output tiles, k steps of 64
+    (200, 5504, 128), (6144 + 37, 5504, 384), (200, 288, 384)])
 def test_swiglu_down_kernel_matches_plain(cuda_device, dtype, tol, rows, m,
                                           h):
     g = torch.Generator().manual_seed(rows + m)

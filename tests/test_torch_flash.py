@@ -33,10 +33,13 @@ ATOL = 2e-5
 GRAD_ATOL = 1e-4
 
 #: (b, hq, hkv, sq, sk, d): MHA and GQA, sq == sk and sq < sk
-#: (end-aligned causal), each within one Pallas block
+#: (end-aligned causal), each within one Pallas block; the last two are
+#: the CUDA forward's tile edges (sq and sk off a multiple of 128, D 128)
 SHAPES = [(2, 4, 4, 64, 64, 64), (1, 8, 2, 128, 128, 64),
-          (2, 4, 2, 64, 128, 32), (1, 4, 1, 32, 96, 64)]
-IDS = ["mha", "gqa4", "gqa2-sq<sk", "mqa-sq<sk"]
+          (2, 4, 2, 64, 128, 32), (1, 4, 1, 32, 96, 64),
+          (1, 8, 2, 130, 257, 64), (1, 2, 2, 257, 257, 128)]
+IDS = ["mha", "gqa4", "gqa2-sq<sk", "mqa-sq<sk", "gqa4-ragged-sq<sk",
+       "mha-ragged-d128"]
 
 
 def _qkv(b, hq, hkv, sq, sk, d, seed=0):
@@ -118,7 +121,10 @@ def test_flash_row_that_sees_no_key_is_zero():
     assert torch.all(o[:, 4:].abs().sum(-1) > 0)
 
 
-@pytest.mark.parametrize("lead,m,h", [((2, 64), 256, 128), ((128,), 384, 256)])
+@pytest.mark.parametrize("lead,m,h", [
+    ((2, 64), 256, 128), ((128,), 384, 256),
+    # the CUDA kernel's tile edges: rows off 128, h off 256, config 4's M
+    ((200,), 5504, 128), ((8, 25), 256, 384)])
 def test_swiglu_down_matches_pallas_with_grads(lead, m, h):
     rng = np.random.default_rng(4)
     g = rng.standard_normal(lead + (m,), np.float32)
@@ -150,7 +156,8 @@ def test_swiglu_down_matches_pallas_with_grads(lead, m, h):
 @pytest.mark.parametrize("shape,wd_shape,taken", [
     ((2, 64, 256), (256, 128), True), ((3, 5, 256), (256, 128), False),
     ((2, 64, 200), (200, 128), False), ((2, 64, 256), (256, 96), False),
-    ((6144, 5504), (5504, 2048), True)])
+    ((6144, 5504), (5504, 2048), True), ((200, 5504), (5504, 128), True),
+    ((6144 + 37, 5504), (5504, 2048), False)])
 def test_swiglu_down_route_matches_the_reference(shape, wd_shape, taken):
     assert swiglu_down_supported(shape, wd_shape) is taken
     assert jax_swiglu_supported(shape, wd_shape) is taken
