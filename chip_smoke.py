@@ -7,8 +7,10 @@ Phases, each of which fails the run on error:
 
 1. device  - the card's name and power limit; fails without CUDA.
 2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
-             source, in parallel); Triton compiles the rms_norm kernel at
-             its first launch.
+             source, in parallel), with ptxas's registers and spills per
+             source and per bf16 split-backward kernel (which must not
+             spill); Triton compiles the rms_norm kernel at its first
+             launch.
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
              version's and one library call's time, and the bound. The
@@ -126,18 +128,49 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
+#: the bf16 split backward's kernels, each built for D = 64 and 128
+SPLIT_WGMMA_KERNELS = ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+
+
+def ptxas_by_kernel(log, names=("",)):
+    """``{mangled name: (registers, spill store bytes + spill load
+    bytes)}`` from ``nvcc -Xptxas=-v`` output, for the entry functions
+    whose names contain one of ``names`` (every one by default)."""
+    out, cur, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            cur = name if any(n in name for n in names) else None
+        elif cur and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = nums[1] + nums[2]      # stack frame, stores, loads
+        elif cur and "Used " in ln and "registers" in ln:
+            out[cur] = (int(ln.split("Used ")[1].split()[0]), spill)
+            cur = None
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops import kernels
 
     secs, logs = kernels.build(force=True, ptxas_info=True)
     print(f"build: nvcc {secs:.2f} s", flush=True)
     for src, log in sorted(logs.items()):
-        regs = [ln.split("Used ")[1] for ln in log.splitlines()
-                if "Used " in ln and "registers" in ln]
-        spills = sum("0 bytes spill stores" not in ln
-                     for ln in log.splitlines() if "spill stores" in ln)
-        print(f"build: {src}: {len(regs)} kernels, {spills} with spills; "
-              f"{'; '.join(r.split(',')[0] for r in regs)}", flush=True)
+        found = ptxas_by_kernel(log).values()
+        print(f"build: {src}: {len(found)} kernels, "
+              f"{sum(spill > 0 for _, spill in found)} with spills; "
+              f"{'; '.join(f'{regs} registers' for regs, _ in found)}",
+              flush=True)
+    split = ptxas_by_kernel(logs["flash_attention_split.cu"],
+                            SPLIT_WGMMA_KERNELS)
+    for name, (regs, spill) in sorted(split.items()):
+        print(f"build: {name}: {regs} registers, {spill} bytes spilled",
+              flush=True)
+    check(len(split) == 2 * len(SPLIT_WGMMA_KERNELS),
+          f"ptxas lines of the split wgmma kernels: {sorted(split)}")
+    check(all(spill == 0 for _, spill in split.values()),
+          f"a split wgmma kernel spills: {split}")
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm_fwd
 
     x = torch.randn(8, 4096, device="cuda")
@@ -1185,9 +1218,11 @@ def phase_incubate_consistency(model, prompts, want):
 
 # ---------------------------------------------------------------- phase 6
 #: the port's kernels as the profiler names them (the bf16 TMA/wgmma
-#: forward and swiglu_down, the first port's bodies for the rest and f32)
+#: forward, split backward and swiglu_down, the first port's bodies for the
+#: rest and f32)
 PORT_KERNEL_SYMBOLS = ("flash_fwd_wgmma", "flash_fwd_kernel",
-                       "flash_bwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_kernel", "flash_bwd_dq_wgmma",
+                       "flash_bwd_dkv_wgmma", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", "swiglu_down_wgmma",
                        "swiglu_down_kernel", "_rms_fwd",
                        "paged_attention_kernel")

@@ -84,7 +84,8 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
     Without ``src_mask`` the attention is ``decode_attention`` with lengths
     ``cur + 1`` and q cast to the cache type: the CUDA kernel on the card,
     its plain version on the CPU. With ``src_mask`` it is the JAX package's
-    plain route on every device, since the kernel takes no mask.
+    plain route on every device, since the kernel takes no mask, and the
+    output is f32 as the JAX package's is, whatever the cache's type.
 
     ``rotary_tensor``, ``beam_cache_offset`` and the quantization
     arguments, which the JAX package silently ignores, raise
@@ -121,13 +122,16 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
         out = decode_attention(q.to(kc.dtype).contiguous(), kc, vc,
                                (cur + 1).to(torch.int32))
         return out.reshape(b, h * d), cache_kv
+    # the JAX package's scale is a strongly typed f32 array, so q * scale,
+    # the logits, the probabilities and the output are f32 whatever the
+    # cache's type; a 0-d f32 tensor would not promote a bf16 q here
     scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
                                           device=dev))
-    logits = torch.einsum("bhd,bhtd->bht", q * scale, kc)
+    logits = torch.einsum("bhd,bhtd->bht", q.float() * scale, kc.float())
     valid = (torch.arange(max_len, device=dev)[None, None, :]
              <= cur[:, None, None])
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     logits = logits + src_mask.reshape(b, 1, -1)[:, :, :max_len]
     probs = torch.softmax(logits, -1)
-    out = torch.einsum("bht,bhtd->bhd", probs, vc)
+    out = torch.einsum("bht,bhtd->bhd", probs, vc.float())
     return out.reshape(b, h * d), cache_kv

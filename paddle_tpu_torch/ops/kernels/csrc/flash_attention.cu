@@ -638,17 +638,10 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
                             cudaStream_t stream) {
   using L = Fa3<D>;
   CUtensorMap q_map, k_map, v_map, o_map;
-  const uint64_t q_dims[3] = {(uint64_t)D, (uint64_t)sq, (uint64_t)bhq};
-  const uint64_t q_strides[2] = {(uint64_t)D * 2, (uint64_t)sq * D * 2};
-  const uint64_t k_dims[3] = {(uint64_t)D, (uint64_t)sk,
-                              (uint64_t)(bhq / rep)};
-  const uint64_t k_strides[2] = {(uint64_t)D * 2, (uint64_t)sk * D * 2};
-  const uint32_t box[3] = {64, 128, 1};
-  const uint32_t o_box[3] = {64, 64, 1};
-  if (!sm90_host::make_map(&q_map, q, 3, q_dims, q_strides, box) ||
-      !sm90_host::make_map(&k_map, k, 3, k_dims, k_strides, box) ||
-      !sm90_host::make_map(&v_map, v, 3, k_dims, k_strides, box) ||
-      !sm90_host::make_map(&o_map, o, 3, q_dims, q_strides, o_box))
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, D, 128) ||
+      !sm90_host::map_rows(&k_map, k, bhq / rep, sk, D, 128) ||
+      !sm90_host::map_rows(&v_map, v, bhq / rep, sk, D, 128) ||
+      !sm90_host::map_rows(&o_map, o, bhq, sq, D, 64))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

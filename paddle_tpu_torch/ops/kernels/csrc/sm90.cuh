@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA-fed wgmma kernels
-// (swiglu_down, the flash-attention forward): mbarriers, TMA tensor loads
-// and stores, the shared-memory matrix descriptor of 128-byte-swizzled
-// bf16 tiles, wgmma (SS and RS forms, bf16 in, f32 accumulate) with its
-// fence/commit/wait, setmaxnreg, and the host-side tensor-map encoder.
+// (swiglu_down, the flash-attention forward, the split flash backward):
+// mbarriers, TMA tensor loads and stores, the shared-memory matrix
+// descriptor of 128-byte-swizzled bf16 tiles, wgmma (SS and RS forms, bf16
+// in, f32 accumulate) with its fence/commit/wait, setmaxnreg, and the
+// host-side tensor-map encoder.
 //
 // Conventions:
 // - Every tile in shared memory is 1024-byte aligned and was written by
@@ -257,6 +258,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a_desc,
         : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB));
 }
 
+// d[32] (+)= A . B for m64n64k16, A and B from shared memory.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a_desc,
+                                            uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB));
+}
+
 // d[32] (+)= A . B for m64n64k16, A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B from shared memory.
 template <int TransB>
@@ -346,6 +367,16 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over a row-major [bh, s, d] bf16 tensor (attention's kernel
+// layout) with boxes of 64 columns x `rows` rows.
+inline bool map_rows(CUtensorMap* map, const void* p, int bh, int s, int d,
+                     int rows) {
+  const uint64_t dims[3] = {(uint64_t)d, (uint64_t)s, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)d * 2, (uint64_t)s * d * 2};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return make_map(map, p, 3, dims, strides, box);
 }
 
 inline int sm_count() {

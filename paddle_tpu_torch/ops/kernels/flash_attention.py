@@ -11,10 +11,11 @@ flash_attention.py``:
   at :539), both in ``csrc/flash_attention_split.cu``.
 
 See the sources for what bounds them and how they are laid out. The bf16
-forward is an FA3-style kernel: TMA loads into a ring completing on
-mbarriers, ``wgmma`` for ``Q K^T`` and ``P V`` with ``P`` kept in registers,
-and a producer warpgroup beside two consumer warpgroups (``csrc/sm90.cuh``
-holds the shared building blocks).
+forward and the bf16 split pair are FA3-style kernels: TMA loads into a
+ring completing on mbarriers, ``wgmma`` with ``P`` (and ``dS``) kept in
+registers as the A operand of the second product, and a producer
+warpgroup beside two consumer warpgroups (``csrc/sm90.cuh`` holds the
+shared building blocks).
 :func:`flash_attention_bwd` routes the backward as ``_bwd_impl`` (:472)
 does: the fused kernel while its dq scratch fits in 8 MiB, the split pair
 above (:498-502, without the ``PTPU_FA_FUSED_BWD`` knob). It computes

@@ -31,7 +31,7 @@ from paddle_tpu_torch.ops.kernels.decode_attention import (
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
-    flash_attention_bwd_dq_plain,
+    flash_attention_bwd_dq_plain, flash_attention_bwd_fused,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.rms_norm import (rms_norm_fwd,
                                                    rms_norm_plain)
@@ -384,13 +384,25 @@ def _split_inputs(hq, hkv, d, sq, sk, dtype, causal, device):
     return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
 
 
+#: the bf16 split kernels' tile edges (dq: 128-row q tiles over 64-key
+#: tiles; dk/dv: 128-key tiles over 64-row q tiles walking the rep q
+#: heads): sq and sk straddling 64 and 128, sq < sk, sq > sk (causal rows
+#: that see no key), rep 1, 2, 4 and 8, D 64 and 128, several tiles, and
+#: more (head, tile) items than the card has SMs
+SPLIT_EDGE_SHAPES = [  # (hq, hkv, d, sq, sk)
+    (2, 2, 128, 127, 127), (2, 1, 64, 129, 129), (4, 1, 128, 257, 257),
+    (8, 1, 64, 130, 257), (16, 2, 128, 200, 300), (4, 2, 64, 257, 129),
+    (2, 2, 128, 1000, 1000), (16, 16, 128, 700, 900)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES)
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES + SPLIT_EDGE_SHAPES)
 def test_flash_split_kernels_match_plain(cuda_device, dtype, causal, hq, hkv,
                                          d, sq, sk):
     """The dq and dk/dv kernels against their plain versions: MHA, GQA and
-    MQA, causal and full, ragged sq (200, 130, 100 rows), sq < sk."""
+    MQA, causal and full, ragged sq (200, 130, 100 rows), sq < sk, and the
+    bf16 kernels' tile edges."""
     args = _split_inputs(hq, hkv, d, sq, sk, dtype, causal, cuda_device)
     kernels.reset_launch_counts()
     dq = flash_attention_bwd_dq(*args, causal)
@@ -407,10 +419,13 @@ def test_flash_split_kernels_match_plain(cuda_device, dtype, causal, hq, hkv,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype):
+@pytest.mark.parametrize("hq,hkv,d,sq,sk",
+                         [(8, 2, 128, 300, 300)] + SPLIT_EDGE_SHAPES)
+def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype, hq, hkv, d,
+                                            sq, sk):
     """Each output element is summed by one thread in a fixed order: two
     runs give the same bits (the fused kernel's dq atomics do not)."""
-    args = _split_inputs(8, 2, 128, 300, 300, dtype, True, cuda_device)
+    args = _split_inputs(hq, hkv, d, sq, sk, dtype, True, cuda_device)
     first = (flash_attention_bwd_dq(*args, True),
              *flash_attention_bwd_dkv(*args, True))
     again = (flash_attention_bwd_dq(*args, True),
@@ -418,6 +433,24 @@ def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", [
+    (16, 16, 128, 2048, 2048), (8, 2, 64, 257, 300), (4, 1, 128, 130, 130)])
+def test_flash_split_kernels_match_fused(cuda_device, causal, hq, hkv, d, sq,
+                                         sk):
+    """The bf16 split pair against the bf16 fused kernel on the same
+    inputs: two algorithms with the same roundings of p and ds, held to
+    FLASH_TOL (the fused kernel's dq sums by atomics in another order)."""
+    args = _split_inputs(hq, hkv, d, sq, sk, torch.bfloat16, causal,
+                         cuda_device)
+    split = (flash_attention_bwd_dq(*args, causal),
+             *flash_attention_bwd_dkv(*args, causal))
+    fused = flash_attention_bwd_fused(*args, causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), split, fused):
+        assert _rel_err(a, b) <= FLASH_TOL[torch.bfloat16], name
 
 
 @pytest.mark.parametrize("hq,hkv,sq,route", [

@@ -86,32 +86,50 @@ def _mmha_inputs(seed, b=3, h=2, d=64, max_len=16):
     return x, cache, bias, mask
 
 
+#: a bf16 cache under a src_mask: both sides compute the logits, the
+#: softmax and the output in f32 from the same bf16-rounded values, so only
+#: the summation order differs, as in f32
+BF16_MASK_CASES = {"src_mask_bf16_cache_f32_mask": torch.float32,
+                   "src_mask_bf16_cache_bf16_mask": torch.bfloat16}
+
+
 @pytest.mark.parametrize("case", ["lengths", "no_lengths", "bias",
-                                  "src_mask"])
+                                  "src_mask", *BF16_MASK_CASES])
 def test_masked_multihead_attention_matches_jax(case):
     """Per-row lengths 0, 5 and 15 (the last row fills the cache); without
     lengths every row writes at 0. The cache is written in place at
-    ``cur`` and the row attends to ``cur + 1`` rows."""
+    ``cur`` and the row attends to ``cur + 1`` rows. Under a ``src_mask``
+    the output is f32, also over a bf16 cache with an f32 or a bf16 mask,
+    as the JAX package's is."""
     x, cache, bias, mask = _mmha_inputs(3)
     lens = np.asarray([0, 5, 15], np.int32)
     jkw, tkw = {}, {}
+    jcache_in, tcache = _pt(cache), torch.from_numpy(cache.copy())
+    if case in BF16_MASK_CASES:
+        jcache_in = jcache_in.astype("bfloat16")
+        tcache = tcache.to(torch.bfloat16)
+        cache = tcache.float().numpy()      # the values both sides hold
     if case != "no_lengths":
         jkw["sequence_lengths"] = _pt(lens)
         tkw["sequence_lengths"] = torch.from_numpy(lens)
     if case == "bias":
         jkw["bias"], tkw["bias"] = _pt(bias), torch.from_numpy(bias)
-    if case == "src_mask":
+    if case.startswith("src_mask"):
         jkw["src_mask"], tkw["src_mask"] = _pt(mask), torch.from_numpy(mask)
-    jout, jcache = JF.masked_multihead_attention(_pt(x), cache_kv=_pt(cache),
+        if BF16_MASK_CASES.get(case) == torch.bfloat16:
+            jkw["src_mask"] = jkw["src_mask"].astype("bfloat16")
+            tkw["src_mask"] = tkw["src_mask"].to(torch.bfloat16)
+    jout, jcache = JF.masked_multihead_attention(_pt(x), cache_kv=jcache_in,
                                                  **jkw)
-    tcache = torch.from_numpy(cache.copy())
     out, ret = TF.masked_multihead_attention(torch.from_numpy(x),
                                              cache_kv=tcache, **tkw)
     assert ret is tcache
-    np.testing.assert_array_equal(tcache.numpy(), _np(jcache))
+    assert out.dtype == torch.float32 and _np(jout).dtype == np.float32
+    np.testing.assert_array_equal(tcache.float().numpy(),
+                                  _np(jcache).astype(np.float32))
     np.testing.assert_allclose(out.numpy(), _np(jout), atol=ATOL, rtol=0)
     cur = lens if case != "no_lengths" else np.zeros(3, np.int32)
-    changed = np.any(tcache.numpy() != cache, axis=(0, 2, 4))   # [B, S]
+    changed = np.any(tcache.float().numpy() != cache, axis=(0, 2, 4))
     assert [list(np.flatnonzero(c)) for c in changed] == [[c] for c in cur]
 
 
