@@ -8,9 +8,9 @@ Phases, each of which fails the run on error:
 1. device  - the card's name and power limit; fails without CUDA.
 2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
              source, in parallel), with ptxas's registers and spills per
-             source and per bf16 split-backward kernel (which must not
-             spill); Triton compiles the rms_norm kernel at its first
-             launch.
+             source, per bf16 split-backward kernel and per instantiation
+             of the exact decode kernels (none of which may spill); Triton
+             compiles the rms_norm kernel at its first launch.
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
              version's and one library call's time, and the bound. The
@@ -21,12 +21,15 @@ Phases, each of which fails the run on error:
              the same bits; the flash forward there against its plain
              version (one head at a time) and SDPA; swiglu_down at
              [32768, 5504] x [5504, 2048] against its plain version and the
-             library pair.
+             library pair. Then paged_attention in bf16 at D = 96, rep 16,
+             and decode_attention at the incubate decoder's shape (lengths
+             under 76 in a 2048-row cache).
 4. serving - LLaMA-7B width and depth in bf16, random weights from a
              seeded generator, through ContinuousBatchingEngine's submit /
              step / run_until_complete with chunked prefill. Checks every
              request's token count and that the kernels' launch counts are
-             32 (paged attention) and 65 (rms norm) per decode tick.
+             32 (paged attention) and 65 (rms norm) per decode tick;
+             prints the attention kernel's ms per tick.
    serving_int8 - the same model, requests and engine with int8_kv=True:
              paged_attention_int8 32 times per decode tick and
              paged_attention never, the KV cache at exactly 132/256 of the
@@ -69,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -151,8 +155,25 @@ def ptxas_by_kernel(log, names=("",)):
     return out
 
 
+#: the exact decode kernels by source, each built for f32 and bf16, every
+#: head width of EXACT_HEAD_DIMS and q-row groups of 1, 2, 4 and 8
+DECODE_KERNELS = {"paged_attention.cu": "paged_attention_kernel",
+                  "decode_attention.cu": "decode_attention_kernel"}
+DECODE_ROW_GROUPS = (1, 2, 4, 8)
+
+
+def decode_instance(mangled):
+    """``"bf16 D=128 R=8"`` from a decode kernel's mangled name."""
+    m = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
+    if m is None:
+        return mangled
+    return (f"{'f32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)} "
+            f"R={m.group(3)}")
+
+
 def phase_build():
     from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.decode_attention import EXACT_HEAD_DIMS
 
     secs, logs = kernels.build(force=True, ptxas_info=True)
     print(f"build: nvcc {secs:.2f} s", flush=True)
@@ -171,6 +192,17 @@ def phase_build():
           f"ptxas lines of the split wgmma kernels: {sorted(split)}")
     check(all(spill == 0 for _, spill in split.values()),
           f"a split wgmma kernel spills: {split}")
+    want = 2 * len(EXACT_HEAD_DIMS) * len(DECODE_ROW_GROUPS)
+    for src, kname in DECODE_KERNELS.items():
+        found = {decode_instance(k): v for k, v in
+                 ptxas_by_kernel(logs[src], (kname,)).items()}
+        for inst, (regs, spill) in sorted(found.items()):
+            print(f"build: {kname} {inst}: {regs} registers, {spill} bytes "
+                  f"spilled", flush=True)
+        check(len(found) == want,
+              f"ptxas lines of {kname}: {len(found)} != {want}")
+        check(all(spill == 0 for _, spill in found.values()),
+              f"a {kname} instantiation spills: {found}")
     from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm_fwd
 
     x = torch.randn(8, 4096, device="cuda")
@@ -331,12 +363,13 @@ def _paged_int8_case(b, hq, hkv, d, page, max_len, dtype, gen):
     }
 
 
-def _decode_case(b, h, s, d, dtype, gen):
-    """decode_attention over a dense [b, h, s, d] cache, mixed lengths."""
+def _decode_case(b, h, s, d, dtype, gen, max_len=None):
+    """decode_attention over a dense [b, h, s, d] cache, mixed lengths up
+    to ``max_len`` (default s)."""
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
 
-    lengths = np.linspace(1, s, b).astype(np.int64)
+    lengths = np.linspace(1, max_len or s, b).astype(np.int64)
     lengths[1] = 33                          # one row just past a tile
     lengths = np.sort(lengths)
     q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(dtype)
@@ -767,6 +800,12 @@ def phase_kernels():
     cases["flash_attention_fwd"].append(long_fwd)
     cases["swiglu_down"].append(_swiglu_case(32768, 5504, 2048,
                                              torch.bfloat16, gen))
+    # Phi-3-mini's head width under MQA-like sharing (rep 16), and the
+    # incubate decoder's cache with its live lengths under 76 rows
+    cases["paged_attention"].append(
+        _paged_case(8, 32, 2, 96, 64, 2048, torch.bfloat16, gen))
+    cases["decode_attention"].append(
+        _decode_case(8, 32, 2048, 128, torch.bfloat16, gen, max_len=75))
     for name, rows in cases.items():
         for r in rows:
             plain = ("none" if r["plain_ms"] is None
@@ -824,7 +863,10 @@ def _decode_window(engine, ticks):
             busy += dt
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    attn = {name: sum(v for k, v in by_kernel.items() if sym in k) / 1e3
+            / ticks for name, sym in ATTENTION_SYMBOLS.items()}
     return {"ticks": ticks, "wall_ms_per_tick": plain_wall * 1e3 / ticks,
+            "attention_ms_per_tick": attn,
             "profiled_wall_ms_per_tick": wall * 1e3 / ticks,
             "device_busy_ms_per_tick": busy / 1e3 / ticks,
             "host_share": (1 - busy / 1e6 / plain_wall) if busy > 0 else None,
@@ -833,6 +875,9 @@ def _decode_window(engine, ticks):
 
 
 SERVE_PROMPT_LENS = (128, 1024, 256, 896, 384, 768, 512, 640)
+#: the decode tick's attention kernels as the profiler names them
+ATTENTION_SYMBOLS = {"paged_attention": "paged_attention_kernel",
+                     "paged_attention_int8": "paged_attention_int8_kernel"}
 
 
 def _serve(eng, cfg, new, tag):
@@ -931,7 +976,8 @@ def _serve(eng, cfg, new, tag):
     dw = res["decode_window"]
     print(f"{tag}: decode tick {dw['wall_ms_per_tick']:.2f} ms wall, "
           f"{dw['device_busy_ms_per_tick']:.2f} ms device busy, host share "
-          f"{dw['host_share']}", flush=True)
+          f"{dw['host_share']}; {attn} "
+          f"{dw['attention_ms_per_tick'][attn]:.4f} ms per tick", flush=True)
     for k, v in dw["top_kernels_ms_per_tick"]:
         print(f"{tag}:   {v:8.3f} ms/tick  {k}", flush=True)
     return res, [done[r] for r in rids]
@@ -1658,7 +1704,7 @@ def main():
     src = "paddle_tpu_torch/ops/kernels/"
     pallas = "paddle_tpu/ops/pallas/"
     meta = {
-        "paged_attention": ("cuda", src + "csrc/paged_attention.cu",
+        "paged_attention": ("cuda", src + "csrc/decode_split.cuh",
                             pallas + "decode_attention.py:336"),
         "rms_norm": ("triton", src + "rms_norm.py", pallas + "rms_norm.py:43"),
         "flash_attention_fwd": ("cuda", src + "csrc/flash_attention.cu",
@@ -1669,7 +1715,7 @@ def main():
                         pallas + "swiglu_down.py:86"),
         "paged_attention_int8": ("cuda", src + "csrc/paged_attention_int8.cu",
                                  pallas + "decode_attention.py:267"),
-        "decode_attention": ("cuda", src + "csrc/decode_attention.cu",
+        "decode_attention": ("cuda", src + "csrc/decode_split.cuh",
                              pallas + "decode_attention.py:105"),
         "add_rms_norm": ("triton", src + "add_rms_norm.py",
                          pallas + "add_rms_norm.py:48"),

@@ -8,73 +8,56 @@
 //
 // with q [B, Hq, D], cache [B, Hkv, S, D] and the first lengths[b] rows of
 // sequence b valid. p is rounded to V's type before p.V, as the Pallas
-// kernel does; l == 0 gives 0.
+// kernel does; l == 0 gives 0. The Pallas kernel's block_k = 512 is a TPU
+// tile, not part of the function.
 //
-// Bound: each live KV row is read once, so the live bytes over the card's
-// memory rate bound it. The Pallas kernel's block_k = 512 is a TPU tile, not
-// part of the function: here the tile is 32 positions, one per lane.
-//
-// Design (the body is decode_body.cuh, shared with the paged kernels): one
-// block of D threads per (sequence, kv head) walks one dense segment and
-// stops at the sequence's length, so rows past it are never read. f32 and
-// bf16; D in {64, 128}; rep in 1..8.
-#include "decode_body.cuh"
+// Bound: the live KV rows' bytes over the card's memory rate. The body,
+// its design and what it does about that bound are in decode_split.cuh,
+// shared with paged_attention.cu: a cluster of CTAs splits each sequence's
+// live rows into shares of multiples of 16 rows, each warp streams its rows
+// through a cp.async ring, and the CTAs merge their partial softmaxes
+// through distributed shared memory. f32 and bf16; D in
+// {64, 80, 96, 128, 256}; any rep.
+#include "decode_split.cuh"
+
+// A minimum of one block per SM: without it ptxas spills a few bytes in
+// some instantiations to fit more blocks on an SM.
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(decode_split::kThreads, 1)
+    decode_attention_kernel(const decode_split::Params p) {
+  decode_split::attend<T, D, R, false>(p);
+}
 
 namespace {
 
-using decode::kMaxRep;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(D) decode_attention_kernel(
-    const T* __restrict__ q,          // [B, Hq, D]
-    const T* __restrict__ k_cache,    // [B, Hkv, S, D]
-    const T* __restrict__ v_cache,    // [B, Hkv, S, D]
-    const int* __restrict__ lengths,  // [B]
-    T* __restrict__ out,              // [B, Hq, D]
-    int hkv, int rep, int seq, float scale) {
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t head_off = ((size_t)b * hkv + h) * seq * D;
-  const int len = min(max(lengths[b], 0), seq);
-  decode::attend<T, D, false>(q, out, k_cache + head_off, v_cache + head_off,
-                              nullptr, nullptr, nullptr, 1, seq,
-                              len > 0 ? 1 : 0, len, b, h, hkv * rep, rep,
-                              scale);
-}
-
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* lengths,
-            void* out, int batch, int hkv, int rep, int head_dim, int seq,
-            float scale, cudaStream_t stream) {
-  const dim3 grid(batch, hkv);
-  if (head_dim == 64) {
-    decode_attention_kernel<T, 64><<<grid, 64, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, hkv, rep,
-        seq, scale);
-  } else {
-    decode_attention_kernel<T, 128><<<grid, 128, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, hkv, rep,
-        seq, scale);
+struct Dense {
+  template <typename T, int D, int R>
+  static decode_split::KernelFn get() {
+    return decode_attention_kernel<T, D, R>;
   }
-}
+};
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for shapes the kernel does not take).
+// dtype: 0 = float32, 1 = bfloat16; split: CTAs per cluster (1..8).
+// Returns the launch's CUDA error (cudaErrorInvalidValue for shapes the
+// kernel does not take).
 extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lengths, void* out, int batch, int hkv, int rep,
-    int head_dim, int seq, float scale, int dtype, void* stream) {
-  if (rep < 1 || rep > kMaxRep || (head_dim != 64 && head_dim != 128) ||
-      seq < 1 || batch < 1 || hkv < 1 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    launch<float>(q, k_cache, v_cache, (const int*)lengths, out, batch, hkv,
-                  rep, head_dim, seq, scale, s);
-  else
-    launch<__nv_bfloat16>(q, k_cache, v_cache, (const int*)lengths, out,
-                          batch, hkv, rep, head_dim, seq, scale, s);
-  return (int)cudaGetLastError();
+    int head_dim, int seq, int split, float scale, int dtype, void* stream) {
+  if (seq < 1) return (int)cudaErrorInvalidValue;
+  decode_split::Params p = {};
+  p.q = q;
+  p.k = k_cache;
+  p.v = v_cache;
+  p.lengths = (const int*)lengths;
+  p.out = out;
+  p.hkv = hkv;
+  p.rep = rep;
+  p.split = split;
+  p.seq = seq;
+  p.scale = scale;
+  return decode_split::launch<Dense>(p, batch, head_dim, dtype,
+                                     (cudaStream_t)stream);
 }

@@ -1,8 +1,8 @@
-// decode_body.cuh: the shared body of two one-token decode attention
-// kernels for Hopper (sm_90a): paged_attention_int8.cu (int8 pages,
-// dequantized in the kernel) and decode_attention.cu (a dense cache). It
-// follows the design of paged_attention.cu, which keeps its own copy: that
-// kernel ran slower on the card through this body, so it stays as it was.
+// decode_body.cuh: the body of the int8 one-token decode attention kernel
+// for Hopper (sm_90a), paged_attention_int8.cu (int8 pages, dequantized in
+// the kernel). Only that kernel uses it now: the exact paged and dense
+// kernels moved to the split-sequence body of decode_split.cuh. It keeps
+// the first port's design, described below, and its exact-row branch.
 //
 //   out[b, h*rep + r] = softmax(q[b, h*rep + r] . K_b^T * scale) . V_b
 //

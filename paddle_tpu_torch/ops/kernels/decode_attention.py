@@ -1,29 +1,33 @@
 """One-token decode attention: CUDA kernels and their plain versions.
 
-Three kernels of one design: one thread block per (sequence, kv head)
-walks the sequence's live KV rows with an online softmax in f32, so it
-reads each live row once and is bound by those bytes over the card's
-memory rate (see the sources; the int8 and dense kernels share
-``csrc/decode_body.cuh``).
+Each kernel computes, per (sequence, kv head), an online softmax in f32
+over the sequence's live KV rows, so it reads each live row once and is
+bound by those bytes over the card's memory rate (see the sources).
 
 - ``paged_attention`` (``csrc/paged_attention.cu``) replaces the Pallas
   kernel ``_paged_kernel`` (``paddle_tpu/ops/pallas/decode_attention.py:139``,
   ``pallas_call`` at ``:336``): exact pages, p rounded to V's type.
-- ``paged_attention_int8`` (``csrc/paged_attention_int8.cu``) replaces
-  ``_paged_int8_kernel`` (``:180``, ``pallas_call`` at ``:267``): int8 codes
-  and one f32 scale per row, dequantized in f32 inside the kernel; q is
-  cast to f32 and p stays f32.
 - ``decode_attention`` (``csrc/decode_attention.cu``) replaces
   ``_decode_kernel`` (``:42``, ``pallas_call`` at ``:105``): a dense cache,
   p rounded to V's type.
+- ``paged_attention_int8`` (``csrc/paged_attention_int8.cu``, body
+  ``csrc/decode_body.cuh``) replaces ``_paged_int8_kernel`` (``:180``,
+  ``pallas_call`` at ``:267``): int8 codes and one f32 scale per row,
+  dequantized in f32 inside the kernel; q is cast to f32 and p stays f32.
+
+The two exact kernels share ``csrc/decode_split.cuh``: a cluster of
+``split_count(rows the call allows)`` CTAs splits each sequence's live
+rows, and the CTAs merge their partial softmaxes in a fixed order, so a
+call is one launch and repeats bit for bit.
 
 Layouts (those of the JAX package):
   q [B, Hq, D]; pages [Hkv, NumPages, PageSize, D] (int8 scales
   [Hkv, NumPages, PageSize, 1] f32); block_tables [B, PagesPerSeq] int32;
   dense cache [B, Hkv, S, D]; lengths [B] int32 (valid kv rows, counting
   the current token's freshly written row).
-q head ``h * rep + r`` reads kv head ``h`` (``rep = Hq // Hkv``). Each
-kernel takes D in {64, 128} and rep in 1..8 and raises on other shapes.
+q head ``h * rep + r`` reads kv head ``h`` (``rep = Hq // Hkv``). The exact
+kernels take D in ``EXACT_HEAD_DIMS`` and any rep; the int8 kernel takes D
+in {64, 128} and rep in 1..8. Each raises on other shapes.
 """
 from __future__ import annotations
 
@@ -37,8 +41,23 @@ from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: C launcher -> (pointer arguments, int arguments) before (scale, dtype,
 #: stream)
-_SIGNATURES = {"paged_attention": (6, 7), "paged_attention_int8": (8, 7),
-               "decode_attention": (5, 5)}
+_SIGNATURES = {"paged_attention": (6, 8), "paged_attention_int8": (8, 7),
+               "decode_attention": (5, 6)}
+#: head widths of the exact kernels: GPT-2 and Falcon-7B 64, Phi-2 80,
+#: Phi-3-mini and GPT-NeoX-20B 96, LLaMA 128, Gemma and GPT-J 256
+EXACT_HEAD_DIMS = (64, 80, 96, 128, 256)
+#: the exact kernels' split: one CTA of a sequence's cluster per
+#: SPLIT_ROWS rows the call allows, at most SPLIT_MAX (the portable cluster)
+SPLIT_ROWS, SPLIT_MAX = 256, 8
+
+
+def split_count(max_rows):
+    """CTAs per (sequence, kv head, q-row group) for a call whose longest
+    sequence may hold ``max_rows`` rows (``PagesPerSeq * PageSize``, or S).
+    Each CTA takes a 1/n share of its sequence's live rows: whole pages on
+    the paged route, multiples of 16 rows on the dense one. Chosen from
+    shapes only: reading ``lengths`` would wait for the card."""
+    return max(1, min(SPLIT_MAX, -(-max_rows // SPLIT_ROWS)))
 
 
 def _launcher(name):
@@ -117,25 +136,34 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None):
                          _scale(scale, q.shape[-1]), v_cache.dtype)
 
 
-def _check_common(name, q, hkv, d_kv, lengths, tensors):
+def _check_common(name, q, hkv, d_kv, lengths, tensors, head_dims,
+                  max_rep=None):
     """What every decode kernel takes: q f32/bf16 [B, Hq, D], D in
-    {64, 128} matching the cache, rep = Hq/Hkv in 1..8, lengths [B] int32,
-    every operand contiguous."""
+    ``head_dims`` matching the cache, rep = Hq/Hkv an integer >= 1 (at most
+    ``max_rep``), lengths [B] int32, every operand contiguous."""
     b, hq, d = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16 q, got {q.dtype}")
-    if d not in (64, 128) or d_kv != d:
-        raise ValueError(f"{name}: head_dim must be 64 or 128 and match the "
-                         f"cache, got q {tuple(q.shape)} and cache head_dim "
-                         f"{d_kv}")
-    if hq % hkv or not 1 <= hq // hkv <= 8:
-        raise ValueError(f"{name}: Hq/Hkv must be an integer in 1..8, got "
+    if d not in head_dims or d_kv != d:
+        raise ValueError(f"{name}: head_dim must be one of {head_dims} and "
+                         f"match the cache, got q {tuple(q.shape)} and cache "
+                         f"head_dim {d_kv}")
+    if hq % hkv or hq < hkv or (max_rep is not None and hq // hkv > max_rep):
+        limit = "" if max_rep is None else f" in 1..{max_rep}"
+        raise ValueError(f"{name}: Hq/Hkv must be an integer{limit}, got "
                          f"{hq}/{hkv}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"{name}: lengths must be int32 [B]")
     for arg, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _check_aligned(name, tensors):
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the "
+                             "kernel reads it in 16-byte loads)")
 
 
 def _check_tables(name, block_tables, b):
@@ -162,13 +190,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                          "shape")
     _check_common("paged_attention", q, hkv, dk, lengths,
                   {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-                   "block_tables": block_tables})
+                   "block_tables": block_tables}, EXACT_HEAD_DIMS)
     _check_tables("paged_attention", block_tables, b)
+    _check_aligned("paged_attention", {"k_pages": k_pages,
+                                       "v_pages": v_pages})
+    pps = block_tables.shape[1]
     out = torch.empty_like(q)
     rc = _launcher("paged_attention")(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(block_tables), ptr(lengths),
-        ptr(out), b, hkv, hq // hkv, d, num_pages, page,
-        block_tables.shape[1], float(_scale(scale, d)), _DTYPES[q.dtype],
+        ptr(out), b, hkv, hq // hkv, d, num_pages, page, pps,
+        split_count(pps * page), float(_scale(scale, d)), _DTYPES[q.dtype],
         stream_handle(q))
     check_launch(rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1
@@ -197,11 +228,10 @@ def paged_attention_int8(q, k_codes, k_scales, v_codes, v_scales,
     _check_common("paged_attention_int8", q, hkv, dk, lengths,
                   {"q": q, "k_codes": k_codes, "k_scales": k_scales,
                    "v_codes": v_codes, "v_scales": v_scales,
-                   "block_tables": block_tables})
+                   "block_tables": block_tables}, (64, 128), max_rep=8)
     _check_tables("paged_attention_int8", block_tables, b)
-    if k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16:
-        raise ValueError("paged_attention_int8: codes must be 16-byte "
-                         "aligned (the kernel reads them in 16-byte loads)")
+    _check_aligned("paged_attention_int8", {"k_codes": k_codes,
+                                            "v_codes": v_codes})
     out = torch.empty_like(q)
     rc = _launcher("paged_attention_int8")(
         ptr(q), ptr(k_codes), ptr(k_scales), ptr(v_codes), ptr(v_scales),
@@ -229,12 +259,15 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None):
                          f"with q's B, got {tuple(k_cache.shape)} and "
                          f"{tuple(v_cache.shape)} for q {tuple(q.shape)}")
     _check_common("decode_attention", q, hkv, dk, lengths,
-                  {"q": q, "k_cache": k_cache, "v_cache": v_cache})
+                  {"q": q, "k_cache": k_cache, "v_cache": v_cache},
+                  EXACT_HEAD_DIMS)
+    _check_aligned("decode_attention", {"k_cache": k_cache,
+                                        "v_cache": v_cache})
     out = torch.empty_like(q)
     rc = _launcher("decode_attention")(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out), b, hkv,
-        hq // hkv, d, seq, float(_scale(scale, d)), _DTYPES[q.dtype],
-        stream_handle(q))
+        hq // hkv, d, seq, split_count(seq), float(_scale(scale, d)),
+        _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out

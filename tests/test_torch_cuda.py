@@ -26,8 +26,9 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels.add_rms_norm import (add_rms_norm_fwd,
                                                        add_rms_norm_plain)
 from paddle_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, paged_attention,
-    paged_attention_int8, paged_attention_int8_plain, paged_attention_plain)
+    EXACT_HEAD_DIMS, decode_attention, decode_attention_plain,
+    paged_attention, paged_attention_int8, paged_attention_int8_plain,
+    paged_attention_plain, split_count)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
@@ -68,31 +69,76 @@ def _paged_inputs(b, hq, hkv, d, page, pps, lengths, dtype, device):
                torch.tensor(lengths, dtype=torch.int32, device=device)])
 
 
+#: (hq, hkv, d, page): the first port's cases, then every head width the
+#: exact kernels take at rep 1, 4, 8 and 16 over pages of 7, 16 and 64
+PAGED_SHAPES = ([(16, 16, 128, 64), (16, 2, 64, 16), (8, 8, 128, 7)]
+                + [(2 * rep, 2, d, page) for d in EXACT_HEAD_DIMS
+                   for rep in (1, 4, 8, 16) for page in (7, 16, 64)])
+
+
+def _split_edges(rows, align):
+    """Lengths that split evenly into the kernel's shares (``align`` rows:
+    a page, or the dense route's 16) and one row past that, for a call
+    that allows ``rows`` rows."""
+    n = split_count(rows)
+    exact = n * align * max(1, rows // (align * n * 2))
+    return [exact + 1, exact]
+
+
+def _exact_kernel_checks(fn, args, atol, want):
+    """One launch per call, within ``atol`` of the plain version, and the
+    same bits on a second call. Returns the output."""
+    kernels.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[fn.__name__] == 1
+    assert got.dtype == args[0].dtype
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert torch.equal(fn(*args), got)
+    return got
+
+
 #: f32: summation order only; bf16: p is rounded against the running max
 #: in the kernel and against the global max in the plain version
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hq,hkv,d,page", [(16, 16, 128, 64),
-                                           (16, 2, 64, 16),
-                                           (8, 8, 128, 7)])
+@pytest.mark.parametrize("hq,hkv,d,page", PAGED_SHAPES)
 def test_paged_attention_kernel_matches_plain(cuda_device, dtype, atol, hq,
                                               hkv, d, page):
-    args = _paged_inputs(4, hq, hkv, d, page, 6, [1, page + 1, 3 * page,
-                                                   6 * page], dtype,
+    """A table of 2048 rows (a full cluster of 8 CTAs) under lengths 0, 1,
+    one row past a page, one row past an even split, an even split and
+    the whole table: the short ones leave most ranks without rows."""
+    pps = -(-2048 // page)
+    lengths = [0, 1, page + 1, *_split_edges(pps * page, page), pps * page]
+    args = _paged_inputs(len(lengths), hq, hkv, d, page, pps, lengths, dtype,
                          cuda_device)
-    got = paged_attention(*args)
-    want = paged_attention_plain(*args)
-    torch.cuda.synchronize()
-    assert (got.float() - want.float()).abs().max().item() <= atol
+    got = _exact_kernel_checks(paged_attention, args, atol,
+                               paged_attention_plain(*args))
+    assert torch.all(got[0] == 0)
+    # rows past each length are never read: NaN over the rest of each
+    # sequence's last page and over every page no sequence owns
+    q, kp, vp, tables, lens = args
+    owned = torch.zeros(kp.shape[1], dtype=torch.bool, device=cuda_device)
+    for i, n in enumerate(lengths):
+        own = tables[i, :-(-n // page)].long()
+        owned[own] = True
+        pos = torch.arange(n, -(-n // page) * page, device=cuda_device)
+        for t in (kp, vp):
+            t[:, tables[i].long()[pos // page], pos % page] = float("nan")
+    for t in (kp, vp):
+        t[:, ~owned] = float("nan")
+    assert torch.equal(paged_attention(*args), got)
 
 
 def test_paged_attention_rejects_what_it_does_not_take(cuda_device):
     args = _paged_inputs(1, 4, 4, 64, 16, 1, [3], torch.float16, cuda_device)
     with pytest.raises(TypeError):
         paged_attention(*args)
-    args = _paged_inputs(1, 4, 4, 32, 16, 1, [3], torch.float32, cuda_device)
-    with pytest.raises(ValueError):
-        paged_attention(*args)
+    for d in (32, 72, 320):
+        args = _paged_inputs(1, 4, 4, d, 16, 1, [3], torch.float32,
+                             cuda_device)
+        with pytest.raises(ValueError):
+            paged_attention(*args)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -138,28 +184,37 @@ def test_paged_attention_int8_kernel_matches_plain(cuda_device, dtype, atol,
     assert torch.equal(paged_attention_int8(*args), got)
 
 
+#: (hq, hkv, d): the first port's cases, then every head width the exact
+#: kernels take at rep 1, 4, 8 and 16
+DENSE_SHAPES = ([(16, 16, 128), (8, 2, 64)]
+                + [(2 * rep, 2, d) for d in EXACT_HEAD_DIMS
+                   for rep in (1, 4, 8, 16)])
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hq,hkv,d", [(16, 16, 128), (8, 2, 64)])
+@pytest.mark.parametrize("hq,hkv,d", DENSE_SHAPES)
 def test_decode_attention_kernel_matches_plain(cuda_device, dtype, atol, hq,
                                                hkv, d):
+    """A cache of 2000 rows (8 CTAs a sequence, the last share short)
+    under lengths 0, 1, 33, one row past an even split, an even split and
+    the whole cache."""
     g = torch.Generator().manual_seed(hq + d)
-    b, s = 4, 300
+    s = 2000
+    lengths = [0, 1, 33, *_split_edges(s, 16), s]
+    b = len(lengths)
     q = torch.randn(b, hq, d, generator=g).to(cuda_device, dtype)
     kc = torch.randn(b, hkv, s, d, generator=g).to(cuda_device, dtype)
     vc = torch.randn(b, hkv, s, d, generator=g).to(cuda_device, dtype)
-    lens = torch.tensor([0, 1, 33, s], dtype=torch.int32, device=cuda_device)
-    kernels.reset_launch_counts()
-    got = decode_attention(q, kc, vc, lens)
-    want = decode_attention_plain(q, kc, vc, lens)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts()["decode_attention"] == 1
-    assert (got.float() - want.float()).abs().max().item() <= atol
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    args = (q, kc, vc, lens)
+    got = _exact_kernel_checks(decode_attention, args, atol,
+                               decode_attention_plain(*args))
     assert torch.all(got[0] == 0)
-    for i, n in enumerate(lens.tolist()):       # never read past the length
+    for i, n in enumerate(lengths):             # never read past the length
         kc[i, :, n:] = float("nan")
         vc[i, :, n:] = float("nan")
-    assert torch.equal(decode_attention(q, kc, vc, lens), got)
+    assert torch.equal(decode_attention(*args), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -204,12 +259,18 @@ def test_decode_kernels_reject_what_they_do_not_take(cuda_device):
                          torch.ones(16, device=cuda_device).half())
 
 
-@pytest.mark.parametrize("int8_kv", [False, True], ids=["exact", "int8"])
-def test_engine_on_card_matches_cpu_and_counts_launches(cuda_device,
-                                                        int8_kv):
-    # head_dim 64: the paged attention kernels take 64 and 128
-    cfg = LlamaConfig(vocab_size=96, hidden_size=256, num_layers=2,
-                      num_heads=4, num_kv_heads=2, max_seq_len=128)
+#: head_dim 64 under GQA 4/2, exact and int8 KV; Phi-3-mini's head_dim 96
+#: under MQA (16 q heads over one kv head), which only the exact kernel
+#: takes
+@pytest.mark.parametrize("int8_kv,hidden,heads,kv_heads",
+                         [(False, 256, 4, 2), (True, 256, 4, 2),
+                          (False, 1536, 16, 1)],
+                         ids=["exact", "int8", "exact-d96-rep16"])
+def test_engine_on_card_matches_cpu_and_counts_launches(
+        cuda_device, int8_kv, hidden, heads, kv_heads):
+    cfg = LlamaConfig(vocab_size=96, hidden_size=hidden, num_layers=2,
+                      num_heads=heads, num_kv_heads=kv_heads,
+                      max_seq_len=128)
     cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
         torch.Generator().manual_seed(0), std=0.2)
     gpu = LlamaForCausalLM(cfg, device=cuda_device)
@@ -238,7 +299,8 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda_device,
             eng.decode_ticks + eng.prefill_chunk_steps + eng.prefill_batches)
 
 
-def test_incubate_ops_on_card_match_cpu(cuda_device):
+@pytest.mark.parametrize("d", [64, 80])
+def test_incubate_ops_on_card_match_cpu(cuda_device, d):
     g = torch.Generator().manual_seed(3)
     x, r = torch.randn(2, 6, 128, generator=g), torch.randn(2, 6, 128,
                                                              generator=g)
@@ -252,8 +314,8 @@ def test_incubate_ops_on_card_match_cpu(cuda_device):
     assert torch.equal(y.cpu(), cy)
     torch.testing.assert_close(plain.cpu(), TF.fused_rms_norm(x, w),
                                atol=1e-5, rtol=1e-5)
-    qkv = torch.randn(3, 3 * 4 * 64, generator=g)
-    cache = torch.randn(2, 3, 4, 40, 64, generator=g)
+    qkv = torch.randn(3, 3 * 4 * d, generator=g)
+    cache = torch.randn(2, 3, 4, 40, d, generator=g)
     lens = torch.tensor([0, 7, 39], dtype=torch.int32)
     gcache = cache.to(cuda_device)
     gout, _ = TF.masked_multihead_attention(

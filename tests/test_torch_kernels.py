@@ -72,6 +72,29 @@ def test_paged_attention_plain_matches_pallas(hq, hkv, lengths):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL_F32, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL_F32),
+                                        ("bfloat16", 2 ** -6)])
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_paged_attention_plain_matches_pallas_wide_heads_rep_16(dtype, atol,
+                                                                d):
+    """Head widths of Phi-2 (80), Phi-3-mini (96) and Gemma (256) under
+    16 q heads per kv head, which the card's kernel takes too. bf16: p is
+    rounded against a running max per page in Pallas, the global max
+    here."""
+    b, hq, hkv, page, pps = 3, 16, 1, 16, 3
+    q, kp, vp, tables, lens = _paged_inputs(b, hq, hkv, d, page, pps,
+                                            [0, 17, 48], seed=d)
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jax_paged_attention(
+        *(jnp.asarray(a, jt) for a in (q, kp, vp)), jnp.asarray(tables),
+        jnp.asarray(lens), interpret=True).astype(jnp.float32))
+    got = paged_attention(*(torch.from_numpy(a).to(tt) for a in (q, kp, vp)),
+                          *(torch.from_numpy(a) for a in (tables, lens)))
+    assert got.dtype == tt
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
+    assert np.all(got[0].float().numpy() == 0.0)
+
+
 def test_paged_attention_gqa_head_order():
     """q head h*rep + r reads kv head h: zero every kv head but one and
     only its rep q heads see non-zero values."""
@@ -230,6 +253,30 @@ def test_decode_attention_plain_matches_pallas(dtype, atol, hq, hkv):
     tt = getattr(torch, dtype)
     got = decode_attention(*(torch.from_numpy(a).to(tt) for a in (q, kc, vc)),
                            torch.from_numpy(lens))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
+    assert np.all(got[0].float().numpy() == 0.0)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL_F32),
+                                        ("bfloat16", 2 ** -6)])
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_decode_attention_plain_matches_pallas_wide_heads_rep_16(dtype, atol,
+                                                                 d):
+    """The dense cache at the head widths of Phi-2, Phi-3-mini and Gemma
+    under 16 q heads per kv head, lengths from 0 to S."""
+    rng = np.random.default_rng(d)
+    b, hq, hkv, s = 3, 16, 1, 48
+    q = rng.standard_normal((b, hq, d), np.float32)
+    kc = rng.standard_normal((b, hkv, s, d), np.float32)
+    vc = rng.standard_normal((b, hkv, s, d), np.float32)
+    lens = np.asarray([0, 17, 48], np.int32)
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jax_decode_attention(
+        *(jnp.asarray(a, jt) for a in (q, kc, vc)), jnp.asarray(lens),
+        block_k=16, interpret=True).astype(jnp.float32))
+    got = decode_attention(*(torch.from_numpy(a).to(tt) for a in (q, kc, vc)),
+                           torch.from_numpy(lens))
+    assert got.dtype == tt
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
     assert np.all(got[0].float().numpy() == 0.0)
 
