@@ -8,12 +8,16 @@ Phases, each of which fails the run on error:
 1. device  - the card's name and power limit; fails without CUDA.
 2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
              source, in parallel), with ptxas's registers and spills per
-             source, per bf16 split-backward kernel and per instantiation
-             of the exact decode kernels (none of which may spill); Triton
-             compiles the rms_norm kernel at its first launch.
+             source, per bf16 fused and split flash-backward kernel and per
+             instantiation of the rms_norm kernel and of the exact decode
+             kernels (none of which may spill); Triton compiles the
+             add_rms_norm kernel at its first launch.
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
-             version's and one library call's time, and the bound. The
+             version's and one library call's time, and the bound; for the
+             two norms and their F.rms_norm yardsticks also the time of the
+             same calls replayed from a CUDA graph (the card's time without
+             the host's launch cost). The
              flash forward runs twice at [3, 2048, 16/16, 128] for the same
              bits. At the long-context shapes in bf16: the split flash
              backward at [1, 32768, 16/16, 128] against its plain versions
@@ -111,6 +115,34 @@ def time_ms(fn, reps=15, inner=5):
     return statistics.median(samples)
 
 
+def graph_ms(fn, reps=15, inner=5):
+    """Like :func:`time_ms`, but the ``inner`` calls are captured once in a
+    CUDA graph and the graph is replayed: the card's time per call without
+    the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    del graph
+    return statistics.median(samples)
+
+
 def bound_ms(nbytes, ops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -132,8 +164,15 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
-#: the bf16 split backward's kernels, each built for D = 64 and 128
-SPLIT_WGMMA_KERNELS = ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+#: kernels whose every instantiation phase 2 prints and holds to no spill,
+#: by source: (name fragments, instantiations). The bf16 flash backward's
+#: TMA/wgmma kernels (fused; split dq and dk/dv) are built for D = 64 and
+#: 128; rms_norm_kernel for x f32 (1, 2, 4 or 8 chunks a thread) and bf16
+#: (1, 2 or 4), each with an f32 and a bf16 weight.
+SPILL_CHECKED = {"flash_attention.cu": (("flash_bwd_wgmma",), 2),
+                 "flash_attention_split.cu": (("flash_bwd_dq_wgmma",
+                                               "flash_bwd_dkv_wgmma"), 4),
+                 "rms_norm.cu": (("rms_norm_kernel",), 14)}
 
 
 def ptxas_by_kernel(log, names=("",)):
@@ -183,15 +222,15 @@ def phase_build():
               f"{sum(spill > 0 for _, spill in found)} with spills; "
               f"{'; '.join(f'{regs} registers' for regs, _ in found)}",
               flush=True)
-    split = ptxas_by_kernel(logs["flash_attention_split.cu"],
-                            SPLIT_WGMMA_KERNELS)
-    for name, (regs, spill) in sorted(split.items()):
-        print(f"build: {name}: {regs} registers, {spill} bytes spilled",
-              flush=True)
-    check(len(split) == 2 * len(SPLIT_WGMMA_KERNELS),
-          f"ptxas lines of the split wgmma kernels: {sorted(split)}")
-    check(all(spill == 0 for _, spill in split.values()),
-          f"a split wgmma kernel spills: {split}")
+    for src, (names, want) in SPILL_CHECKED.items():
+        found = ptxas_by_kernel(logs[src], names)
+        for name, (regs, spill) in sorted(found.items()):
+            print(f"build: {name}: {regs} registers, {spill} bytes spilled",
+                  flush=True)
+        check(len(found) == want,
+              f"ptxas lines of {names} in {src}: {len(found)} != {want}")
+        check(all(spill == 0 for _, spill in found.values()),
+              f"a kernel of {src} spills: {found}")
     want = 2 * len(EXACT_HEAD_DIMS) * len(DECODE_ROW_GROUPS)
     for src, kname in DECODE_KERNELS.items():
         found = {decode_instance(k): v for k, v in
@@ -203,14 +242,15 @@ def phase_build():
               f"ptxas lines of {kname}: {len(found)} != {want}")
         check(all(spill == 0 for _, spill in found.values()),
               f"a {kname} instantiation spills: {found}")
-    from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm_fwd
+    from paddle_tpu_torch.ops.kernels.add_rms_norm import add_rms_norm_fwd
 
     x = torch.randn(8, 4096, device="cuda")
     t0 = time.perf_counter()
-    rms_norm_fwd(x, torch.ones(4096, device="cuda"))
+    add_rms_norm_fwd(x, x, torch.ones(4096, device="cuda"))
     torch.cuda.synchronize()
     tsecs = time.perf_counter() - t0
-    print(f"build: triton rms_norm first launch {tsecs:.2f} s", flush=True)
+    print(f"build: triton add_rms_norm first launch {tsecs:.2f} s",
+          flush=True)
     return {"nvcc_s": secs, "triton_first_launch_s": tsecs,
             "ptxas": logs}
 
@@ -432,6 +472,9 @@ def _add_rms_case(n, h, dtype, gen):
         "plain_ms": time_ms(lambda: add_rms_norm_plain(x, r, w)),
         # the unfused pair: x + r, then F.rms_norm
         "library_ms": time_ms(lambda: F.rms_norm(x + r, (h,), w, 1e-6)),
+        "device_ms": graph_ms(lambda: add_rms_norm_fwd(x, r, w)),
+        "library_device_ms": graph_ms(
+            lambda: F.rms_norm(x + r, (h,), w, 1e-6)),
         "bound_ms": bms, "bound_by": by,
     }
 
@@ -459,6 +502,8 @@ def _rms_case(n, h, dtype, gen):
         "ms": time_ms(lambda: rms_norm_fwd(x, w)),
         "plain_ms": time_ms(lambda: rms_norm_plain(x, w)),
         "library_ms": time_ms(lambda: F.rms_norm(x, (h,), w, 1e-6)),
+        "device_ms": graph_ms(lambda: rms_norm_fwd(x, w)),
+        "library_device_ms": graph_ms(lambda: F.rms_norm(x, (h,), w, 1e-6)),
         "bound_ms": bms, "bound_by": by,
     }
 
@@ -538,10 +583,13 @@ def _split_rows(args, b, hq, hkv, s, d, library_ms, reps, plain_reps):
 
 def _flash_cases(b, hq, hkv, s, d, dtype, gen):
     """The forward, the fused backward and the split backward's two
-    kernels at [b, s, hq/hkv, d], causal."""
+    kernels at [b, s, hq/hkv, d], causal. The fused backward's ``ms`` is
+    its wrapper's (delta given, as for the split pair); ``with_delta_ms``
+    is flash_attention_bwd's, which computes delta first."""
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_fwd_plain)
+        flash_attention_bwd, flash_attention_bwd_fused,
+        flash_attention_bwd_fused_plain, flash_attention_bwd_plain,
+        flash_attention_fwd, flash_attention_fwd_plain)
 
     q = torch.randn(b * hq, s, d, generator=gen, device=DEVICE).to(dtype)
     k = torch.randn(b * hkv, s, d, generator=gen, device=DEVICE).to(dtype)
@@ -585,7 +633,8 @@ def _flash_cases(b, hq, hkv, s, d, dtype, gen):
     io_q, io_kv = b * hq * s * d * item, b * hkv * s * d * item
     fbms, fby = bound_ms(2 * io_q + 2 * io_kv + b * hq * s * 4,
                          4 * d * pairs, dtype)
-    bbms, bby = bound_ms(4 * io_q + 4 * io_kv + b * hq * s * 4,
+    # fused backward: q, do, k, v, lse, delta read, dq, dk, dv written
+    bbms, bby = bound_ms(3 * io_q + 4 * io_kv + 2 * b * hq * s * 4,
                          10 * d * pairs, dtype)
     fwd = {"shape": shape, "dtype": name, "max_abs_err": err,
            "max_rel_err": rel, "lse_max_abs_err": lse_err,
@@ -596,16 +645,18 @@ def _flash_cases(b, hq, hkv, s, d, dtype, gen):
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                q4, k4, v4, is_causal=True, enable_gqa=gqa)),
            "bound_ms": fbms, "bound_by": fby}
+    delta = (do.float() * ro.float()).sum(-1)
     bwd = {"shape": shape, "dtype": name, "max_abs_err": berr,
            "max_rel_err": brel,
-           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, ro, rlse, do,
-                                                     True)),
-           "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
-               q, k, v, ro, rlse, do, True), reps=5, inner=2),
+           "ms": time_ms(lambda: flash_attention_bwd_fused(
+               q, k, v, do, rlse, delta, True)),
+           "with_delta_ms": time_ms(lambda: flash_attention_bwd(
+               q, k, v, ro, rlse, do, True)),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_fused_plain(
+               q, k, v, do, rlse, delta, True), reps=5, inner=2),
            "library_ms": time_ms(lambda: torch.autograd.grad(
                lib_out, (ql, kl, vl), do4, retain_graph=True)),
            "bound_ms": bbms, "bound_by": bby}
-    delta = (do.float() * ro.float()).sum(-1)
     split, _ = _split_rows((q, k, v, do, rlse, delta), b, hq, hkv, s, d,
                            bwd["library_ms"], reps=15, plain_reps=3)
     return fwd, bwd, split
@@ -656,7 +707,7 @@ def _flash_long_cases(gen):
     check(bitwise, "the split backward is not the same bits on a second run")
     pairs = b * hq * s * (s + 1) // 2
     item = q.element_size()
-    fbms, fby = bound_ms(4 * b * hq * s * d * item + 4 * b * hkv * s * d
+    fbms, fby = bound_ms(3 * b * hq * s * d * item + 4 * b * hkv * s * d
                          * item + 2 * b * hq * s * 4, 10 * d * pairs, dtype)
     fused_row = {"shape": rows[0]["shape"], "dtype": "bfloat16",
                  "max_abs_err": err, "max_rel_err": rel,
@@ -810,10 +861,16 @@ def phase_kernels():
         for r in rows:
             plain = ("none" if r["plain_ms"] is None
                      else f"{r['plain_ms']:.4f}")
+            graphed = (f"; from a CUDA graph {r['device_ms']:.4f} ms, "
+                       f"library {r['library_device_ms']:.4f}"
+                       if "device_ms" in r else "")
+            if "with_delta_ms" in r:
+                graphed += (f"; with delta {r['with_delta_ms']:.4f}")
             print(f"kernel {name} {r['dtype']} {r['shape']}: "
                   f"{r['ms']:.4f} ms (plain {plain}, library "
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}) max_abs_err {r['max_abs_err']:.3g}"
+                  f"{r['bound_by']}{graphed}) max_abs_err "
+                  f"{r['max_abs_err']:.3g}"
                   + (f" against {r['against']}" if "against" in r else ""),
                   flush=True)
     print(f"kernel flash fwd at {cases['flash_attention_fwd'][0]['shape']}:"
@@ -1264,14 +1321,14 @@ def phase_incubate_consistency(model, prompts, want):
 
 # ---------------------------------------------------------------- phase 6
 #: the port's kernels as the profiler names them (the bf16 TMA/wgmma
-#: forward, split backward and swiglu_down, the first port's bodies for the
-#: rest and f32)
+#: forward, fused and split backward and swiglu_down, the first port's
+#: bodies for f32, the rms_norm row kernel)
 PORT_KERNEL_SYMBOLS = ("flash_fwd_wgmma", "flash_fwd_kernel",
-                       "flash_bwd_kernel", "flash_bwd_dq_wgmma",
-                       "flash_bwd_dkv_wgmma", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "swiglu_down_wgmma",
-                       "swiglu_down_kernel", "_rms_fwd",
-                       "paged_attention_kernel")
+                       "flash_bwd_wgmma", "flash_bwd_kernel",
+                       "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                       "swiglu_down_wgmma", "swiglu_down_kernel",
+                       "rms_norm_kernel", "paged_attention_kernel")
 
 
 def _profile_step(step, batch, wall_ms):
@@ -1706,7 +1763,8 @@ def main():
     meta = {
         "paged_attention": ("cuda", src + "csrc/decode_split.cuh",
                             pallas + "decode_attention.py:336"),
-        "rms_norm": ("triton", src + "rms_norm.py", pallas + "rms_norm.py:43"),
+        "rms_norm": ("cuda", src + "csrc/rms_norm.cu",
+                     pallas + "rms_norm.py:43"),
         "flash_attention_fwd": ("cuda", src + "csrc/flash_attention.cu",
                                 pallas + "flash_attention.py:248"),
         "flash_attention_bwd": ("cuda", src + "csrc/flash_attention.cu",

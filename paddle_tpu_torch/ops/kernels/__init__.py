@@ -14,8 +14,9 @@ use, one ``nvcc`` per source, all started together (a source is rebuilt
 when it or a shared ``csrc/*.cuh`` header is newer than its library).
 Each library exposes a
 plain C launcher loaded with ``ctypes``; pointers and the stream travel as
-``c_void_p`` and the launcher returns ``cudaGetLastError()``, which the
-wrapper checks. Triton kernels are compiled by Triton at their first launch.
+``c_void_p`` (declared in the launcher's ``argtypes``) and the launcher
+returns ``cudaGetLastError()``, which the wrapper checks. Triton kernels
+are compiled by Triton at their first launch.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches the
 kernel and nowhere else, so a run can show that its main path went through
@@ -136,9 +137,13 @@ def check_launch(rc: int, name: str) -> None:
                            f"{rc}")
 
 
-def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+# Both return plain ints: every launcher declares its pointer and stream
+# arguments as c_void_p, so ctypes passes them at full width, and a call
+# builds no ctypes or torch.cuda.Stream objects.
+def stream_handle(t: torch.Tensor) -> int:
+    """The cudaStream_t of PyTorch's current stream on t's device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()

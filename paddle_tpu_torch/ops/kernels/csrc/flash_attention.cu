@@ -43,19 +43,45 @@
 // - No atomics and a fixed order: runs repeat bit for bit.
 // Forward, f32: the first port's body (one block of 4 warps per 64-row q
 // tile, mma.sync-shaped fragments as FMAs), kept for the f32 checks.
-// Backward (both types):
-// - One block per (b * Hkv, 64-row k tile). dK and dV of the
-//   tile accumulate in f32 registers while the block walks the rep q heads
-//   of its kv head and their q tiles at or below the diagonal (`_clamp_qi`
-//   :227). Per q tile it forms S and P = exp(S*scale - lse), dP = dO V^T
-//   and dS = P (dP - delta) in registers, stages P (rounded to do's type,
-//   :415) and dS (rounded to q's type, :422) in shared memory, and adds
-//   P^T dO to dV and dS^T Q to dK. On the TPU dq accumulated across k tiles
-//   in VMEM scratch, which its sequential grid allows; here blocks run in
-//   no order, so scale * dS K goes by f32 atomicAdd into a zeroed
-//   [B*Hq, Sq, D] f32 workspace that the caller casts to q's type. The
-//   order of those sums changes from run to run.
-// - bf16 runs mma.sync m16n8k16; f32 the same fragments with plain FMAs.
+// Backward, bf16 (`flash_bwd_wgmma`): the split dk/dv kernel of
+// csrc/flash_attention_split.cu with dq added, on sm90.cuh.
+// - One block per (b * Hkv, 128-key tile), the lowest keys (the longest
+//   causal walks) first. Warpgroup 0 is the producer (24 registers): K and
+//   V are loaded once by TMA; Q and dO stream in 64-row tiles through a
+//   ring (2 stages at D = 128, 4 at D = 64) that walks the rep q heads of
+//   the kv head, each from the causal clamp (`_clamp_qi` :227), with each
+//   tile's lse (times log2(e)) and delta staged beside it.
+// - Warpgroups 1 and 2 are consumers (240 registers) with 64 keys each.
+//   Per q tile, transposed as FA3 does: S^T = K Q^T and dP^T = V dO^T by
+//   SS wgmma, P^T (rounded to do's type, :415) and dS^T (rounded to q's
+//   type, :422) in registers as the RS A operands of dV += P^T dO and
+//   dK += dS^T Q.
+// - dq (the fused extra, :425-428): each consumer writes its bf16 dS^T
+//   rows into a shared [128 keys][64 q] tile (two, used in turn), and after
+//   a named barrier computes a [64 q x 64] f32 product dQ = dS K by SS
+//   wgmma, dS read MN-major from that tile and K MN-major from the
+//   resident K tile. At D = 128 consumer c takes columns 64c..64c+63 over
+//   all 128 keys; at D = 64 all columns over its own 64 keys. On the TPU
+//   dq accumulated in VMEM scratch across the sequential grid; here blocks
+//   run in no order, so the product, times scale, is staged in shared
+//   memory (f32, 128-byte swizzled) and one thread adds it into the zeroed
+//   [B*Hq, Sq, D] f32 workspace by a TMA reduce-add
+//   (cp.reduce.async.bulk.tensor), clipped at Sq; the caller casts it to
+//   q's type. No atomics from registers, but the order of the adds across
+//   blocks changes from run to run, so two runs need not give the same
+//   bits (the split pair does).
+// - dK (scaled once) and dV leave through the consumer's rows of the K and
+//   V tiles by TMA stores clipped at Sk.
+// Backward, f32: the first port's body (`flash_bwd_kernel`), kept for the
+// f32 checks.
+// - One block per (b * Hkv, 64-row k tile). dK and dV of the tile
+//   accumulate in f32 registers while the block walks the rep q heads of
+//   its kv head and their q tiles at or below the diagonal. Per q tile it
+//   forms S and P = exp(S*scale - lse), dP = dO V^T and dS = P (dP - delta)
+//   in registers, stages P and dS in shared memory, and adds P^T dO to dV
+//   and dS^T Q to dK; scale * dS K goes by f32 atomicAdd into the zeroed
+//   workspace.
+// - mma.sync-shaped fragments as plain FMAs.
 // - D in {64, 128}; any Sq, Sk (the ragged last tile is masked).
 #include "sm90.cuh"
 #include "warp_tile.cuh"
@@ -653,6 +679,314 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------ fused backward, bf16 (wgmma)
+template <int D>
+struct BwdWg {
+  static constexpr int kBoxes = D / 64;              // 64-column boxes
+  static constexpr uint32_t kKBox = 128 * 128;       // [128 keys][64]
+  static constexpr uint32_t kKTile = kBoxes * kKBox;
+  static constexpr uint32_t kQBox = 64 * 128;        // [64 q rows][64]
+  static constexpr uint32_t kQTile = kBoxes * kQBox;
+  static constexpr int kStages = D == 128 ? 2 : 4;   // of Q, dO and rows
+  static constexpr uint32_t kDsTile = 128 * 128;     // dS^T [128 keys][64 q]
+  static constexpr uint32_t kDqBox = 64 * 128;       // [64 q rows][32] f32
+  static constexpr uint32_t kVOff = kKTile;
+  static constexpr uint32_t kQOff = 2 * kKTile;
+  static constexpr uint32_t kDoOff = kQOff + kStages * kQTile;
+  static constexpr uint32_t kDsOff = kDoOff + kStages * kQTile;  // 2 tiles
+  static constexpr uint32_t kDqOff = kDsOff + 2 * kDsTile;  // 2 boxes each
+  // per stage: 64 lse * log2(e), then 64 delta (f32)
+  static constexpr uint32_t kRowOff = kDqOff + 2 * 2 * kDqBox;
+  static constexpr uint32_t kBarOff = kRowOff + kStages * 512;
+  // barriers: full/empty (kStages each), then K and V
+  static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap dq_map,
+                    const __grid_constant__ CUtensorMap dk_map,
+                    const __grid_constant__ CUtensorMap dv_map,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, int rep, int sq, int sk,
+                    float scale, int causal) {
+  using L = BwdWg<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(1024) uint8_t tma_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(tma_smem) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t full = base + L::kBarOff, empty = full + 8 * S,
+                 kv_bar = empty + 8 * S;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int bhk = blockIdx.x, k0 = blockIdx.y * 128;  // lowest keys first
+  const int offset = sk - sq;
+  // the first q tile with a row that sees key k0 (causal clamp); the walk
+  // is rep heads x n_qt tiles
+  int q_begin = 0;
+  if (causal) q_begin = max(0, k0 - offset) / 64 * 64;
+  const int n_qt = (sq - q_begin + 63) / 64;
+  const int n_items = rep * n_qt;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(full + 8 * i, 32);  // the producer's first warp
+      sm90::mbar_init(empty + 8 * i, 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_init(kv_bar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ------------------------------------------- producer
+    sm90::reg_dealloc<24>();
+    if (tid < 32) {
+      if (tid == 0) {
+        sm90::mbar_arrive_expect_tx(kv_bar, 2 * L::kKTile);
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b) {
+          sm90::tma_load_3d(base + b * L::kKBox, &k_map, kv_bar, 64 * b, k0,
+                            bhk);
+          sm90::tma_load_3d(base + L::kVOff + b * L::kKBox, &v_map, kv_bar,
+                            64 * b, k0, bhk);
+        }
+      }
+      for (int it = 0; it < n_items; ++it) {
+        const int st = it % S;
+        const int bh = bhk * rep + it / n_qt;
+        const int q0 = q_begin + (it % n_qt) * 64;
+        sm90::mbar_wait(empty + 8 * st, ((it / S) & 1) ^ 1);
+        // lse * log2(e) (+inf past Sq: p = 0) and delta of the tile's rows
+        float* rows = reinterpret_cast<float*>(smem + L::kRowOff + st * 512);
+        for (int i = tid; i < 64; i += 32) {
+          const bool in = q0 + i < sq;
+          const size_t at = (size_t)bh * sq + q0 + i;
+          rows[i] = in ? lse[at] * sm90::kLog2e : sm90::f32_inf();
+          rows[64 + i] = in ? delta[at] : 0.f;
+        }
+        if (tid == 0) {
+          sm90::mbar_arrive_expect_tx(full + 8 * st, 2 * L::kQTile);
+#pragma unroll
+          for (int b = 0; b < L::kBoxes; ++b) {
+            sm90::tma_load_3d(base + L::kQOff + st * L::kQTile + b * L::kQBox,
+                              &q_map, full + 8 * st, 64 * b, q0, bh);
+            sm90::tma_load_3d(base + L::kDoOff + st * L::kQTile +
+                                  b * L::kQBox,
+                              &do_map, full + 8 * st, 64 * b, q0, bh);
+          }
+        } else {
+          sm90::mbar_arrive(full + 8 * st);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::reg_alloc<240>();
+    const int c = wg - 1, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kc0 = k0 + 64 * c;  // this consumer's first key
+    const int keys[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
+    const float sl2 = scale * sm90::kLog2e;
+    const uint32_t k_rows = base + c * 64 * 128;  // this consumer's keys
+    const uint32_t v_rows = base + L::kVOff + c * 64 * 128;
+    // dQ of a q tile = dS K, 64 columns a consumer: at D = 128 consumer c
+    // takes columns 64c.. over all 128 keys (it reads the other's dS^T
+    // rows); at D = 64 every column over its own 64 keys (both add into the
+    // same rows). Either way a [64 x 64] f32 product.
+    constexpr int kDqSteps = D == 128 ? 8 : 4;       // k16 steps over keys
+    const int dq_key0 = D == 128 ? 0 : 64 * c;
+    const int dq_col = D == 128 ? 64 * c : 0;
+    const uint32_t dq_b = base + (D == 128 ? c * L::kKBox : 0) + dq_key0 * 128;
+    // the dS^T tiles are shared by both consumers at D = 128
+    const int ds_bar = D == 128 ? 3 : 1 + c, ds_threads = D == 128 ? 256 : 128;
+    uint8_t* stage = smem + L::kDqOff + c * 2 * L::kDqBox;
+
+    float dk[D / 2], dv[D / 2], s[32], dp[32], dq[32];
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_items; ++it) {
+      const int st = it % S;
+      const int bh = bhk * rep + it / n_qt;
+      const int q0 = q_begin + (it % n_qt) * 64;
+      const uint32_t qs = base + L::kQOff + st * L::kQTile;
+      const uint32_t dos = base + L::kDoOff + st * L::kQTile;
+      sm90::mbar_wait(full + 8 * st, (it / S) & 1);
+      // some key of this consumer is seen from the tile (and lies before Sk)
+      const bool active = kc0 < sk && (!causal || kc0 <= q0 + 63 + offset);
+      if (active) {
+        const float* rows =
+            reinterpret_cast<const float*>(smem + L::kRowOff + st * 512);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;  // not carried
+        sm90::wgmma_fence();
+        sm90::ss_n64<D>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
+        sm90::wgmma_commit();
+        sm90::ss_n64<D>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        // row = key, column = query: visible when key <= query + offset
+        const bool masked = causal && kc0 + 63 > q0 + offset;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float p = sm90::ex2_approx(
+                fmaf(s[i], sl2, -((e & 1) ? l2.y : l2.x)));
+            if (masked &&
+                keys[e >> 1] > q0 + 8 * j + 2 * t4 + (e & 1) + offset)
+              p = 0.f;
+            s[i] = p;
+          }
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(rows + 64 + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            dp[i] = s[i] * (dp[i] - ((e & 1) ? d2.y : d2.x));
+          }
+        }
+        // P^T rounded to do's type (:415), dS^T to q's type (:422) and so
+        // to k's type for dQ (:428; the two types are the same here)
+        sm90::pack_frags(pa, s);
+        sm90::pack_frags(dsa, dp);
+        sm90::wgmma_fence();
+        sm90::rs_k64<D>(dv, pa, dos, L::kQBox);  // dV += P^T dO, dO MN-major
+        sm90::rs_k64<D>(dk, dsa, qs, L::kQBox);  // dK += dS^T Q, Q MN-major
+        sm90::wgmma_commit();
+      }
+      // this consumer's 64 rows of the item's dS^T tile (zero where none of
+      // its keys is seen); the tile of item it - 2 is free: both consumers
+      // finished its dQ products before the dS^T barrier of item it - 1
+      uint8_t* ds_tile = smem + L::kDsOff + (it & 1) * L::kDsTile;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 64 * c + 16 * warp + g + 8 * (r & 1);
+          const int chunk = (2 * kk + (r >> 1)) ^ (row & 7);
+          *reinterpret_cast<uint32_t*>(ds_tile + row * 128 + chunk * 16 +
+                                       4 * t4) = active ? dsa[kk][r] : 0u;
+        }
+      sm90::fence_proxy_async();
+      // the previous item's dQ reduce has read this consumer's staging
+      if (tid == 0) sm90::tma_store_wait_read();
+      sm90::named_bar_sync(ds_bar, ds_threads);
+      // at D = 64 a consumer whose keys are unseen adds nothing to dQ
+      const bool do_dq = D == 128 || active;
+      if (do_dq) {
+        const uint32_t ds_a = sm90::smem_addr(ds_tile) + dq_key0 * 128;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[i] = 0.f;  // not carried
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqSteps; ++kk)  // dS read MN-major (q rows)
+          sm90::wgmma_ss_n64<1, 1>(
+              dq, sm90::desc_b128(ds_a + kk * 16 * 128, L::kDsTile, 1024),
+              sm90::desc_b128(dq_b + kk * 16 * 128, L::kKBox, 1024), 1);
+        sm90::wgmma_commit();
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(pa);
+      sm90::fence_regs(dsa);
+      if (lane == 0) sm90::mbar_arrive(empty + 8 * st);
+      if (do_dq) {
+        // scale * dQ (each tile's product scaled, :428) into the staging:
+        // two [64 rows][32] f32 boxes, 128-byte swizzled; then one
+        // reduce-add per box into the f32 workspace, clipped at Sq
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = 16 * warp + g + 8 * h;
+            const int chunk = (2 * (j & 3) + (t4 >> 1)) ^ (row & 7);
+            *reinterpret_cast<float2*>(stage + (j >> 2) * L::kDqBox +
+                                       row * 128 + chunk * 16 +
+                                       8 * (t4 & 1)) =
+                make_float2(dq[4 * j + 2 * h] * scale,
+                            dq[4 * j + 2 * h + 1] * scale);
+          }
+        sm90::fence_proxy_async();
+        sm90::named_bar_sync(1 + c, 128);
+        if (tid == 0) {
+          const uint32_t src = sm90::smem_addr(stage);
+          sm90::tma_reduce_add_3d(&dq_map, src, dq_col, q0, bh);
+          sm90::tma_reduce_add_3d(&dq_map, src + L::kDqBox, dq_col + 32, q0,
+                                  bh);
+          sm90::tma_store_commit();
+        }
+      }
+    }
+
+    // epilogue: scale * dK and dV into this consumer's rows of the K and V
+    // tiles, then TMA (clipped at Sk). At D = 128 the other consumer's last
+    // dQ product reads every K row: wait for it.
+    if (D == 128) sm90::named_bar_sync(3, 256);
+    sm90::stage_rows<D>(smem, L::kKBox, dk, scale, c, warp, g, t4);
+    sm90::stage_rows<D>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
+    sm90::fence_proxy_async();
+    sm90::named_bar_sync(1 + c, 128);
+    if (tid == 0) {
+      if (kc0 < sk) {
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b) {
+          sm90::tma_store_3d(&dk_map, k_rows + b * L::kKBox, 64 * b, kc0,
+                             bhk);
+          sm90::tma_store_3d(&dv_map, v_rows + b * L::kKBox, 64 * b, kc0,
+                             bhk);
+        }
+        sm90::tma_store_commit();
+      }
+      sm90::tma_store_wait();  // the stores and the dQ reduce-adds
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq_acc, void* dk,
+                            void* dv, int bhk, int rep, int sq, int sk,
+                            float scale, int causal, cudaStream_t stream) {
+  using L = BwdWg<D>;
+  const int bhq = bhk * rep;
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map;
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, D, 64) ||
+      !sm90_host::map_rows(&do_map, dout, bhq, sq, D, 64) ||
+      !sm90_host::map_rows(&k_map, k, bhk, sk, D, 128) ||
+      !sm90_host::map_rows(&v_map, v, bhk, sk, D, 128) ||
+      !sm90_host::map_rows_f32(&dq_map, dq_acc, bhq, sq, D, 64) ||
+      !sm90_host::map_rows(&dk_map, dk, bhk, sk, D, 64) ||
+      !sm90_host::map_rows(&dv_map, dv, bhk, sk, D, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bhk, (sk + 127) / 128);
+  flash_bwd_wgmma<D><<<grid, 384, L::kSmem, stream>>>(
+      q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map,
+      (const float*)lse, (const float*)delta, rep, sq, sk, scale, causal);
+  return cudaGetLastError();
+}
+
 bool valid_shape(int bh, int rep, int sq, int sk, int head_dim, int dtype) {
   return bh >= 1 && bh <= 65535 && rep >= 1 && sq >= 1 && sk >= 1 &&
          (head_dim == 64 || head_dim == 128) && (dtype == 0 || dtype == 1);
@@ -703,10 +1037,10 @@ extern "C" int flash_attention_bwd_launch(
                                               dq_acc, dk, dv, bhk, rep, sq,
                                               sk, scale, causal, s));
   return (int)(head_dim == 64
-                   ? launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, lse, delta,
-                                                   dq_acc, dk, dv, bhk, rep,
-                                                   sq, sk, scale, causal, s)
-                   : launch_bwd<__nv_bfloat16, 128>(
-                         q, k, v, dout, lse, delta, dq_acc, dk, dv, bhk, rep,
-                         sq, sk, scale, causal, s));
+                   ? launch_bwd_bf16<64>(q, k, v, dout, lse, delta, dq_acc,
+                                         dk, dv, bhk, rep, sq, sk, scale,
+                                         causal, s)
+                   : launch_bwd_bf16<128>(q, k, v, dout, lse, delta, dq_acc,
+                                          dk, dv, bhk, rep, sq, sk, scale,
+                                          causal, s));
 }

@@ -360,77 +360,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // --------------------------------------------------- bf16 (TMA + wgmma)
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float f32_inf() {
-  return __int_as_float(0x7f800000);
-}
-
-// A consumer's accumulator (rows 16 * warp + g + 8h of its 64, columns
-// 8j + 2t + {0, 1}) into its rows of a swizzled [128][D] bf16 tile made of
-// 64-column boxes `box` bytes apart, each value times `mul`.
-template <int D>
-__device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
-                                           const float (&acc)[D / 2],
-                                           float mul, int c, int warp, int g,
-                                           int t4) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = 64 * c + 16 * warp + g + 8 * h;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int chunk = (j & 7) ^ (row & 7);
-      *reinterpret_cast<uint32_t*>(tile + (j >> 3) * box + row * 128 +
-                                   chunk * 16 + 4 * t4) =
-          sm90::pack_bf16x2(acc[4 * j + 2 * h] * mul,
-                            acc[4 * j + 2 * h + 1] * mul);
-    }
-  }
-}
-
-// acc[D/2] += A . B over k = 64 (four k16 steps): A the bf16 fragments
-// `a`, B an MN-major [64][D] tile at `b` whose 64-column boxes lie `box`
-// bytes apart.
-template <int D>
-__device__ __forceinline__ void rs_k64(float (&acc)[D / 2],
-                                       const uint32_t (&a)[4][4], uint32_t b,
-                                       uint32_t box) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t bd = sm90::desc_b128(b + kk * 16 * 128, box, 1024);
-    if constexpr (D == 128)
-      sm90::wgmma_rs_n128<1>(acc, a[kk], bd, 1);
-    else
-      sm90::wgmma_rs_n64<1>(acc, a[kk], bd, 1);
-  }
-}
-
-// d[32] = A . B^T over k = D: A the 64 rows at `a` of a K-major tile whose
-// 64-column boxes lie `a_box` bytes apart, B a K-major [64][D] tile at `b`
-// with boxes `b_box` apart.
-template <int D>
-__device__ __forceinline__ void ss_n64(float (&d)[32], uint32_t a,
-                                       uint32_t a_box, uint32_t b,
-                                       uint32_t b_box) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;
-    sm90::wgmma_ss_n64<0>(
-        d, sm90::desc_b128(a + (kk / 4) * a_box + col, 16, 1024),
-        sm90::desc_b128(b + (kk / 4) * b_box + col, 16, 1024), kk > 0);
-  }
-}
-
-// The 16 bf16 A fragments of a 64 x 64 accumulator, rounded in registers.
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
-                                           const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = sm90::pack_bf16x2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
-
 template <int D>
 struct DqWg {
   static constexpr int kBoxes = D / 64;              // 64-column boxes
@@ -527,13 +456,14 @@ __global__ void __launch_bounds__(384, 1)
       n_wg = 0;
     else if (causal)
       n_wg = max(0, min(sk, min(wq0 + 64, sq) + offset) + 63) / 64;
-    const float sl2 = scale * kLog2e;
+    const float sl2 = scale * sm90::kLog2e;
     // lse * log2(e) (+inf past Sq: p = 0) and delta of this thread's rows
     float lse2[2], del[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const bool in = rows[h] < sq;
-      lse2[h] = in ? lse[(size_t)bh * sq + rows[h]] * kLog2e : f32_inf();
+      lse2[h] = in ? lse[(size_t)bh * sq + rows[h]] * sm90::kLog2e
+                    : sm90::f32_inf();
       del[h] = in ? delta[(size_t)bh * sq + rows[h]] : 0.f;
     }
 
@@ -554,10 +484,10 @@ __global__ void __launch_bounds__(384, 1)
       const uint32_t vs = base + L::kVOff + st * L::kKTile;
       sm90::mbar_wait(k_full + 8 * st, (j / S) & 1);
       sm90::wgmma_fence();
-      ss_n64<D>(s, q_rows, L::kQBox, ks, L::kKBox);
+      sm90::ss_n64<D>(s, q_rows, L::kQBox, ks, L::kKBox);
       sm90::wgmma_commit();
       sm90::mbar_wait(v_full + 8 * st, (j / S) & 1);
-      ss_n64<D>(dp, do_rows, L::kQBox, vs, L::kKBox);
+      sm90::ss_n64<D>(dp, do_rows, L::kQBox, vs, L::kKBox);
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // dq of tile j - 1 and S of tile j are done
       sm90::fence_regs(s);
@@ -584,9 +514,9 @@ __global__ void __launch_bounds__(384, 1)
       // dS = P (dP - delta), rounded to k's type (:306-310)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - del[(i >> 1) & 1]);
-      pack_frags(dsa, dp);
+      sm90::pack_frags(dsa, dp);
       sm90::wgmma_fence();
-      rs_k64<D>(dq, dsa, ks, L::kKBox);  // dq += dS K, K MN-major
+      sm90::rs_k64<D>(dq, dsa, ks, L::kKBox);  // dq += dS K, K MN-major
       sm90::wgmma_commit();
     }
     if (n_wg > 0) {
@@ -603,7 +533,7 @@ __global__ void __launch_bounds__(384, 1)
     }
 
     // epilogue: scale * dq into this consumer's rows of the Q tile, then TMA
-    stage_rows<D>(smem, L::kQBox, dq, scale, c, warp, g, t4);
+    sm90::stage_rows<D>(smem, L::kQBox, dq, scale, c, warp, g, t4);
     sm90::fence_proxy_async();
     sm90::named_bar_sync(1 + c, 128);
     if (tid == 0 && wq0 < sq) {
@@ -696,7 +626,7 @@ __global__ void __launch_bounds__(384, 1)
         for (int i = tid; i < 64; i += 32) {
           const bool in = q0 + i < sq;
           const size_t at = (size_t)bh * sq + q0 + i;
-          rows[i] = in ? lse[at] * kLog2e : f32_inf();
+          rows[i] = in ? lse[at] * sm90::kLog2e : sm90::f32_inf();
           rows[64 + i] = in ? delta[at] : 0.f;
         }
         if (tid == 0) {
@@ -720,7 +650,7 @@ __global__ void __launch_bounds__(384, 1)
     const int g = lane >> 2, t4 = lane & 3;
     const int kc0 = k0 + 64 * c;  // this consumer's first key
     const int keys[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
-    const float sl2 = scale * kLog2e;
+    const float sl2 = scale * sm90::kLog2e;
     const uint32_t k_rows = base + c * 64 * 128;  // this consumer's keys
     const uint32_t v_rows = base + L::kVOff + c * 64 * 128;
 
@@ -742,9 +672,9 @@ __global__ void __launch_bounds__(384, 1)
         const float* rows =
             reinterpret_cast<const float*>(smem + L::kRowOff + st * 512);
         sm90::wgmma_fence();
-        ss_n64<D>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
+        sm90::ss_n64<D>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
         sm90::wgmma_commit();
-        ss_n64<D>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
+        sm90::ss_n64<D>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
         sm90::fence_regs(s);
@@ -778,11 +708,11 @@ __global__ void __launch_bounds__(384, 1)
           }
         }
         // P^T rounded to do's type (:347-350), dS^T to q's type (:354-358)
-        pack_frags(pa, s);
-        pack_frags(dsa, dp);
+        sm90::pack_frags(pa, s);
+        sm90::pack_frags(dsa, dp);
         sm90::wgmma_fence();
-        rs_k64<D>(dv, pa, dos, L::kQBox);   // dV += P^T dO, dO MN-major
-        rs_k64<D>(dk, dsa, qs, L::kQBox);   // dK += dS^T Q, Q MN-major
+        sm90::rs_k64<D>(dv, pa, dos, L::kQBox);   // dV += P^T dO, dO MN-major
+        sm90::rs_k64<D>(dk, dsa, qs, L::kQBox);   // dK += dS^T Q, Q MN-major
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(dv);
@@ -795,8 +725,8 @@ __global__ void __launch_bounds__(384, 1)
 
     // epilogue: scale * dK and dV into this consumer's rows of the K and V
     // tiles, then TMA (clipped at Sk)
-    stage_rows<D>(smem, L::kKBox, dk, scale, c, warp, g, t4);
-    stage_rows<D>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
+    sm90::stage_rows<D>(smem, L::kKBox, dk, scale, c, warp, g, t4);
+    sm90::stage_rows<D>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
     sm90::fence_proxy_async();
     sm90::named_bar_sync(1 + c, 128);
     if (tid == 0 && kc0 < sk) {

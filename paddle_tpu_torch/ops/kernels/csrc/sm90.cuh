@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA-fed wgmma kernels
-// (swiglu_down, the flash-attention forward, the split flash backward):
-// mbarriers, TMA tensor loads and stores, the shared-memory matrix
-// descriptor of 128-byte-swizzled bf16 tiles, wgmma (SS and RS forms, bf16
-// in, f32 accumulate) with its fence/commit/wait, setmaxnreg, and the
-// host-side tensor-map encoder.
+// (swiglu_down, the flash-attention forward, the fused and split flash
+// backward): mbarriers, TMA tensor loads, stores and reduce-adds, the
+// shared-memory matrix descriptor of 128-byte-swizzled bf16 tiles, wgmma
+// (SS and RS forms, bf16 in, f32 accumulate) with its fence/commit/wait,
+// setmaxnreg, the attention backward's tile helpers, and the host-side
+// tensor-map encoder.
 //
 // Conventions:
 // - Every tile in shared memory is 1024-byte aligned and was written by
@@ -108,6 +109,19 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Adds a shared-memory box into global memory, element by element, as one
+// bulk operation (f32 add for an f32 tensor map); clipped at the tensor's
+// bounds like a store, and tracked by the same bulk groups.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
@@ -258,8 +272,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a_desc,
         : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB));
 }
 
-// d[32] (+)= A . B for m64n64k16, A and B from shared memory.
-template <int TransB>
+// d[32] (+)= A . B for m64n64k16, A and B from shared memory; TransA = 1
+// reads an MN-major A (m contiguous), described as an MN-major B is.
+template <int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a_desc,
                                             uint64_t b_desc, int scale_d) {
   asm volatile(
@@ -267,7 +282,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a_desc,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -275,7 +290,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a_desc,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB));
+        : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB), "n"(TransA));
 }
 
 // d[32] (+)= A . B for m64n64k16, A from registers (the m16n8k16 A
@@ -330,6 +345,79 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
           "r"(scale_d), "n"(TransB));
 }
 
+// ------------------------------------------ attention backward tiles
+// A consumer warpgroup of the flash backward kernels owns 64 rows of a
+// 128-row tile; the helpers below move its fragments between registers and
+// 128-byte-swizzled shared tiles and issue its products.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float f32_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// A consumer's accumulator (rows 16 * warp + g + 8h of its 64, columns
+// 8j + 2t + {0, 1}) into its rows of a swizzled [128][D] bf16 tile made of
+// 64-column boxes `box` bytes apart, each value times `mul`.
+template <int D>
+__device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
+                                           const float (&acc)[D / 2],
+                                           float mul, int c, int warp, int g,
+                                           int t4) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 64 * c + 16 * warp + g + 8 * h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int chunk = (j & 7) ^ (row & 7);
+      *reinterpret_cast<uint32_t*>(tile + (j >> 3) * box + row * 128 +
+                                   chunk * 16 + 4 * t4) =
+          pack_bf16x2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// acc[D/2] += A . B over k = 64 (four k16 steps): A the bf16 fragments
+// `a`, B an MN-major [64][D] tile at `b` whose 64-column boxes lie `box`
+// bytes apart.
+template <int D>
+__device__ __forceinline__ void rs_k64(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4][4], uint32_t b,
+                                       uint32_t box) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bd = desc_b128(b + kk * 16 * 128, box, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128<1>(acc, a[kk], bd, 1);
+    else
+      wgmma_rs_n64<1>(acc, a[kk], bd, 1);
+  }
+}
+
+// d[32] = A . B^T over k = D: A the 64 rows at `a` of a K-major tile whose
+// 64-column boxes lie `a_box` bytes apart, B a K-major [64][D] tile at `b`
+// with boxes `b_box` apart.
+template <int D>
+__device__ __forceinline__ void ss_n64(float (&d)[32], uint32_t a,
+                                       uint32_t a_box, uint32_t b,
+                                       uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64<0>(d, desc_b128(a + (kk / 4) * a_box + col, 16, 1024),
+                    desc_b128(b + (kk / 4) * b_box + col, 16, 1024), kk > 0);
+  }
+}
+
+// The 16 bf16 A fragments of a 64 x 64 accumulator, rounded in registers.
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
+                                           const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16x2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
 }  // namespace sm90
 
 // ----------------------------------------------------- host: tensor maps
@@ -353,16 +441,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle over a row-major tensor: dims
-// innermost first, strides (bytes) of dims 1..rank-1, box in elements (its
-// inner extent at most 64). Out-of-bounds box elements load as zero.
-inline bool make_map(CUtensorMap* map, const void* base, int rank,
-                     const uint64_t* dims, const uint64_t* strides,
-                     const uint32_t* box) {
+// A tensor map (bf16 unless `type` says otherwise) with 128-byte swizzle
+// over a row-major tensor: dims innermost first, strides (bytes) of dims
+// 1..rank-1, box in elements (its inner extent at most 128 bytes).
+// Out-of-bounds box elements load as zero.
+inline bool make_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
   if (fn == nullptr) return false;
   const uint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return fn(map, type, rank,
             const_cast<void*>(base), dims, strides, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -377,6 +467,17 @@ inline bool map_rows(CUtensorMap* map, const void* p, int bh, int s, int d,
   const uint64_t strides[2] = {(uint64_t)d * 2, (uint64_t)s * d * 2};
   const uint32_t box[3] = {64, (uint32_t)rows, 1};
   return make_map(map, p, 3, dims, strides, box);
+}
+
+// A map over a row-major [bh, s, d] f32 tensor with boxes of 32 columns
+// (128 bytes, the widest box the swizzle takes) x `rows` rows.
+inline bool map_rows_f32(CUtensorMap* map, const void* p, int bh, int s,
+                         int d, int rows) {
+  const uint64_t dims[3] = {(uint64_t)d, (uint64_t)s, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)d * 4, (uint64_t)s * d * 4};
+  const uint32_t box[3] = {32, (uint32_t)rows, 1};
+  return make_map(map, p, 3, dims, strides, box,
+                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 inline int sm_count() {

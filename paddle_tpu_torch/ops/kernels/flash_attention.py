@@ -10,12 +10,14 @@ flash_attention.py``:
   at :515) and its dk/dv pass ``_bwd_dkv_kernel`` (:324, ``pallas_call``
   at :539), both in ``csrc/flash_attention_split.cu``.
 
-See the sources for what bounds them and how they are laid out. The bf16
-forward and the bf16 split pair are FA3-style kernels: TMA loads into a
-ring completing on mbarriers, ``wgmma`` with ``P`` (and ``dS``) kept in
-registers as the A operand of the second product, and a producer
-warpgroup beside two consumer warpgroups (``csrc/sm90.cuh`` holds the
-shared building blocks).
+See the sources for what bounds them and how they are laid out. In bf16
+all four are FA3-style kernels: TMA loads into a ring completing on
+mbarriers, ``wgmma`` with ``P`` (and ``dS``) kept in registers as the A
+operand of the second product, and a producer warpgroup beside two
+consumer warpgroups (``csrc/sm90.cuh`` holds the shared building blocks).
+The fused backward adds each dq tile into its f32 workspace by one TMA
+bulk reduce-add, so the order of the adds, and the last bits of dq, vary
+from run to run; the split pair repeats bit for bit.
 :func:`flash_attention_bwd` routes the backward as ``_bwd_impl`` (:472)
 does: the fused kernel while its dq scratch fits in 8 MiB, the split pair
 above (:498-502, without the ``PTPU_FA_FUSED_BWD`` knob). It computes

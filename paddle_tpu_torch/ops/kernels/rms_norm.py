@@ -1,4 +1,4 @@
-"""RMS norm forward: Triton kernel and plain version.
+"""RMS norm forward: CUDA kernel and plain version.
 
 Replaces the Pallas TPU kernel ``_fwd_kernel``/``_fwd_call`` behind
 ``rms_norm`` (``paddle_tpu/ops/pallas/rms_norm.py:25``, ``pallas_call`` at
@@ -6,10 +6,12 @@ Replaces the Pallas TPU kernel ``_fwd_kernel``/``_fwd_call`` behind
 applied in f32 and one rounding to x's type, plus the f32 ``rstd``.
 
 Bound: it reads each row once and writes it once, a few FLOPs per element,
-so the bytes over the card's memory rate bound it. Design: one Triton
-program per row holds the whole row (H <= 8192) in registers, so the row
-crosses device memory once; no tensor cores and no gathers, which is why
-Triton serves it as well as CUDA would.
+so the bytes over the card's memory rate bound it. Design (see
+``csrc/rms_norm.cu``): a row in registers over 32 to 256 threads with
+16-byte loads, so it crosses device memory once; blocks that stay on the
+card and walk the rows, reading the weight once each. It is launched
+through ``ctypes`` like the other CUDA kernels, so a call costs the host
+little: the serving tick makes 2L + 1 of them.
 
 The backward is the JAX package's closed form (``rms_norm.py:78-90``, jnp
 there) in plain PyTorch, inside a ``torch.autograd.Function`` that saves
@@ -17,12 +19,16 @@ there) in plain PyTorch, inside a ``torch.autograd.Function`` that saves
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import LAUNCHES, use_kernel
+from . import LAUNCHES, check_launch, load, stream_handle, use_kernel
 
-_DTYPES = (torch.float32, torch.bfloat16)
-_kernel = None
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest row the kernel holds in registers
+MAX_H = 8192
+_fn = None
 
 
 def rms_norm_plain(x2, weight, eps=1e-6):
@@ -33,51 +39,43 @@ def rms_norm_plain(x2, weight, eps=1e-6):
     return o, rstd[:, 0]
 
 
-def _triton_kernel():
-    global _kernel
-    if _kernel is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def _rms_fwd(x_ptr, w_ptr, o_ptr, rstd_ptr, h, eps,
-                     BLOCK: tl.constexpr):
-            row = tl.program_id(0).to(tl.int64)
-            cols = tl.arange(0, BLOCK)
-            mask = cols < h
-            x = tl.load(x_ptr + row * h + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            rstd = tl.rsqrt(tl.sum(x * x, axis=0) / h + eps)
-            w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-            o = x * rstd * w
-            tl.store(o_ptr + row * h + cols,
-                     o.to(o_ptr.dtype.element_ty), mask=mask)
-            tl.store(rstd_ptr + row, rstd)
-
-        _kernel = (_rms_fwd, triton.next_power_of_2)
-    return _kernel
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = load("rms_norm").rms_norm_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def rms_norm_fwd(x2, weight, eps=1e-6):
-    """[N, H] rows -> (o [N, H] in x's type, rstd [N] f32). CUDA tensors
-    launch the Triton kernel; CPU tensors run :func:`rms_norm_plain`."""
-    if not use_kernel(x2, weight):
+    """[N, H] rows -> (o [N, H] in x's type, rstd [N] f32). x and the
+    weight are each f32 or bf16, in any mix. CUDA tensors launch the
+    kernel; CPU tensors run :func:`rms_norm_plain`. The checks are few and
+    cheap: the serving tick makes 2L + 1 of these calls."""
+    if not (x2.is_cuda and weight.is_cuda):
+        use_kernel(x2, weight)           # raises unless both lie on the CPU
         return rms_norm_plain(x2, weight, eps)
-    n, h = x2.shape
-    if x2.dtype not in _DTYPES or weight.dtype not in _DTYPES:
+    xt, wt = _DTYPES.get(x2.dtype), _DTYPES.get(weight.dtype)
+    if xt is None or wt is None:
         raise TypeError(f"rms_norm takes float32 or bfloat16, got "
                         f"{x2.dtype} and {weight.dtype}")
-    if weight.shape != (h,) or h > 8192:
-        raise ValueError(f"rms_norm: weight must be [H] with H <= 8192, got "
-                         f"x {tuple(x2.shape)} weight {tuple(weight.shape)}")
+    n, h = x2.shape
+    if weight.shape != (h,) or not 1 <= h <= MAX_H:
+        raise ValueError(f"rms_norm: weight must be [H] with 1 <= H <= "
+                         f"{MAX_H}, got x {tuple(x2.shape)} weight "
+                         f"{tuple(weight.shape)}")
     if not (x2.is_contiguous() and weight.is_contiguous()):
         raise ValueError("rms_norm: operands must be contiguous")
-    kern, next_pow2 = _triton_kernel()
     o = torch.empty_like(x2)
-    rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
-    block = next_pow2(h)
-    kern[(n,)](x2, weight, o, rstd, h, float(eps), BLOCK=block,
-               num_warps=4 if block <= 1024 else 8)
+    rstd = x2.new_empty(n, dtype=torch.float32)
+    if n == 0:
+        return o, rstd
+    check_launch(_launcher()(x2.data_ptr(), weight.data_ptr(), o.data_ptr(),
+                             rstd.data_ptr(), n, h, eps, xt, wt,
+                             stream_handle(x2)), "rms_norm")
     LAUNCHES["rms_norm"] += 1
     return o, rstd
 

@@ -141,14 +141,30 @@ def test_paged_attention_rejects_what_it_does_not_take(cuda_device):
             paged_attention(*args)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rms_norm_kernel_matches_plain(cuda_device, dtype):
-    x = torch.randn(64, 4096, device=cuda_device).to(dtype)
-    w = (torch.rand(4096, device=cuda_device) + 0.5).to(dtype)
+#: x and weight types: f32 and bf16 in every mix (fused_rms_norm passes a
+#: bf16 x with an f32 weight)
+RMS_TYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16)]
+
+
+#: one row, rows off the kernel's rows per block, config 4's 6144 rows;
+#: widths off its 16-byte vectors (96 in f32 and bf16 are whole vectors,
+#: 100 is not), config 4's and LLaMA-7B's, and the widest it takes
+@pytest.mark.parametrize("x_dtype,w_dtype", RMS_TYPES)
+@pytest.mark.parametrize("h", [96, 100, 2048, 4096, 8192])
+@pytest.mark.parametrize("n", [1, 300, 6144])
+def test_rms_norm_kernel_matches_plain(cuda_device, x_dtype, w_dtype, n, h):
+    g = torch.Generator().manual_seed(n + h)
+    x = (2 * torch.randn(n, h, generator=g)).to(cuda_device, x_dtype)
+    w = (torch.rand(h, generator=g) + 0.5).to(cuda_device, w_dtype)
+    kernels.reset_launch_counts()
     o, rstd = rms_norm_fwd(x, w)
     ro, rrstd = rms_norm_plain(x, w)
     torch.cuda.synchronize()
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert kernels.launch_counts()["rms_norm"] == 1
+    assert o.dtype == x_dtype and rstd.dtype == torch.float32
+    tol = 1e-5 if x_dtype == torch.float32 else 1e-2
     torch.testing.assert_close(o, ro, atol=tol, rtol=tol)
     torch.testing.assert_close(rstd, rrstd, atol=1e-6, rtol=1e-5)
 
@@ -401,9 +417,20 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
     assert (lse - rlse).abs().max().item() <= 1e-3
 
 
+#: the bf16 fused backward's tile edges (128-key tiles, 64-row q tiles
+#: over the rep q heads, a [64 q x 64] dq product per consumer): 127, 129
+#: and 257 keys, sq < sk, sq > sk (causal rows that see no key), rep 1, 4
+#: and 8, D 64 and 128, several tiles, and more (kv head, key tile) items
+#: than the card has SMs
+FUSED_EDGE_SHAPES = [  # (hq, hkv, d, sq, sk)
+    (2, 2, 128, 127, 127), (4, 1, 64, 129, 129), (8, 1, 64, 100, 257),
+    (4, 1, 128, 257, 257), (2, 2, 128, 64, 129), (8, 2, 64, 130, 257),
+    (4, 4, 128, 257, 129), (2, 2, 64, 1000, 1000), (16, 16, 128, 700, 900)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES)
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES + FUSED_EDGE_SHAPES)
 def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
                                         d, sq, sk):
     q, k, v, do = _flash_inputs(hq, hkv, d, sq, sk, dtype, cuda_device)
@@ -486,7 +513,7 @@ def test_flash_split_kernels_match_plain(cuda_device, dtype, causal, hq, hkv,
 def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype, hq, hkv, d,
                                             sq, sk):
     """Each output element is summed by one thread in a fixed order: two
-    runs give the same bits (the fused kernel's dq atomics do not)."""
+    runs give the same bits (the fused kernel's dq adds do not)."""
     args = _split_inputs(hq, hkv, d, sq, sk, dtype, True, cuda_device)
     first = (flash_attention_bwd_dq(*args, True),
              *flash_attention_bwd_dkv(*args, True))
@@ -504,7 +531,8 @@ def test_flash_split_kernels_match_fused(cuda_device, causal, hq, hkv, d, sq,
                                          sk):
     """The bf16 split pair against the bf16 fused kernel on the same
     inputs: two algorithms with the same roundings of p and ds, held to
-    FLASH_TOL (the fused kernel's dq sums by atomics in another order)."""
+    FLASH_TOL (the fused kernel adds dq tiles into its f32 workspace by
+    bulk reduce-adds, in another order)."""
     args = _split_inputs(hq, hkv, d, sq, sk, torch.bfloat16, causal,
                          cuda_device)
     split = (flash_attention_bwd_dq(*args, causal),
@@ -575,6 +603,11 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
         flash_attention_bwd_dq(q, k, v, do, lse, lse[:, :32], True)
     with pytest.raises(ValueError):
         flash_attention_bwd_dkv(q, k, v, do, lse.double(), lse, True)
+    x = torch.ones(2, 8193, device=cuda_device)
+    with pytest.raises(ValueError):
+        rms_norm_fwd(x, torch.ones(8193, device=cuda_device))
+    with pytest.raises(TypeError):
+        rms_norm_fwd(x[:, :16].half(), torch.ones(16, device=cuda_device))
     gate = torch.randn(64, 48, device=cuda_device)
     with pytest.raises(ValueError):
         swiglu_down_fwd(gate, gate, torch.randn(48, 128,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.ops.pallas.flash_attention import _bwd as jax_flash_bwd
 from paddle_tpu.ops.pallas.flash_attention import _fwd as jax_flash_fwd
 from paddle_tpu.ops.pallas.flash_attention import \
     flash_attention as jax_flash
@@ -21,7 +22,8 @@ from paddle_tpu.ops.pallas.swiglu_down import \
     swiglu_down_supported as jax_swiglu_supported
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_fwd, to_bh)
+    bwd_route, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_fused, flash_attention_fwd, to_bh)
 from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
 from paddle_tpu_torch.ops.kernels.swiglu_down import (swiglu_down,
                                                       swiglu_down_supported)
@@ -119,6 +121,48 @@ def test_flash_row_that_sees_no_key_is_zero():
     o, lse = flash_attention_fwd(q, k, v, True)
     assert torch.all(o[:, :4] == 0) and torch.all(lse[:, :4] == -1e30)
     assert torch.all(o[:, 4:].abs().sum(-1) > 0)
+
+
+#: (hq, hkv, sq, sk, d) at batch 1, kernel layout: the bf16 fused CUDA
+#: kernel's tile edges (128-key tiles, 64-row q tiles over the rep q heads,
+#: a [64 q x 64] dq product per consumer): 127, 129 and 257 keys, sq < sk,
+#: rep 1, 4 and 8, D 64 and 128
+FUSED_EDGE_SHAPES = [(1, 1, 127, 127, 128), (4, 1, 129, 129, 64),
+                     (8, 1, 100, 257, 64), (4, 1, 257, 257, 128),
+                     (2, 2, 64, 129, 128), (8, 2, 130, 257, 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", FUSED_EDGE_SHAPES,
+                         ids=[f"{h}/{k}-q{sq}-k{sk}-d{d}"
+                              for h, k, sq, sk, d in FUSED_EDGE_SHAPES])
+def test_fused_bwd_plain_matches_pallas_at_kernel_tile_edges(monkeypatch,
+                                                             shape, causal):
+    """The fused backward's plain version (the CPU route of
+    flash_attention_bwd_fused) against the reference's ``_bwd``, which
+    takes its fused Pallas kernel ``_bwd_fused`` at these sizes, in
+    interpret mode; f32 on both sides."""
+    hq, hkv, sq, sk, d = shape
+    monkeypatch.delenv("PTPU_FA_FUSED_BWD", raising=False)
+    assert bwd_route(hq // hkv, sq, d) == "fused"
+    rng = np.random.default_rng(sq + sk + d)
+    q, do = (torch.from_numpy(rng.standard_normal((hq, sq, d), np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((hkv, sk, d), np.float32))
+            for _ in range(2))
+    scale = 1.0 / float(np.sqrt(d))
+    o, lse = flash_attention_fwd(q, k, v, causal, scale)
+    want = jax_flash_bwd(*(jnp.asarray(t.numpy())
+                           for t in (q, k, v, o, lse, do)),
+                         scale, causal, True, hq, hkv)
+    kernels.reset_launch_counts()
+    got = flash_attention_bwd_fused(q, k, v, do, lse, (do * o).sum(-1),
+                                    causal, scale)
+    assert set(kernels.launch_counts().values()) == {0}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("lead,m,h", [

@@ -187,6 +187,36 @@ def test_rms_norm_bf16_rounds_once_like_the_pallas_kernel():
     np.testing.assert_allclose(got, kernel, rtol=2 ** -7, atol=0)
 
 
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "float32"), ("bfloat16", "bfloat16")])
+def test_rms_norm_plain_matches_pallas_mixed_types_ragged_width(x_dtype,
+                                                                 w_dtype):
+    """x and the weight each f32 or bf16, at H = 100 (not a multiple of
+    the CUDA kernel's 16-byte vectors: its ragged tail). The output takes
+    x's type; f32: the summation order only, bf16: one rounding."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((6, 100), np.float32) * 2
+    w = 1 + 0.2 * rng.standard_normal((100,), np.float32)
+    jx, jw = (jnp.asarray(a, getattr(jnp, t))
+              for a, t in ((x, x_dtype), (w, w_dtype)))
+    want = np.asarray(jax_rms_norm(jx, jw, interpret=True)
+                      .astype(jnp.float32))
+    tx, tw = (torch.from_numpy(a).to(getattr(torch, t))
+              for a, t in ((x, x_dtype), (w, w_dtype)))
+    o, rstd = rms_norm_fwd(tx, tw)
+    assert o.dtype == tx.dtype and rstd.dtype == torch.float32
+    if x_dtype == "float32":
+        np.testing.assert_allclose(o.numpy(), want, atol=ATOL_F32, rtol=0)
+    else:
+        np.testing.assert_allclose(o.float().numpy(), want, rtol=2 ** -7,
+                                   atol=0)
+    xf = tx.float().numpy()
+    np.testing.assert_allclose(rstd.numpy(),
+                               1 / np.sqrt((xf ** 2).mean(-1) + 1e-6),
+                               rtol=1e-5)
+
+
 def _int8_pages(kp, vp):
     """Both sides quantize with their own ``quantize_rows_int8`` (bitwise
     equal, tests/test_torch_int8_kv.py); the JAX codes feed both."""

@@ -18,6 +18,16 @@ from paddle_tpu_torch.models.gpt import GPTConfig, _rope_at_positions
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            llama_preset)
 
+@pytest.fixture(autouse=True)
+def _no_active_mesh():
+    """The JAX side shards its activations over the process-wide mesh
+    (``fleet.active_mesh``); a test file that ran earlier in the same
+    worker may have left one set. Each test here starts without it."""
+    from paddle_tpu.distributed import fleet
+
+    fleet._reset_for_tests()
+
+
 #: the config of tests/test_serving.py:15-20 (GQA: 4 q heads, 2 kv heads)
 TINY = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, max_seq_len=128, dropout=0.0)

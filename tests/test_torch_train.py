@@ -33,6 +33,16 @@ from paddle_tpu_torch.nn.functional import chunked_lm_loss_arrays, rms_norm
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
+@pytest.fixture(autouse=True)
+def _no_active_mesh():
+    """The JAX side shards its activations over the process-wide mesh
+    (``fleet.active_mesh``); a test file that ran earlier in the same
+    worker may have left one set. Each test here starts without it."""
+    from paddle_tpu.distributed import fleet
+
+    fleet._reset_for_tests()
+
+
 #: bench.py:266, the CPU smoke shape of the flagship pretrain line
 SMOKE = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
              max_seq_len=256, dropout=0.0, recompute=True)
