@@ -9,15 +9,14 @@ Phases, each of which fails the run on error:
 2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
              source, in parallel), with ptxas's registers and spills per
              source, per bf16 fused and split flash-backward kernel and per
-             instantiation of the rms_norm kernel and of the exact decode
-             kernels (none of which may spill); Triton compiles the
-             add_rms_norm kernel at its first launch.
+             instantiation of the rms_norm and add_rms_norm kernels and of
+             the three decode kernels (none of which may spill).
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
              version's and one library call's time, and the bound; for the
-             two norms and their F.rms_norm yardsticks also the time of the
-             same calls replayed from a CUDA graph (the card's time without
-             the host's launch cost). The
+             two norms, paged_attention_int8 and their library yardsticks
+             also the time of the same calls replayed from a CUDA graph
+             (the card's time without the host's launch cost). The
              flash forward runs twice at [3, 2048, 16/16, 128] for the same
              bits. At the long-context shapes in bf16: the split flash
              backward at [1, 32768, 16/16, 128] against its plain versions
@@ -25,8 +24,8 @@ Phases, each of which fails the run on error:
              the same bits; the flash forward there against its plain
              version (one head at a time) and SDPA; swiglu_down at
              [32768, 5504] x [5504, 2048] against its plain version and the
-             library pair. Then paged_attention in bf16 at D = 96, rep 16,
-             and decode_attention at the incubate decoder's shape (lengths
+             library pair. Then paged_attention and paged_attention_int8
+             in bf16 at D = 96, rep 16, and decode_attention at the incubate decoder's shape (lengths
              under 76 in a 2048-row cache).
 4. serving - LLaMA-7B width and depth in bf16, random weights from a
              seeded generator, through ContinuousBatchingEngine's submit /
@@ -168,11 +167,13 @@ def phase_device():
 #: by source: (name fragments, instantiations). The bf16 flash backward's
 #: TMA/wgmma kernels (fused; split dq and dk/dv) are built for D = 64 and
 #: 128; rms_norm_kernel for x f32 (1, 2, 4 or 8 chunks a thread) and bf16
-#: (1, 2 or 4), each with an f32 and a bf16 weight.
+#: (1, 2 or 4), each with an f32 and a bf16 weight; add_rms_norm_kernel
+#: for the same x layouts, each with every mix of residual and weight types.
 SPILL_CHECKED = {"flash_attention.cu": (("flash_bwd_wgmma",), 2),
                  "flash_attention_split.cu": (("flash_bwd_dq_wgmma",
                                                "flash_bwd_dkv_wgmma"), 4),
-                 "rms_norm.cu": (("rms_norm_kernel",), 14)}
+                 "rms_norm.cu": (("rms_norm_kernel",), 14),
+                 "add_rms_norm.cu": (("add_rms_norm_kernel",), 28)}
 
 
 def ptxas_by_kernel(log, names=("",)):
@@ -194,10 +195,11 @@ def ptxas_by_kernel(log, names=("",)):
     return out
 
 
-#: the exact decode kernels by source, each built for f32 and bf16, every
-#: head width of EXACT_HEAD_DIMS and q-row groups of 1, 2, 4 and 8
+#: the decode kernels by source, each built for f32 and bf16 q, every head
+#: width of EXACT_HEAD_DIMS and q-row groups of 1, 2, 4 and 8
 DECODE_KERNELS = {"paged_attention.cu": "paged_attention_kernel",
-                  "decode_attention.cu": "decode_attention_kernel"}
+                  "decode_attention.cu": "decode_attention_kernel",
+                  "paged_attention_int8.cu": "paged_attention_int8_kernel"}
 DECODE_ROW_GROUPS = (1, 2, 4, 8)
 
 
@@ -242,17 +244,7 @@ def phase_build():
               f"ptxas lines of {kname}: {len(found)} != {want}")
         check(all(spill == 0 for _, spill in found.values()),
               f"a {kname} instantiation spills: {found}")
-    from paddle_tpu_torch.ops.kernels.add_rms_norm import add_rms_norm_fwd
-
-    x = torch.randn(8, 4096, device="cuda")
-    t0 = time.perf_counter()
-    add_rms_norm_fwd(x, x, torch.ones(4096, device="cuda"))
-    torch.cuda.synchronize()
-    tsecs = time.perf_counter() - t0
-    print(f"build: triton add_rms_norm first launch {tsecs:.2f} s",
-          flush=True)
-    return {"nvcc_s": secs, "triton_first_launch_s": tsecs,
-            "ptxas": logs}
+    return {"nvcc_s": secs, "ptxas": logs}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -365,7 +357,11 @@ def _paged_int8_case(b, hq, hkv, d, page, max_len, dtype, gen):
     check(torch.isfinite(out.float()).all().item(), "paged_attention_int8: "
           "nan")
     check(err <= PAGED_TOL[dtype],
-          f"paged_attention_int8 {dtype} Hq={hq} Hkv={hkv}: max err {err}")
+          f"paged_attention_int8 {dtype} Hq={hq} Hkv={hkv} D={d}: max err "
+          f"{err}")
+    check(torch.equal(paged_attention_int8(*args), out),
+          f"paged_attention_int8 {dtype} Hq={hq} Hkv={hkv} D={d}: a second "
+          f"call differs")
     # library yardstick, timed as one pair: gather and dequantize the
     # sequences' pages to q's type, then SDPA over all max_len rows, masked
     idx = tab.long().clamp(0, num_pages - 1)
@@ -399,6 +395,9 @@ def _paged_int8_case(b, hq, hkv, d, page, max_len, dtype, gen):
         "ms": time_ms(lambda: paged_attention_int8(*args)),
         "plain_ms": time_ms(lambda: paged_attention_int8_plain(*args)),
         "library_ms": time_ms(library),
+        # the card's time without the wrapper's host cost
+        "device_ms": graph_ms(lambda: paged_attention_int8(*args)),
+        "library_device_ms": graph_ms(library),
         "bound_ms": bms, "bound_by": by,
     }
 
@@ -851,10 +850,13 @@ def phase_kernels():
     cases["flash_attention_fwd"].append(long_fwd)
     cases["swiglu_down"].append(_swiglu_case(32768, 5504, 2048,
                                              torch.bfloat16, gen))
-    # Phi-3-mini's head width under MQA-like sharing (rep 16), and the
-    # incubate decoder's cache with its live lengths under 76 rows
+    # Phi-3-mini's head width under MQA-like sharing (rep 16), exact and
+    # int8, and the incubate decoder's cache with its live lengths under 76
+    # rows
     cases["paged_attention"].append(
         _paged_case(8, 32, 2, 96, 64, 2048, torch.bfloat16, gen))
+    cases["paged_attention_int8"].append(
+        _paged_int8_case(8, 32, 2, 96, 64, 2048, torch.bfloat16, gen))
     cases["decode_attention"].append(
         _decode_case(8, 32, 2048, 128, torch.bfloat16, gen, max_len=75))
     for name, rows in cases.items():
@@ -1775,7 +1777,7 @@ def main():
                                  pallas + "decode_attention.py:267"),
         "decode_attention": ("cuda", src + "csrc/decode_split.cuh",
                              pallas + "decode_attention.py:105"),
-        "add_rms_norm": ("triton", src + "add_rms_norm.py",
+        "add_rms_norm": ("cuda", src + "csrc/add_rms_norm.cu",
                          pallas + "add_rms_norm.py:48"),
         "flash_attention_bwd_dq": ("cuda",
                                    src + "csrc/flash_attention_split.cu",

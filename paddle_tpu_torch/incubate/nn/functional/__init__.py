@@ -10,7 +10,7 @@ CUDA tensor takes the hand-written kernel and everything else the JAX
 package's plain route:
 
 - ``fused_rms_norm`` over the last axis without ``norm_bias`` runs the
-  Triton ``add_rms_norm`` (with ``residual``) or ``rms_norm`` (without) on
+  CUDA ``add_rms_norm`` (with ``residual``) or ``rms_norm`` (without) on
   the card. The reference's ``rows % 8 == 0`` condition is a TPU tiling
   limit and is dropped.
 - ``masked_multihead_attention`` runs the CUDA ``decode_attention`` kernel

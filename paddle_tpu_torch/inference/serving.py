@@ -18,7 +18,7 @@ Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
   Decode attention is a hand-written CUDA kernel
   (``ops.kernels.decode_attention.paged_attention``, or
   ``paged_attention_int8`` over an int8 cache, which dequantizes in f32
-  inside the kernel); every RMS norm is the Triton kernel. Prefill
+  inside the kernel); every RMS norm is the CUDA row kernel. Prefill
   attention is plain PyTorch (matmul, masked f32 softmax, matmul). In int8
   mode group prefill round-trips k and v through the quantizer before both
   its attention and the cache write, and chunked prefill writes first and

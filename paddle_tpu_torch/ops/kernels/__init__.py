@@ -15,8 +15,7 @@ when it or a shared ``csrc/*.cuh`` header is newer than its library).
 Each library exposes a
 plain C launcher loaded with ``ctypes``; pointers and the stream travel as
 ``c_void_p`` (declared in the launcher's ``argtypes``) and the launcher
-returns ``cudaGetLastError()``, which the wrapper checks. Triton kernels
-are compiled by Triton at their first launch.
+returns ``cudaGetLastError()``, which the wrapper checks.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches the
 kernel and nowhere else, so a run can show that its main path went through

@@ -1,4 +1,4 @@
-"""Fused residual add + RMS norm: Triton kernel and plain version.
+"""Fused residual add + RMS norm: CUDA kernel and plain version.
 
 Replaces the Pallas TPU kernel ``_fwd_kernel``/``_fwd`` behind
 ``add_rms_norm`` (``paddle_tpu/ops/pallas/add_rms_norm.py:32``,
@@ -11,10 +11,13 @@ Replaces the Pallas TPU kernel ``_fwd_kernel``/``_fwd`` behind
 - ``rstd`` in f32.
 
 Bound: it reads x and r and writes y and o once each, a few FLOPs per
-element, so the bytes over the card's memory rate bound it. Design: one
-Triton program per row holds the whole row (H <= 8192) in registers, so x,
-r, y and o each cross device memory once; no tensor cores and no gathers,
-which is why Triton serves it as well as CUDA would (as for ``rms_norm``).
+element, so the bytes over the card's memory rate bound it. Design (see
+``csrc/add_rms_norm.cu``, whose row body ``csrc/norm_rows.cuh`` it shares
+with ``rms_norm``): a row in registers over 32 to 256 threads with 16-byte
+loads, so x, r, y and o each cross device memory once; blocks that stay on
+the card and walk the rows, reading the weight once each. It is launched
+through ``ctypes``, so a call costs the host little: the incubate decoder
+makes 2L of them a token.
 
 The backward is the JAX package's closed form (``add_rms_norm.py:89-102``)
 in plain PyTorch inside a ``torch.autograd.Function`` that saves
@@ -22,12 +25,15 @@ in plain PyTorch inside a ``torch.autograd.Function`` that saves
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import LAUNCHES, use_kernel
+from . import LAUNCHES, check_launch, load, stream_handle, use_kernel
+from .rms_norm import MAX_H
 
-_DTYPES = (torch.float32, torch.bfloat16)
-_kernel = None
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
 
 
 def add_rms_norm_plain(x2, r2, weight, eps=1e-6):
@@ -40,61 +46,47 @@ def add_rms_norm_plain(x2, r2, weight, eps=1e-6):
     return y, o, rstd[:, 0]
 
 
-def _triton_kernel():
-    global _kernel
-    if _kernel is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def _add_rms_fwd(x_ptr, r_ptr, w_ptr, y_ptr, o_ptr, rstd_ptr, h, eps,
-                         BLOCK: tl.constexpr):
-            row = tl.program_id(0).to(tl.int64)
-            cols = tl.arange(0, BLOCK)
-            mask = cols < h
-            x = tl.load(x_ptr + row * h + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            r = tl.load(r_ptr + row * h + cols, mask=mask,
-                        other=0.0).to(tl.float32)
-            y = (x + r).to(y_ptr.dtype.element_ty)
-            tl.store(y_ptr + row * h + cols, y, mask=mask)
-            yf = y.to(tl.float32)
-            rstd = tl.rsqrt(tl.sum(yf * yf, axis=0) / h + eps)
-            w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-            o = yf * rstd * w
-            tl.store(o_ptr + row * h + cols,
-                     o.to(o_ptr.dtype.element_ty), mask=mask)
-            tl.store(rstd_ptr + row, rstd)
-
-        _kernel = (_add_rms_fwd, triton.next_power_of_2)
-    return _kernel
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = load("add_rms_norm").add_rms_norm_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def add_rms_norm_fwd(x2, r2, weight, eps=1e-6):
-    """[N, H] rows x and r -> (y, o in x's type, rstd [N] f32). CUDA
-    tensors launch the Triton kernel; CPU tensors run
-    :func:`add_rms_norm_plain`."""
-    if not use_kernel(x2, r2, weight):
+    """[N, H] rows x and r -> (y, o in x's type, rstd [N] f32). x, r and
+    the weight are each f32 or bf16, in any mix. CUDA tensors launch the
+    kernel; CPU tensors run :func:`add_rms_norm_plain`. The checks are few
+    and cheap, as for ``rms_norm_fwd``."""
+    if not (x2.is_cuda and r2.is_cuda and weight.is_cuda):
+        use_kernel(x2, r2, weight)       # raises unless all lie on the CPU
         return add_rms_norm_plain(x2, r2, weight, eps)
-    n, h = x2.shape
-    if (x2.dtype not in _DTYPES or r2.dtype not in _DTYPES
-            or weight.dtype not in _DTYPES):
+    xt, rt, wt = (_DTYPES.get(t.dtype) for t in (x2, r2, weight))
+    if xt is None or rt is None or wt is None:
         raise TypeError(f"add_rms_norm takes float32 or bfloat16, got "
                         f"{x2.dtype}, {r2.dtype} and {weight.dtype}")
-    if r2.shape != x2.shape or weight.shape != (h,) or h > 8192:
+    n, h = x2.shape
+    if r2.shape != x2.shape or weight.shape != (h,) or not 1 <= h <= MAX_H:
         raise ValueError(f"add_rms_norm: x and residual [N, H] and weight "
-                         f"[H] with H <= 8192, got {tuple(x2.shape)}, "
-                         f"{tuple(r2.shape)} and {tuple(weight.shape)}")
+                         f"[H] with 1 <= H <= {MAX_H}, got "
+                         f"{tuple(x2.shape)}, {tuple(r2.shape)} and "
+                         f"{tuple(weight.shape)}")
     if not (x2.is_contiguous() and r2.is_contiguous()
             and weight.is_contiguous()):
         raise ValueError("add_rms_norm: operands must be contiguous")
-    kern, next_pow2 = _triton_kernel()
     y = torch.empty_like(x2)
     o = torch.empty_like(x2)
-    rstd = torch.empty(n, dtype=torch.float32, device=x2.device)
-    block = next_pow2(h)
-    kern[(n,)](x2, r2, weight, y, o, rstd, h, float(eps), BLOCK=block,
-               num_warps=4 if block <= 1024 else 8)
+    rstd = x2.new_empty(n, dtype=torch.float32)
+    if n == 0:
+        return y, o, rstd
+    check_launch(_launcher()(x2.data_ptr(), r2.data_ptr(), weight.data_ptr(),
+                             y.data_ptr(), o.data_ptr(), rstd.data_ptr(), n,
+                             h, eps, xt, rt, wt, stream_handle(x2)),
+                 "add_rms_norm")
     LAUNCHES["add_rms_norm"] += 1
     return y, o, rstd
 

@@ -25,12 +25,14 @@
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(decode_split::kThreads, 1)
     decode_attention_kernel(const decode_split::Params p) {
-  decode_split::attend<T, D, R, false>(p);
+  decode_split::attend<T, T, D, R, false>(p);
 }
 
 namespace {
 
 struct Dense {
+  template <typename T>
+  using Rows = T;
   template <typename T, int D, int R>
   static decode_split::KernelFn get() {
     return decode_attention_kernel<T, D, R>;

@@ -1,15 +1,18 @@
-// decode_split.cuh: the shared body of the exact one-token decode attention
-// kernels for Hopper (sm_90a): paged_attention.cu (rows in pages found
-// through a block table) and decode_attention.cu (a dense cache). It
-// replaces the Pallas TPU kernels `_paged_kernel` and `_decode_kernel`
-// (paddle_tpu/ops/pallas/decode_attention.py:139 and :42):
+// decode_split.cuh: the shared body of the one-token decode attention
+// kernels for Hopper (sm_90a): paged_attention.cu (exact rows in pages found
+// through a block table), decode_attention.cu (a dense cache) and
+// paged_attention_int8.cu (int8 codes and one f32 scale per row, in pages).
+// It replaces the Pallas TPU kernels `_paged_kernel`, `_decode_kernel` and
+// `_paged_int8_kernel` (paddle_tpu/ops/pallas/decode_attention.py:139, :42
+// and :180):
 //
 //   out[b, h*rep + r] = softmax(q[b, h*rep + r] . K_b^T * scale) . V_b
 //
 // over the first len = lengths[b] rows of sequence b: the softmax in f32,
-// p rounded to V's type before p.V with l summed from the unrounded p, 0
-// where len == 0, table entries clamped to [0, num_pages - 1], and no page
-// or row at or past len ever read.
+// 0 where len == 0, table entries clamped to [0, num_pages - 1], and no page
+// or row at or past len ever read. Exact rows: p rounded to V's type before
+// p.V, with l summed from the unrounded p. Int8 rows: k = code * scale_k and
+// v = code * scale_v in f32, q in f32, and p kept in f32.
 //
 // Bound: each live K and V row is read once, a few FLOPs per byte, so the
 // live rows' bytes over the card's memory rate (3.35 TB/s) bound it.
@@ -28,12 +31,20 @@
 //   cp.async copies, so the next tiles are in flight while one is reduced.
 //   Every row's address comes from its own table entry, so any page size
 //   works. Rows past the share or the length are zero-filled and masked,
-//   never read.
-// - No barrier per tile. A row is spread over LPR lanes in 16-byte chunks
-//   (a warp holds 32 / LPR rows at once); q lives in registers in f32; a
+//   never read. An int8 row's two scales ride beside its codes in the same
+//   stage, one 4-byte cp.async each.
+// - No barrier per tile. A row is spread over LPR lanes in chunks of 16
+//   bytes (f32, bf16) or 8 (int8 codes), at most 8 values a chunk, a warp
+//   holding 32 / LPR rows at once; q lives in registers in f32; a
 //   score reduces over its row's LPR lanes (log2 LPR shuffles). Each lane
 //   group keeps its own (m, l, acc) in registers and updates its online
 //   softmax once per tile.
+// - Int8 codes become f32 without I2F, which runs at a quarter of the FMA
+//   rate: a byte permute puts code ^ 0x80 under the exponent of 2^23, and
+//   one subtraction of 2^23 + 128 leaves the code, exactly. Each row's scale
+//   stays out of the inner products: the score is scale_k * (q . code_k) *
+//   scale, and p.V adds (p * scale_v) * code_v, one product a row in place
+//   of D (an f32 reassociation against the plain version).
 // - Merge, once, in a fixed order: the lane groups by shuffles, the warps
 //   through shared memory (which the rings leave free by then), the CTAs of
 //   the cluster through distributed shared memory in rank order 0..n-1,
@@ -41,9 +52,10 @@
 //   workspace, no atomics, and a call repeats bit for bit. A CTA with no
 //   rows contributes (m, l) = (-1e30, 0) and still reaches both cluster
 //   barriers.
-// - bf16 takes its exponentials on the SFU (ex2.approx of the score times
-//   scale * log2 e); f32 takes expf.
-// - f32 and bf16; D in {64, 80, 96, 128, 256}; any rep >= 1; any page.
+// - bf16 q takes its exponentials on the SFU (ex2.approx of the score times
+//   scale * log2 e); f32 q takes expf.
+// - q f32 or bf16; K/V rows of q's type or int8; D in {64, 80, 96, 128,
+//   256}; any rep >= 1; any page.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -68,6 +80,8 @@ struct Params {
   const void* q;       // [B, Hq, D]
   const void* k;       // paged [Hkv, num_pages, page, D]; dense [B, Hkv, S, D]
   const void* v;
+  const float* k_scales;  // int8 route: [Hkv, num_pages, page, 1]
+  const float* v_scales;
   const int* tables;   // [B, pages_per_seq] (paged route)
   const int* lengths;  // [B]
   void* out;           // [B, Hq, D]
@@ -83,24 +97,32 @@ __host__ __device__ constexpr int next_pow2(int x) {
   return x <= 1 ? 1 : 2 * next_pow2((x + 1) / 2);
 }
 
-// How a D-wide row of T maps onto a warp.
-template <typename T, int D, int R>
+// How a D-wide row of KV (f32, bf16 or int8 codes) maps onto a warp.
+template <typename KV, int D, int R>
 struct Shape {
-  static constexpr int kRowBytes = D * (int)sizeof(T);
-  static constexpr int kChunks = kRowBytes / 16;         // 16-byte chunks
+  static constexpr bool kCodes = sizeof(KV) == 1;        // int8 rows
+  static constexpr int kRowBytes = D * (int)sizeof(KV);
+  static constexpr int kCopies = kRowBytes / 16;         // 16-byte copies
+  // a lane reads a row in chunks of 16 bytes (f32, bf16) or 8 (int8), so a
+  // chunk holds at most 8 values
+  static constexpr int kChunkBytes = kCodes ? 8 : 16;
+  static constexpr int kChunks = kRowBytes / kChunkBytes;
   static constexpr int kLanes =                          // lanes per row
       next_pow2(kChunks) < 32 ? next_pow2(kChunks) : 32;
   static constexpr int kVecs = (kChunks + kLanes - 1) / kLanes;  // per lane
-  static constexpr int kPerChunk = 16 / (int)sizeof(T);
+  static constexpr int kPerChunk = kChunkBytes / (int)sizeof(KV);
   static constexpr int kElems = kVecs * kPerChunk;       // columns per lane
   static constexpr int kGroups = 32 / kLanes;            // rows per warp step
   static constexpr int kRowsPerGroup = R >= 8 ? 2 : 4;   // per tile
   static constexpr int kTileRows = kRowsPerGroup * kGroups;
   static constexpr int kTileBytes = kTileRows * kRowBytes;
+  // a stage: the K tile, the V tile, then (int8) their rows' f32 scales
+  static constexpr int kScaleBytes = kCodes ? 4 * kTileRows : 0;
+  static constexpr int kStageBytes = 2 * (kTileBytes + kScaleBytes);
   // tiles per warp ring: at R <= 2 the registers leave room for more
   // blocks on an SM than a third stage's shared memory would
   static constexpr int kStages = R >= 4 ? 3 : 2;
-  static constexpr int kRingBytes = kWarps * kStages * 2 * kTileBytes;
+  static constexpr int kRingBytes = kWarps * kStages * kStageBytes;
   static constexpr int kMergeBytes =
       4 * (kWarps * R * D + 2 * kWarps * R + R * D + 2 * R);
   static constexpr int kSmemBytes =
@@ -123,10 +145,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// p rounded to V's type (the identity for f32)
-template <typename T>
+// p rounded to V's type (the identity for f32 and for int8 rows, whose p
+// stays f32)
+template <typename KV>
 __device__ __forceinline__ float round_p(float x) {
-  return to_f32(from_f32<T>(x));
+  if constexpr (sizeof(KV) == 1)
+    return x;
+  else
+    return to_f32(from_f32<KV>(x));
 }
 
 // e^x for f32; for bf16 2^x, the scores being scaled by log2 e
@@ -138,10 +164,26 @@ __device__ __forceinline__ float ex(float x) {
     return sm90::ex2_approx(x);
 }
 
-// One 16-byte chunk of shared memory as f32 values.
-template <typename T>
+// Four int8 codes (one 32-bit word, the first in the low byte) as f32,
+// without I2F: 0x4B000000 | (code ^ 0x80) is the float 2^23 + code + 128,
+// so one subtraction of 2^23 + 128 leaves the code, exactly.
+__device__ __forceinline__ void codes_to_f32(uint32_t w, float* dst) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    dst[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + k)) -
+             8388736.f;
+}
+
+// One chunk of shared memory (16 bytes of f32 or bf16, 8 of int8 codes) as
+// f32 values.
+template <typename KV>
 __device__ __forceinline__ void unpack(const unsigned char* src, float* dst) {
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(KV) == 1) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    codes_to_f32(u.x, dst);
+    codes_to_f32(u.y, dst + 4);
+  } else if constexpr (sizeof(KV) == 4) {
     const float4 f = *reinterpret_cast<const float4*>(src);
     dst[0] = f.x;
     dst[1] = f.y;
@@ -167,6 +209,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4 bytes global -> shared (an int8 row's scale); src_bytes 0 writes zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   sm90::smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -177,13 +228,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The whole computation of one CTA: grid (split, hkv * groups, B), one
-// cluster along x.
-template <typename T, int D, int R, bool kPaged>
+// cluster along x. T is q's and the output's type, KV the rows' (T, or
+// int8_t for codes with their scales).
+template <typename T, typename KV, int D, int R, bool kPaged>
 __device__ __forceinline__ void attend(const Params& p) {
-  using S = Shape<T, D, R>;
+  using S = Shape<KV, D, R>;
+  constexpr bool kCodes = S::kCodes;
   constexpr int LPR = S::kLanes, G = S::kGroups, E = S::kElems;
   constexpr int RPG = S::kRowsPerGroup, TR = S::kTileRows;
-  constexpr int C = S::kChunks, EPC = S::kPerChunk;
+  constexpr int C = S::kChunks, EPC = S::kPerChunk, CB = S::kChunkBytes;
+  constexpr int CP = S::kCopies, EPP = 16 / (int)sizeof(KV);
   constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float fac[kMaxSplit * kMaxRows];  // merge factors
@@ -218,10 +272,12 @@ __device__ __forceinline__ void attend(const Params& p) {
     s0 = min(rank * per, len);
     s1 = min(s0 + per, len);
   }
-  const size_t head = kPaged ? (size_t)h * p.num_pages * p.page * D
-                             : ((size_t)b * p.hkv + h) * p.seq * D;
-  const T* kb = reinterpret_cast<const T*>(p.k) + head;
-  const T* vb = reinterpret_cast<const T*>(p.v) + head;
+  const size_t head_rows = kPaged ? (size_t)h * p.num_pages * p.page
+                                  : ((size_t)b * p.hkv + h) * p.seq;
+  const KV* kb = reinterpret_cast<const KV*>(p.k) + head_rows * D;
+  const KV* vb = reinterpret_cast<const KV*>(p.v) + head_rows * D;
+  const float* ksb = kCodes ? p.k_scales + head_rows : nullptr;
+  const float* vsb = kCodes ? p.v_scales + head_rows : nullptr;
   const int* tab = kPaged ? p.tables + (size_t)b * p.pages_per_seq : nullptr;
 
   // ---- q in registers, f32: lane sub holds chunks sub + v * LPR
@@ -253,7 +309,7 @@ __device__ __forceinline__ void attend(const Params& p) {
   const int ntile = s1 > s0 ? (s1 - s0 + TR - 1) / TR : 0;
   const int nt = ntile > warp ? (ntile - warp + kWarps - 1) / kWarps : 0;
   constexpr int kStages = S::kStages;
-  unsigned char* ring = smem + warp * (kStages * 2 * S::kTileBytes);
+  unsigned char* ring = smem + warp * (kStages * S::kStageBytes);
 
   auto load_tile = [&](int it) {
     const int t0 = s0 + (warp + it * kWarps) * TR;
@@ -271,18 +327,25 @@ __device__ __forceinline__ void attend(const Params& p) {
         }
       }
     }
-    unsigned char* dk = ring + (it % kStages) * 2 * S::kTileBytes;
+    unsigned char* dk = ring + (it % kStages) * S::kStageBytes;
     unsigned char* dv = dk + S::kTileBytes;
 #pragma unroll
-    for (int j = 0; j < (TR * C + 31) / 32; ++j) {
+    for (int j = 0; j < (TR * CP + 31) / 32; ++j) {
       const int c = lane + 32 * j;
-      const int i = min(c / C, TR - 1);
+      const int i = min(c / CP, TR - 1);
       const int ri = __shfl_sync(kAll, row, i);
       const int oki = __shfl_sync(kAll, ok, i);
-      if (c < TR * C) {
-        const size_t off = (size_t)ri * D + (c % C) * EPC;
+      if (c < TR * CP) {
+        const size_t off = (size_t)ri * D + (c % CP) * EPP;
         cp_async16(dk + c * 16, oki ? kb + off : kb, oki ? 16 : 0);
         cp_async16(dv + c * 16, oki ? vb + off : vb, oki ? 16 : 0);
+      }
+    }
+    if constexpr (kCodes) {  // tile row `lane`'s scales
+      if (lane < TR) {
+        float* sk = reinterpret_cast<float*>(dv + S::kTileBytes);
+        cp_async4(sk + lane, ok ? ksb + row : ksb, ok ? 4 : 0);
+        cp_async4(sk + TR + lane, ok ? vsb + row : vsb, ok ? 4 : 0);
       }
     }
   };
@@ -298,8 +361,9 @@ __device__ __forceinline__ void attend(const Params& p) {
     cp_async_wait<kStages - 1>();  // tile it has landed (this lane's part)
     __syncwarp();                  // ... and every lane's
     const int t0 = s0 + (warp + it * kWarps) * TR;
-    const unsigned char* tk = ring + (it % kStages) * 2 * S::kTileBytes;
+    const unsigned char* tk = ring + (it % kStages) * S::kStageBytes;
     const unsigned char* tv = tk + S::kTileBytes;
+    const float* tks = reinterpret_cast<const float*>(tv + S::kTileBytes);
     float s[RPG][R];
 #pragma unroll
     for (int j = 0; j < RPG; ++j) {
@@ -309,12 +373,14 @@ __device__ __forceinline__ void attend(const Params& p) {
       for (int v = 0; v < S::kVecs; ++v) {
         const int ch = sub + v * LPR;
         if (ch < C) {
-          unpack<T>(tk + i * S::kRowBytes + ch * 16, kf + v * EPC);
+          unpack<KV>(tk + i * S::kRowBytes + ch * CB, kf + v * EPC);
         } else {
 #pragma unroll
           for (int e = 0; e < EPC; ++e) kf[v * EPC + e] = 0.f;
         }
       }
+      // the row's scale_k (int8) folded into the softmax scale
+      const float rscale = kCodes ? tks[i] * sscale : sscale;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float part = 0.f;
@@ -323,7 +389,7 @@ __device__ __forceinline__ void attend(const Params& p) {
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           part += __shfl_xor_sync(kAll, part, o);
-        s[j][r] = part * sscale;
+        s[j][r] = part * rscale;
       }
     }
     bool valid[RPG];
@@ -343,7 +409,7 @@ __device__ __forceinline__ void attend(const Params& p) {
       for (int j = 0; j < RPG; ++j) {
         const float pj = valid[j] ? ex<T>(s[j][r] - mx) : 0.f;
         psum += pj;
-        s[j][r] = round_p<T>(pj);
+        s[j][r] = round_p<KV>(pj);
       }
       l[r] = alpha * l[r] + psum;
 #pragma unroll
@@ -357,16 +423,20 @@ __device__ __forceinline__ void attend(const Params& p) {
       for (int v = 0; v < S::kVecs; ++v) {
         const int ch = sub + v * LPR;
         if (ch < C) {
-          unpack<T>(tv + i * S::kRowBytes + ch * 16, vf + v * EPC);
+          unpack<KV>(tv + i * S::kRowBytes + ch * CB, vf + v * EPC);
         } else {
 #pragma unroll
           for (int e = 0; e < EPC; ++e) vf[v * EPC + e] = 0.f;
         }
       }
+      // int8: p times the row's scale_v, then times the codes
+      const float sv = kCodes ? tks[TR + i] : 1.f;
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r) {
+        const float pv = kCodes ? s[j][r] * sv : s[j][r];
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(s[j][r], vf[e], acc[r][e]);
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pv, vf[e], acc[r][e]);
+      }
     }
     __syncwarp();  // the stage is free for the load of tile it + kStages
   }
@@ -473,7 +543,8 @@ __device__ __forceinline__ void attend(const Params& p) {
 // ------------------------------------------------------------------ host
 template <typename T, int D, int R, typename K>
 cudaError_t launch_one(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Shape<T, D, R>::kSmemBytes;
+  constexpr int smem =
+      Shape<typename K::template Rows<T>, D, R>::kSmemBytes;
   const KernelFn fn = K::template get<T, D, R>();
   static bool ready = false;  // the opt-in above 48 KB, once per kernel
   if (!ready) {
@@ -521,8 +592,9 @@ cudaError_t launch_width(const Params& p, int batch, int head_dim, int rmax,
   }
 }
 
-// K::get<T, D, R>() names the __global__ kernel of one route. The q rows of
-// a kv head run in groups of R = the power of two >= min(rep, 8). dtype: 0
+// K::get<T, D, R>() names the __global__ kernel of one route and
+// K::Rows<T> its K/V row type for q of type T. The q rows of a kv head run
+// in groups of R = the power of two >= min(rep, 8). dtype (of q): 0
 // float32, 1 bfloat16. Returns the launch's error (cudaErrorInvalidValue
 // for shapes the kernels do not take).
 template <typename K>

@@ -23,12 +23,14 @@
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(decode_split::kThreads, 1)
     paged_attention_kernel(const decode_split::Params p) {
-  decode_split::attend<T, D, R, true>(p);
+  decode_split::attend<T, T, D, R, true>(p);
 }
 
 namespace {
 
 struct Paged {
+  template <typename T>
+  using Rows = T;
   template <typename T, int D, int R>
   static decode_split::KernelFn get() {
     return paged_attention_kernel<T, D, R>;

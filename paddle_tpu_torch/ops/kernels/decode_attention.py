@@ -10,24 +10,27 @@ bound by those bytes over the card's memory rate (see the sources).
 - ``decode_attention`` (``csrc/decode_attention.cu``) replaces
   ``_decode_kernel`` (``:42``, ``pallas_call`` at ``:105``): a dense cache,
   p rounded to V's type.
-- ``paged_attention_int8`` (``csrc/paged_attention_int8.cu``, body
-  ``csrc/decode_body.cuh``) replaces ``_paged_int8_kernel`` (``:180``,
-  ``pallas_call`` at ``:267``): int8 codes and one f32 scale per row,
-  dequantized in f32 inside the kernel; q is cast to f32 and p stays f32.
+- ``paged_attention_int8`` (``csrc/paged_attention_int8.cu``) replaces
+  ``_paged_int8_kernel`` (``:180``, ``pallas_call`` at ``:267``): int8
+  codes and one f32 scale per row, dequantized in f32 inside the kernel; q
+  is cast to f32 and p stays f32.
 
-The two exact kernels share ``csrc/decode_split.cuh``: a cluster of
+The three kernels share ``csrc/decode_split.cuh``: a cluster of
 ``split_count(rows the call allows)`` CTAs splits each sequence's live
-rows, and the CTAs merge their partial softmaxes in a fixed order, so a
-call is one launch and repeats bit for bit.
+rows, each warp streams its rows through its own ``cp.async`` ring, and
+the CTAs merge their partial softmaxes in a fixed order, so a call is one
+launch and repeats bit for bit. The int8 route turns codes into f32 by
+byte permutes and applies each row's scale once, to its score and to its
+p, rather than to each of its D values.
 
 Layouts (those of the JAX package):
   q [B, Hq, D]; pages [Hkv, NumPages, PageSize, D] (int8 scales
   [Hkv, NumPages, PageSize, 1] f32); block_tables [B, PagesPerSeq] int32;
   dense cache [B, Hkv, S, D]; lengths [B] int32 (valid kv rows, counting
   the current token's freshly written row).
-q head ``h * rep + r`` reads kv head ``h`` (``rep = Hq // Hkv``). The exact
-kernels take D in ``EXACT_HEAD_DIMS`` and any rep; the int8 kernel takes D
-in {64, 128} and rep in 1..8. Each raises on other shapes.
+q head ``h * rep + r`` reads kv head ``h`` (``rep = Hq // Hkv``). Each
+kernel takes D in ``EXACT_HEAD_DIMS`` and any rep, and raises on other
+shapes.
 """
 from __future__ import annotations
 
@@ -41,12 +44,12 @@ from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: C launcher -> (pointer arguments, int arguments) before (scale, dtype,
 #: stream)
-_SIGNATURES = {"paged_attention": (6, 8), "paged_attention_int8": (8, 7),
+_SIGNATURES = {"paged_attention": (6, 8), "paged_attention_int8": (8, 8),
                "decode_attention": (5, 6)}
-#: head widths of the exact kernels: GPT-2 and Falcon-7B 64, Phi-2 80,
+#: head widths of the decode kernels: GPT-2 and Falcon-7B 64, Phi-2 80,
 #: Phi-3-mini and GPT-NeoX-20B 96, LLaMA 128, Gemma and GPT-J 256
 EXACT_HEAD_DIMS = (64, 80, 96, 128, 256)
-#: the exact kernels' split: one CTA of a sequence's cluster per
+#: the decode kernels' split: one CTA of a sequence's cluster per
 #: SPLIT_ROWS rows the call allows, at most SPLIT_MAX (the portable cluster)
 SPLIT_ROWS, SPLIT_MAX = 256, 8
 
@@ -136,21 +139,19 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None):
                          _scale(scale, q.shape[-1]), v_cache.dtype)
 
 
-def _check_common(name, q, hkv, d_kv, lengths, tensors, head_dims,
-                  max_rep=None):
+def _check_common(name, q, hkv, d_kv, lengths, tensors):
     """What every decode kernel takes: q f32/bf16 [B, Hq, D], D in
-    ``head_dims`` matching the cache, rep = Hq/Hkv an integer >= 1 (at most
-    ``max_rep``), lengths [B] int32, every operand contiguous."""
+    ``EXACT_HEAD_DIMS`` matching the cache, rep = Hq/Hkv an integer >= 1,
+    lengths [B] int32, every operand contiguous."""
     b, hq, d = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16 q, got {q.dtype}")
-    if d not in head_dims or d_kv != d:
-        raise ValueError(f"{name}: head_dim must be one of {head_dims} and "
-                         f"match the cache, got q {tuple(q.shape)} and cache "
-                         f"head_dim {d_kv}")
-    if hq % hkv or hq < hkv or (max_rep is not None and hq // hkv > max_rep):
-        limit = "" if max_rep is None else f" in 1..{max_rep}"
-        raise ValueError(f"{name}: Hq/Hkv must be an integer{limit}, got "
+    if d not in EXACT_HEAD_DIMS or d_kv != d:
+        raise ValueError(f"{name}: head_dim must be one of "
+                         f"{EXACT_HEAD_DIMS} and match the cache, got q "
+                         f"{tuple(q.shape)} and cache head_dim {d_kv}")
+    if hq % hkv or hq < hkv:
+        raise ValueError(f"{name}: Hq/Hkv must be an integer, got "
                          f"{hq}/{hkv}")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"{name}: lengths must be int32 [B]")
@@ -190,7 +191,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                          "shape")
     _check_common("paged_attention", q, hkv, dk, lengths,
                   {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-                   "block_tables": block_tables}, EXACT_HEAD_DIMS)
+                   "block_tables": block_tables})
     _check_tables("paged_attention", block_tables, b)
     _check_aligned("paged_attention", {"k_pages": k_pages,
                                        "v_pages": v_pages})
@@ -228,16 +229,17 @@ def paged_attention_int8(q, k_codes, k_scales, v_codes, v_scales,
     _check_common("paged_attention_int8", q, hkv, dk, lengths,
                   {"q": q, "k_codes": k_codes, "k_scales": k_scales,
                    "v_codes": v_codes, "v_scales": v_scales,
-                   "block_tables": block_tables}, (64, 128), max_rep=8)
+                   "block_tables": block_tables})
     _check_tables("paged_attention_int8", block_tables, b)
     _check_aligned("paged_attention_int8", {"k_codes": k_codes,
                                             "v_codes": v_codes})
+    pps = block_tables.shape[1]
     out = torch.empty_like(q)
     rc = _launcher("paged_attention_int8")(
         ptr(q), ptr(k_codes), ptr(k_scales), ptr(v_codes), ptr(v_scales),
         ptr(block_tables), ptr(lengths), ptr(out), b, hkv, hq // hkv, d,
-        num_pages, page, block_tables.shape[1], float(_scale(scale, d)),
-        _DTYPES[q.dtype], stream_handle(q))
+        num_pages, page, pps, split_count(pps * page),
+        float(_scale(scale, d)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "paged_attention_int8")
     LAUNCHES["paged_attention_int8"] += 1
     return out
@@ -259,8 +261,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None):
                          f"with q's B, got {tuple(k_cache.shape)} and "
                          f"{tuple(v_cache.shape)} for q {tuple(q.shape)}")
     _check_common("decode_attention", q, hkv, dk, lengths,
-                  {"q": q, "k_cache": k_cache, "v_cache": v_cache},
-                  EXACT_HEAD_DIMS)
+                  {"q": q, "k_cache": k_cache, "v_cache": v_cache})
     _check_aligned("decode_attention", {"k_cache": k_cache,
                                         "v_cache": v_cache})
     out = torch.empty_like(q)

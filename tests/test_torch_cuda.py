@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels on the card (marked ``cuda``).
+"""The port's CUDA kernels on the card (marked ``cuda``).
 
 Each kernel against its plain PyTorch version on the same CUDA tensors
 (and the split flash backward run twice, bit for bit), the serving
@@ -173,23 +173,22 @@ def test_rms_norm_kernel_matches_plain(cuda_device, x_dtype, w_dtype, n, h):
 #: both compute in f32, so only the output rounding (2^-8) differs
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("hq,hkv,d,page", [(16, 16, 128, 64),
-                                           (16, 2, 64, 16),
-                                           (8, 8, 128, 7)])
+@pytest.mark.parametrize("hq,hkv,d,page", PAGED_SHAPES)
 def test_paged_attention_int8_kernel_matches_plain(cuda_device, dtype, atol,
                                                    hq, hkv, d, page):
-    lengths = [1, page + 1, 3 * page, 6 * page]
-    q, kp, vp, tables, lens = _paged_inputs(4, hq, hkv, d, page, 6, lengths,
-                                            torch.float32, cuda_device)
+    """A table of 2048 rows (a full cluster of 8 CTAs) under lengths 0, 1,
+    one row past a page, one row past an even split, an even split and
+    the whole table, as for the exact kernel."""
+    pps = -(-2048 // page)
+    lengths = [0, 1, page + 1, *_split_edges(pps * page, page), pps * page]
+    q, kp, vp, tables, lens = _paged_inputs(len(lengths), hq, hkv, d, page,
+                                            pps, lengths, torch.float32,
+                                            cuda_device)
     (kc, ks), (vc, vs) = quantize_rows_int8(kp), quantize_rows_int8(vp)
     args = [q.to(dtype), kc, ks, vc, vs, tables, lens]
-    kernels.reset_launch_counts()
-    got = paged_attention_int8(*args)
-    want = paged_attention_int8_plain(*args)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts()["paged_attention_int8"] == 1
-    assert got.dtype == dtype
-    assert (got.float() - want.float()).abs().max().item() <= atol
+    got = _exact_kernel_checks(paged_attention_int8, args, atol,
+                               paged_attention_int8_plain(*args))
+    assert torch.all(got[0] == 0)
     # rows past each length are never read: poison the scales of the rest
     # of each sequence's last page
     for i, n in enumerate(lengths):
@@ -233,20 +232,38 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, atol, hq,
     assert torch.equal(decode_attention(*args), got)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h", [(8, 4096), (300, 96)])
-def test_add_rms_norm_kernel_matches_plain(cuda_device, dtype, n, h):
+#: x, residual and weight types: f32 and bf16 in every mix
+ADD_RMS_TYPES = [(x, r, w) for x in (torch.float32, torch.bfloat16)
+                 for r in (torch.float32, torch.bfloat16)
+                 for w in (torch.float32, torch.bfloat16)]
+
+
+#: no rows; the incubate decoder's rows; rows off the rows per block at a
+#: width of whole vectors (96) and a ragged one (100); a prefill-sized
+#: block; the widest row. offset 1 starts x and r one element past a
+#: 16-byte boundary (the scalar-load layout).
+@pytest.mark.parametrize("x_dtype,r_dtype,w_dtype", ADD_RMS_TYPES)
+@pytest.mark.parametrize("n,h", [(0, 4096), (8, 4096), (300, 96),
+                                 (300, 100), (4096, 4096), (3, 8192)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_add_rms_norm_kernel_matches_plain(cuda_device, x_dtype, r_dtype,
+                                           w_dtype, n, h, offset):
     g = torch.Generator().manual_seed(n + h)
-    x = torch.randn(n, h, generator=g).to(cuda_device, dtype)
-    r = torch.randn(n, h, generator=g).to(cuda_device, dtype)
-    w = (torch.rand(h, generator=g) + 0.5).to(cuda_device, dtype)
+
+    def rows(dtype):
+        flat = torch.randn(n * h + offset, generator=g).to(cuda_device, dtype)
+        return flat[offset:].view(n, h)
+
+    x, r = rows(x_dtype), rows(r_dtype)
+    w = (torch.rand(h, generator=g) + 0.5).to(cuda_device, w_dtype)
     kernels.reset_launch_counts()
     y, o, rstd = add_rms_norm_fwd(x, r, w)
     ry, ro, rrstd = add_rms_norm_plain(x, r, w)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["add_rms_norm"] == 1
+    assert kernels.launch_counts()["add_rms_norm"] == (1 if n else 0)
+    assert y.dtype == o.dtype == x_dtype and rstd.dtype == torch.float32
     assert torch.equal(y, ry)
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    tol = 1e-5 if x_dtype == torch.float32 else 1e-2
     torch.testing.assert_close(o, ro, atol=tol, rtol=tol)
     torch.testing.assert_close(rstd, rrstd, atol=1e-6, rtol=1e-5)
 
@@ -275,13 +292,13 @@ def test_decode_kernels_reject_what_they_do_not_take(cuda_device):
                          torch.ones(16, device=cuda_device).half())
 
 
-#: head_dim 64 under GQA 4/2, exact and int8 KV; Phi-3-mini's head_dim 96
-#: under MQA (16 q heads over one kv head), which only the exact kernel
-#: takes
+#: head_dim 64 under GQA 4/2, and Phi-3-mini's head_dim 96 under MQA (16
+#: q heads over one kv head), each with exact and with int8 KV
 @pytest.mark.parametrize("int8_kv,hidden,heads,kv_heads",
                          [(False, 256, 4, 2), (True, 256, 4, 2),
-                          (False, 1536, 16, 1)],
-                         ids=["exact", "int8", "exact-d96-rep16"])
+                          (False, 1536, 16, 1), (True, 1536, 16, 1)],
+                         ids=["exact", "int8", "exact-d96-rep16",
+                              "int8-d96-rep16"])
 def test_engine_on_card_matches_cpu_and_counts_launches(
         cuda_device, int8_kv, hidden, heads, kv_heads):
     cfg = LlamaConfig(vocab_size=96, hidden_size=hidden, num_layers=2,

@@ -144,18 +144,24 @@ def test_kv_gather_rows_dequantizes_like_jax(dtype):
                                   np.asarray(want.astype(jnp.float32)))
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(cfg):
+    """The JAX and the port's Llama of ``cfg`` with the same seeded
+    weights."""
     rng = np.random.default_rng(7)
-    jm = JaxLlama(JaxLlamaConfig(**TINY))
+    jm = JaxLlama(JaxLlamaConfig(**cfg))
     sd = {k: (0.25 * rng.standard_normal(tuple(v.shape))).astype(np.float32)
           if not k.endswith("norm.weight") else
           (1 + 0.1 * rng.standard_normal(tuple(v.shape))).astype(np.float32)
           for k, v in jm.state_dict().items()}
     jm.set_state_dict({k: paddle.to_tensor(a) for k, a in sd.items()})
-    tm = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
+    tm = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
     tm.load_state_dict(state_dict_from_jax(sd, tm.config))
     return jm, tm
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models(TINY)
 
 
 def _serve_staggered(engine, prompts):
@@ -192,6 +198,28 @@ def test_int8_streams_match_jax_int8_engine(models, monkeypatch, chunk,
     assert isinstance(eng.kc, tuple) and eng.kc[0].dtype == torch.int8
     assert got == want
     assert eng.pool.available == eng.pool.num_pages
+
+
+#: Phi-3-mini's head width 96 under 16 q heads per kv head, at TINY's depth
+WIDE = dict(TINY, hidden_size=1536, num_heads=16, num_kv_heads=1)
+
+
+@pytest.mark.parametrize("jax_route", ["gather", "interpret"])
+def test_int8_streams_match_jax_int8_engine_d96_rep16(monkeypatch,
+                                                     jax_route):
+    """f32 greedy streams equal token for token at a head width and rep
+    that the card's int8 kernel takes since its split-sequence body."""
+    if jax_route == "interpret":
+        monkeypatch.setenv("PTPU_PAGED_INT8_KERNEL", "interpret")
+    jm, tm = _models(WIDE)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 96, (n,)).tolist() for n in (5, 9, 3, 20)]
+    jeng = jax_serving.ContinuousBatchingEngine(jm, int8_kv=True, **ENGINE)
+    want = _serve_staggered(jeng, prompts)
+    eng = ContinuousBatchingEngine(tm, int8_kv=True, device="cpu", **ENGINE)
+    got = _serve_staggered(eng, prompts)
+    assert jeng.int8_kv and eng.int8_kv
+    assert got == want
 
 
 def test_kv_nbytes_equal_jax_engine(models):

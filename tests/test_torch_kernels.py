@@ -2,8 +2,8 @@
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX
 side runs the Pallas kernel in interpret mode, as tests/test_decode_attention
-.py does. The same numpy inputs go to both. The CUDA and Triton kernels are
-held against these plain versions on the card by tests/test_torch_cuda.py.
+.py does. The same numpy inputs go to both. The CUDA kernels are held
+against these plain versions on the card by tests/test_torch_cuda.py.
 """
 import jax
 import jax.numpy as jnp
@@ -251,6 +251,33 @@ def test_paged_attention_int8_plain_matches_pallas(dtype, atol, hq, hkv,
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL_F32),
+                                        ("bfloat16", 2 ** -6)])
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_paged_attention_int8_plain_matches_pallas_wide_heads_rep_16(dtype,
+                                                                     atol,
+                                                                     d):
+    """Head widths of Phi-2 (80), Phi-3-mini (96) and Gemma (256) under
+    16 q heads per kv head over int8 pages, which the card's kernel takes
+    too. f32 q: the summation order only. bf16 q: both sides compute in
+    f32 and round the output to bf16 once (the tolerance of the exact
+    kernel's wide-head test)."""
+    b, hq, hkv, page, pps = 3, 16, 1, 16, 3
+    q, kp, vp, tables, lens = _paged_inputs(b, hq, hkv, d, page, pps,
+                                            [0, 17, 48], seed=d)
+    kc, ks, vc, vs = _int8_pages(kp, vp)
+    want = np.asarray(jax_paged_attention_int8(
+        jnp.asarray(q, dtype), *(jnp.asarray(a) for a in (kc, ks, vc, vs)),
+        jnp.asarray(tables), jnp.asarray(lens), interpret=True)
+        .astype(jnp.float32))
+    tq = torch.from_numpy(q).to(getattr(torch, dtype))
+    got = paged_attention_int8(tq, *(torch.from_numpy(a) for a in
+                                     (kc, ks, vc, vs, tables, lens)))
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
+    assert np.all(got[0].float().numpy() == 0.0)
+
+
 def test_paged_attention_int8_equals_dequantize_then_exact():
     """f32: the int8 kernel's function is gather, dequantize, then the
     exact paged attention (p rounding to f32 is the identity)."""
@@ -334,6 +361,43 @@ def test_add_rms_norm_plain_matches_pallas(dtype):
     yf = y.float().numpy()
     np.testing.assert_allclose(
         rstd.numpy(), 1 / np.sqrt((yf ** 2).mean(-1) + 1e-6), rtol=1e-5)
+
+
+#: x, residual and weight types: f32 and bf16 in every mix
+ADD_RMS_TYPES = [(x, r, w) for x in ("float32", "bfloat16")
+                 for r in ("float32", "bfloat16")
+                 for w in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("x_dtype,r_dtype,w_dtype", ADD_RMS_TYPES)
+def test_add_rms_norm_plain_matches_pallas_mixed_types_ragged_width(
+        x_dtype, r_dtype, w_dtype):
+    """x, r and the weight each f32 or bf16, at H = 100 (not a multiple of
+    the CUDA kernel's 16-byte vectors: its ragged tail). y and o take x's
+    type; y is bitwise equal; o: the summation order only (f32 x), one
+    rounding (bf16 x)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((6, 100), np.float32) * 2
+    r = rng.standard_normal((6, 100), np.float32)
+    w = 1 + 0.2 * rng.standard_normal((100,), np.float32)
+    args = ((x, x_dtype), (r, r_dtype), (w, w_dtype))
+    jy, jo = jax_add_rms_norm(*(jnp.asarray(a, getattr(jnp, t))
+                                for a, t in args), interpret=True)
+    tx, tr, tw = (torch.from_numpy(a).to(getattr(torch, t)) for a, t in args)
+    y, o, rstd = add_rms_norm_fwd(tx, tr, tw)
+    assert y.dtype == o.dtype == tx.dtype and rstd.dtype == torch.float32
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  np.asarray(jy.astype(jnp.float32)))
+    want = np.asarray(jo.astype(jnp.float32))
+    if x_dtype == "float32":
+        np.testing.assert_allclose(o.numpy(), want, atol=ATOL_F32, rtol=0)
+    else:
+        np.testing.assert_allclose(o.float().numpy(), want, rtol=2 ** -7,
+                                   atol=0)
+    yf = y.float().numpy()
+    np.testing.assert_allclose(rstd.numpy(),
+                               1 / np.sqrt((yf ** 2).mean(-1) + 1e-6),
+                               rtol=1e-5)
 
 
 def test_add_rms_norm_grads_match_the_pallas_vjp():
