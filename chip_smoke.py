@@ -28,15 +28,26 @@ Phases, each of which fails the run on error:
              in bf16 at D = 96, rep 16, and decode_attention at the incubate decoder's shape (lengths
              under 76 in a 2048-row cache).
 4. serving - LLaMA-7B width and depth in bf16, random weights from a
-             seeded generator, through ContinuousBatchingEngine's submit /
-             step / run_until_complete with chunked prefill. Checks every
-             request's token count and that the kernels' launch counts are
-             32 (paged attention) and 65 (rms norm) per decode tick;
-             prints the attention kernel's ms per tick.
+             seeded generator, through ContinuousBatchingEngine's warmup /
+             submit / step / run_until_complete with chunked prefill; each
+             decode tick is one replay of the engine's CUDA graph. Checks
+             every request's token count and that the kernels' launch
+             counts are 32 (paged attention) and 65 (rms norm) per decode
+             tick; prints warmup's seconds (the capture), the tick's wall,
+             device busy (profiler, and the graph's replay on CUDA events)
+             and host share, the attention kernel's ms per tick, and one
+             graphed tick against the eager _decode_step on the same state
+             (tokens must be equal).
    serving_int8 - the same model, requests and engine with int8_kv=True:
              paged_attention_int8 32 times per decode tick and
              paged_attention never, the KV cache at exactly 132/256 of the
              bf16 bytes; reports the share of tokens equal to phase 4's.
+   serving_engine - the same model: (a) phase 4's requests under
+             preempt_policy="swap" in 74 pages, at least two swaps out and
+             in, streams equal to phase 4's, swapped bytes and ms; (b) 8
+             requests over one 1,024-token prefix (16 pages of 64), the
+             first alone, with the prefix cache on and off: at least 7 x
+             16 page hits, equal streams, TTFT per request both ways.
    incubate - the same model as a decoder built from the incubate fused
              ops (fused_rms_norm, masked_multihead_attention over a dense
              [2, 8, 32, 2048, 128] cache per layer, swiglu), 8 rows joining
@@ -46,12 +57,18 @@ Phases, each of which fails the run on error:
              equal the dense-cache generate token for token; the int8
              engine on the card equals the same engine on the CPU under
              group and chunked prefill; the incubate decoder's streams
-             equal generate.
+             equal generate; the engine on the card equals the CPU's under
+             swap preemption and under the prefix cache; a
+             GPTForCausalLMPipe and a tied LlamaForCausalLM on the same
+             weights serve the same streams.
 6. training - GPT-3 1.3B (config 4) at full width and depth in bf16:
              GPTForCausalLMPipe -> chunked-CE loss -> AdamW(factored) ->
              TrainStep, batch 3 x seq 2048, one warm-up and 5 timed steps
              and one profiled step. Checks finite, falling losses that
-             start near ln(vocab) and the launch counts per step.
+             start near ln(vocab) and the launch counts per step. Then the
+             trained Pipe serves 8 requests from its own parameters, takes
+             one more step, reload_weights() and serves again: the streams
+             change and equal a fresh engine's.
 7. training consistency - f32, full width, depth 2: three TrainSteps on
              the card equal the same three on the CPU (plain versions).
 8. long_context - GPT-3 1.3B at seq 32768 as bench.py:81-86 builds it:
@@ -74,6 +91,7 @@ result line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import statistics
@@ -924,16 +942,76 @@ def _decode_window(engine, ticks):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     attn = {name: sum(v for k, v in by_kernel.items() if sym in k) / 1e3
             / ticks for name, sym in ATTENTION_SYMBOLS.items()}
+    # the card's time for one tick on CUDA events: the last tick's graph
+    # replayed back to back (it rewrites the same KV rows with the same
+    # values), a cross-check of the profiler's busy time
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ticks):
+        engine._graph.replay()
+    end.record()
+    end.synchronize()
     return {"ticks": ticks, "wall_ms_per_tick": plain_wall * 1e3 / ticks,
             "attention_ms_per_tick": attn,
             "profiled_wall_ms_per_tick": wall * 1e3 / ticks,
             "device_busy_ms_per_tick": busy / 1e3 / ticks,
+            "graph_replay_ms": start.elapsed_time(end) / ticks,
             "host_share": (1 - busy / 1e6 / plain_wall) if busy > 0 else None,
             "top_kernels_ms_per_tick": [(k[:80], v / 1e3 / ticks)
                                         for k, v in top]}
 
 
 SERVE_PROMPT_LENS = (128, 1024, 256, 896, 384, 768, 512, 640)
+
+
+def _serve_prompts(cfg):
+    """Phase 4's warm-up prompt and its 8 prompts, from a seeded rng."""
+    rng = np.random.default_rng(0)
+    warm = rng.integers(1, cfg.vocab_size, 80).tolist()
+    return warm, [rng.integers(1, cfg.vocab_size, n).tolist()
+                  for n in SERVE_PROMPT_LENS]
+
+
+def _tick_inputs(eng):
+    """The next decode tick's (tokens, lens, tables) as step() builds
+    them."""
+    eng._grow_pages()
+    live = [r for r in eng._slots if r is not None and r.generated
+            and r.length > 0 and not eng._finished(r)]
+    rows = live + [live[0]] * (eng.max_slots - len(live))
+    return (np.asarray([r.generated[-1] for r in rows], np.int32),
+            np.asarray([r.length for r in rows], np.int32),
+            eng._table_rows(rows))
+
+
+@torch.inference_mode()
+def _graph_vs_eager(eng):
+    """One replay of the engine's decode graph against the eager
+    _decode_step on the same state (the KV cells the tick writes are put
+    back in between): tokens, written KV cells, logits."""
+    tokens, lens, tables = _tick_inputs(eng)
+    b = np.arange(len(lens))
+    pages = torch.as_tensor(tables[b, lens // eng.page], device=DEVICE).long()
+    offs = torch.as_tensor(lens % eng.page, device=DEVICE).long()
+    leaves = [x for c in (eng.kc, eng.vc)
+              for x in (c if isinstance(c, tuple) else (c,))]
+
+    def cells():
+        return [x[:, :, pages, offs].clone() for x in leaves]
+
+    before = cells()
+    eager = eng._decode_step(*(torch.as_tensor(a, device=DEVICE)
+                               for a in (tokens, lens, tables))).clone()
+    eager_cells = cells()
+    for x, c in zip(leaves, before):
+        x[:, :, pages, offs] = c
+    graphed = eng._decode_logits(tokens, lens, tables).clone()
+    kv_equal = all(torch.equal(a, c) for a, c in zip(cells(), eager_cells))
+    return {"tokens_equal": torch.equal(graphed.argmax(-1),
+                                        eager.argmax(-1)),
+            "kv_equal": kv_equal,
+            "logits_max_abs_diff": (graphed - eager).abs().max().item()}
 #: the decode tick's attention kernels as the profiler names them
 ATTENTION_SYMBOLS = {"paged_attention": "paged_attention_kernel",
                      "paged_attention_int8": "paged_attention_int8_kernel"}
@@ -948,12 +1026,13 @@ def _serve(eng, cfg, new, tag):
     from paddle_tpu_torch.inference.serving import _kv_nbytes
     from paddle_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(0)
+    build_s = eng.warmup()
+    print(f"{tag}: warmup (kernels, the decode tick's CUDA graph) "
+          f"{build_s:.3f} s", flush=True)
+    warm, prompts = _serve_prompts(cfg)
     # warm-up request (cuBLAS handles, allocator) outside the counted run
-    eng.submit(rng.integers(1, cfg.vocab_size, 80).tolist())
+    eng.submit(warm)
     eng.run_until_complete()
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in SERVE_PROMPT_LENS]
     ticks0, chunks0 = eng.decode_ticks, eng.prefill_chunk_steps
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1008,7 +1087,8 @@ def _serve(eng, cfg, new, tag):
           f"rms_norm launches {counts['rms_norm']} != {2 * L + 1} x "
           f"({ticks} decode ticks + {chunks} prefill passes)")
     gen_tokens = new * len(prompts)
-    res = {"wall_s": wall, "decode_ticks": ticks, "prefill_passes": chunks,
+    res = {"build_seconds": build_s, "wall_s": wall, "decode_ticks": ticks,
+           "prefill_passes": chunks,
            "generated_tokens": gen_tokens,
            "tokens_per_s": gen_tokens / wall,
            "decode_tick_ms_median": statistics.median(step_ms),
@@ -1031,12 +1111,20 @@ def _serve(eng, cfg, new, tag):
             s.prefill_pos < len(s.seq_tokens) for s in eng._slots):
         eng.step()
     res["decode_window"] = _decode_window(eng, 10)
+    res["graph_vs_eager"] = gve = _graph_vs_eager(eng)
     eng.run_until_complete()
     dw = res["decode_window"]
-    print(f"{tag}: decode tick {dw['wall_ms_per_tick']:.2f} ms wall, "
-          f"{dw['device_busy_ms_per_tick']:.2f} ms device busy, host share "
-          f"{dw['host_share']}; {attn} "
+    print(f"{tag}: decode tick (one CUDA graph replay) "
+          f"{dw['wall_ms_per_tick']:.2f} ms wall, "
+          f"{dw['device_busy_ms_per_tick']:.2f} ms device busy (profiler), "
+          f"{dw['graph_replay_ms']:.2f} ms a replay on CUDA events, host "
+          f"share {dw['host_share']}; {attn} "
           f"{dw['attention_ms_per_tick'][attn]:.4f} ms per tick", flush=True)
+    print(f"{tag}: graphed tick against the eager _decode_step on the same "
+          f"state: tokens equal {gve['tokens_equal']}, KV cells equal "
+          f"{gve['kv_equal']}, logits' largest difference "
+          f"{gve['logits_max_abs_diff']}", flush=True)
+    check(gve["tokens_equal"], "graphed tick's tokens != eager tick's")
     for k, v in dw["top_kernels_ms_per_tick"]:
         print(f"{tag}:   {v:8.3f} ms/tick  {k}", flush=True)
     return res, [done[r] for r in rids]
@@ -1092,6 +1180,143 @@ def phase_serving_int8(model, exact, exact_streams):
           flush=True)
     del eng
     torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------- phase 4 serving_engine
+#: phase 4's prompts submitted in reverse order into a pool of 74 pages (80
+#: are needed at the end): the growth pages run short twice, so two
+#: requests are swapped out and back
+SWAP_NUM_PAGES = 74
+#: phase 4b: a 1,024-token shared prefix (16 pages of 64) and 8 tails
+PREFIX_LEN = 1024
+PREFIX_TAILS = (64, 96, 128, 160, 192, 224, 256, 80)
+
+
+def _swap_timers(eng):
+    """Wrap the engine's swap copies with synchronised host timers: bytes
+    and ms out (index_select and the copy to pinned host memory) and in
+    (the copy to the card and index_copy_)."""
+    t = {"bytes_out": 0, "ms_out": 0.0, "bytes_in": 0, "ms_in": 0.0}
+    gather, stage, scatter = (eng._swap_gather, eng._swap_stage,
+                              eng._swap_scatter)
+
+    def nbytes(kv):
+        return sum(x.numel() * x.element_size() for c in kv
+                   for x in (c if isinstance(c, tuple) else (c,)))
+
+    def timed(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            t["ms_" + key] += (time.perf_counter() - t0) * 1e3
+            if out is not None:
+                t["bytes_" + key] += nbytes(out)
+            return out
+        return run
+
+    eng._swap_gather = timed(gather, "out")
+    eng._swap_stage = timed(stage, "in")
+    eng._swap_scatter = timed(scatter, "in")
+    return t
+
+
+def _ttft_run(eng, groups):
+    """Submit each group of prompts and run it to completion before the
+    next; returns the streams in prompt order and each request's TTFT
+    (submit to first token, host clock, ms)."""
+    first_t, submit_t, out = {}, {}, []
+
+    def on_token(rid, tok):
+        first_t.setdefault(rid, time.perf_counter())
+
+    for group in groups:
+        rids = []
+        for p in group:
+            t = time.perf_counter()
+            rids.append(eng.submit(p, on_token=on_token))
+            submit_t[rids[-1]] = t
+        done = eng.run_until_complete()
+        out += [(done[r], (first_t[r] - submit_t[r]) * 1e3) for r in rids]
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def phase_serving_engine(model, streams):
+    """LLaMA-7B width and depth in bf16 on phase 4's model: (a) phase 4's
+    requests under swap preemption, (b) 8 requests over one 1,024-token
+    prefix with the prefix cache on and off."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    cfg = model.config
+    new = 32
+    _, prompts = _serve_prompts(cfg)
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                   preempt_policy="swap",
+                                   **dict(SERVE_ENGINE,
+                                          num_pages=SWAP_NUM_PAGES))
+    eng.warmup()
+    swap = _swap_timers(eng)
+    rids = [eng.submit(p) for p in reversed(prompts)]
+    t0 = time.perf_counter()
+    done = eng.run_until_complete()
+    wall = time.perf_counter() - t0
+    got = [done[r] for r in reversed(rids)]
+    res = {"swap": dict(swap, swaps_out=eng.swaps_out, swaps_in=eng.swaps_in,
+                        preemptions=eng.preemptions, wall_s=wall,
+                        num_pages=SWAP_NUM_PAGES)}
+    print(f"serving_engine: swap, {SWAP_NUM_PAGES} pages: {eng.swaps_out} "
+          f"out, {eng.swaps_in} in, {eng.preemptions} preemptions; out "
+          f"{swap['bytes_out']} bytes in {swap['ms_out']:.2f} ms, in "
+          f"{swap['bytes_in']} bytes in {swap['ms_in']:.2f} ms; 8 requests "
+          f"in {wall:.3f} s", flush=True)
+    check(eng.swaps_in == eng.swaps_out >= 2,
+          f"swaps out {eng.swaps_out}, in {eng.swaps_in}: want >= 2 each")
+    check(eng.pool.available == eng.pool.num_pages, "swap run leaks pages")
+    same = [a == b for a, b in zip(got, streams)]
+    check(all(same), f"swap streams != phase 4's: {same}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(1, cfg.vocab_size, PREFIX_LEN).tolist()
+    shared = [prefix + rng.integers(1, cfg.vocab_size, n).tolist()
+              for n in PREFIX_TAILS]
+    groups = [shared[:1], shared[1:]]    # the first registers the prefix
+    runs = {}
+    for cache in (False, True):
+        eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                       enable_prefix_cache=cache,
+                                       **SERVE_ENGINE)
+        eng.warmup()
+        t0 = time.perf_counter()
+        out, ttft = _ttft_run(eng, groups)
+        runs[cache] = {"streams": out, "ttft_ms": ttft,
+                       "wall_s": time.perf_counter() - t0,
+                       "prefill_passes": eng.prefill_chunk_steps,
+                       "hits": eng.prefix_cache_hits,
+                       "tokens_skipped": eng.prefix_tokens_skipped}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    res["prefix"] = {"on": {k: v for k, v in on.items() if k != "streams"},
+                     "off": {k: v for k, v in off.items()
+                             if k != "streams"}}
+    print(f"serving_engine: prefix cache, {PREFIX_LEN}-token prefix and "
+          f"tails {list(PREFIX_TAILS)}: {on['hits']} page hits, "
+          f"{on['tokens_skipped']} tokens skipped; prefill passes "
+          f"{on['prefill_passes']} (off: {off['prefill_passes']}); wall "
+          f"{on['wall_s']:.3f} s (off: {off['wall_s']:.3f} s)", flush=True)
+    print("serving_engine: TTFT ms per request, cache on "
+          + json.dumps([round(x, 1) for x in on["ttft_ms"]]) + ", off "
+          + json.dumps([round(x, 1) for x in off["ttft_ms"]]), flush=True)
+    check(on["hits"] >= 7 * PREFIX_LEN // 64,
+          f"prefix cache hits {on['hits']} < {7 * PREFIX_LEN // 64}")
+    same = [a == b for a, b in zip(on["streams"], off["streams"])]
+    check(all(same), f"prefix cache streams != cache off: {same}")
     return res
 
 
@@ -1308,6 +1533,111 @@ def phase_int8_consistency(model, prompts):
     return res
 
 
+def _serve_groups(eng, groups):
+    """Run each group of prompts to completion before the next; the
+    streams in prompt order."""
+    out = []
+    for group in groups:
+        rids = [eng.submit(p) for p in group]
+        done = eng.run_until_complete()
+        out += [done[r] for r in rids]
+    return out
+
+
+def phase_engine_consistency(model, prompts):
+    """f32, full width, depth 2: the engine on the card equals the same
+    engine on the CPU under swap preemption (26 pages of 16: a swap out
+    and back) and under the prefix cache (a 128-token shared prefix);
+    GPTForCausalLMPipe and a tied LlamaForCausalLM carrying the same
+    weights serve the same streams on the card, the Pipe from its own
+    parameters."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.gpt import (BLOCK_PARAMS, GPTConfig,
+                                             GPTForCausalLMPipe)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_preset
+
+    cpu_model = LlamaForCausalLM(model.config, device="cpu",
+                                 dtype=torch.float32)
+    cpu_model.load_state_dict(model.state_dict())
+    system = prompts[1][:128]
+    shared = [[system + prompts[0][:20]],
+              [system + prompts[2][:30], system + prompts[0][:5]]]
+    runs = {
+        "swap": (dict(max_slots=3, page_size=16, max_seq_len=512,
+                      num_pages=26, max_new_tokens=24,
+                      preempt_policy="swap"),
+                 lambda eng: _staggered(eng, prompts)),
+        "prefix": (dict(max_slots=2, page_size=16, max_seq_len=512,
+                        max_new_tokens=8, prefill_chunk=64,
+                        enable_prefix_cache=True),
+                   lambda eng: _serve_groups(eng, shared)),
+    }
+    res = {}
+    for name, (kw, drive) in runs.items():
+        out = {}
+        for dev, m in (("cpu", cpu_model), (DEVICE, model)):
+            eng = ContinuousBatchingEngine(m, device=dev, seed=0, **kw)
+            out[dev] = (drive(eng), eng.swaps_out, eng.swaps_in,
+                        eng.prefix_cache_hits, eng.pool.available)
+            del eng
+        check(out[DEVICE] == out["cpu"],
+              f"{name}: the card's streams or counters differ from the "
+              f"CPU's: {out[DEVICE][1:]} vs {out['cpu'][1:]}")
+        res[name] = dict(zip(("swaps_out", "swaps_in", "prefix_cache_hits",
+                              "free_pages"), out[DEVICE][1:]))
+    check(res["swap"]["swaps_out"] >= 1, "swap run: no swap")
+    check(res["prefix"]["prefix_cache_hits"] >= 2 * 128 // 16,
+          f"prefix run: {res['prefix']['prefix_cache_hits']} hits")
+    del cpu_model
+
+    # the same weights as a tied Llama and as the training model
+    c = model.config
+    llama = LlamaForCausalLM(llama_preset("7b", num_layers=c.num_layers,
+                                          tie_embeddings=True),
+                             device=DEVICE, dtype=torch.float32)
+    llama.load_state_dict({k: v for k, v in model.state_dict().items()
+                           if not k.startswith("lm_head")})
+    pipe = GPTForCausalLMPipe(GPTConfig(
+        vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+        num_layers=c.num_layers, num_heads=c.num_heads,
+        num_kv_heads=c.num_kv_heads, intermediate_size=c.intermediate_size,
+        max_seq_len=c.max_seq_len, dtype="float32"), device=DEVICE)
+    with torch.no_grad():
+        pipe.embed_tokens.weight.copy_(llama.model.embed_tokens.weight)
+        pipe.final_norm.weight.copy_(llama.model.final_norm.weight)
+        for n, w in zip(BLOCK_PARAMS, (
+                "input_norm", "attn.q_proj", "attn.k_proj", "attn.v_proj",
+                "attn.o_proj", "post_attn_norm", "mlp.gate_proj",
+                "mlp.up_proj", "mlp.down_proj")):
+            per = [layer.get_submodule(w).weight for layer in
+                   llama.model.layers]
+            getattr(pipe.decoder, n).copy_(torch.stack(
+                [p if p.dim() == 1 else p.t() for p in per]))
+    streams = {}
+    for name, m in (("llama", llama), ("pipe", pipe)):
+        eng = ContinuousBatchingEngine(m, max_new_tokens=8, prefill_chunk=64,
+                                       device=DEVICE, **CONSIST_ENGINE)
+        streams[name] = _staggered(eng, prompts)
+        if name == "pipe":
+            d = pipe.decoder
+            check(all(w.data_ptr() == getattr(d, n)[i].data_ptr()
+                      for i, lp in enumerate(eng._weights["layers"])
+                      for n, w in zip(BLOCK_PARAMS, lp)),
+                  "the engine's weights are not views of the Pipe's")
+        del eng
+    check(streams["pipe"] == streams["llama"],
+          "Pipe and tied Llama streams differ on the same weights")
+    print(f"engine consistency: f32 depth 2, card == CPU under swap "
+          f"({res['swap']['swaps_out']} out and in) and the prefix cache "
+          f"({res['prefix']['prefix_cache_hits']} page hits); "
+          f"GPTForCausalLMPipe == tied LlamaForCausalLM on the card, 3 "
+          f"prompts, served from the Pipe's parameters", flush=True)
+    del llama, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_incubate_consistency(model, prompts, want):
     """f32, full width, depth 2: the incubate decoder's greedy streams
     equal generate, rows joining at staggered steps."""
@@ -1394,6 +1724,63 @@ def _train_batch(vocab, batch, seq, seed, device):
             torch.as_tensor(labels, device=device))
 
 
+#: phase 6's serving of the trained model: 8 prompts of 64..512 tokens
+TRAINED_PROMPT_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+
+
+def _serve_trained(model, step, batch):
+    """Serve 8 greedy requests from the trained GPTForCausalLMPipe (its
+    parameters, not a copy), take one more TrainStep, reload_weights() and
+    serve again: the streams change, and equal a fresh engine's on the
+    updated model."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.gpt import BLOCK_PARAMS
+
+    cfg = model.config
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in TRAINED_PROMPT_LENS]
+    kw = dict(max_slots=8, page_size=64, max_seq_len=1024,
+              prefill_chunk=512, max_new_tokens=16, device=DEVICE)
+    eng = ContinuousBatchingEngine(model, **kw)
+    d = model.decoder
+    check(all(w.data_ptr() == getattr(d, n)[i].data_ptr()
+              for i, lp in enumerate(eng._weights["layers"])
+              for n, w in zip(BLOCK_PARAMS, lp))
+          and eng._weights["embed"].data_ptr()
+          == model.embed_tokens.weight.data_ptr(),
+          "the engine's weights are not the Pipe's parameters")
+    t0 = time.perf_counter()
+    before = _serve_groups(eng, [prompts])
+    serve_s = time.perf_counter() - t0
+    graph = eng._graph
+    # at the run's lr one step moves each weight by about 1.5% of its
+    # scale, which need not flip a greedy token of a random model: this
+    # step takes lr 1e-2, so the change is one the streams show
+    groups = step.optimizer.param_groups
+    lrs = [g["lr"] for g in groups]
+    for g in groups:
+        g["lr"] = 1e-2
+    loss = step(*batch).item()
+    for g, lr in zip(groups, lrs):
+        g["lr"] = lr
+    eng.reload_weights()
+    kept = eng._graph is graph
+    after = _serve_groups(eng, [prompts])
+    fresh = _serve_groups(ContinuousBatchingEngine(model, **kw), [prompts])
+    changed = sum(a != b for a, b in zip(after, before))
+    print(f"training: served 8 requests from the trained Pipe in "
+          f"{serve_s:.3f} s (zero-copy); one more step at lr 1e-2 (loss "
+          f"{loss:.4f}), "
+          f"reload_weights() kept the graph: {kept}; {changed} of 8 "
+          f"streams changed; equal to a fresh engine's: {after == fresh}",
+          flush=True)
+    check(changed > 0, "the streams did not change after a training step")
+    check(after == fresh, "reloaded engine != a fresh engine")
+    return {"serve_s": serve_s, "graph_kept_on_reload": kept,
+            "streams_changed": changed}
+
+
 def phase_training():
     from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.ops import kernels
@@ -1478,6 +1865,7 @@ def phase_training():
     print(f"training: port kernels ms/step "
           + json.dumps({k: round(v, 3) for k, v in
                         prof["port_kernels_ms"].items()}), flush=True)
+    res["serving"] = _serve_trained(model, step, (ids, labels))
     del step, model
     torch.cuda.empty_cache()
     return res
@@ -1736,6 +2124,8 @@ def main():
         report["serving"], model, streams = run("serving", phase_serving)
         report["serving_int8"] = run("serving_int8", phase_serving_int8,
                                      model, report["serving"], streams)
+        report["serving_engine"] = run("serving_engine",
+                                       phase_serving_engine, model, streams)
         report["incubate"] = run("incubate", phase_incubate, model)
         del model
         torch.cuda.empty_cache()
@@ -1746,6 +2136,8 @@ def main():
         report["incubate_consistency"] = run(
             "incubate_consistency", phase_incubate_consistency, model,
             prompts, want)
+        report["engine_consistency"] = run(
+            "engine_consistency", phase_engine_consistency, model, prompts)
         del model
         torch.cuda.empty_cache()
         report["training"] = run("training", phase_training)

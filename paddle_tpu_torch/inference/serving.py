@@ -15,7 +15,14 @@ Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
 - ``ContinuousBatchingEngine`` admits waiting requests into free slots
   (group prefill, or chunked prefill of ``prefill_chunk`` tokens per tick)
   and runs one batched decode tick for every live slot per ``step()``.
-  Decode attention is a hand-written CUDA kernel
+  On the card the tick is one CUDA graph, captured at the engine's first
+  tick (or by ``warmup()``) and replayed every tick: the counterpart of
+  the JAX package's compiled ``_decode_jit``, a fixed-shape program over
+  ``max_slots`` rows and ``pages_per_seq``-wide tables. It holds the
+  embedding gather, every layer's projections, rope, KV write and paged
+  attention, the final norm and the head up to f32 logits; the argmax or
+  the sampler runs after the replay. On the CPU the same tick runs
+  eagerly. Decode attention is a hand-written CUDA kernel
   (``ops.kernels.decode_attention.paged_attention``, or
   ``paged_attention_int8`` over an int8 cache, which dequantizes in f32
   inside the kernel); every RMS norm is the CUDA row kernel. Prefill
@@ -26,18 +33,28 @@ Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
   does. The card takes the kernel and the CPU its plain version; the JAX
   package's ``PTPU_INT8_KV`` and ``PTPU_PAGED_INT8_KERNEL`` knobs are not
   ported.
-- On pool exhaustion the youngest request is preempted and recomputed:
-  its tokens fold into the resume prompt.
+- On pool exhaustion the youngest request is preempted. Under
+  ``preempt_policy="recompute"`` its tokens fold into the resume prompt;
+  under ``"swap"`` its written pages are copied to pinned host memory and
+  copied back into fresh pages on re-admission.
+- ``enable_prefix_cache=True`` shares full KV pages between requests whose
+  prompts start with the same tokens, addressed by a hash chain over the
+  pages' tokens; released pages stay cached until the pool runs short.
+- ``submit(deadline_seconds=)`` and ``cancel(rid)`` tear requests out of
+  the queue or their slot; ``reload_weights()`` re-reads the model's
+  weights (a ``GPTForCausalLMPipe`` is served from its stacked
+  parameters, without a copy).
 
 Unlike the JAX package, which donates its caches to functional updates,
 the KV writes here happen in place. Layers run as a Python loop (no scan).
-Int8 weights, swap preemption, the prefix cache, deadlines and
-cancellation, speculative decoding, disaggregation, the brownout caps and
-the telemetry gauges (``serving_int8_kv_active`` among them) are not
-ported yet.
+Int8 weights, speculative decoding, disaggregation (``prefill_only``,
+``extract``, ``inject``), prefix export and import, the brownout caps and
+the telemetry gauges and trace spans are not ported yet.
 """
 from __future__ import annotations
 
+import hashlib
+import time
 import warnings
 from collections import deque
 
@@ -48,6 +65,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..memory import dequantize_rows_int8, quantize_rows_int8
 from ..models.gpt import _attention_plain, _rms_pure, _rope_at_positions
+from ..ops.kernels import CountedGraph
 from ..ops.kernels.decode_attention import (paged_attention,
                                             paged_attention_int8)
 
@@ -103,6 +121,12 @@ def _kv_map(fn, c):
     return tuple(fn(x) for x in c) if isinstance(c, tuple) else fn(c)
 
 
+def _kv_map2(fn, a, b):
+    if isinstance(a, tuple):
+        return tuple(fn(x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
 def _kv_index(c, li):
     """Per-layer view of a stacked cache."""
     return _kv_map(lambda x: x[li], c)
@@ -147,10 +171,14 @@ def _kv_nbytes(c):
 
 def _pack_weights(model):
     """Decode weight tree {"layers": [9-tuple per layer], "embed", "fnorm",
-    "head"} in ``_DECODE_WEIGHT_NAMES`` order. Counterpart of the JAX
+    "head"} in ``_DECODE_WEIGHT_NAMES`` order, the projections in the
+    ``[out, in]`` layout ``F.linear`` takes. Counterpart of the JAX
     package's ``_pack_weights_stacked``: the Python layer loop needs no
-    stacked copy, so the tree references the model's parameters."""
-    core = model.model
+    stacked copy, so the tree references the model's parameters (a
+    ``GPTForCausalLMPipe`` gives views of its stacked slabs). The embedding
+    and final norm sit on the model's ``.model`` core where it has one; a
+    model without ``lm_head`` ties its head to the embedding."""
+    core = model.model if hasattr(model, "model") else model
     head = getattr(model, "lm_head", None)
     layers = [tuple(p[n] for n in _DECODE_WEIGHT_NAMES)
               for p in model._decode_params()]
@@ -158,6 +186,24 @@ def _pack_weights(model):
             "embed": core.embed_tokens.weight,
             "fnorm": core.final_norm.weight,
             "head": head.weight if head is not None else None}
+
+
+def _weight_leaves(weights):
+    """Every tensor of a packed weight tree, in a fixed order."""
+    leaves = [w for lp in weights["layers"] for w in lp]
+    leaves += [weights[n] for n in ("embed", "fnorm", "head")
+               if weights[n] is not None]
+    return leaves
+
+
+def _weight_nbytes(weights):
+    """Bytes of the packed decode tree by storage dtype (the JAX package's
+    names: ``float32``, ``bfloat16``)."""
+    out = {}
+    for w in _weight_leaves(weights):
+        key = str(w.dtype).removeprefix("torch.")
+        out[key] = out.get(key, 0) + w.numel() * w.element_size()
+    return out
 
 
 class PagePool:
@@ -184,10 +230,11 @@ class PagePool:
 class _Request:
     __slots__ = ("rid", "prompt", "generated", "length", "pages",
                  "temperature", "top_k", "top_p", "on_token", "prefill_pos",
-                 "seq_tokens", "admit_seq")
+                 "seq_tokens", "admit_seq", "swapped", "submit_t",
+                 "first_token_t", "deadline")
 
     def __init__(self, rid, prompt, temperature=0.0, top_k=0, top_p=1.0,
-                 on_token=None):
+                 on_token=None, deadline=None):
         self.rid = rid
         self.prompt = list(prompt)
         self.generated = []
@@ -199,9 +246,13 @@ class _Request:
         self.on_token = on_token
         self.prefill_pos = 0     # tokens already written to kv (chunked)
         # the tokens prefill must (re)build KV for: the prompt initially;
-        # after a preemption, prompt + generated-so-far
+        # after a recompute preemption, prompt + generated-so-far
         self.seq_tokens = self.prompt
         self.admit_seq = -1      # admission order (victims: youngest)
+        self.swapped = None      # host KV snapshot (swap policy)
+        self.submit_t = time.perf_counter()
+        self.first_token_t = None
+        self.deadline = deadline  # absolute perf_counter() cancel point
 
 
 def _sample_rows(logits, temps, top_ks, top_ps, generator):
@@ -232,28 +283,44 @@ def _sample_rows(logits, temps, top_ks, top_ps, generator):
 
 
 class ContinuousBatchingEngine:
-    """Paged-KV continuous batcher over a ``LlamaForCausalLM``.
+    """Paged-KV continuous batcher over a ``LlamaForCausalLM`` or a
+    ``GPTForCausalLMPipe`` (any model with ``_decode_params()``).
 
     ``device`` defaults to CUDA and must be where the model's weights are;
-    ``device="cpu"`` runs the kernels' plain versions. ``int8_kv=True``
-    stores the paged KV as int8 codes plus one f32 scale per row
-    (``self.int8_kv`` says whether the mode engaged)."""
+    ``device="cpu"`` runs the kernels' plain versions and the eager tick.
+    ``int8_kv=True`` stores the paged KV as int8 codes plus one f32 scale
+    per row (``self.int8_kv`` says whether the mode engaged).
+    ``preempt_policy`` is ``"recompute"`` or ``"swap"``;
+    ``enable_prefix_cache`` needs chunked prefill and the recompute
+    policy."""
 
     def __init__(self, model, max_slots=4, page_size=64, num_pages=None,
                  max_seq_len=None, max_new_tokens=32, eos_token_id=None,
                  seed=0, prefill_chunk=None, preempt_policy="recompute",
-                 int8_kv=False, device=None):
+                 enable_prefix_cache=False, int8_kv=False, device=None):
         self.device = resolve_device(device)
-        wdev = model.model.embed_tokens.weight.device
+        core = model.model if hasattr(model, "model") else model
+        wdev = core.embed_tokens.weight.device
         if wdev.type != self.device.type:
             raise ValueError(f"engine device {self.device} but the model's "
                              f"weights are on {wdev}")
-        if preempt_policy != "recompute":
-            raise NotImplementedError(
-                "only preempt_policy='recompute' is ported")
+        if preempt_policy not in ("recompute", "swap"):
+            raise ValueError(
+                f"preempt_policy must be 'recompute' or 'swap', "
+                f"got {preempt_policy!r}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        # the prefix cache prefills a tail that starts mid-prompt (chunked
+        # prefill) and its shared pages must never be written (a swap
+        # restore scatters into pages)
+        if enable_prefix_cache:
+            if prefill_chunk is None:
+                raise ValueError("enable_prefix_cache requires chunked "
+                                 "prefill (prefill_chunk=...)")
+            if preempt_policy != "recompute":
+                raise ValueError("enable_prefix_cache composes only with "
+                                 "preempt_policy='recompute'")
         cfg = model.config
         self.cfg = cfg
         self.page = page_size
@@ -270,6 +337,8 @@ class ContinuousBatchingEngine:
         self.preempt_policy = preempt_policy
         self.prefill_chunk = prefill_chunk
 
+        self._model = model
+        self.int8_weights = False     # int8-resident weights: not ported
         self._weights = _pack_weights(model)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -289,8 +358,24 @@ class ContinuousBatchingEngine:
                                     dtype=torch.float32, device=self.device))
             return torch.zeros(cache_shape, dtype=dt, device=self.device)
 
+        # allocated once: the decode graph holds their addresses, so every
+        # write (ticks, prefill, swap-in) lands in place
         self.kc = new_cache()
         self.vc = new_cache()
+
+        # the decode tick's inputs [tokens | lens | tables] as one int32
+        # vector; on the card a pinned staging copy and the graph's static
+        # device copy (one host-to-device copy a tick)
+        n_in = max_slots * (2 + self.pages_per_seq)
+        self._graph = None            # CountedGraph of the decode tick
+        self._graph_ptrs = None       # weight addresses it was captured on
+        self._graph_out = None        # its f32 logits [max_slots, V]
+        if self.device.type == "cuda":
+            self._stage = torch.empty(n_in, dtype=torch.int32,
+                                      pin_memory=True)
+            self._static = torch.empty(n_in, dtype=torch.int32,
+                                       device=self.device)
+        self.build_seconds = None     # set by warmup()
 
         self._slots: list[_Request | None] = [None] * max_slots
         self._waiting: deque[_Request] = deque()
@@ -298,8 +383,55 @@ class ContinuousBatchingEngine:
         self._admit_counter = 0
         self.prefill_batches = 0      # admission groups (group prefill)
         self.prefill_chunk_steps = 0  # batched chunk passes
+        self.prefills_completed = 0   # per request (both prefill modes)
         self.decode_ticks = 0
         self.preemptions = 0
+        self.swaps_out = 0            # victims snapshotted to host
+        self.swaps_in = 0             # snapshots restored to the card
+        # prefix cache: chain digest -> page id; pages the cache holds;
+        # page id -> live-request refcount
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        self._prefix_cache = {}
+        self._cached_pages = set()
+        self._page_ref = {}
+        self.prefix_cache_hits = 0    # pages reused instead of prefilled
+        self.prefix_cache_evictions = 0
+        self.prefix_tokens_skipped = 0
+        # requests admitted before a reload_weights hold stale KV and must
+        # not register pages
+        self._cache_admit_floor = 0
+        self.cancelled = {}           # rid -> reason
+        self.cancellations = 0
+
+    def reload_weights(self, model=None):
+        """Re-read the weights from the model (after an update in place, or
+        from ``model``). A decode graph captured on other weight storage
+        is dropped, and the next tick captures it again; one on the same
+        storage reads the new values at its next replay. Cached prefix KV
+        was computed under the old weights: ref-0 cached pages are freed
+        now, pages in use when their readers release them, and requests
+        already admitted register no pages."""
+        self._weights = _pack_weights(self._model if model is None
+                                      else model)
+        if (self._graph is not None
+                and self._graph_ptrs != self._weight_ptrs()):
+            self._graph = self._graph_ptrs = self._graph_out = None
+        if self.enable_prefix_cache:
+            for key in list(self._prefix_cache):
+                pg = self._prefix_cache.pop(key)
+                self._cached_pages.discard(pg)
+                if self._page_ref.get(pg, 0) == 0:
+                    self._page_ref.pop(pg, None)
+                    self.pool.free([pg])
+            self._cache_admit_floor = self._admit_counter
+
+    def _weight_ptrs(self):
+        return tuple(w.data_ptr() for w in _weight_leaves(self._weights))
+
+    @property
+    def weight_bytes(self):
+        """Bytes of the served decode weights by dtype."""
+        return _weight_nbytes(self._weights)
 
     def _tensor(self, values, dtype):
         return torch.as_tensor(np.asarray(values), dtype=dtype,
@@ -345,6 +477,7 @@ class ContinuousBatchingEngine:
         """Run ALL newly admitted prompts as ONE padded batch: write each
         prompt's KV into its pages, return the first token per request."""
         self.prefill_batches += 1
+        self.prefills_completed += len(reqs)
         w = self._weights
         dev = self.device
         B = len(reqs)
@@ -391,6 +524,9 @@ class ContinuousBatchingEngine:
         toks = self._head_tokens(last, reqs)
         for i, r in enumerate(reqs):
             r.length = int(lens[i])
+            # in lockstep with length, so a swap snapshot of this request
+            # is classified decode-phase (its restore reserves the growth
+            # page, not the prompt)
             r.prefill_pos = int(lens[i])
         return toks
 
@@ -418,13 +554,14 @@ class ContinuousBatchingEngine:
 
         return self._layer_forward(li, lp, x, lens, attend)
 
-    def _decode_step(self, tokens, lens, tables, temps, top_ks, top_ps,
-                     do_sample=False):
-        """ONE batched decode: tokens [B] (last emitted), lens [B] tokens
-        already cached, tables [B, pages_per_seq] int32. Returns next [B].
-        The kernel sees ``lens + 1`` valid rows: the current token's row is
-        written first."""
+    def _decode_step(self, tokens, lens, tables):
+        """ONE batched decode forward: tokens [B] (last emitted), lens [B]
+        tokens already cached, tables [B, pages_per_seq] int32 -> f32
+        logits [B, V]. The kernel sees ``lens + 1`` valid rows: the current
+        token's row is written first. Reads no value back to the host, so
+        the card captures it whole into the tick's CUDA graph."""
         w = self._weights
+        tokens, lens = tokens.long(), lens.long()
         b = tokens.shape[0]
         x = w["embed"][tokens][:, None]                      # [B, 1, H]
         page_ids = tables.long()[torch.arange(b, device=self.device),
@@ -435,17 +572,60 @@ class ContinuousBatchingEngine:
             x = self._decode_layer(li, lp, x, lens, tables, page_ids, offs,
                                    kv_lens)
         x = _rms_pure(x, w["fnorm"])[:, 0]
-        lg = self._logits(x)
-        if do_sample:
-            return _sample_rows(lg, temps, top_ks, top_ps, self._gen)
-        return lg.float().argmax(-1)
+        return self._logits(x).float()
+
+    def _decode_logits(self, tokens, lens, tables):
+        """The tick's logits [max_slots, V] for int32 host arrays. The CPU
+        runs ``_decode_step`` eagerly. The card copies the inputs into the
+        graph's static buffer and replays the graph; with no graph yet,
+        the tick itself is the eager pass PyTorch wants before a capture,
+        and the capture follows it. The returned logits are the graph's
+        output buffer: read them before the next tick."""
+        n = self.max_slots
+        if self.device.type != "cuda":
+            return self._decode_step(torch.from_numpy(tokens),
+                                     torch.from_numpy(lens),
+                                     torch.from_numpy(tables))
+        # the pinned buffer is free to refill: every tick ends by reading
+        # its tokens back, which waits for this copy of the tick before
+        stage = self._stage.numpy()
+        stage[:n], stage[n:2 * n], stage[2 * n:] = tokens, lens, \
+            tables.reshape(-1)
+        self._static.copy_(self._stage, non_blocking=True)
+        if self._graph is None:
+            return self._capture_decode()
+        self._graph.replay()
+        return self._graph_out
+
+    def _capture_decode(self):
+        """Run ``_decode_step`` on the static inputs once eagerly on a side
+        stream (PyTorch's condition for a capture: it builds the kernels
+        and the cuBLAS state), then capture it into one CUDA graph. The
+        capture runs nothing, so the caches change only by the eager pass,
+        whose logits are returned. A capture that fails raises."""
+        n = self.max_slots
+        args = (self._static[:n], self._static[n:2 * n],
+                self._static[2 * n:].view(n, self.pages_per_seq))
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            lg = self._decode_step(*args)
+        cur.wait_stream(side)
+        graph = CountedGraph()
+        self._graph_out = graph.capture(lambda: self._decode_step(*args))
+        self._graph, self._graph_ptrs = graph, self._weight_ptrs()
+        return lg
 
     # -- engine surface -----------------------------------------------------
     def submit(self, prompt_ids, temperature=0.0, top_k=0, top_p=1.0,
-               on_token=None) -> int:
+               on_token=None, deadline_seconds=None, rid=None) -> int:
         """Queue a request. ``temperature=0`` decodes greedily; otherwise
         softmax sampling with optional top_k / top_p truncation.
-        ``on_token(rid, token_id)`` streams each generated token."""
+        ``on_token(rid, token_id)`` streams each generated token.
+        ``deadline_seconds`` cancels the request, queued or running, once
+        that much wall time has passed since submit. ``rid`` sets the
+        request id (the caller keeps ids unique)."""
         if len(prompt_ids) == 0:
             raise ValueError("empty prompt: a request needs at least one "
                              "token to prefill")
@@ -459,14 +639,67 @@ class ContinuousBatchingEngine:
         if need > self.pool.num_pages:
             raise ValueError(f"request needs {need} pages > pool size "
                              f"{self.pool.num_pages}")
-        rid = self._next_rid
-        self._next_rid += 1
+        if rid is None:
+            rid = self._next_rid
+            self._next_rid += 1
+        else:
+            rid = int(rid)
+            self._next_rid = max(self._next_rid, rid + 1)
+        deadline = (time.perf_counter() + float(deadline_seconds)
+                    if deadline_seconds is not None else None)
         self._waiting.append(_Request(
             rid, [int(t) for t in prompt_ids], temperature, top_k, top_p,
-            on_token))
+            on_token, deadline=deadline))
         return rid
 
+    # -- cancellation / deadlines -------------------------------------------
+    def _cancel_req(self, req, reason, slot_idx=None):
+        """Tear a request out of the engine: release its pages (completed
+        prefix pages still register into the prefix cache: their KV is
+        valid), drop any host snapshot, and record it in
+        ``self.cancelled`` (rid -> reason)."""
+        if slot_idx is not None:
+            self._slots[slot_idx] = None
+        else:
+            try:
+                self._waiting.remove(req)
+            except ValueError:
+                pass
+        if req.pages:
+            self._release_pages(req, register=True)
+        req.swapped = None
+        self.cancelled[req.rid] = reason
+        self.cancellations += 1
+
+    def cancel(self, rid, reason="user") -> bool:
+        """Cancel a queued or running request by id. Returns True if it was
+        found live; its pages return to the pool at once."""
+        for i, r in enumerate(self._slots):
+            if r is not None and r.rid == rid:
+                self._cancel_req(r, reason, slot_idx=i)
+                return True
+        for r in list(self._waiting):
+            if r.rid == rid:
+                self._cancel_req(r, reason)
+                return True
+        return False
+
+    def _sweep_deadlines(self):
+        """Cancel every request, queued or running, whose deadline has
+        passed. A request that has already generated all its tokens is not
+        cancelled: the retire loop right after returns it as done."""
+        now = time.perf_counter()
+        for i, r in enumerate(list(self._slots)):
+            if (r is not None and r.deadline is not None
+                    and now >= r.deadline and not self._finished(r)):
+                self._cancel_req(r, "deadline", slot_idx=i)
+        for r in [r for r in self._waiting
+                  if r.deadline is not None and now >= r.deadline]:
+            self._cancel_req(r, "deadline")
+
     def _emit(self, req, tok):
+        if req.first_token_t is None:
+            req.first_token_t = time.perf_counter()
         req.generated.append(tok)
         if req.on_token is not None:
             req.on_token(req.rid, tok)
@@ -477,13 +710,63 @@ class ContinuousBatchingEngine:
             if self._slots[i] is not None or not self._waiting:
                 continue
             req = self._waiting[0]
+            if req.swapped is not None:
+                # swap re-admission: copy the host snapshot back into fresh
+                # pages, no prefill. The reservation is the whole prompt for
+                # a mid-prefill victim (its chunk pass writes there) and
+                # includes this tick's growth page for a decoding one
+                # (without it a page-aligned restoree would be the starved
+                # youngest and swap straight back out)
+                snap = req.swapped
+                n = snap["n"]
+                if snap["prefill_pos"] < len(req.seq_tokens):
+                    need = max(n, (len(req.seq_tokens) + self.page - 1)
+                               // self.page)
+                else:
+                    need = max(n, (snap["length"] + self.page) // self.page)
+                if need > self.pool.available:
+                    break  # head-of-line waits for pages
+                self._waiting.popleft()
+                req.pages = self.pool.alloc(need)
+                self._swap_scatter(req.pages[:n], *self._swap_stage(snap))
+                req.prefill_pos = snap["prefill_pos"]
+                req.length = snap["length"]
+                req.swapped = None
+                self.swaps_in += 1
+                req.admit_seq = self._admit_counter
+                self._admit_counter += 1
+                self._slots[i] = req
+                continue  # not part of any prefill group
             # reserve only what prefill writes; decode pages are allocated
-            # as the sequence grows
-            need = (len(req.seq_tokens) + self.page - 1) // self.page
-            if need > self.pool.available:
+            # as the sequence grows. With the prefix cache on, pages that
+            # hold an already computed prefix of this prompt are reused
+            # (read-only) and only the tail is reserved and prefilled.
+            shared = self._match_prefix(req.seq_tokens)
+            need = ((len(req.seq_tokens) + self.page - 1) // self.page
+                    - len(shared))
+            if self.enable_prefix_cache:
+                # pin the matched pages before any eviction runs: a ref-0
+                # cached page is otherwise a legal FIFO victim, and
+                # reclaiming it here would alias one page into the
+                # prefix-read and tail-write roles
+                for pg in shared:
+                    self._page_ref[pg] = self._page_ref.get(pg, 0) + 1
+                if not self._free_pages_for(need):
+                    for pg in shared:  # unpin; retry next tick
+                        self._page_ref[pg] -= 1
+                    break  # head-of-line waits for pages
+            elif need > self.pool.available:
                 break  # head-of-line waits for pages
             self._waiting.popleft()
-            req.pages = self.pool.alloc(need)
+            if self.enable_prefix_cache:
+                req.pages = shared + self._alloc_ref(need)
+                if shared:
+                    req.prefill_pos = max(req.prefill_pos,
+                                          len(shared) * self.page)
+                    self.prefix_cache_hits += len(shared)
+                    self.prefix_tokens_skipped += len(shared) * self.page
+            else:
+                req.pages = self.pool.alloc(need)
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
             self._slots[i] = req
@@ -571,19 +854,164 @@ class ContinuousBatchingEngine:
             rows = last[self._tensor([i for i, _ in completed], torch.long)]
             toks = self._head_tokens(rows, [r for _, r in completed])
             for (_, r), tok in zip(completed, toks):
+                self.prefills_completed += 1
                 r.length = len(r.seq_tokens)
                 self._emit(r, tok)
 
+    # -- swap preemption ----------------------------------------------------
+    def _swap_gather(self, pages):
+        """Every layer's rows of ``pages`` -> host copies
+        [L, Hkv, len(pages), page, D] (an int8 cache yields a (codes,
+        scales) pair), pinned on a CUDA engine. One ``index_select`` and
+        one device-to-host copy per cache leaf."""
+        idx = self._tensor(pages, torch.long)
+        pin = self.device.type == "cuda"
+
+        def g(c):
+            rows = c.index_select(2, idx)
+            return torch.empty(rows.shape, dtype=rows.dtype,
+                               pin_memory=pin).copy_(rows)
+
+        return _kv_map(g, self.kc), _kv_map(g, self.vc)
+
+    def _swap_stage(self, snap):
+        """A host snapshot's pages -> device tensors (host-to-device copies
+        from the pinned buffers)."""
+        up = lambda h: h.to(self.device, non_blocking=True)  # noqa: E731
+        return _kv_map(up, snap["k"]), _kv_map(up, snap["v"])
+
+    def _swap_scatter(self, pages, k, v):
+        """Copy staged snapshot pages into the caches at ``pages``, in
+        place (``index_copy_``)."""
+        idx = self._tensor(pages, torch.long)
+        _kv_map2(lambda c, s: c.index_copy_(2, idx, s), self.kc, k)
+        _kv_map2(lambda c, s: c.index_copy_(2, idx, s), self.vc, v)
+
+    def _snapshot_to_host(self, r):
+        """Build ``r.swapped``, the host KV snapshot the swap re-admission
+        restores: only the pages that hold written tokens leave the card
+        (a mid-prefill victim's untouched prompt pages and grown but empty
+        decode pages do not); the restore re-allocates the full
+        reservation from ``prefill_pos`` and ``length``."""
+        written = max(r.length, r.prefill_pos)
+        n = min((written + self.page - 1) // self.page, len(r.pages))
+        k, v = self._swap_gather(r.pages[:n])
+        r.swapped = {"k": k, "v": v, "n": n, "prefill_pos": r.prefill_pos,
+                     "length": r.length}
+        return r.swapped
+
+    # -- prefix cache (content-addressed KV pages) --------------------------
+    def _chain_keys(self, tokens, n_pages):
+        """Chain digests of pages 0..n_pages-1: key_i = sha1(key_{i-1} ||
+        tokens of page i), O(1) bytes per entry whatever the prefix
+        depth."""
+        keys, prev = [], b""
+        for i in range(n_pages):
+            block = np.asarray(
+                tokens[i * self.page: (i + 1) * self.page],
+                np.int64).tobytes()
+            prev = hashlib.sha1(prev + block).digest()
+            keys.append(prev)
+        return keys
+
+    def _evictable(self):
+        return [k for k, pg in self._prefix_cache.items()
+                if self._page_ref.get(pg, 0) == 0]
+
+    def _free_pages_for(self, n):
+        """True if n pages can be allocated, evicting ref-0 cached pages
+        (FIFO) as needed. Callers pin (incref) any matched shared pages
+        first, or eviction could reclaim them."""
+        while self.pool.available < n:
+            victims = self._evictable()
+            if not victims:
+                return False
+            key = victims[0]
+            page = self._prefix_cache.pop(key)
+            self._cached_pages.discard(page)
+            self._page_ref.pop(page, None)
+            self.pool.free([page])
+            self.prefix_cache_evictions += 1
+        return True
+
+    def _alloc_ref(self, n):
+        pages = self.pool.alloc(n)
+        for pg in pages:
+            self._page_ref[pg] = self._page_ref.get(pg, 0) + 1
+        return pages
+
+    def _release_pages(self, req, register):
+        """Drop req's claim on its pages. Own pages that hold a complete
+        token-prefix page are registered into the prefix cache (kept,
+        lazily evictable) instead of freed; the rest return to the pool.
+        Without the cache this is ``pool.free``."""
+        if not self.enable_prefix_cache:
+            self.pool.free(req.pages)
+            req.pages = []
+            return
+        register = register and req.admit_seq >= self._cache_admit_floor
+        written = max(req.length, req.prefill_pos)
+        full = req.prompt + req.generated
+        n_complete = min(written // self.page, len(req.pages))
+        keys = (self._chain_keys(full, n_complete)
+                if register and n_complete else [])
+        freed = []
+        for i, pg in enumerate(req.pages):
+            ref = self._page_ref.get(pg, 0) - 1
+            if ref < 0:
+                raise RuntimeError(
+                    f"PagePool refcount underflow: page {pg} released by "
+                    f"request {req.rid} but holds no claim (double "
+                    "release)")
+            self._page_ref[pg] = ref
+            if ref > 0:
+                continue  # another live request still reads it
+            if pg in self._cached_pages:
+                continue  # kept by the cache (free but cached)
+            if i < len(keys) and keys[i] not in self._prefix_cache:
+                self._prefix_cache[keys[i]] = pg
+                self._cached_pages.add(pg)
+                continue
+            freed.append(pg)
+            self._page_ref.pop(pg, None)
+        self.pool.free(freed)
+        req.pages = []
+
+    def _match_prefix(self, tokens):
+        """Longest cached full-page chain strictly shorter than the prompt
+        (at least one token is left to prefill). Returns the shared
+        pages."""
+        if not self.enable_prefix_cache:
+            return []
+        max_pages = (len(tokens) - 1) // self.page
+        shared = []
+        for key in self._chain_keys(tokens, max_pages):
+            pg = self._prefix_cache.get(key)
+            if pg is None:
+                break
+            shared.append(pg)
+        return shared
+
     def _preempt(self, slot_idx):
         """Evict a running request and requeue it at the FRONT of the
-        waiting queue: free its pages and fold the generated tokens into
-        the resume prompt, which re-admission prefills again."""
+        waiting queue. Policy "recompute": release the pages and fold the
+        generated tokens into the resume prompt, which re-admission
+        prefills again. Policy "swap": snapshot the written pages to host
+        memory first; re-admission copies them back, with no
+        recompute."""
         r = self._slots[slot_idx]
-        self.pool.free(r.pages)
-        r.pages = []
-        r.seq_tokens = r.prompt + r.generated
-        r.prefill_pos = 0
-        r.length = 0
+        if self.preempt_policy == "swap" and r.pages:
+            self._snapshot_to_host(r)
+            self.swaps_out += 1
+            self.pool.free(r.pages)
+            r.pages = []
+        else:
+            # release before resetting the bookkeeping: registration needs
+            # the written-token count
+            self._release_pages(r, register=True)
+            r.seq_tokens = r.prompt + r.generated
+            r.prefill_pos = 0
+            r.length = 0
         self._slots[slot_idx] = None
         self._waiting.appendleft(r)
         self.preemptions += 1
@@ -603,10 +1031,14 @@ class ContinuousBatchingEngine:
                 grow = (r.length + self.page) // self.page - len(r.pages)
                 if grow <= 0:
                     continue
-                if grow > self.pool.available:
+                ok = (self._free_pages_for(grow) if self.enable_prefix_cache
+                      else grow <= self.pool.available)
+                if not ok:
                     short = True
                     break
-                r.pages.extend(self.pool.alloc(grow))
+                r.pages.extend(self._alloc_ref(grow)
+                               if self.enable_prefix_cache
+                               else self.pool.alloc(grow))
             if not short:
                 return
             occupied = [(i, r) for i, r in enumerate(self._slots)
@@ -622,16 +1054,19 @@ class ContinuousBatchingEngine:
                     and r.generated[-1] == self.eos))
 
     def _retire(self, req: _Request):
-        self.pool.free(req.pages)
-        req.pages = []
+        self._release_pages(req, register=True)
         return req.prompt + req.generated
 
     @torch.inference_mode()
     def step(self):
-        """Admit + one batched decode tick. Returns {rid: full_ids} for
-        requests finishing THIS tick."""
+        """Sweep deadlines, retire, admit, one chunk pass and one batched
+        decode tick. Returns {rid: full_ids} for requests finishing THIS
+        tick."""
         newly = {}
-        # retire first: a finishing slot frees pages and a slot for this
+        # deadlines first: an expired request must not hold a slot or
+        # pages for one more tick
+        self._sweep_deadlines()
+        # retire next: a finishing slot frees pages and a slot for this
         # very tick's admissions
         for i, r in enumerate(list(self._slots)):
             if r is not None and self._finished(r):
@@ -648,19 +1083,23 @@ class ContinuousBatchingEngine:
                 and not self._finished(r)]
         if not live:
             return newly
-        do_sample = any(r.temperature > 0.0 for _, r in live)
         # fixed-width batch: pad with the first live row's state (its
         # results are discarded; its KV write repeats the same values)
         rows = [r for _, r in live] + [live[0][1]] * (
             self.max_slots - len(live))
-        nxt = self._decode_step(
-            self._tensor([r.generated[-1] for r in rows], torch.long),
-            self._tensor([r.length for r in rows], torch.long),
-            self._table_rows(rows),
-            self._tensor([r.temperature for r in rows], torch.float32),
-            self._tensor([r.top_k for r in rows], torch.long),
-            self._tensor([r.top_p for r in rows], torch.float32),
-            do_sample).cpu().numpy()
+        lg = self._decode_logits(
+            np.asarray([r.generated[-1] for r in rows], np.int32),
+            np.asarray([r.length for r in rows], np.int32),
+            self._table_rows(rows))
+        if any(r.temperature > 0.0 for _, r in live):
+            nxt = _sample_rows(
+                lg, self._tensor([r.temperature for r in rows], torch.float32),
+                self._tensor([r.top_k for r in rows], torch.long),
+                self._tensor([r.top_p for r in rows], torch.float32),
+                self._gen)
+        else:
+            nxt = lg.argmax(-1)
+        nxt = nxt.cpu().numpy()
         self.decode_ticks += 1
         for j, (_, r) in enumerate(live):
             r.length += 1
@@ -674,7 +1113,7 @@ class ContinuousBatchingEngine:
         for j, r in enumerate(rows):
             own = r.pages[: self.pages_per_seq]
             table[j, :len(own)] = own
-        return self._tensor(table, torch.int32)
+        return table
 
     def run_until_complete(self, max_ticks=10000):
         done = {}
@@ -684,13 +1123,54 @@ class ContinuousBatchingEngine:
                 return done
         raise TimeoutError("serving loop did not drain")
 
+    @torch.inference_mode()
+    def warmup(self, sample=False):
+        """Build what the engine's ticks run, on dummy operands, and record
+        the wall time in ``self.build_seconds`` (returned). On the card
+        that is the kernels and the decode tick's CUDA graph (its eager
+        pass and capture, or a replay once captured); the CPU times one
+        eager pass. With chunked prefill one chunk pass runs too, and
+        ``sample=True`` runs the sampler once on a generator of its own.
+        Lengths are 0 and every table entry is the scratch page, so every
+        write lands in the scratch page."""
+        t0 = time.perf_counter()
+        b = self.max_slots
+        lg = self._decode_logits(
+            np.zeros(b, np.int32), np.zeros(b, np.int32),
+            np.full((b, self.pages_per_seq), self._trash_page, np.int32))
+        if sample:
+            gen = torch.Generator(device=self.device)
+            ones = torch.ones(b, device=self.device)
+            _sample_rows(lg, ones, torch.zeros_like(ones, dtype=torch.long),
+                         ones, gen)
+        lg.cpu()
+        if self.prefill_chunk is not None:
+            B, c = self.max_slots, self.prefill_chunk
+            zeros = lambda *s: torch.zeros(  # noqa: E731
+                s, dtype=torch.long, device=self.device)
+            trash = lambda *s: torch.full(  # noqa: E731
+                s, self._trash_page, dtype=torch.long, device=self.device)
+            self._prefill_chunk_step(zeros(B, c), zeros(B), zeros(B),
+                                     trash(B, c), zeros(B, c),
+                                     trash(B, self.pages_per_seq)).cpu()
+        self.build_seconds = time.perf_counter() - t0
+        return self.build_seconds
+
     def load(self):
         """Live load signals for an admission router: queue depth, slot
-        occupancy and KV headroom."""
+        occupancy, KV headroom and the resident decode weights' bytes by
+        dtype."""
         occupied = sum(1 for s in self._slots if s is not None)
         return {
             "queue_depth": len(self._waiting),
             "occupied_slots": occupied,
             "free_slots": self.max_slots - occupied,
             "kv_free_fraction": self.pool.available / self.pool.num_pages,
+            "int8_weights": self.int8_weights,
+            "weight_bytes": self.weight_bytes,
         }
+
+    def prefix_match_pages(self, tokens):
+        """How many full KV pages of this prompt's prefix the prefix cache
+        already holds (0 with the cache off; nothing is pinned)."""
+        return len(self._match_prefix([int(t) for t in tokens]))

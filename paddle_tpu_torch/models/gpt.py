@@ -480,6 +480,19 @@ class GPTForCausalLMPipe(nn.Module):
                 p.normal_(0.0, std, generator=generator)
         return self
 
+    def _decode_params(self):
+        """Per-layer decode weights (``models/gpt.py:1497``, the serving
+        contract of ``LlamaForCausalLM._decode_params``): views of the
+        stacked slabs, the projections transposed to the ``[out, in]``
+        layout ``F.linear`` takes. Nothing is copied, so an engine serving
+        this model reads its training parameters, and an update in place
+        reaches the engine's next tick."""
+        d = self.decoder
+        slabs = [getattr(d, n).detach() for n in BLOCK_PARAMS]
+        return [{n: (w[i] if w.dim() == 2 else w[i].t())
+                 for n, w in zip(BLOCK_PARAMS, slabs)}
+                for i in range(self.config.num_layers)]
+
     def shard_lm_head(self, *args, **kwargs):
         raise NotImplementedError("the vocab-sharded head is not ported yet "
                                   "(ROADMAP A.10)")

@@ -19,7 +19,8 @@ returns ``cudaGetLastError()``, which the wrapper checks.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches the
 kernel and nowhere else, so a run can show that its main path went through
-the kernels.
+the kernels. A launch captured into a ``CountedGraph`` counts once for
+each replay of the graph, not at the capture, which runs nothing.
 """
 from __future__ import annotations
 
@@ -54,6 +55,38 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+class CountedGraph:
+    """A CUDA graph whose replays count the kernel launches it holds.
+
+    A capture records the wrappers' launches without running them, so
+    :meth:`capture` moves the counts the wrappers added while capturing
+    off ``LAUNCHES`` and onto the graph, and each :meth:`replay` adds them
+    back: a count still comes only from a wrapper's launch, once each time
+    the card runs it. A capture that fails raises."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches: dict[str, int] = {}
+
+    def capture(self, fn):
+        """Capture ``fn()`` on PyTorch's capture stream; returns its output
+        tensors, which every replay rewrites in place."""
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(self.graph):
+                out = fn()
+        finally:
+            self.launches = {k: n - before[k] for k, n in LAUNCHES.items()
+                             if n != before[k]}
+            LAUNCHES.update(before)
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -3,7 +3,9 @@
 Each kernel against its plain PyTorch version on the same CUDA tensors
 (and the split flash backward run twice, bit for bit), the serving
 engine (exact and int8 KV) on the card against the same engine on the
-CPU, the incubate decoder of ``chip_smoke.py`` on the card against
+CPU (under swap preemption and the prefix cache too), its decode tick's
+CUDA graph against the eager tick and its launch counts over replays,
+the incubate decoder of ``chip_smoke.py`` on the card against
 the CPU, and three training steps on the card against the same three on
 the CPU, under full and under selective remat.
 Every test skips where there is no CUDA card. This file imports neither
@@ -15,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import incubate_generate
+from chip_smoke import _tick_inputs, incubate_generate
 from paddle_tpu_torch.incubate.nn import functional as TF
+from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.memory import quantize_rows_int8
 from paddle_tpu_torch.jit import TrainStep
@@ -330,6 +333,179 @@ def test_engine_on_card_matches_cpu_and_counts_launches(
                       else "paged_attention_int8"] == 0
         assert counts["rms_norm"] == (2 * cfg.num_layers + 1) * (
             eng.decode_ticks + eng.prefill_chunk_steps + eng.prefill_batches)
+
+
+def _engine_pair(cuda_device, int8_kv=False, seed=0, **kw):
+    """A tiny f32 LlamaForCausalLM on the CPU and its copy on the card,
+    and an engine on each with the same settings."""
+    cfg = LlamaConfig(vocab_size=96, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=128)
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed), std=0.2)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    kw = dict(dict(max_slots=2, page_size=16, max_seq_len=64,
+                   max_new_tokens=6, int8_kv=int8_kv), **kw)
+    return (ContinuousBatchingEngine(cpu, device="cpu", **kw),
+            ContinuousBatchingEngine(gpu, device=cuda_device, **kw))
+
+
+def _serve(eng, prompts, **kw):
+    for p in prompts:
+        eng.submit(p, **kw)
+    return eng.run_until_complete()
+
+
+def _cache_leaves(eng):
+    return [x for c in (eng.kc, eng.vc)
+            for x in (c if isinstance(c, tuple) else (c,))]
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["exact", "int8"])
+@torch.inference_mode()
+def test_graphed_tick_equals_eager_decode_step(cuda_device, int8_kv):
+    """One replay of the captured tick against the eager _decode_step on
+    the same engine state: the same kernels on the same bytes, so the
+    logits, the greedy tokens, a sampled draw under one generator seed and
+    every KV byte are equal."""
+    _, eng = _engine_pair(cuda_device, int8_kv, max_new_tokens=12,
+                          prefill_chunk=8)
+    rng = np.random.default_rng(2)
+    for p in [rng.integers(1, 96, n).tolist() for n in (5, 19)]:
+        eng.submit(p)
+    for _ in range(4):
+        eng.step()
+    assert eng._graph is not None
+    tokens, lens, tables = _tick_inputs(eng)
+    saved = [x.clone() for x in _cache_leaves(eng)]
+    eager = eng._decode_step(*(torch.from_numpy(a).to(cuda_device)
+                               for a in (tokens, lens, tables))).clone()
+    eager_kv = [x.clone() for x in _cache_leaves(eng)]
+    for x, s in zip(_cache_leaves(eng), saved):
+        x.copy_(s)
+    graphed = eng._decode_logits(tokens, lens, tables).clone()
+    assert torch.equal(graphed, eager)
+    assert torch.equal(graphed.argmax(-1), eager.argmax(-1))
+    for x, want, before in zip(_cache_leaves(eng), eager_kv, saved):
+        assert torch.equal(x, want)
+        assert not torch.equal(x, before)       # the tick wrote its rows
+    b = eng.max_slots
+    draws = []
+    for lg in (graphed, eager):
+        gen = torch.Generator(device=cuda_device).manual_seed(11)
+        draws.append(serving._sample_rows(
+            lg, torch.full((b,), 0.9, device=cuda_device),
+            torch.zeros(b, dtype=torch.long, device=cuda_device),
+            torch.ones(b, device=cuda_device), gen))
+    assert torch.equal(draws[0], draws[1])
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["lazy", "warmup"])
+def test_graph_replays_count_launches_exactly(cuda_device, warm):
+    """The capture counts nothing and every replay counts its kernels: L
+    paged_attention and 2L + 1 rms_norm per tick, whether the graph was
+    captured by warmup() or by the first tick (whose eager pass is the
+    tick)."""
+    _, eng = _engine_pair(cuda_device, prefill_chunk=8, max_new_tokens=10)
+    if warm:
+        assert eng.warmup() > 0 and eng._graph is not None
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    _serve(eng, [rng.integers(1, 96, n).tolist() for n in (7, 12, 3)])
+    counts = kernels.launch_counts()
+    L = eng.cfg.num_layers
+    assert eng._graph.launches == {"paged_attention": L,
+                                   "rms_norm": 2 * L + 1}
+    assert counts["paged_attention"] == L * eng.decode_ticks
+    assert counts["rms_norm"] == (2 * L + 1) * (eng.decode_ticks
+                                                + eng.prefill_chunk_steps)
+
+
+def test_sampled_streams_repeat_and_follow_the_seed(cuda_device):
+    prompts = [np.random.default_rng(4).integers(1, 96, n).tolist()
+               for n in (6, 10, 4)]
+    runs = []
+    for seed in (5, 5, 6):
+        _, eng = _engine_pair(cuda_device, seed=0, prefill_chunk=8)
+        eng._gen.manual_seed(seed)
+        runs.append(_serve(eng, prompts, temperature=1.5))
+    assert runs[0] == runs[1] != runs[2]
+
+
+@torch.inference_mode()
+def test_warmup_on_card_writes_only_the_scratch_page(cuda_device):
+    cpu_eng, eng = _engine_pair(cuda_device, int8_kv=True, prefill_chunk=8)
+    assert eng.warmup(sample=True) == eng.build_seconds > 0
+    trash = eng._trash_page
+    for x in _cache_leaves(eng):
+        assert not x[:, :, :trash].any() and x[:, :, trash].any()
+    prompts = [np.random.default_rng(6).integers(1, 96, n).tolist()
+               for n in (5, 19, 33)]
+    assert _serve(eng, prompts) == _serve(cpu_eng, prompts)
+
+
+def test_reload_weights_recaptures_on_new_storage(cuda_device):
+    """An update in place keeps the graph, which reads the new values; a
+    weight moved to new storage drops it and the next tick captures again.
+    Either way the streams equal the CPU engine's on the same weights."""
+    cpu_eng, eng = _engine_pair(cuda_device, prefill_chunk=8)
+    prompts = [np.random.default_rng(7).integers(1, 96, n).tolist()
+               for n in (9, 4)]
+    assert _serve(eng, prompts) == _serve(cpu_eng, prompts)
+    first = eng._graph
+    cpu_m, gpu_m = cpu_eng._model, eng._model
+    g = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        w = cpu_m.model.layers[0].mlp.up_proj.weight
+        w.copy_(torch.randn(w.shape, generator=g) * 0.2)
+        gpu_m.model.layers[0].mlp.up_proj.weight.copy_(w)
+    for e in (cpu_eng, eng):
+        e.reload_weights()
+    assert eng._graph is first
+    want = _serve(cpu_eng, prompts)
+    assert _serve(eng, prompts) == want
+    with torch.no_grad():
+        e = cpu_m.model.embed_tokens.weight
+        e.copy_(torch.randn(e.shape, generator=g) * 0.2)
+        gpu_m.model.embed_tokens.weight.data = e.to(cuda_device)
+    for e in (cpu_eng, eng):
+        e.reload_weights()
+    assert eng._graph is None
+    want2 = _serve(cpu_eng, prompts)
+    assert want2 != want
+    assert _serve(eng, prompts) == want2
+    assert eng._graph is not None and eng._graph is not first
+
+
+@pytest.mark.parametrize("int8_kv,chunk", [(False, None), (False, 5),
+                                           (True, None), (True, 5)],
+                         ids=["group", "chunked", "int8-group",
+                              "int8-chunked"])
+def test_swap_on_card_matches_cpu(cuda_device, int8_kv, chunk):
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 96, n).tolist() for n in (10, 9, 11)]
+    engines = _engine_pair(cuda_device, int8_kv, max_slots=3, page_size=4,
+                           max_seq_len=48, num_pages=10, max_new_tokens=12,
+                           prefill_chunk=chunk, preempt_policy="swap")
+    outs = [_serve(e, prompts) for e in engines]
+    assert outs[0] == outs[1]
+    counts = [(e.preemptions, e.swaps_out, e.swaps_in, e.pool.available)
+              for e in engines]
+    assert counts[0] == counts[1] and counts[1][1] > 0
+
+
+def test_prefix_cache_on_card_matches_cpu(cuda_device):
+    system = list(range(1, 13))
+    prompts = [system + [20, 21, 22], system + [30, 31],
+               system + [20, 21, 22], list(range(40, 49))]
+    engines = _engine_pair(cuda_device, max_slots=2, page_size=4,
+                           max_seq_len=48, num_pages=12, max_new_tokens=8,
+                           prefill_chunk=4, enable_prefix_cache=True)
+    outs = [_serve(e, prompts) for e in engines]
+    assert outs[0] == outs[1]
+    counts = [(e.prefix_cache_hits, e.prefix_cache_evictions,
+               e.prefix_tokens_skipped, e.pool.available) for e in engines]
+    assert counts[0] == counts[1] and counts[1][0] >= 3
 
 
 @pytest.mark.parametrize("d", [64, 80])

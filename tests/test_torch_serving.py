@@ -212,8 +212,11 @@ def test_load_signals(models):
     _, tm = models
     eng = ContinuousBatchingEngine(tm, device="cpu", **ENGINE)
     eng.submit([1, 2, 3])
+    nbytes = sum(p.numel() * 4 for p in tm.parameters())
     assert eng.load() == {"queue_depth": 1, "occupied_slots": 0,
-                          "free_slots": 2, "kv_free_fraction": 1.0}
+                          "free_slots": 2, "kv_free_fraction": 1.0,
+                          "int8_weights": False,
+                          "weight_bytes": {"float32": nbytes}}
 
 
 def test_engine_without_device_needs_cuda(models):
@@ -222,10 +225,3 @@ def test_engine_without_device_needs_cuda(models):
     _, tm = models
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatchingEngine(tm, **ENGINE)
-
-
-def test_only_recompute_preemption_is_ported(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="recompute"):
-        ContinuousBatchingEngine(tm, preempt_policy="swap", device="cpu",
-                                 **ENGINE)
