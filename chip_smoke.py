@@ -48,6 +48,23 @@ Phases, each of which fails the run on error:
              requests over one 1,024-token prefix (16 pages of 64), the
              first alone, with the prefix cache on and off: at least 7 x
              16 page hits, equal streams, TTFT per request both ways.
+   serving_spec - the same model and requests on engines with
+             spec_tokens=4: (a) a self-draft, (b) a small seeded draft
+             (hidden 1024, 4 layers, 8 heads of 128, FFN 2816). Streams
+             equal phase 4's; per spec tick paged_attention (K+1)(L+Ld)
+             and rms_norm (2L+1) + K(2Ld+1) (the verify graph and the
+             draft's proposal graph); acceptance, tokens a row per target
+             pass, the spec tick's wall and busy and the two graphs'
+             replays on CUDA events; on one state the verify's position-0
+             logits equal the tick's (eager and graphed), and one verify
+             replay equals the eager verify.
+   serving_int8w - the same with int8_weights=True: the weight bytes by
+             dtype (int8 codes half the bf16 projections, 4 bytes a column
+             of f32 scales), the checks of phase 4, the GEMMs' ms per tick
+             and the share of tokens equal to phase 4's.
+   serving_disagg - phase 4's requests on a DisaggregatedEngine of 8
+             prefill and 8 decode slots: streams equal phase 4's; handoffs,
+             bytes and ms a handoff.
    incubate - the same model as a decoder built from the incubate fused
              ops (fused_rms_norm, masked_multihead_attention over a dense
              [2, 8, 32, 2048, 128] cache per layer, swiglu), 8 rows joining
@@ -60,7 +77,12 @@ Phases, each of which fails the run on error:
              equal generate; the engine on the card equals the CPU's under
              swap preemption and under the prefix cache; a
              GPTForCausalLMPipe and a tied LlamaForCausalLM on the same
-             weights serve the same streams.
+             weights serve the same streams; spec streams (self-draft at
+             acceptance exactly 1.0, and a small draft) on the card equal
+             the CPU's and the plain engine's, int8-weight streams the
+             CPU's, a DisaggregatedEngine's the single engine's, and prefix
+             pages exported from one engine and imported into another give
+             hits and the donor's streams.
 6. training - GPT-3 1.3B (config 4) at full width and depth in bf16:
              GPTForCausalLMPipe -> chunked-CE loss -> AdamW(factored) ->
              TrainStep, batch 3 x seq 2048, one warm-up and 5 timed steps
@@ -83,7 +105,8 @@ Phases, each of which fails the run on error:
              remat.
 
 The line before the last lists every kernel with its launch counts on the
-serving, int8 serving, incubate, training and long-context runs; the last
+serving, int8 serving, spec, int8-weight and disaggregated serving,
+incubate, training and long-context runs; the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 only, with fewer repetitions, and prints no
 result line.
@@ -913,10 +936,22 @@ def _random_model(cfg, dtype, seed):
         gen, std=0.02)
 
 
-def _decode_window(engine, ticks):
+#: the projections' GEMM kernels as the profiler names them (cuBLAS's
+#: Hopper kernels, split-K ones included, and the CUTLASS kernels it
+#: takes for int8)
+GEMM_SYMBOLS = ("gemm", "nvjet", "xmma", "cutlass")
+#: of those, the int8 x int8 -> int32 ones
+INT8_GEMM_SYMBOLS = ("gemm_s8", "s8s8", "imma")
+
+
+def _decode_window(engine, ticks, replays=None):
     """``ticks`` pure decode ticks on the host clock, then ``ticks`` more
-    under the profiler: device busy time (sum of kernel times) and the
-    time in each kernel. The host share is 1 - busy / unprofiled wall."""
+    under the profiler: device busy time (sum of kernel times), the time
+    in each kernel and in the GEMMs. The host share is 1 - busy /
+    unprofiled wall. Then each of ``replays`` (name -> a graph's replay;
+    by default the tick's graph) ``ticks`` times back to back on CUDA
+    events: the card's time for it (it rewrites the same KV rows with the
+    same values)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -939,27 +974,31 @@ def _decode_window(engine, ticks):
             dt = ev.time_range.elapsed_us()
             busy += dt
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     attn = {name: sum(v for k, v in by_kernel.items() if sym in k) / 1e3
             / ticks for name, sym in ATTENTION_SYMBOLS.items()}
-    # the card's time for one tick on CUDA events: the last tick's graph
-    # replayed back to back (it rewrites the same KV rows with the same
-    # values), a cross-check of the profiler's busy time
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(ticks):
-        engine._graph.replay()
-    end.record()
-    end.synchronize()
-    return {"ticks": ticks, "wall_ms_per_tick": plain_wall * 1e3 / ticks,
-            "attention_ms_per_tick": attn,
-            "profiled_wall_ms_per_tick": wall * 1e3 / ticks,
-            "device_busy_ms_per_tick": busy / 1e3 / ticks,
-            "graph_replay_ms": start.elapsed_time(end) / ticks,
-            "host_share": (1 - busy / 1e6 / plain_wall) if busy > 0 else None,
-            "top_kernels_ms_per_tick": [(k[:80], v / 1e3 / ticks)
-                                        for k, v in top]}
+    gemm, int8_gemm = (sum(v for k, v in by_kernel.items()
+                           if any(sym in k for sym in syms)) / 1e3 / ticks
+                       for syms in (GEMM_SYMBOLS, INT8_GEMM_SYMBOLS))
+    res = {"ticks": ticks, "wall_ms_per_tick": plain_wall * 1e3 / ticks,
+           "attention_ms_per_tick": attn, "gemm_ms_per_tick": gemm,
+           "int8_gemm_ms_per_tick": int8_gemm,
+           "profiled_wall_ms_per_tick": wall * 1e3 / ticks,
+           "device_busy_ms_per_tick": busy / 1e3 / ticks,
+           "host_share": (1 - busy / 1e6 / plain_wall) if busy > 0 else None,
+           "top_kernels_ms_per_tick": [(k[:80], v / 1e3 / ticks)
+                                       for k, v in top]}
+    for key, replay in (replays or
+                        {"graph_replay_ms": engine._graph.replay}).items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ticks):
+            replay()
+        end.record()
+        end.synchronize()
+        res[key] = start.elapsed_time(end) / ticks
+    return res
 
 
 SERVE_PROMPT_LENS = (128, 1024, 256, 896, 384, 768, 512, 640)
@@ -1012,6 +1051,40 @@ def _graph_vs_eager(eng):
                                         eager.argmax(-1)),
             "kv_equal": kv_equal,
             "logits_max_abs_diff": (graphed - eager).abs().max().item()}
+@torch.inference_mode()
+def _own_rows_tick(eng, reps=5, rounds=4):
+    """On one state, the tick's graph captured at the batch's own row count
+    (max_slots) and at the engine's shared GEMM row count, replayed in
+    turns (``rounds`` x ``reps`` each, own first) on CUDA events; the
+    median of each: what the shared row count costs. The replays rewrite
+    the row the next tick writes."""
+    tokens, lens, tables = _tick_inputs(eng)
+    saved = (eng._graph, eng._graph_out, eng._graph_ptrs, eng._rows)
+    graphs = {}
+    try:
+        for key, rows in (("own_rows", eng.max_slots),
+                          ("engine_rows", eng._rows)):
+            eng._graph, eng._rows = None, rows
+            eng._decode_logits(tokens, lens, tables).cpu()   # capture
+            graphs[key] = eng._graph
+    finally:
+        eng._graph, eng._graph_out, eng._graph_ptrs, eng._rows = saved
+    samples = {k: [] for k in graphs}
+    for _ in range(rounds):
+        for key, graph in graphs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                graph.graph.replay()
+            end.record()
+            end.synchronize()
+            samples[key].append(start.elapsed_time(end) / reps)
+    out = {f"{k}_replay_ms": statistics.median(v) for k, v in samples.items()}
+    out["rows"] = (eng.max_slots, eng._rows)
+    return out
+
+
 #: the decode tick's attention kernels as the profiler names them
 ATTENTION_SYMBOLS = {"paged_attention": "paged_attention_kernel",
                      "paged_attention_int8": "paged_attention_int8_kernel"}
@@ -1112,6 +1185,7 @@ def _serve(eng, cfg, new, tag):
         eng.step()
     res["decode_window"] = _decode_window(eng, 10)
     res["graph_vs_eager"] = gve = _graph_vs_eager(eng)
+    res["own_rows_tick"] = own = _own_rows_tick(eng)
     eng.run_until_complete()
     dw = res["decode_window"]
     print(f"{tag}: decode tick (one CUDA graph replay) "
@@ -1119,12 +1193,17 @@ def _serve(eng, cfg, new, tag):
           f"{dw['device_busy_ms_per_tick']:.2f} ms device busy (profiler), "
           f"{dw['graph_replay_ms']:.2f} ms a replay on CUDA events, host "
           f"share {dw['host_share']}; {attn} "
-          f"{dw['attention_ms_per_tick'][attn]:.4f} ms per tick", flush=True)
+          f"{dw['attention_ms_per_tick'][attn]:.4f} ms per tick, GEMMs "
+          f"{dw['gemm_ms_per_tick']:.4f} ms per tick", flush=True)
     print(f"{tag}: graphed tick against the eager _decode_step on the same "
           f"state: tokens equal {gve['tokens_equal']}, KV cells equal "
           f"{gve['kv_equal']}, logits' largest difference "
           f"{gve['logits_max_abs_diff']}", flush=True)
     check(gve["tokens_equal"], "graphed tick's tokens != eager tick's")
+    print(f"{tag}: the tick's graph replay at its own {own['rows'][0]} rows "
+          f"{own['own_rows_replay_ms']:.3f} ms, at the engine's "
+          f"{own['rows'][1]} {own['engine_rows_replay_ms']:.3f} ms (CUDA "
+          f"events, one state)", flush=True)
     for k, v in dw["top_kernels_ms_per_tick"]:
         print(f"{tag}:   {v:8.3f} ms/tick  {k}", flush=True)
     return res, [done[r] for r in rids]
@@ -1317,6 +1396,350 @@ def phase_serving_engine(model, streams):
           f"prefix cache hits {on['hits']} < {7 * PREFIX_LEN // 64}")
     same = [a == b for a, b in zip(on["streams"], off["streams"])]
     check(all(same), f"prefix cache streams != cache off: {same}")
+    return res
+
+
+# ------------------------------------------- phase 4 speculative decoding
+#: the verify's window is K + 1 = 5 tokens a row
+SPEC_K = 4
+#: phase 4's small draft: LLaMA's vocabulary at a twentieth of its width
+SMALL_DRAFT = dict(vocab_size=32000, hidden_size=1024, num_layers=4,
+                   num_heads=8, intermediate_size=2816, max_seq_len=4096)
+
+
+def _spec_inputs(eng):
+    """The next spec tick's (prev, cur, lens, tables) as _spec_tick builds
+    them."""
+    eng._grow_pages()
+    live = [r for r in eng._slots if r is not None and r.generated
+            and r.length > 0 and not eng._finished(r)]
+    rows = live + [live[0]] * (eng.max_slots - len(live))
+    lens = np.asarray([r.length for r in rows], np.int32)
+    ctx = [r.prompt + r.generated for r in rows]
+    return (np.asarray([c[n - 1] for c, n in zip(ctx, lens)], np.int32),
+            np.asarray([c[n] for c, n in zip(ctx, lens)], np.int32),
+            lens, eng._table_rows(rows))
+
+
+@torch.inference_mode()
+def _spec_state_checks(eng):
+    """On one state of a spec engine (the KV cells a window writes are put
+    back after each pass): the verify's position-0 logits against the
+    eager and the graphed tick's on the same inputs, at the engine's GEMM
+    row count; the same pair with each forward at its own row count (a
+    reading: what the shared row count is there for); one replay of the
+    verify graph against the eager verify (tokens, KV cells)."""
+    K = eng.spec_tokens
+    prev, cur, lens, tables = _spec_inputs(eng)
+    B = len(lens)
+    pos = lens[:, None] + np.arange(K + 1)[None, :]
+    pidx = np.minimum(pos // eng.page, eng.pages_per_seq - 1)
+    pages = torch.as_tensor(np.take_along_axis(tables, pidx, 1).reshape(-1),
+                            device=DEVICE).long()
+    offs = torch.as_tensor((pos % eng.page).reshape(-1),
+                           device=DEVICE).long()
+    leaves = [x for c in (eng.kc, eng.vc)
+              for x in (c if isinstance(c, tuple) else (c,))]
+
+    def cells():
+        return [x[:, :, pages, offs].clone() for x in leaves]
+
+    before = cells()
+
+    def restore():
+        for x, c in zip(leaves, before):
+            x[:, :, pages, offs] = c
+
+    torch.cuda.synchronize()
+    cur_t, lens_t, tables_t, prev_t = eng._inputs(cur, lens, tables, prev)
+    d = eng._draft.propose(prev_t, cur_t, lens_t, tables_t).clone()
+
+    def pos0_logits(rows):
+        saved, eng._rows = eng._rows, rows
+        try:
+            toks = torch.cat([cur_t.long()[:, None], d], 1)
+            lv = eng._logits(eng._window_hidden(toks, lens_t, tables_t))
+            lv = lv[:B].float().clone()
+            restore()
+            lt = eng._decode_step(cur_t, lens_t, tables_t).clone()
+            restore()
+        finally:
+            eng._rows = saved
+        return lv, lt
+
+    lv, lt = pos0_logits(eng._rows)
+    lv1, lt1 = pos0_logits(1)
+    graphed = []
+    for _ in range(2):            # the first call may capture the graph
+        torch.cuda.synchronize()
+        graphed.append(eng._decode_logits(cur, lens, tables).clone())
+        restore()
+    eager = eng._verify_step(cur_t, d, lens_t, tables_t).clone()
+    eager_cells = cells()
+    restore()
+    eng._draft._propose_out.copy_(d)
+    eng._verify_graph.replay()
+    replayed = eng._verify_out.clone()
+    replay_cells = cells()
+    restore()
+    torch.cuda.synchronize()
+    return {"pos0_equal_eager_tick": torch.equal(lv, lt),
+            "pos0_equal_graphed_tick": torch.equal(lv, graphed[-1]),
+            "own_rows_pos0_equal_tick": torch.equal(lv1, lt1),
+            "own_rows_max_abs_diff": (lv1 - lt1).abs().max().item(),
+            "own_rows_argmax_equal": torch.equal(lv1.argmax(-1),
+                                                 lt1.argmax(-1)),
+            "verify_graph_tokens_equal": torch.equal(replayed, eager),
+            "verify_graph_kv_equal": all(
+                torch.equal(a, b) for a, b in zip(replay_cells, eager_cells))}
+
+
+def _serve_spec(eng, cfg, new, tag, want):
+    """Phase 4's serving run on a speculative engine: the warm-up request,
+    then the 8 staggered greedy requests, each step timed; checks the
+    streams against phase 4's and the launches per spec tick; then a
+    window of spec ticks on a second batch under the profiler, the two
+    graphs' replays on CUDA events, and the state checks."""
+    from paddle_tpu_torch.ops import kernels
+
+    build_s = eng.warmup()
+    warm, prompts = _serve_prompts(cfg)
+    eng.submit(warm)
+    eng.run_until_complete()
+    names = ("spec_ticks", "spec_draft_tokens", "spec_accepted_tokens",
+             "decode_ticks", "prefill_chunk_steps")
+    base = {k: getattr(eng, k) for k in names}
+    dp0 = eng._draft.prefill_batches
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p) for p in prompts[:5]]
+    done, tick_ms = {}, []
+
+    def timed_step():
+        c0, s0 = eng.prefill_chunk_steps, eng.spec_ticks
+        t = time.perf_counter()
+        done.update(eng.step())
+        torch.cuda.synchronize()
+        if eng.prefill_chunk_steps == c0 and eng.spec_ticks == s0 + 1:
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+
+    timed_step()
+    timed_step()
+    rids += [eng.submit(p) for p in prompts[5:]]
+    while eng._waiting or any(s is not None for s in eng._slots):
+        timed_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    d = {k: getattr(eng, k) - base[k] for k in names}
+    batches = eng._draft.prefill_batches - dp0
+    got = [done[r] for r in rids]
+    same = [a == b for a, b in zip(got, want)]
+    check(all(same), f"{tag}: streams != phase 4's: {same}")
+    check(d["decode_ticks"] == 0, f"{tag}: {d['decode_ticks']} plain ticks")
+    L, Ld, K = cfg.num_layers, eng._draft.cfg.num_layers, eng.spec_tokens
+    ticks, chunks = d["spec_ticks"], d["prefill_chunk_steps"]
+    want_pa = (K + 1) * (L + Ld) * ticks
+    want_rms = ((2 * L + 1) * (ticks + chunks) + K * (2 * Ld + 1) * ticks
+                + 2 * Ld * batches)
+    check(counts["paged_attention"] == want_pa
+          and counts["paged_attention_int8"] == 0,
+          f"{tag}: paged_attention {counts['paged_attention']} != (K + 1)"
+          f"(L + Ld) x {ticks} spec ticks = {want_pa}")
+    check(counts["rms_norm"] == want_rms,
+          f"{tag}: rms_norm {counts['rms_norm']} != {want_rms}")
+    rows = d["spec_draft_tokens"] // K          # rows verified
+    gen = new * len(prompts)
+    res = {"build_seconds": build_s, "wall_s": wall, "spec_ticks": ticks,
+           "prefill_passes": chunks, "draft_prefill_batches": batches,
+           "generated_tokens": gen, "tokens_per_s": gen / wall,
+           "acceptance_rate": d["spec_accepted_tokens"]
+           / d["spec_draft_tokens"],
+           "tokens_per_target_pass": (gen - len(prompts)) / rows,
+           "spec_tick_ms_median": statistics.median(tick_ms),
+           "spec_tick_ms_all": tick_ms, "launches": counts,
+           "launch_formula": "per spec tick: paged_attention (K+1)(L+Ld), "
+                             "rms_norm (2L+1) + K(2Ld+1); per chunk pass "
+                             "rms_norm 2L+1; per draft prefill 2Ld"}
+    print(f"{tag}: build (warmup) {build_s:.3f} s; 8 requests, {gen} tokens "
+          f"in {wall:.3f} s = {res['tokens_per_s']:.1f} tok/s; {ticks} spec "
+          f"ticks, {chunks} prefill passes; acceptance "
+          f"{res['acceptance_rate']:.4f}, {res['tokens_per_target_pass']:.3f}"
+          f" tokens a row per target pass; spec tick median "
+          f"{res['spec_tick_ms_median']:.2f} ms; launches {counts}",
+          flush=True)
+    # a second batch for the window, with room for 10 spec ticks of K + 1
+    # tokens and the state checks (outside the counted run)
+    eng.max_new_tokens = 96
+    for p in prompts:
+        eng.submit(p[:512])
+    while any(s is None for s in eng._slots) or any(
+            s.prefill_pos < len(s.seq_tokens) for s in eng._slots):
+        eng.step()
+    res["decode_window"] = dw = _decode_window(
+        eng, 5, {"propose_replay_ms": eng._draft._propose_graph.replay,
+                 "verify_replay_ms": eng._verify_graph.replay})
+    res["state_checks"] = sc = _spec_state_checks(eng)
+    eng.run_until_complete()
+    print(f"{tag}: spec tick {dw['wall_ms_per_tick']:.2f} ms wall, "
+          f"{dw['device_busy_ms_per_tick']:.2f} ms device busy, host share "
+          f"{dw['host_share']}; propose replay {dw['propose_replay_ms']:.3f}"
+          f" ms, verify replay {dw['verify_replay_ms']:.3f} ms on CUDA "
+          f"events; paged_attention "
+          f"{dw['attention_ms_per_tick']['paged_attention']:.4f} ms, GEMMs "
+          f"{dw['gemm_ms_per_tick']:.4f} ms per spec tick", flush=True)
+    for k, v in dw["top_kernels_ms_per_tick"]:
+        print(f"{tag}:   {v:8.3f} ms/tick  {k}", flush=True)
+    print(f"{tag}: one state: " + json.dumps(sc), flush=True)
+    check(sc["pos0_equal_eager_tick"] and sc["pos0_equal_graphed_tick"],
+          f"{tag}: the verify's position-0 logits != the tick's")
+    check(sc["verify_graph_tokens_equal"] and sc["verify_graph_kv_equal"],
+          f"{tag}: the verify graph's replay != the eager verify")
+    return res
+
+
+def phase_serving_spec(model, streams):
+    """Phase 4's requests on engines with spec_tokens=4: (a) a self-draft,
+    (b) a small seeded draft. Streams equal phase 4's."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = model.config
+    new = 32
+    small = _random_model(LlamaConfig(**SMALL_DRAFT), torch.bfloat16, seed=2)
+    res = {}
+    for name, draft in (("self", model), ("small", small)):
+        eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                       draft_model=draft, spec_tokens=SPEC_K,
+                                       **SERVE_ENGINE)
+        res[name] = _serve_spec(eng, cfg, new, f"serving_spec ({name} "
+                                f"draft)", streams)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = {k: res["self"]["launches"][k]
+                       + res["small"]["launches"][k]
+                       for k in res["self"]["launches"]}
+    del small
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------- phase 4 int8-resident weights
+def phase_serving_int8w(model, exact, streams):
+    """Phase 4 again with int8_weights=True: every projection is the int8
+    x int8 -> int32 GEMM over codes and per-column scales."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    cfg = model.config
+    new = 32
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                   int8_weights=True, **SERVE_ENGINE)
+    check(eng.int8_weights, "int8_weights did not engage")
+    proj = [w for lp in model._decode_params() for n, w in lp.items()
+            if n not in ("ln1", "ln2")]
+    proj_bytes = sum(w.numel() * w.element_size() for w in proj)
+    cols = sum(w.shape[0] for w in proj)
+    model_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    wb = eng.weight_bytes
+    check(wb == {"int8": proj_bytes // 2, "float32": 4 * cols,
+                 "bfloat16": model_bytes - proj_bytes},
+          f"int8 weight bytes {wb}: want int8 {proj_bytes // 2}, float32 "
+          f"{4 * cols}, bfloat16 {model_bytes - proj_bytes}")
+    res, got = _serve(eng, cfg, new, "serving_int8w")
+    res["weight_bytes"] = wb
+    same = sum(a == b for s, e in zip(got, streams)
+               for a, b in zip(s[-new:], e[-new:]))
+    res["tokens_equal_to_exact_share"] = same / (new * len(got))
+    dw = res["decode_window"]
+    print(f"serving_int8w: weight bytes {wb} (bf16 projections "
+          f"{proj_bytes}); int8 GEMMs {dw['int8_gemm_ms_per_tick']:.4f} ms "
+          f"a tick, all GEMMs {dw['gemm_ms_per_tick']:.4f} (exact engine "
+          f"{exact['decode_window']['gemm_ms_per_tick']:.4f});"
+          f" generated tokens equal to the bf16 engine's: {same} of "
+          f"{new * len(got)}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------ phase 4 disaggregation
+def phase_serving_disagg(model, streams):
+    """Phase 4's requests on a DisaggregatedEngine of 8 prefill and 8
+    decode slots (the prefill passes keep phase 4's [8, 512] shape):
+    streams equal phase 4's; handoffs, bytes and ms."""
+    from paddle_tpu_torch.inference.fleet import DisaggregatedEngine
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = model.config
+    new = 32
+    dis = DisaggregatedEngine(
+        model, prefill_slots=8, decode_slots=8, page_size=64,
+        max_seq_len=2048, max_new_tokens=new, prefill_chunk=512,
+        device=DEVICE)
+    build_s = dis.warmup()
+    warm, prompts = _serve_prompts(cfg)
+    dis.submit(warm)
+    dis.run_until_complete()
+    restore = _swap_timers(dis.decode)
+    ext = {"ms": 0.0}
+    extract = dis.prefill.extract
+
+    def timed_extract(i):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = extract(i)
+        ext["ms"] += (time.perf_counter() - t) * 1e3
+        return r
+
+    dis.prefill.extract = timed_extract
+    h0, b0 = dis.handoffs, dis.handoff_bytes
+    t0_ticks = dis.decode.decode_ticks
+    c0 = dis.prefill.prefill_chunk_steps + dis.decode.prefill_chunk_steps
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [dis.submit(p) for p in prompts[:5]]
+    done = {}
+    done.update(dis.step())
+    done.update(dis.step())
+    rids += [dis.submit(p) for p in prompts[5:]]
+    done.update(dis.run_until_complete())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    got = [done[r] for r in rids]
+    same = [a == b for a, b in zip(got, streams)]
+    check(all(same), f"serving_disagg: streams != phase 4's: {same}")
+    n = dis.handoffs - h0
+    nbytes = dis.handoff_bytes - b0
+    ticks = dis.decode.decode_ticks - t0_ticks
+    chunks = (dis.prefill.prefill_chunk_steps
+              + dis.decode.prefill_chunk_steps - c0)
+    L = cfg.num_layers
+    check(n == len(prompts), f"serving_disagg: {n} handoffs")
+    check(counts["paged_attention"] == L * ticks
+          and counts["rms_norm"] == (2 * L + 1) * (ticks + chunks),
+          f"serving_disagg: launches {counts} for {ticks} decode ticks and "
+          f"{chunks} prefill passes")
+    gen = new * len(prompts)
+    res = {"build_seconds": build_s, "wall_s": wall, "handoffs": n,
+           "handoff_bytes": nbytes, "extract_ms": ext["ms"],
+           "restore_ms": restore["ms_in"],
+           "ms_per_handoff": (ext["ms"] + restore["ms_in"]) / n,
+           "decode_ticks": ticks, "prefill_passes": chunks,
+           "tokens_per_s": gen / wall, "launches": counts}
+    print(f"serving_disagg: build {build_s:.3f} s; {n} handoffs, {nbytes} "
+          f"bytes, {res['ms_per_handoff']:.2f} ms a handoff (extract "
+          f"{ext['ms']:.2f} ms, restore {restore['ms_in']:.2f} ms in all); "
+          f"{gen} tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} tok/s; "
+          f"{ticks} decode ticks, {chunks} prefill passes; launches "
+          f"{counts}", flush=True)
+    del dis
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1633,6 +2056,106 @@ def phase_engine_consistency(model, prompts):
           f"GPTForCausalLMPipe == tied LlamaForCausalLM on the card, 3 "
           f"prompts, served from the Pipe's parameters", flush=True)
     del llama, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_fleet_consistency(model, prompts):
+    """f32, full width, depth 2, card against CPU: speculative decoding
+    with a self-draft (acceptance exactly 1.0) and with a small draft, each
+    equal to the plain engine on the card; int8-resident weights; a
+    DisaggregatedEngine against the single engine; prefix pages exported
+    from one engine and imported into another (hits, equal streams)."""
+    from paddle_tpu_torch.inference.fleet import DisaggregatedEngine
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    def on_cpu(m):
+        c = LlamaForCausalLM(m.config, device="cpu", dtype=torch.float32)
+        c.load_state_dict(m.state_dict())
+        return c
+
+    cpu_model = on_cpu(model)
+    small = _random_model(LlamaConfig(**SMALL_DRAFT), torch.float32, seed=3)
+    cpu_small = on_cpu(small)
+    new = 8
+    res = {}
+    plain = _staggered(ContinuousBatchingEngine(
+        model, max_new_tokens=new, device=DEVICE, **CONSIST_ENGINE), prompts)
+    for name, drafts in (("self", (cpu_model, model)),
+                         ("small", (cpu_small, small))):
+        out = {}
+        for dev, m, d in (("cpu", cpu_model, drafts[0]),
+                          (DEVICE, model, drafts[1])):
+            eng = ContinuousBatchingEngine(m, max_new_tokens=new,
+                                           draft_model=d, spec_tokens=SPEC_K,
+                                           device=dev, **CONSIST_ENGINE)
+            out[dev] = (_staggered(eng, prompts), eng.spec_ticks,
+                        eng.spec_acceptance_rate)
+            del eng
+        check(out[DEVICE][0] == out["cpu"][0] == plain,
+              f"spec ({name} draft): card, CPU and plain streams differ")
+        check(out[DEVICE][1] > 0, f"spec ({name} draft): no spec tick")
+        if name == "self":
+            check(out[DEVICE][2] == out["cpu"][2] == 1.0,
+                  f"self-draft acceptance {out[DEVICE][2]} (card), "
+                  f"{out['cpu'][2]} (CPU) != 1.0")
+        res[f"spec_{name}"] = {"spec_ticks": out[DEVICE][1],
+                               "acceptance_rate": out[DEVICE][2],
+                               "cpu_acceptance_rate": out["cpu"][2]}
+    del small, cpu_small
+    out = {}
+    for dev, m in (("cpu", cpu_model), (DEVICE, model)):
+        eng = ContinuousBatchingEngine(m, max_new_tokens=new, prefill_chunk=64,
+                                       int8_weights=True, device=dev,
+                                       **CONSIST_ENGINE)
+        check(eng.int8_weights, "int8_weights did not engage")
+        out[dev] = _staggered(eng, prompts)
+        del eng
+    check(out[DEVICE] == out["cpu"], "int8 weights: card != CPU")
+    res["int8w_tokens_equal_to_exact"] = sum(
+        a == b for r in range(3)
+        for a, b in zip(out[DEVICE][r][-new:], plain[r][-new:]))
+    del cpu_model
+    single = _staggered(ContinuousBatchingEngine(
+        model, max_new_tokens=new, prefill_chunk=64, device=DEVICE,
+        **CONSIST_ENGINE), prompts)
+    dis = DisaggregatedEngine(model, prefill_slots=2, decode_slots=2,
+                              page_size=64, max_seq_len=512,
+                              max_new_tokens=new, prefill_chunk=64,
+                              device=DEVICE)
+    check(_staggered(dis, prompts) == single,
+          "disaggregated streams != the single engine's")
+    res["disagg"] = {"handoffs": dis.handoffs,
+                     "handoff_bytes": dis.handoff_bytes}
+    del dis
+    system = prompts[1][:128]
+    warm = [system + prompts[0][:20]]
+    probe = [system + prompts[2][:30], system + prompts[0][:5]]
+    kw = dict(max_slots=2, page_size=16, max_seq_len=512, max_new_tokens=new,
+              prefill_chunk=64, enable_prefix_cache=True, device=DEVICE)
+    donor = ContinuousBatchingEngine(model, **kw)
+    _serve_groups(donor, [warm])
+    entries = donor.export_prefix_pages()
+    peer = ContinuousBatchingEngine(model, **kw)
+    imported = peer.import_prefix_pages(entries)
+    got = _serve_groups(peer, [probe])
+    check(got == _serve_groups(donor, [probe]),
+          "imported prefix pages: streams != the donor's")
+    check(imported == len(entries) >= 128 // 16
+          and peer.prefix_cache_hits >= 2 * 128 // 16,
+          f"prefix import: {imported} of {len(entries)} pages, "
+          f"{peer.prefix_cache_hits} hits")
+    res["prefix_import"] = {"exported": len(entries), "imported": imported,
+                            "hits": peer.prefix_cache_hits}
+    del donor, peer
+    print(f"fleet consistency: f32 depth 2: spec streams (self and small "
+          f"draft) card == CPU == the plain engine, self-draft acceptance "
+          f"1.0; int8 weights card == CPU; disaggregated == single engine "
+          f"({res['disagg']['handoffs']} handoffs); prefix pages "
+          f"{imported} imported, {res['prefix_import']['hits']} hits, "
+          f"streams == the donor's", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2126,6 +2649,12 @@ def main():
                                      model, report["serving"], streams)
         report["serving_engine"] = run("serving_engine",
                                        phase_serving_engine, model, streams)
+        report["serving_spec"] = run("serving_spec", phase_serving_spec,
+                                     model, streams)
+        report["serving_int8w"] = run("serving_int8w", phase_serving_int8w,
+                                      model, report["serving"], streams)
+        report["serving_disagg"] = run("serving_disagg",
+                                       phase_serving_disagg, model, streams)
         report["incubate"] = run("incubate", phase_incubate, model)
         del model
         torch.cuda.empty_cache()
@@ -2138,6 +2667,8 @@ def main():
             prompts, want)
         report["engine_consistency"] = run(
             "engine_consistency", phase_engine_consistency, model, prompts)
+        report["fleet_consistency"] = run(
+            "fleet_consistency", phase_fleet_consistency, model, prompts)
         del model
         torch.cuda.empty_cache()
         report["training"] = run("training", phase_training)
@@ -2185,8 +2716,9 @@ def main():
         # the split backward, config 4 training for the others
         main_case = report["kernels"][name][0]
         by_path = {path: report[path]["launches"][name]
-                   for path in ("serving", "serving_int8", "incubate",
-                                "training", "long_context")}
+                   for path in ("serving", "serving_int8", "serving_spec",
+                                "serving_int8w", "serving_disagg",
+                                "incubate", "training", "long_context")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -1,6 +1,6 @@
 """Continuous-batching LLM serving over paged KV caches, in PyTorch.
 
-Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
+Counterpart of ``paddle_tpu/inference/serving.py``:
 
 - KV lives in pages: one cache per K and V, ``[L, Hkv, num_pages + 1,
   page_size, D]``, whose per-layer slices are the layout the paged
@@ -33,6 +33,24 @@ Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
   does. The card takes the kernel and the CPU its plain version; the JAX
   package's ``PTPU_INT8_KV`` and ``PTPU_PAGED_INT8_KERNEL`` knobs are not
   ported.
+- Every decode-side forward (the tick, the speculative verify, the draft's
+  windows) runs its rows padded to one engine-wide count, a multiple of
+  ``DECODE_GEMM_ROWS``: a GEMM library may pick another algorithm, and
+  another summation order, for another row count, and the speculative
+  contract needs a token's logits to be the same whichever forward made
+  them. The zero rows are never attended nor written.
+- ``int8_weights=True`` packs the 7 projection slabs as int8 codes with one
+  f32 scale per output column (``quant.quantize_weight_cols_int8``); every
+  projection, in prefill, the tick and the verify, is then the int8 x int8
+  -> int32 GEMM (``quant.int8_weight_matmul``). Embedding, norms and head
+  stay exact.
+- ``draft_model=`` turns on speculative decoding
+  (``fleet.spec_decode.DraftRunner``): on a greedy tick the draft proposes
+  ``spec_tokens`` tokens, one target forward verifies them all, and the
+  longest draft prefix equal to the target's own greedy tokens is emitted
+  with the target's next token. On the card the draft's proposal is one
+  CUDA graph and the verify another, read back once. Sampled ticks fall
+  back to the plain tick, and the draft catches up on its carry token.
 - On pool exhaustion the youngest request is preempted. Under
   ``preempt_policy="recompute"`` its tokens fold into the resume prompt;
   under ``"swap"`` its written pages are copied to pinned host memory and
@@ -40,16 +58,22 @@ Counterpart of ``paddle_tpu/inference/serving.py`` (exact and int8 KV):
 - ``enable_prefix_cache=True`` shares full KV pages between requests whose
   prompts start with the same tokens, addressed by a hash chain over the
   pages' tokens; released pages stay cached until the pool runs short.
+  ``export_prefix_pages`` and ``import_prefix_pages`` move cached pages to
+  another engine.
+- ``prefill_only=True`` makes the prefill half of a disaggregated pair
+  (``fleet.disagg``): ``extract`` snapshots a request's pages to the host
+  as a swap-out does, and the decode half's ``inject`` queues it for the
+  swap-restore admission.
 - ``submit(deadline_seconds=)`` and ``cancel(rid)`` tear requests out of
   the queue or their slot; ``reload_weights()`` re-reads the model's
   weights (a ``GPTForCausalLMPipe`` is served from its stacked
-  parameters, without a copy).
+  parameters, without a copy). ``max_new_cap``, ``spec_paused`` and
+  ``prefill_chunk_cap`` are the brownout caps an overload controller sets.
 
 Unlike the JAX package, which donates its caches to functional updates,
 the KV writes here happen in place. Layers run as a Python loop (no scan).
-Int8 weights, speculative decoding, disaggregation (``prefill_only``,
-``extract``, ``inject``), prefix export and import, the brownout caps and
-the telemetry gauges and trace spans are not ported yet.
+The telemetry gauges and trace spans, and a CUDA graph over the chunked
+prefill, are not ported yet.
 """
 from __future__ import annotations
 
@@ -68,8 +92,10 @@ from ..models.gpt import _attention_plain, _rms_pure, _rope_at_positions
 from ..ops.kernels import CountedGraph
 from ..ops.kernels.decode_attention import (paged_attention,
                                             paged_attention_int8)
+from ..quant import int8_linear, int8_weights_enabled, quantize_linear_int8
 
-__all__ = ["PagePool", "ContinuousBatchingEngine", "int8_kv_enabled"]
+__all__ = ["PagePool", "ContinuousBatchingEngine", "int8_kv_enabled",
+           "DECODE_GEMM_ROWS"]
 
 _DECODE_WEIGHT_NAMES = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu",
                         "wd")
@@ -169,7 +195,32 @@ def _kv_nbytes(c):
     return sum(x.numel() * x.element_size() for x in leaves)
 
 
-def _pack_weights(model):
+#: the 7 projection slabs ``int8_weights`` packs as int8 (the norms, the
+#: embedding and the head stay exact)
+_QUANT_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+#: the decode-side forwards run their GEMMs over a multiple of this many
+#: rows (at up to 64 rows the projections are bound by reading the
+#: weights, so the padding costs about nothing)
+DECODE_GEMM_ROWS = 64
+
+
+def _wmat(x, *ws):
+    """``x @ W`` for each packed projection of one input, the one place a
+    projection is applied: an exact ``[out, in]`` slab through
+    ``F.linear``; an int8 ``(codes [out, in], scales [1, out])`` pair
+    through the int8 GEMM, never expanded back to a wide type. The int8
+    ones share one quantization of x's rows (the same values each would
+    compute: the JAX package's compiler merges them the same way)."""
+    xq = (quantize_rows_int8(x) if any(isinstance(w, tuple) for w in ws)
+          else None)
+    out = [int8_linear(x, w, xq) if isinstance(w, tuple) else F.linear(x, w)
+           for w in ws]
+    return out[0] if len(ws) == 1 else out
+
+
+@torch.no_grad()
+def _pack_weights(model, int8=False, into=None):
     """Decode weight tree {"layers": [9-tuple per layer], "embed", "fnorm",
     "head"} in ``_DECODE_WEIGHT_NAMES`` order, the projections in the
     ``[out, in]`` layout ``F.linear`` takes. Counterpart of the JAX
@@ -177,11 +228,29 @@ def _pack_weights(model):
     stacked copy, so the tree references the model's parameters (a
     ``GPTForCausalLMPipe`` gives views of its stacked slabs). The embedding
     and final norm sit on the model's ``.model`` core where it has one; a
-    model without ``lm_head`` ties its head to the embedding."""
+    model without ``lm_head`` ties its head to the embedding.
+
+    ``int8=True`` packs the ``_QUANT_WEIGHT_NAMES`` slabs as ``(codes int8
+    [out, in], scales f32 [1, out])``. Given ``into`` (the tree packed
+    before), codes and scales of the same shapes are written into its
+    tensors, so a CUDA graph captured on them reads the new values."""
     core = model.model if hasattr(model, "model") else model
     head = getattr(model, "lm_head", None)
-    layers = [tuple(p[n] for n in _DECODE_WEIGHT_NAMES)
-              for p in model._decode_params()]
+    layers = []
+    for li, p in enumerate(model._decode_params()):
+        lp = []
+        for j, n in enumerate(_DECODE_WEIGHT_NAMES):
+            w = p[n]
+            if int8 and n in _QUANT_WEIGHT_NAMES:
+                w = quantize_linear_int8(w)
+                old = into["layers"][li][j] if into is not None else None
+                if (isinstance(old, tuple)
+                        and [x.shape for x in old] == [x.shape for x in w]):
+                    for dst, src in zip(old, w):
+                        dst.copy_(src)
+                    w = old
+            lp.append(w)
+        layers.append(tuple(lp))
     return {"layers": layers,
             "embed": core.embed_tokens.weight,
             "fnorm": core.final_norm.weight,
@@ -189,8 +258,10 @@ def _pack_weights(model):
 
 
 def _weight_leaves(weights):
-    """Every tensor of a packed weight tree, in a fixed order."""
-    leaves = [w for lp in weights["layers"] for w in lp]
+    """Every tensor of a packed weight tree, in a fixed order (an int8
+    projection gives its codes, then its scales)."""
+    leaves = [x for lp in weights["layers"] for w in lp
+              for x in (w if isinstance(w, tuple) else (w,))]
     leaves += [weights[n] for n in ("embed", "fnorm", "head")
                if weights[n] is not None]
     return leaves
@@ -198,12 +269,29 @@ def _weight_leaves(weights):
 
 def _weight_nbytes(weights):
     """Bytes of the packed decode tree by storage dtype (the JAX package's
-    names: ``float32``, ``bfloat16``)."""
+    names: ``float32``, ``bfloat16``, ``int8``)."""
     out = {}
     for w in _weight_leaves(weights):
         key = str(w.dtype).removeprefix("torch.")
         out[key] = out.get(key, 0) + w.numel() * w.element_size()
     return out
+
+
+def _capture(fn, device):
+    """Run ``fn()`` once eagerly on a side stream (PyTorch's condition for
+    a capture: the pass builds the kernels and cuBLAS's state, and its
+    result is this call's), then capture it into a ``CountedGraph``; the
+    capture runs nothing. Returns the graph, the graph's output tensors
+    (rewritten by every replay) and the eager pass's output. A capture
+    that fails raises."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    graph = CountedGraph()
+    return graph, graph.capture(fn), out
 
 
 class PagePool:
@@ -282,22 +370,161 @@ def _sample_rows(logits, temps, top_ks, top_ps, generator):
     return torch.where(temps <= 0.0, greedy, sampled)
 
 
-class ContinuousBatchingEngine:
+class _DecoderStack:
+    """The decoder math the engine and its speculative draft share: one
+    layer, a group prefill pass and a decode window over a paged cache.
+    A subclass sets ``cfg``, ``hd``, ``hkv``, ``_weights``, ``kc``, ``vc``,
+    ``page``, ``pages_per_seq``, ``_rows`` (the decode GEMMs' row count)
+    and ``device``."""
+
+    def _tensor(self, values, dtype):
+        return torch.as_tensor(np.asarray(values), dtype=dtype,
+                               device=self.device)
+
+    def _layer_forward(self, li, lp, x, pos0, attend):
+        """One decoder layer: projections + rope + ``attend(li, q, k, v)``
+        (which owns the cache writes and the attention) + MLP. Shared by
+        the prefill paths and the decode windows."""
+        ln1, wq, wk, wv, wo, ln2, wg, wu, wd = lp
+        B, S = x.shape[:2]
+        q, k, v = _wmat(_rms_pure(x, ln1), wq, wk, wv)
+        q = q.reshape(B, S, self.cfg.num_heads, self.hd)
+        k = k.reshape(B, S, self.hkv, self.hd)
+        v = v.reshape(B, S, self.hkv, self.hd)
+        q, k = _rope_at_positions(q, pos0), _rope_at_positions(k, pos0)
+        o = attend(li, q, k, v)                       # [B, S, Hq, D]
+        x = x + _wmat(o.reshape(B, S, -1), wo)
+        g, u = _wmat(_rms_pure(x, ln2), wg, wu)
+        return x + _wmat(F.silu(g) * u, wd)
+
+    def _logits(self, x):
+        w = self._weights
+        return F.linear(x, w["head"] if w["head"] is not None
+                        else w["embed"])
+
+    @staticmethod
+    def _paged_attend(q, kc_l, vc_l, tables, lens):
+        """Single-position paged attention over a PER-LAYER cache:
+        q [B, Hq, D] -> [B, Hq, D]. An exact cache takes the paged
+        attention kernel, an int8 cache the int8 one (codes * scales
+        dequantized in f32 inside the kernel)."""
+        if isinstance(kc_l, tuple):
+            return paged_attention_int8(q.contiguous(), *kc_l, *vc_l,
+                                        tables, lens)
+        return paged_attention(q.contiguous(), kc_l, vc_l, tables, lens)
+
+    def _group_pass(self, pages_list, tokens_list):
+        """ONE padded batch over whole token prefixes: write every
+        position's KV into its pages (``pages_list[i]`` holds prefix i)
+        and return the last layer's hidden rows [B, S, H] and the lengths.
+        Over an int8 cache k and v round-trip through the page quantizer
+        before both the attention and the cache write, so group prefill,
+        chunked prefill and decode read the same quantized KV
+        (re-quantizing a round-tripped row gives the same codes)."""
+        w = self._weights
+        dev = self.device
+        B = len(tokens_list)
+        lens = np.asarray([len(t) for t in tokens_list])
+        S = int(lens.max())
+        ids_np = np.zeros((B, S), np.int64)
+        for i, t in enumerate(tokens_list):
+            ids_np[i, : lens[i]] = t
+        x = w["embed"][self._tensor(ids_np, torch.long)]     # [B, S, H]
+        pos0 = torch.zeros(B, dtype=torch.long, device=dev)
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        int8 = isinstance(self.kc, tuple)
+
+        # flattened valid (row, pos) pairs -> page/offset scatter targets
+        rows = self._tensor(
+            np.concatenate([np.full(n, i) for i, n in enumerate(lens)]),
+            torch.long)
+        poss_np = np.concatenate([np.arange(n) for n in lens])
+        poss = self._tensor(poss_np, torch.long)
+        tok_pages = self._tensor(np.concatenate(
+            [np.asarray(p, np.int64)[np.arange(n) // self.page]
+             for p, n in zip(pages_list, lens)]), torch.long)
+        offs = self._tensor(poss_np % self.page, torch.long)
+
+        def attend(li, q, k, v):
+            if int8:
+                k = dequantize_rows_int8(*quantize_rows_int8(k), k.dtype)
+                v = dequantize_rows_int8(*quantize_rows_int8(v), v.dtype)
+            o = _attention_plain(q, k, v, mask)
+            _kv_write_layer(self.kc, li, tok_pages, offs,
+                            k[rows, poss].transpose(0, 1))
+            _kv_write_layer(self.vc, li, tok_pages, offs,
+                            v[rows, poss].transpose(0, 1))
+            return o
+
+        for li, lp in enumerate(w["layers"]):
+            x = self._layer_forward(li, lp, x, pos0, attend)
+        return x, lens
+
+    def _window_hidden(self, toks, pos0, tables):
+        """The decode forward over a window: ``toks`` [B, C] at positions
+        ``pos0 + i`` (``pos0`` [B]), ``tables`` [B, pages_per_seq] int32.
+        Writes every window row's KV first, then attends position by
+        position with the paged kernel over ``pos0 + i + 1`` rows, the
+        operands a decode tick at that position would see. The window's
+        rows run position-major (row ``i * B + b``) and padded with zero
+        rows to ``self._rows``, so every projection, norm and head GEMM of
+        a decode-side forward has the same row count; returns the
+        final-normed hidden rows [rows, H]. Reads nothing back to the host,
+        so the card captures it whole into a CUDA graph."""
+        w = self._weights
+        dev = self.device
+        B, C = toks.shape
+        n = B * C
+        R = max(self._rows, n)
+        steps = torch.arange(C, device=dev)
+        pos = (pos0.long()[None, :] + steps[:, None]).reshape(-1)   # [n]
+        x = w["embed"][F.pad(toks.t().reshape(-1).long(), (0, R - n))]
+        x = x[:, None]                                       # [R, 1, H]
+        page_idx = (pos // self.page).clamp(0, self.pages_per_seq - 1)
+        page_ids = tables.long().repeat(C, 1).gather(
+            1, page_idx[:, None])[:, 0]
+        offs = pos % self.page
+        kv_lens = (pos0.long()[None, :] + steps[:, None] + 1).to(torch.int32)
+
+        def attend(li, q, k, v):
+            kc_l, vc_l = _kv_index(self.kc, li), _kv_index(self.vc, li)
+            _kv_write(kc_l, page_ids, offs, k[:n, 0].transpose(0, 1))
+            _kv_write(vc_l, page_ids, offs, v[:n, 0].transpose(0, 1))
+            o = [self._paged_attend(q[i * B:(i + 1) * B, 0], kc_l, vc_l,
+                                    tables, kv_lens[i]) for i in range(C)]
+            o = o[0] if C == 1 else torch.cat(o)             # [n, Hq, D]
+            if R > n:
+                o = F.pad(o, (0, 0, 0, 0, 0, R - n))
+            return o[:, None]                                # [R, 1, Hq, D]
+
+        pos_rows = F.pad(pos, (0, R - n))
+        for li, lp in enumerate(w["layers"]):
+            x = self._layer_forward(li, lp, x, pos_rows, attend)
+        return _rms_pure(x, w["fnorm"])[:, 0]
+
+
+class ContinuousBatchingEngine(_DecoderStack):
     """Paged-KV continuous batcher over a ``LlamaForCausalLM`` or a
     ``GPTForCausalLMPipe`` (any model with ``_decode_params()``).
 
     ``device`` defaults to CUDA and must be where the model's weights are;
     ``device="cpu"`` runs the kernels' plain versions and the eager tick.
     ``int8_kv=True`` stores the paged KV as int8 codes plus one f32 scale
-    per row (``self.int8_kv`` says whether the mode engaged).
+    per row (``self.int8_kv`` says whether the mode engaged);
+    ``int8_weights=True`` serves int8-resident projections
+    (``self.int8_weights``). ``draft_model`` (on the same device) turns on
+    speculative decoding of ``spec_tokens`` draft tokens a tick.
     ``preempt_policy`` is ``"recompute"`` or ``"swap"``;
     ``enable_prefix_cache`` needs chunked prefill and the recompute
-    policy."""
+    policy. ``prefill_only`` makes the prefill half of a disaggregated
+    pair; ``rid_base`` starts the request ids."""
 
     def __init__(self, model, max_slots=4, page_size=64, num_pages=None,
                  max_seq_len=None, max_new_tokens=32, eos_token_id=None,
                  seed=0, prefill_chunk=None, preempt_policy="recompute",
-                 enable_prefix_cache=False, int8_kv=False, device=None):
+                 enable_prefix_cache=False, int8_kv=False,
+                 int8_weights=False, draft_model=None, spec_tokens=4,
+                 prefill_only=False, rid_base=0, device=None):
         self.device = resolve_device(device)
         core = model.model if hasattr(model, "model") else model
         wdev = core.embed_tokens.weight.device
@@ -321,6 +548,10 @@ class ContinuousBatchingEngine:
             if preempt_policy != "recompute":
                 raise ValueError("enable_prefix_cache composes only with "
                                  "preempt_policy='recompute'")
+        self.spec_tokens = int(spec_tokens)
+        if draft_model is not None and self.spec_tokens < 1:
+            raise ValueError("spec_tokens must be >= 1 with a draft model, "
+                             f"got {spec_tokens}")
         cfg = model.config
         self.cfg = cfg
         self.page = page_size
@@ -336,10 +567,15 @@ class ContinuousBatchingEngine:
         self.hkv = cfg.num_kv_heads
         self.preempt_policy = preempt_policy
         self.prefill_chunk = prefill_chunk
+        # the prefill half of a disaggregated pair admits and prefills but
+        # never decodes; its finished prefills wait in their slots for
+        # extract()
+        self.prefill_only = bool(prefill_only)
 
         self._model = model
-        self.int8_weights = False     # int8-resident weights: not ported
-        self._weights = _pack_weights(model)
+        # int8-resident projections behind the quantizer's probe
+        self.int8_weights = int8_weights_enabled(int8_weights)
+        self._weights = _pack_weights(model, self.int8_weights)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # int8 paged KV: codes plus one f32 scale per row, behind the
@@ -358,18 +594,28 @@ class ContinuousBatchingEngine:
                                     dtype=torch.float32, device=self.device))
             return torch.zeros(cache_shape, dtype=dt, device=self.device)
 
-        # allocated once: the decode graph holds their addresses, so every
+        # allocated once: the decode graphs hold their addresses, so every
         # write (ticks, prefill, swap-in) lands in place
         self.kc = new_cache()
         self.vc = new_cache()
 
-        # the decode tick's inputs [tokens | lens | tables] as one int32
-        # vector; on the card a pinned staging copy and the graph's static
-        # device copy (one host-to-device copy a tick)
-        n_in = max_slots * (2 + self.pages_per_seq)
+        # pages each decoding slot must own before a tick: a spec tick
+        # writes the carry token and K drafts past `length`, a plain tick
+        # the carry token
+        self._lookahead = (self.spec_tokens + 1 if draft_model is not None
+                           else 1)
+        rows = max_slots * self._lookahead
+        self._rows = -(-rows // DECODE_GEMM_ROWS) * DECODE_GEMM_ROWS
+
+        # the decode-side inputs [tokens | lens | tables | prev] as one
+        # int32 vector; on the card a pinned staging copy and the graphs'
+        # static device copy (one host-to-device copy a tick)
+        n_in = max_slots * (3 + self.pages_per_seq)
         self._graph = None            # CountedGraph of the decode tick
         self._graph_ptrs = None       # weight addresses it was captured on
         self._graph_out = None        # its f32 logits [max_slots, V]
+        self._verify_graph = None     # CountedGraph of the spec verify
+        self._verify_out = None       # its [max_slots, 2K + 1] tokens
         if self.device.type == "cuda":
             self._stage = torch.empty(n_in, dtype=torch.int32,
                                       pin_memory=True)
@@ -379,7 +625,7 @@ class ContinuousBatchingEngine:
 
         self._slots: list[_Request | None] = [None] * max_slots
         self._waiting: deque[_Request] = deque()
-        self._next_rid = 0
+        self._next_rid = int(rid_base)
         self._admit_counter = 0
         self.prefill_batches = 0      # admission groups (group prefill)
         self.prefill_chunk_steps = 0  # batched chunk passes
@@ -397,25 +643,46 @@ class ContinuousBatchingEngine:
         self.prefix_cache_hits = 0    # pages reused instead of prefilled
         self.prefix_cache_evictions = 0
         self.prefix_tokens_skipped = 0
+        self.prefix_pages_exported = 0  # shipped to a drain destination
+        self.prefix_pages_imported = 0  # warmed from a draining peer
         # requests admitted before a reload_weights hold stale KV and must
         # not register pages
         self._cache_admit_floor = 0
         self.cancelled = {}           # rid -> reason
         self.cancellations = 0
+        # speculative decoding: draft K tokens a tick, verify them in one
+        # target forward, emit the accepted prefix and the target's next
+        # token
+        self._draft = None
+        if draft_model is not None:
+            from .fleet.spec_decode import DraftRunner
+
+            self._draft = DraftRunner(self, draft_model)
+        self.spec_ticks = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        # the brownout caps an overload controller sets and restores; all
+        # None / False is full service
+        self.max_new_cap = None       # L1: cap on tokens to generate
+        self.spec_paused = False      # L2: no speculative ticks
+        self.prefill_chunk_cap = None  # L3: prefill tokens per tick
 
     def reload_weights(self, model=None):
         """Re-read the weights from the model (after an update in place, or
-        from ``model``). A decode graph captured on other weight storage
-        is dropped, and the next tick captures it again; one on the same
-        storage reads the new values at its next replay. Cached prefix KV
-        was computed under the old weights: ref-0 cached pages are freed
-        now, pages in use when their readers release them, and requests
-        already admitted register no pages."""
-        self._weights = _pack_weights(self._model if model is None
-                                      else model)
-        if (self._graph is not None
+        from ``model``); int8 weights are quantized again, into the same
+        tensors where the shapes allow. A decode graph captured on other
+        weight storage is dropped, and the next tick captures it again;
+        one on the same storage reads the new values at its next replay.
+        Cached prefix KV was computed under the old weights: ref-0 cached
+        pages are freed now, pages in use when their readers release them,
+        and requests already admitted register no pages."""
+        self._weights = _pack_weights(
+            self._model if model is None else model, self.int8_weights,
+            into=self._weights)
+        if (self._graph_ptrs is not None
                 and self._graph_ptrs != self._weight_ptrs()):
             self._graph = self._graph_ptrs = self._graph_out = None
+            self._verify_graph = self._verify_out = None
         if self.enable_prefix_cache:
             for key in list(self._prefix_cache):
                 pg = self._prefix_cache.pop(key)
@@ -433,32 +700,7 @@ class ContinuousBatchingEngine:
         """Bytes of the served decode weights by dtype."""
         return _weight_nbytes(self._weights)
 
-    def _tensor(self, values, dtype):
-        return torch.as_tensor(np.asarray(values), dtype=dtype,
-                               device=self.device)
-
     # -- model math ---------------------------------------------------------
-    def _layer_forward(self, li, lp, x, pos0, attend):
-        """One decoder layer: projections + rope + ``attend(li, q, k, v)``
-        (which owns the cache writes and the attention) + MLP. Shared by
-        the prefill paths and decode."""
-        ln1, wq, wk, wv, wo, ln2, wg, wu, wd = lp
-        B, S = x.shape[:2]
-        h = _rms_pure(x, ln1)
-        q = F.linear(h, wq).reshape(B, S, self.cfg.num_heads, self.hd)
-        k = F.linear(h, wk).reshape(B, S, self.hkv, self.hd)
-        v = F.linear(h, wv).reshape(B, S, self.hkv, self.hd)
-        q, k = _rope_at_positions(q, pos0), _rope_at_positions(k, pos0)
-        o = attend(li, q, k, v)                       # [B, S, Hq, D]
-        x = x + F.linear(o.reshape(B, S, -1), wo)
-        h2 = _rms_pure(x, ln2)
-        return x + F.linear(F.silu(F.linear(h2, wg)) * F.linear(h2, wu), wd)
-
-    def _logits(self, x):
-        w = self._weights
-        return F.linear(x, w["head"] if w["head"] is not None
-                        else w["embed"])
-
     def _head_tokens(self, last, reqs):
         """final-norm'd last hidden rows [B, H] -> first token per req."""
         lg = self._logits(last)
@@ -478,48 +720,11 @@ class ContinuousBatchingEngine:
         prompt's KV into its pages, return the first token per request."""
         self.prefill_batches += 1
         self.prefills_completed += len(reqs)
-        w = self._weights
-        dev = self.device
         B = len(reqs)
-        lens = np.asarray([len(r.seq_tokens) for r in reqs])
-        S = int(lens.max())
-        ids_np = np.zeros((B, S), np.int64)
-        for i, r in enumerate(reqs):
-            ids_np[i, : lens[i]] = r.seq_tokens
-        x = w["embed"][self._tensor(ids_np, torch.long)]     # [B, S, H]
-        pos0 = torch.zeros(B, dtype=torch.long, device=dev)
-        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-
-        # flattened valid (row, pos) pairs -> page/offset scatter targets
-        rows = self._tensor(
-            np.concatenate([np.full(l, i) for i, l in enumerate(lens)]),
-            torch.long)
-        poss_np = np.concatenate([np.arange(l) for l in lens])
-        poss = self._tensor(poss_np, torch.long)
-        tok_pages = self._tensor(np.concatenate(
-            [np.asarray(r.pages, np.int64)[np.arange(l) // self.page]
-             for r, l in zip(reqs, lens)]), torch.long)
-        offs = self._tensor(poss_np % self.page, torch.long)
-
-        def attend(li, q, k, v):
-            if self.int8_kv:
-                # round-trip k and v through the page quantizer BEFORE both
-                # the attention and the cache write, so group prefill,
-                # chunked prefill and decode read the same quantized KV
-                # (re-quantizing a round-tripped row gives the same codes)
-                k = dequantize_rows_int8(*quantize_rows_int8(k), k.dtype)
-                v = dequantize_rows_int8(*quantize_rows_int8(v), v.dtype)
-            o = _attention_plain(q, k, v, mask)
-            _kv_write_layer(self.kc, li, tok_pages, offs,
-                            k[rows, poss].transpose(0, 1))
-            _kv_write_layer(self.vc, li, tok_pages, offs,
-                            v[rows, poss].transpose(0, 1))
-            return o
-
-        for li, lp in enumerate(w["layers"]):
-            x = self._layer_forward(li, lp, x, pos0, attend)
-        x = _rms_pure(x, w["fnorm"])
-        last = x[torch.arange(B, device=dev),
+        x, lens = self._group_pass([r.pages for r in reqs],
+                                   [r.seq_tokens for r in reqs])
+        x = _rms_pure(x, self._weights["fnorm"])
+        last = x[torch.arange(B, device=self.device),
                  self._tensor(lens - 1, torch.long)]          # [B, H]
         toks = self._head_tokens(last, reqs)
         for i, r in enumerate(reqs):
@@ -528,31 +733,10 @@ class ContinuousBatchingEngine:
             # is classified decode-phase (its restore reserves the growth
             # page, not the prompt)
             r.prefill_pos = int(lens[i])
+        if self._draft is not None:
+            # the draft's KV for these prompts (same pages)
+            self._draft.prefill(reqs, [r.seq_tokens for r in reqs])
         return toks
-
-    def _paged_attend(self, q, kc_l, vc_l, tables, lens):
-        """Single-position paged attention over a PER-LAYER cache:
-        q [B, Hq, D] -> [B, Hq, D]. An exact cache takes the paged
-        attention kernel, an int8 cache the int8 one (codes * scales
-        dequantized in f32 inside the kernel)."""
-        if isinstance(kc_l, tuple):
-            return paged_attention_int8(q.contiguous(), *kc_l, *vc_l,
-                                        tables, lens)
-        return paged_attention(q.contiguous(), kc_l, vc_l, tables, lens)
-
-    def _decode_layer(self, li, lp, x, lens, tables, page_ids, offs,
-                      kv_lens):
-        """One decoder layer of the batched decode tick: write this
-        token's KV row in place, paged-attend, MLP."""
-
-        def attend(li, q, k, v):
-            kc_l, vc_l = _kv_index(self.kc, li), _kv_index(self.vc, li)
-            _kv_write(kc_l, page_ids, offs, k[:, 0].transpose(0, 1))
-            _kv_write(vc_l, page_ids, offs, v[:, 0].transpose(0, 1))
-            o = self._paged_attend(q[:, 0], kc_l, vc_l, tables, kv_lens)
-            return o[:, None]                         # [B, 1, Hq, D]
-
-        return self._layer_forward(li, lp, x, lens, attend)
 
     def _decode_step(self, tokens, lens, tables):
         """ONE batched decode forward: tokens [B] (last emitted), lens [B]
@@ -560,62 +744,91 @@ class ContinuousBatchingEngine:
         logits [B, V]. The kernel sees ``lens + 1`` valid rows: the current
         token's row is written first. Reads no value back to the host, so
         the card captures it whole into the tick's CUDA graph."""
-        w = self._weights
-        tokens, lens = tokens.long(), lens.long()
-        b = tokens.shape[0]
-        x = w["embed"][tokens][:, None]                      # [B, 1, H]
-        page_ids = tables.long()[torch.arange(b, device=self.device),
-                                 lens // self.page]
-        offs = lens % self.page
-        kv_lens = (lens + 1).to(torch.int32)
-        for li, lp in enumerate(w["layers"]):
-            x = self._decode_layer(li, lp, x, lens, tables, page_ids, offs,
-                                   kv_lens)
-        x = _rms_pure(x, w["fnorm"])[:, 0]
-        return self._logits(x).float()
+        h = self._window_hidden(tokens[:, None], lens, tables)
+        return self._logits(h)[:tokens.shape[0]].float()
 
-    def _decode_logits(self, tokens, lens, tables):
-        """The tick's logits [max_slots, V] for int32 host arrays. The CPU
-        runs ``_decode_step`` eagerly. The card copies the inputs into the
-        graph's static buffer and replays the graph; with no graph yet,
-        the tick itself is the eager pass PyTorch wants before a capture,
-        and the capture follows it. The returned logits are the graph's
-        output buffer: read them before the next tick."""
-        n = self.max_slots
+    def _verify_step(self, cur, drafts, lens, tables):
+        """The speculative verify: ONE target forward over the window
+        ``[carry, d1..dK]`` at positions ``lens .. lens + K``. Every
+        projection, norm and the head are row-local and run at the tick's
+        row count, and position i attends with the same kernel over the
+        same ``lens + i + 1`` rows a plain tick at that position would, the
+        earlier window rows having just been written with the values
+        sequential ticks would write: each token is the one plain greedy
+        decode gives. Returns the drafts and the target's greedy token at
+        every position, [B, 2K + 1] int64, one buffer for one read-back."""
+        toks = torch.cat([cur.long()[:, None], drafts], 1)      # [B, C]
+        B, C = toks.shape
+        h = self._window_hidden(toks, lens, tables)
+        t = self._logits(h)[:B * C].float().argmax(-1).view(C, B).t()
+        return torch.cat([drafts, t], 1)
+
+    def _inputs(self, tokens, lens, tables, prev=None):
+        """A decode-side forward's inputs from int32 host arrays. The CPU
+        wraps them; the card copies them into the graphs' static buffer
+        through the pinned stage and returns its views (tokens, lens,
+        tables, prev). The pinned buffer is free to refill: every tick
+        ends by reading its results back, which waits for the copy."""
         if self.device.type != "cuda":
-            return self._decode_step(torch.from_numpy(tokens),
-                                     torch.from_numpy(lens),
-                                     torch.from_numpy(tables))
-        # the pinned buffer is free to refill: every tick ends by reading
-        # its tokens back, which waits for this copy of the tick before
+            return tuple(torch.from_numpy(a) for a in (tokens, lens, tables)
+                         + (() if prev is None else (prev,)))
+        n, P = self.max_slots, self.pages_per_seq
         stage = self._stage.numpy()
-        stage[:n], stage[n:2 * n], stage[2 * n:] = tokens, lens, \
-            tables.reshape(-1)
+        stage[:n], stage[n:2 * n] = tokens, lens
+        stage[2 * n:(2 + P) * n] = tables.reshape(-1)
+        if prev is not None:
+            stage[(2 + P) * n:] = prev
         self._static.copy_(self._stage, non_blocking=True)
+        s = self._static
+        return (s[:n], s[n:2 * n], s[2 * n:(2 + P) * n].view(n, P),
+                s[(2 + P) * n:])
+
+    def _tick(self, args):
+        """The tick's f32 logits [max_slots, V] from ``_inputs``. The CPU
+        runs ``_decode_step`` eagerly; the card replays the tick's graph,
+        or with no graph yet, runs the tick eagerly and captures it. The
+        returned logits are the graph's output buffer: read them before
+        the next tick."""
+        if self.device.type != "cuda":
+            return self._decode_step(*args[:3])
         if self._graph is None:
-            return self._capture_decode()
+            self._graph, self._graph_out, lg = _capture(
+                lambda: self._decode_step(*args[:3]), self.device)
+            self._graph_ptrs = self._weight_ptrs()
+            return lg
         self._graph.replay()
         return self._graph_out
 
-    def _capture_decode(self):
-        """Run ``_decode_step`` on the static inputs once eagerly on a side
-        stream (PyTorch's condition for a capture: it builds the kernels
-        and the cuBLAS state), then capture it into one CUDA graph. The
-        capture runs nothing, so the caches change only by the eager pass,
-        whose logits are returned. A capture that fails raises."""
-        n = self.max_slots
-        args = (self._static[:n], self._static[n:2 * n],
-                self._static[2 * n:].view(n, self.pages_per_seq))
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            lg = self._decode_step(*args)
-        cur.wait_stream(side)
-        graph = CountedGraph()
-        self._graph_out = graph.capture(lambda: self._decode_step(*args))
-        self._graph, self._graph_ptrs = graph, self._weight_ptrs()
-        return lg
+    def _decode_logits(self, tokens, lens, tables):
+        """The tick's logits [max_slots, V] for int32 host arrays."""
+        return self._tick(self._inputs(tokens, lens, tables))
+
+    def _spec_outputs(self, prev, cur, lens, tables):
+        """The device half of a spec tick for int32 host arrays: the
+        draft's proposal, then the verify, read back once as the drafts
+        [B, K] and the target's tokens [B, K + 1] (int64 numpy). On the
+        card each is a graph replay (the first spec tick runs them eagerly
+        and captures them); the verify reads the proposal's output buffer
+        on the card."""
+        cur_t, lens_t, tables_t, prev_t = self._inputs(cur, lens, tables,
+                                                       prev)
+        d = self._draft.propose(prev_t, cur_t, lens_t, tables_t)
+
+        def verify():
+            return self._verify_step(cur_t, d, lens_t, tables_t)
+
+        if self.device.type != "cuda":
+            out = verify()
+        elif self._verify_graph is None:
+            self._verify_graph, self._verify_out, out = _capture(
+                verify, self.device)
+            self._graph_ptrs = self._weight_ptrs()
+        else:
+            self._verify_graph.replay()
+            out = self._verify_out
+        out = out.cpu().numpy()
+        K = self.spec_tokens
+        return out[:, :K], out[:, K:]
 
     # -- engine surface -----------------------------------------------------
     def submit(self, prompt_ids, temperature=0.0, top_k=0, top_p=1.0,
@@ -635,10 +848,20 @@ class ContinuousBatchingEngine:
                 f"request needs {total} tokens (prompt {len(prompt_ids)} + "
                 f"max_new {self.max_new_tokens}) > max_seq_len "
                 f"{self.max_seq}")
-        need = (total + self.page - 1) // self.page
+        if self._draft is not None and total + self.spec_tokens > self.max_seq:
+            raise ValueError(
+                f"speculative decoding writes up to {self.spec_tokens} "
+                f"draft tokens of KV past the sequence end: request needs "
+                f"{total} + {self.spec_tokens} spec headroom > max_seq_len "
+                f"{self.max_seq}")
+        # the pool must hold a lone request's speculative window too, or
+        # _grow_pages could preempt it forever
+        spec_pad = self.spec_tokens if self._draft is not None else 0
+        need = (total + spec_pad + self.page - 1) // self.page
         if need > self.pool.num_pages:
-            raise ValueError(f"request needs {need} pages > pool size "
-                             f"{self.pool.num_pages}")
+            raise ValueError(
+                f"request needs {need} pages (incl. {spec_pad} tokens of "
+                f"speculative headroom) > pool size {self.pool.num_pages}")
         if rid is None:
             rid = self._next_rid
             self._next_rid += 1
@@ -711,7 +934,8 @@ class ContinuousBatchingEngine:
                 continue
             req = self._waiting[0]
             if req.swapped is not None:
-                # swap re-admission: copy the host snapshot back into fresh
+                # swap re-admission (a swap victim, or a request handed
+                # over by extract()): copy the host snapshot back into fresh
                 # pages, no prefill. The reservation is the whole prompt for
                 # a mid-prefill victim (its chunk pass writes there) and
                 # includes this tick's growth page for a decoding one
@@ -736,6 +960,13 @@ class ContinuousBatchingEngine:
                 req.admit_seq = self._admit_counter
                 self._admit_counter += 1
                 self._slots[i] = req
+                if (self._draft is not None
+                        and req.prefill_pos >= len(req.seq_tokens)):
+                    # a decode-phase snapshot carries no draft KV: rebuild
+                    # it for the restored context (a mid-prefill one
+                    # rebuilds at its prefill completion)
+                    self._draft.prefill(
+                        [req], [(req.prompt + req.generated)[:req.length]])
                 continue  # not part of any prefill group
             # reserve only what prefill writes; decode pages are allocated
             # as the sequence grows. With the prefix cache on, pages that
@@ -818,12 +1049,16 @@ class ContinuousBatchingEngine:
     def _prefill_tick(self):
         """Chunked prefill: advance EVERY prefilling slot by up to
         ``prefill_chunk`` prompt tokens in one batched pass, so running
-        requests keep decoding every tick while long prompts fill."""
+        requests keep decoding every tick while long prompts fill. A
+        brownout ``prefill_chunk_cap`` lowers the tokens a row takes per
+        pass; the pass keeps its [B, c] shape."""
         reqs = [r for r in self._slots
                 if r is not None and r.prefill_pos < len(r.seq_tokens)]
         if not reqs:
             return
         B, c = self.max_slots, self.prefill_chunk
+        c_eff = (c if self.prefill_chunk_cap is None
+                 else max(1, min(c, self.prefill_chunk_cap)))
         ids_np = np.zeros((B, c), np.int64)
         pos0 = np.zeros(B, np.int64)
         nvalid = np.zeros(B, np.int64)
@@ -832,7 +1067,7 @@ class ContinuousBatchingEngine:
         hist = np.zeros((B, self.pages_per_seq), np.int64)
         for i, r in enumerate(reqs):
             pos = r.prefill_pos
-            n = min(c, len(r.seq_tokens) - pos)
+            n = min(c_eff, len(r.seq_tokens) - pos)
             ids_np[i, :n] = r.seq_tokens[pos:pos + n]
             pos0[i], nvalid[i] = pos, n
             pages = np.asarray(r.pages, np.int64)
@@ -852,11 +1087,13 @@ class ContinuousBatchingEngine:
                 completed.append((i, r))
         if completed:
             rows = last[self._tensor([i for i, _ in completed], torch.long)]
-            toks = self._head_tokens(rows, [r for _, r in completed])
-            for (_, r), tok in zip(completed, toks):
+            done = [r for _, r in completed]
+            for r, tok in zip(done, self._head_tokens(rows, done)):
                 self.prefills_completed += 1
                 r.length = len(r.seq_tokens)
                 self._emit(r, tok)
+            if self._draft is not None:
+                self._draft.prefill(done, [r.seq_tokens for r in done])
 
     # -- swap preemption ----------------------------------------------------
     def _swap_gather(self, pages):
@@ -889,10 +1126,11 @@ class ContinuousBatchingEngine:
 
     def _snapshot_to_host(self, r):
         """Build ``r.swapped``, the host KV snapshot the swap re-admission
-        restores: only the pages that hold written tokens leave the card
-        (a mid-prefill victim's untouched prompt pages and grown but empty
-        decode pages do not); the restore re-allocates the full
-        reservation from ``prefill_pos`` and ``length``."""
+        restores (a swap-out and ``extract()`` both make it): only the
+        pages that hold written tokens leave the card (a mid-prefill
+        victim's untouched prompt pages and grown but empty decode pages
+        do not); the restore re-allocates the full reservation from
+        ``prefill_pos`` and ``length``."""
         written = max(r.length, r.prefill_pos)
         n = min((written + self.page - 1) // self.page, len(r.pages))
         k, v = self._swap_gather(r.pages[:n])
@@ -1017,10 +1255,14 @@ class ContinuousBatchingEngine:
         self.preemptions += 1
 
     def _grow_pages(self):
-        """Ensure every decoding slot owns a page for this tick's token. On
-        pool exhaustion, preempt the YOUNGEST occupied slot (its oldest
+        """Ensure every decoding slot owns pages for this tick's writes:
+        the carry token, and under a draft model the K draft tokens too.
+        On pool exhaustion, preempt the YOUNGEST occupied slot (its oldest
         peers keep their pages and finish first; a lone request always
-        fits by the submit() feasibility check)."""
+        fits by the submit() feasibility check). A prefill-only engine
+        never grows: its admissions reserve every page prefill writes."""
+        if self.prefill_only:
+            return
         while True:
             live = sorted(
                 ((i, r) for i, r in enumerate(self._slots)
@@ -1028,7 +1270,9 @@ class ContinuousBatchingEngine:
                 key=lambda ir: ir[1].admit_seq)
             short = False
             for i, r in live:
-                grow = (r.length + self.page) // self.page - len(r.pages)
+                need = ((r.length + self._lookahead + self.page - 1)
+                        // self.page)
+                grow = need - len(r.pages)
                 if grow <= 0:
                     continue
                 ok = (self._free_pages_for(grow) if self.enable_prefix_cache
@@ -1048,8 +1292,13 @@ class ContinuousBatchingEngine:
 
     def _finished(self, r):
         """True when a request has nothing left to generate: max_new
-        reached, or its newest token is eos."""
-        return (len(r.generated) >= self.max_new_tokens
+        reached (or the brownout ``max_new_cap``, while it is set), or its
+        newest token is eos. Retire, the decode tick's live filter and the
+        disaggregated handoff all ask this."""
+        limit = self.max_new_tokens
+        if self.max_new_cap is not None:
+            limit = min(limit, self.max_new_cap)
+        return (len(r.generated) >= limit
                 or (self.eos is not None and bool(r.generated)
                     and r.generated[-1] == self.eos))
 
@@ -1060,8 +1309,10 @@ class ContinuousBatchingEngine:
     @torch.inference_mode()
     def step(self):
         """Sweep deadlines, retire, admit, one chunk pass and one batched
-        decode tick. Returns {rid: full_ids} for requests finishing THIS
-        tick."""
+        decode tick: speculative when a draft model is attached, every live
+        request is greedy and ``spec_paused`` is off, else the plain tick
+        (after which the draft catches up on the carry tokens). Returns
+        {rid: full_ids} for requests finishing THIS tick."""
         newly = {}
         # deadlines first: an expired request must not hold a slot or
         # pages for one more tick
@@ -1078,20 +1329,26 @@ class ContinuousBatchingEngine:
         self._grow_pages()
         # a request that finished at prefill completion this tick must not
         # decode once more
-        live = [(i, r) for i, r in enumerate(self._slots)
-                if r is not None and r.generated and r.length > 0
-                and not self._finished(r)]
+        live = ([] if self.prefill_only else
+                [(i, r) for i, r in enumerate(self._slots)
+                 if r is not None and r.generated and r.length > 0
+                 and not self._finished(r)])
         if not live:
+            return newly
+        do_sample = any(r.temperature > 0.0 for _, r in live)
+        if self._draft is not None and not do_sample and not self.spec_paused:
+            self._spec_tick(live)
             return newly
         # fixed-width batch: pad with the first live row's state (its
         # results are discarded; its KV write repeats the same values)
         rows = [r for _, r in live] + [live[0][1]] * (
             self.max_slots - len(live))
-        lg = self._decode_logits(
+        args = self._inputs(
             np.asarray([r.generated[-1] for r in rows], np.int32),
             np.asarray([r.length for r in rows], np.int32),
             self._table_rows(rows))
-        if any(r.temperature > 0.0 for _, r in live):
+        lg = self._tick(args)
+        if do_sample:
             nxt = _sample_rows(
                 lg, self._tensor([r.temperature for r in rows], torch.float32),
                 self._tensor([r.top_k for r in rows], torch.long),
@@ -1100,11 +1357,68 @@ class ContinuousBatchingEngine:
         else:
             nxt = lg.argmax(-1)
         nxt = nxt.cpu().numpy()
+        if self._draft is not None:
+            # write the draft's KV row for each carry token (its proposal
+            # is discarded), so the draft cache has no hole once greedy
+            # ticks resume
+            self._draft.catch_up(*args[:3])
         self.decode_ticks += 1
         for j, (_, r) in enumerate(live):
             r.length += 1
             self._emit(r, int(nxt[j]))
         return newly
+
+    def _spec_tick(self, live):
+        """The speculative tick: the draft proposes K greedy tokens a live
+        row, the target verifies them in ONE forward, and the longest draft
+        prefix equal to the target's own tokens is emitted with the
+        target's next token: 1..K+1 tokens a row, each the token plain
+        greedy decode gives (clipped at eos and at ``max_new_tokens``)."""
+        K = self.spec_tokens
+        rows = [r for _, r in live] + [live[0][1]] * (
+            self.max_slots - len(live))
+        lens = np.asarray([r.length for r in rows], np.int32)
+
+        def ctx_tok(r, i):
+            # context token i without building prompt + generated
+            n = len(r.prompt)
+            return r.prompt[i] if i < n else r.generated[i - n]
+
+        # context[length] is the carry token (generated[-1]); context
+        # [length - 1] re-primes the draft's previous position, a rewrite of
+        # the same value except after a fully accepted window, where it
+        # fills the row of the token the draft proposed but never consumed
+        prev = np.asarray([ctx_tok(r, int(n) - 1) for r, n in zip(rows, lens)],
+                          np.int32)
+        cur = np.asarray([ctx_tok(r, int(n)) for r, n in zip(rows, lens)],
+                         np.int32)
+        d_toks, t_np = self._spec_outputs(prev, cur, lens,
+                                          self._table_rows(rows))
+        accepted_total = 0
+        for j, (_, r) in enumerate(live):
+            drafts, targets = d_toks[j], t_np[j]
+            m = 0
+            while m < K and int(drafts[m]) == int(targets[m]):
+                m += 1
+            accepted_total += m
+            out = []
+            for t in [int(x) for x in drafts[:m]] + [int(targets[m])]:
+                out.append(t)
+                if self.eos is not None and t == self.eos:
+                    break
+                if len(r.generated) + len(out) >= self.max_new_tokens:
+                    break
+            r.length += len(out)
+            for t in out:
+                self._emit(r, t)
+        self.spec_ticks += 1
+        self.spec_draft_tokens += K * len(live)
+        self.spec_accepted_tokens += accepted_total
+
+    @property
+    def spec_acceptance_rate(self):
+        """Fraction of drafted tokens the target verify accepted."""
+        return self.spec_accepted_tokens / max(1, self.spec_draft_tokens)
 
     def _table_rows(self, rows):
         """Fixed-shape [B, pages_per_seq] int32 page tables (zero-padded;
@@ -1127,35 +1441,45 @@ class ContinuousBatchingEngine:
     def warmup(self, sample=False):
         """Build what the engine's ticks run, on dummy operands, and record
         the wall time in ``self.build_seconds`` (returned). On the card
-        that is the kernels and the decode tick's CUDA graph (its eager
-        pass and capture, or a replay once captured); the CPU times one
-        eager pass. With chunked prefill one chunk pass runs too, and
-        ``sample=True`` runs the sampler once on a generator of its own.
-        Lengths are 0 and every table entry is the scratch page, so every
-        write lands in the scratch page."""
+        that is the kernels and the decode graphs (each one's eager pass
+        and capture, or a replay once captured): the tick's, and under a
+        draft model the draft's catch-up, its proposal and the verify; the
+        CPU times one eager pass of each. With chunked prefill one chunk
+        pass runs too, and ``sample=True`` runs the sampler once on a
+        generator of its own. A prefill-only engine builds only its
+        prefill. Every table entry is the scratch page, so every write
+        lands in the scratch page."""
         t0 = time.perf_counter()
         b = self.max_slots
-        lg = self._decode_logits(
-            np.zeros(b, np.int32), np.zeros(b, np.int32),
-            np.full((b, self.pages_per_seq), self._trash_page, np.int32))
-        if sample:
-            gen = torch.Generator(device=self.device)
-            ones = torch.ones(b, device=self.device)
-            _sample_rows(lg, ones, torch.zeros_like(ones, dtype=torch.long),
-                         ones, gen)
-        lg.cpu()
+        zeros = np.zeros(b, np.int32)
+        trash = np.full((b, self.pages_per_seq), self._trash_page, np.int32)
+        if not self.prefill_only:
+            args = self._inputs(zeros, zeros, trash)
+            lg = self._tick(args)
+            if sample:
+                gen = torch.Generator(device=self.device)
+                ones = torch.ones(b, device=self.device)
+                _sample_rows(lg, ones,
+                             torch.zeros_like(ones, dtype=torch.long), ones,
+                             gen)
+            lg.cpu()
+            if self._draft is not None:
+                self._draft.catch_up(*args[:3])
+                # the re-prime writes position lens - 1: lens of 1
+                self._spec_outputs(zeros, zeros, np.ones(b, np.int32), trash)
         if self.prefill_chunk is not None:
             B, c = self.max_slots, self.prefill_chunk
-            zeros = lambda *s: torch.zeros(  # noqa: E731
+            zeros_t = lambda *s: torch.zeros(  # noqa: E731
                 s, dtype=torch.long, device=self.device)
-            trash = lambda *s: torch.full(  # noqa: E731
+            trash_t = lambda *s: torch.full(  # noqa: E731
                 s, self._trash_page, dtype=torch.long, device=self.device)
-            self._prefill_chunk_step(zeros(B, c), zeros(B), zeros(B),
-                                     trash(B, c), zeros(B, c),
-                                     trash(B, self.pages_per_seq)).cpu()
+            self._prefill_chunk_step(zeros_t(B, c), zeros_t(B), zeros_t(B),
+                                     trash_t(B, c), zeros_t(B, c),
+                                     trash_t(B, self.pages_per_seq)).cpu()
         self.build_seconds = time.perf_counter() - t0
         return self.build_seconds
 
+    # -- fleet surface (router, disaggregated serving, drain) ---------------
     def load(self):
         """Live load signals for an admission router: queue depth, slot
         occupancy, KV headroom and the resident decode weights' bytes by
@@ -1174,3 +1498,71 @@ class ContinuousBatchingEngine:
         """How many full KV pages of this prompt's prefix the prefix cache
         already holds (0 with the cache off; nothing is pinned)."""
         return len(self._match_prefix([int(t) for t in tokens]))
+
+    def extract(self, slot_idx):
+        """The disaggregation seam: snapshot a slot's KV pages and resume
+        state to the host as a swap-out does, release the slot and its
+        pages (completed prefix pages register into this engine's prefix
+        cache) and return the request for another engine's ``inject``.
+        Works under either preempt policy; exact caches move their values
+        and int8 caches their codes and scales, unchanged."""
+        r = self._slots[slot_idx]
+        if r is None:
+            raise ValueError(f"slot {slot_idx} is empty")
+        self._snapshot_to_host(r)
+        self._release_pages(r, register=True)
+        self._slots[slot_idx] = None
+        return r
+
+    def inject(self, req):
+        """Queue a request extracted from another engine; its snapshot
+        restores through the swap re-admission. Both engines share the
+        page geometry and the KV mode (``fleet.disagg`` checks)."""
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        self._waiting.append(req)
+
+    def export_prefix_pages(self, max_pages=None):
+        """The prefix cache's entries as ``{"key", "k", "v"}`` dicts (chain
+        digest and the page's host KV, [L, Hkv, 1, page, D] per cache
+        leaf), in insertion order so every chain ships head first.
+        ``max_pages`` caps the count; a chain cut short imports as a valid
+        shorter prefix."""
+        if not self.enable_prefix_cache:
+            return []
+        keys = list(self._prefix_cache)
+        if max_pages is not None:
+            keys = keys[: int(max_pages)]
+        entries = []
+        for start in range(0, len(keys), self.pages_per_seq):
+            chunk = keys[start: start + self.pages_per_seq]
+            k, v = self._swap_gather([self._prefix_cache[x] for x in chunk])
+            for i, key in enumerate(chunk):
+                cut = lambda c, i=i: c[:, :, i: i + 1].clone()  # noqa: E731
+                entries.append({"key": bytes(key), "k": _kv_map(cut, k),
+                                "v": _kv_map(cut, v)})
+        self.prefix_pages_exported += len(entries)
+        return entries
+
+    def import_prefix_pages(self, entries):
+        """Install exported prefix pages: each takes a free page, its KV is
+        copied in, and its key maps to the page at refcount 0 (cached,
+        evictable like any cached page). Known keys are skipped; import
+        evicts nothing and stops when the pool is empty. Returns the
+        number of pages imported."""
+        if not self.enable_prefix_cache:
+            return 0
+        n = 0
+        for e in entries:
+            key = bytes(e["key"])
+            if key in self._prefix_cache:
+                continue
+            if self.pool.available == 0:
+                break
+            pg = self.pool.alloc(1)[0]
+            self._swap_scatter([pg], *self._swap_stage(e))
+            self._prefix_cache[key] = pg
+            self._cached_pages.add(pg)
+            self._page_ref[pg] = 0
+            n += 1
+        self.prefix_pages_imported += n
+        return n

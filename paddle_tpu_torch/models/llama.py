@@ -3,7 +3,8 @@
 Counterpart of ``paddle_tpu/models/llama.py``: the architecture is the GPT
 family core (rmsnorm + swiglu + rope + GQA) with LLaMA naming and presets,
 plus a greedy/sampling ``generate`` loop over a dense KV cache, which the
-serving tests use as their reference. Int8 weights are not ported yet.
+serving tests use as their reference; ``generate(int8_weights=True)``
+decodes with int8-resident projections, as the serving engine can.
 """
 from __future__ import annotations
 
@@ -13,8 +14,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..quant import int8_linear, int8_weights_enabled, quantize_linear_int8
 from .gpt import (GPTConfig, GPTForCausalLM, _attention_plain, _rms_pure,
                   _rope_at_positions)
+
+#: the projections ``generate(int8_weights=True)`` quantizes
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 
 
 class LlamaConfig(GPTConfig):
@@ -64,13 +69,18 @@ class LlamaForCausalLM(GPTForCausalLM):
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
-                 top_k=0, seed=0):
+                 top_k=0, seed=0, int8_weights=False):
         """Greedy (temperature=0) or sampled decode with a dense KV cache.
 
         input_ids: [B, S] ints (tensor, array or nested list). Returns a
         long tensor [B, S + max_new_tokens] on the model's device. The
         cache [B, max_len, Hkv, D] is updated in place. The first new token
-        is always the argmax, as in the JAX package."""
+        is always the argmax, as in the JAX package.
+
+        ``int8_weights=True`` (behind the probe of
+        ``quant.int8_weights_enabled``) quantizes the 7 projection slabs
+        once per call, per output column, and runs every projection as the
+        int8 x int8 -> int32 GEMM, as the serving engine's int8 mode."""
         cfg = self.config
         dev = self.device
         ids = torch.as_tensor(np.asarray(input_ids), device=dev).long()
@@ -80,6 +90,15 @@ class LlamaForCausalLM(GPTForCausalLM):
         embed = self.model.embed_tokens.weight
         head = embed if self.lm_head is None else self.lm_head.weight
         params = self._decode_params()
+        if int8_weights_enabled(int8_weights):
+            params = [{n: (quantize_linear_int8(w) if n in _PROJECTIONS
+                           else w) for n, w in lp.items()} for lp in params]
+
+        def mm(x, w):
+            # an exact [out, in] slab, or int8 (codes [out, in], scales)
+            return int8_linear(x, w) if isinstance(w, tuple) \
+                else F.linear(x, w)
+
         kcache = [torch.zeros(b, max_len, cfg.num_kv_heads, hd,
                               dtype=embed.dtype, device=dev)
                   for _ in params]
@@ -97,18 +116,18 @@ class LlamaForCausalLM(GPTForCausalLM):
             for li, lp in enumerate(params):
                 h = _rms_pure(x, lp["ln1"])
                 hkv = cfg.num_kv_heads
-                q = F.linear(h, lp["wq"]).reshape(b, t, cfg.num_heads, hd)
-                k = F.linear(h, lp["wk"]).reshape(b, t, hkv, hd)
-                v = F.linear(h, lp["wv"]).reshape(b, t, hkv, hd)
+                q = mm(h, lp["wq"]).reshape(b, t, cfg.num_heads, hd)
+                k = mm(h, lp["wk"]).reshape(b, t, hkv, hd)
+                v = mm(h, lp["wv"]).reshape(b, t, hkv, hd)
                 q = _rope_at_positions(q, posv)
                 k = _rope_at_positions(k, posv)
                 kcache[li][:, pos:pos + t] = k
                 vcache[li][:, pos:pos + t] = v
                 o = _attention_plain(q, kcache[li], vcache[li], mask)
-                x = x + F.linear(o.reshape(b, t, -1), lp["wo"])
+                x = x + mm(o.reshape(b, t, -1), lp["wo"])
                 h2 = _rms_pure(x, lp["ln2"])
-                x = x + F.linear(F.silu(F.linear(h2, lp["wg"]))
-                                 * F.linear(h2, lp["wu"]), lp["wd"])
+                x = x + mm(F.silu(mm(h2, lp["wg"])) * mm(h2, lp["wu"]),
+                           lp["wd"])
             x = _rms_pure(x, self.model.final_norm.weight)
             return F.linear(x[:, -1], head).float()
 

@@ -5,6 +5,10 @@ Each kernel against its plain PyTorch version on the same CUDA tensors
 engine (exact and int8 KV) on the card against the same engine on the
 CPU (under swap preemption and the prefix cache too), its decode tick's
 CUDA graph against the eager tick and its launch counts over replays,
+speculative decoding (its verify graph against the eager verify, the
+verify's position-0 logits against the tick's, streams and launches),
+int8-resident weights (the int8 GEMM bit for bit against the CPU's) and
+the disaggregated pair on the card against the CPU or the single engine,
 the incubate decoder of ``chip_smoke.py`` on the card against
 the CPU, and three training steps on the card against the same three on
 the CPU, under full and under selective remat.
@@ -558,6 +562,181 @@ def test_incubate_decoder_on_card_matches_cpu(cuda_device):
     L = cfg.num_layers
     assert (counts["decode_attention"], counts["add_rms_norm"],
             counts["rms_norm"]) == (L * steps, 2 * L * steps, steps)
+
+
+# ------------------------------------- speculative decoding, int8 weights
+def _spec_pair(cuda_device, draft_cfg=None, **kw):
+    """_engine_pair's models with a draft on each side: the target itself,
+    or a seeded model of ``draft_cfg``."""
+    cpu_eng, gpu_eng = _engine_pair(cuda_device, **kw)
+    if draft_cfg is None:
+        return cpu_eng, gpu_eng, cpu_eng._model, gpu_eng._model
+    cpu_d = LlamaForCausalLM(draft_cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(9), std=0.2)
+    gpu_d = LlamaForCausalLM(draft_cfg, device=cuda_device)
+    gpu_d.load_state_dict(cpu_d.state_dict())
+    return cpu_eng, gpu_eng, cpu_d, gpu_d
+
+
+@pytest.mark.parametrize("draft", ["self", "small"])
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["exact", "int8"])
+def test_spec_engine_on_card_matches_cpu_and_counts_launches(
+        cuda_device, draft, int8_kv):
+    """Spec streams on the card equal the CPU's and the plain engine's; a
+    self-draft accepts every token; each spec tick launches the verify's
+    (K + 1) L and the proposal's (K + 1) Ld attention kernels."""
+    small = LlamaConfig(vocab_size=96, hidden_size=128, num_layers=1,
+                        num_heads=2, num_kv_heads=2, max_seq_len=128)
+    kw = dict(int8_kv=int8_kv, max_new_tokens=10, prefill_chunk=None)
+    cpu_eng, gpu_eng, cpu_d, gpu_d = _spec_pair(
+        cuda_device, None if draft == "self" else small, **kw)
+    prompts = [np.random.default_rng(12).integers(1, 96, n).tolist()
+               for n in (5, 19, 33)]
+    want = _serve(gpu_eng, prompts)
+    outs, K = [], 3
+    for eng_model, d, dev in ((cpu_eng._model, cpu_d, "cpu"),
+                              (gpu_eng._model, gpu_d, cuda_device)):
+        eng = ContinuousBatchingEngine(eng_model, draft_model=d,
+                                       spec_tokens=K, device=dev,
+                                       **dict(max_slots=2, page_size=16,
+                                              max_seq_len=64, **kw))
+        kernels.reset_launch_counts()
+        outs.append(_serve(eng, prompts))
+        counts = kernels.launch_counts()
+        if draft == "self":
+            assert eng.spec_acceptance_rate == 1.0
+    assert outs[0] == outs[1] == want
+    L, Ld = eng.cfg.num_layers, eng._draft.cfg.num_layers
+    ticks = eng.spec_ticks
+    assert ticks > 0 and eng.decode_ticks == 0
+    # the draft's cache is always exact
+    if int8_kv:
+        assert counts["paged_attention_int8"] == (K + 1) * L * ticks
+        assert counts["paged_attention"] == (K + 1) * Ld * ticks
+    else:
+        assert counts["paged_attention"] == (K + 1) * (L + Ld) * ticks
+    attn = "paged_attention_int8" if int8_kv else "paged_attention"
+    assert eng._verify_graph.launches[attn] == (K + 1) * L
+    assert eng._draft._propose_graph.launches["paged_attention"] == \
+        (K + 1) * Ld
+
+
+@torch.inference_mode()
+def test_verify_graph_and_position_zero_logits_on_one_state(cuda_device):
+    """On one engine state: one replay of the verify graph equals the eager
+    verify (tokens and KV cells), and the verify's position-0 logits equal
+    the tick's, eager and graphed, bit for bit (the forwards share one
+    GEMM row count)."""
+    from chip_smoke import _spec_state_checks
+
+    _, eng, _, gpu_d = _spec_pair(cuda_device, max_new_tokens=20,
+                                  prefill_chunk=8)
+    eng = ContinuousBatchingEngine(eng._model, draft_model=gpu_d,
+                                   spec_tokens=3, device=cuda_device,
+                                   max_slots=2, page_size=16,
+                                   max_seq_len=64, max_new_tokens=20,
+                                   prefill_chunk=8)
+    rng = np.random.default_rng(2)
+    for p in [rng.integers(1, 96, n).tolist() for n in (5, 19)]:
+        eng.submit(p)
+    for _ in range(5):
+        eng.step()
+    assert eng._verify_graph is not None
+    checks = _spec_state_checks(eng)
+    for key in ("pos0_equal_eager_tick", "pos0_equal_graphed_tick",
+                "verify_graph_tokens_equal", "verify_graph_kv_equal"):
+        assert checks[key], (key, checks)
+
+
+def test_fallback_and_warmup_on_card_match_cpu(cuda_device):
+    """Sampled requests force plain ticks with the draft's catch-up (one
+    graph each); warmup() captures all four graphs and writes only the
+    scratch page; greedy streams equal the CPU's."""
+    cpu_eng, eng, cpu_d, gpu_d = _spec_pair(cuda_device, prefill_chunk=8)
+    engines = [ContinuousBatchingEngine(e._model, draft_model=d,
+                                        spec_tokens=2, device=dev,
+                                        max_slots=2, page_size=16,
+                                        max_seq_len=64, max_new_tokens=8,
+                                        prefill_chunk=8)
+               for e, d, dev in ((cpu_eng, cpu_d, "cpu"),
+                                 (eng, gpu_d, cuda_device))]
+    gpu = engines[1]
+    assert gpu.warmup() > 0
+    assert None not in (gpu._graph, gpu._verify_graph,
+                        gpu._draft._propose_graph, gpu._draft._catch_graph)
+    trash = gpu._trash_page
+    for x in (gpu.kc, gpu.vc, gpu._draft.kc, gpu._draft.vc):
+        assert not x[:, :, :trash].any() and x[:, :, trash].any()
+    outs = []
+    for e in engines:
+        r_s = e.submit([3, 4, 5, 6, 7], temperature=0.9, top_k=8)
+        e.step()
+        e.step()
+        r_g = e.submit([9, 8, 7, 6, 5, 4])
+        done = e.run_until_complete()
+        assert r_s in done and e.spec_ticks > 0 and e.decode_ticks > 0
+        outs.append(done[r_g])
+    assert outs[0] == outs[1]
+
+
+def test_draft_on_another_device_raises(cuda_device):
+    """No fallback: a CUDA engine does not take a draft whose weights are
+    on the CPU."""
+    cpu_eng, eng = _engine_pair(cuda_device)
+    with pytest.raises(ValueError, match="draft model's weights"):
+        ContinuousBatchingEngine(eng._model, draft_model=cpu_eng._model,
+                                 device=cuda_device)
+
+
+def test_int8_weight_matmul_on_card_equals_cpu_bitwise(cuda_device):
+    from paddle_tpu_torch import quant
+
+    g = torch.Generator().manual_seed(3)
+    for rows in (3, 8, 40, 64):
+        w = torch.randn(256, 512, generator=g)
+        x = torch.randn(rows, 512, generator=g)
+        packed = quant.quantize_linear_int8(w)
+        gpu = tuple(t.to(cuda_device) for t in packed)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(gpu, packed))
+        xq, _ = quantize_rows_int8(x)
+        want_acc = torch._int_mm(xq, packed[0].t())
+        a = torch.nn.functional.pad(xq.to(cuda_device),
+                                    (0, 0, 0, max(0, 32 - rows)))
+        got_acc = torch._int_mm(a, gpu[0].t())[:rows].cpu()
+        assert torch.equal(got_acc, want_acc)
+        for dt in (torch.float32, torch.bfloat16):
+            want = quant.int8_linear(x.to(dt), packed)
+            got = quant.int8_linear(x.to(dt).to(cuda_device), gpu).cpu()
+            assert got.dtype == dt and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["group", "chunked"])
+def test_int8_weight_engine_on_card_matches_cpu(cuda_device, chunk):
+    engines = _engine_pair(cuda_device, int8_weights=True,
+                           prefill_chunk=chunk, max_new_tokens=8)
+    prompts = [np.random.default_rng(13).integers(1, 96, n).tolist()
+               for n in (5, 19, 33)]
+    outs = [_serve(e, prompts) for e in engines]
+    assert outs[0] == outs[1]
+    assert engines[1].int8_weights
+    assert engines[1].load()["weight_bytes"] == engines[0].weight_bytes
+    assert torch.equal(engines[1]._weights["layers"][0][1][0].cpu(),
+                       engines[0]._weights["layers"][0][1][0])
+
+
+def test_disagg_on_card_matches_single_engine(cuda_device):
+    from paddle_tpu_torch.inference.fleet import DisaggregatedEngine
+
+    _, eng = _engine_pair(cuda_device, prefill_chunk=8)
+    prompts = [np.random.default_rng(14).integers(1, 96, n).tolist()
+               for n in (19, 7, 26, 4)]
+    want = _serve(eng, prompts)
+    dis = DisaggregatedEngine(eng._model, prefill_slots=2, decode_slots=2,
+                              page_size=16, max_seq_len=64,
+                              max_new_tokens=6, prefill_chunk=8,
+                              device=cuda_device)
+    got = _serve(dis, prompts)
+    assert got == want and dis.handoffs == len(prompts)
 
 
 def _rel_err(got, want):
