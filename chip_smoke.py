@@ -8,9 +8,10 @@ Phases, each of which fails the run on error:
 1. device  - the card's name and power limit; fails without CUDA.
 2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
              source, in parallel), with ptxas's registers and spills per
-             source, per bf16 fused and split flash-backward kernel and per
-             instantiation of the rms_norm and add_rms_norm kernels and of
-             the three decode kernels (none of which may spill).
+             source, per instance of every flash kernel (each padded
+             width, bf16 and f32) and per instantiation of the rms_norm
+             and add_rms_norm kernels and of the three decode kernels
+             (none of which may spill).
 3. kernels - each kernel against its plain PyTorch version on the card,
              in bf16 and f32, with times (CUDA events, median), the plain
              version's and one library call's time, and the bound; for the
@@ -27,6 +28,17 @@ Phases, each of which fails the run on error:
              library pair. Then paged_attention and paged_attention_int8
              in bf16 at D = 96, rep 16, and decode_attention at the incubate decoder's shape (lengths
              under 76 in a 2048-row cache).
+   flash_widths - the four flash kernels at D = 64, 80, 96, 128 (phase
+             3's config-4 rows), 192 and 256 in bf16 at [3, 2048, H, D]
+             (H = 32 up to D = 96, GQA 32/8 at 96; 16 above), causal, and
+             in f32 at [1, 256, 4/2, D]: each against its plain version
+             (FLASH_TOL, lse 1e-3) with its ms, bound and SDPA's ms; the
+             ptxas registers and spills of every flash instance; then one
+             TrainStep of a two-layer GPTForCausalLMPipe at D = 96
+             (Phi-3-mini's attention) and D = 256 (Gemma-2B's, 8 heads
+             over 1 kv head), batch 1 x seq 2048: flash launches
+             asserted, loss and gradients against the same step through
+             the plain attention.
 4. serving - LLaMA-7B width and depth in bf16, random weights from a
              seeded generator, through ContinuousBatchingEngine's warmup /
              submit / step / run_until_complete with chunked prefill; each
@@ -65,6 +77,20 @@ Phases, each of which fails the run on error:
    serving_disagg - phase 4's requests on a DisaggregatedEngine of 8
              prefill and 8 decode slots: streams equal phase 4's; handoffs,
              bytes and ms a handoff.
+   telemetry - the same model and requests with paddle_tpu_torch.
+             telemetry: the graphed tick's wall, busy and host share with
+             telemetry off and on (in turns, two batches each); phase 4's
+             requests with telemetry and tracing on (streams equal phase
+             4's, serving_steps_total equal to the steps, one admission,
+             TTFT and latency sample a request, every request tree with
+             queue, prefill, admitted and first_token, the tick's capture
+             at the recompile watchdog); the self-draft spec engine's
+             counters equal to its own; a traced config-4 TrainStep
+             (step_anatomy, and the train_step span beside the step's
+             CUDA-event time); Prometheus text, JSONL, snapshot, Perfetto
+             and flight-bundle dumps under build/telemetry/, read by
+             tools/telemetry_report.py, trace_report.py and
+             flight_report.py (each must exit 0).
    incubate - the same model as a decoder built from the incubate fused
              ops (fused_rms_norm, masked_multihead_attention over a dense
              [2, 8, 32, 2048, 128] cache per layer, swiglu), 8 rows joining
@@ -108,8 +134,8 @@ The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight and disaggregated serving,
 incubate, training and long-context runs; the last
 line is {"ok": true, "device": {...}}.
-``--quick`` runs phases 1-3 only, with fewer repetitions, and prints no
-result line.
+``--quick`` runs phases 1-3 and flash_widths only, and prints no result
+line.
 """
 from __future__ import annotations
 
@@ -205,14 +231,18 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase 2
 #: kernels whose every instantiation phase 2 prints and holds to no spill,
-#: by source: (name fragments, instantiations). The bf16 flash backward's
-#: TMA/wgmma kernels (fused; split dq and dk/dv) are built for D = 64 and
-#: 128; rms_norm_kernel for x f32 (1, 2, 4 or 8 chunks a thread) and bf16
-#: (1, 2 or 4), each with an f32 and a bf16 weight; add_rms_norm_kernel
-#: for the same x layouts, each with every mix of residual and weight types.
-SPILL_CHECKED = {"flash_attention.cu": (("flash_bwd_wgmma",), 2),
-                 "flash_attention_split.cu": (("flash_bwd_dq_wgmma",
-                                               "flash_bwd_dkv_wgmma"), 4),
+#: by source: (name fragments, instantiations). Every flash kernel: in
+#: flash_attention.cu the bf16 forward at the padded widths 64, 128, 192
+#: and 256, the bf16 fused backward at 64 and 128 and its 192/256-column
+#: kernel at 192 and 256, the f32 forward and fused backward at all four;
+#: in flash_attention_split.cu the bf16 dq pass at all four, the bf16 dk/dv
+#: pass at 64 and 128 and the 192/256-column kernel without dq at 192 and
+#: 256, the f32 dq and dk/dv passes at all four. rms_norm_kernel for x f32
+#: (1, 2, 4 or 8 chunks a thread) and bf16 (1, 2 or 4), each with an f32
+#: and a bf16 weight; add_rms_norm_kernel for the same x layouts, each with
+#: every mix of residual and weight types.
+SPILL_CHECKED = {"flash_attention.cu": (("flash",), 16),
+                 "flash_attention_split.cu": (("flash",), 16),
                  "rms_norm.cu": (("rms_norm_kernel",), 14),
                  "add_rms_norm.cu": (("add_rms_norm_kernel",), 28)}
 
@@ -924,6 +954,174 @@ def phase_kernels():
           f"{dq['split_against_fused_rel_err']:.3g}, two runs bitwise "
           f"{dq['two_runs_bitwise']}", flush=True)
     return cases
+
+
+# ------------------------------------------------------- phase flash_widths
+#: the flash kernels at every padded width: (D, q heads, kv heads) at
+#: config 4's [3, 2048, H, D] (D = 128 is phase 3's config-4 row)
+FLASH_WIDTHS = ((64, 32, 32), (80, 32, 32), (96, 32, 8), (192, 16, 16),
+                (256, 16, 16))
+#: the two-layer training steps at other head widths: Phi-3-mini's
+#: attention (hidden 3072, 32 heads of 96; FFN 8192) and Gemma-2B's
+#: (hidden 2048, 8 heads of 256 over 1 kv head; FFN 16384)
+WIDTH_STEPS = {96: dict(hidden_size=3072, num_heads=32, num_kv_heads=32,
+                        intermediate_size=8192),
+               256: dict(hidden_size=2048, num_heads=8, num_kv_heads=1,
+                         intermediate_size=16384)}
+#: kernels against the plain attention in one bf16 step: the loss to 1e-3
+#: of its value (the attention outputs agree to FLASH_TOL; two residual
+#: layers and the CE head average them), each gradient to FLASH_TOL of its
+#: norm (the p and ds roundings are the same, the sums' orders are not)
+WIDTH_LOSS_RTOL = 1e-3
+
+
+class _PlainFlash(torch.autograd.Function):
+    """flash_attention's function through the kernels' plain versions
+    (forward and backward), on any device: the reference step of the
+    width checks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        from paddle_tpu_torch.ops.kernels.flash_attention import (
+            flash_attention_fwd_plain)
+
+        o, lse = flash_attention_fwd_plain(q, k, v, True, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from paddle_tpu_torch.ops.kernels.flash_attention import (
+            flash_attention_bwd_plain)
+
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse,
+                                               do.contiguous(), True,
+                                               ctx.scale)
+        return dq, dk, dv, None
+
+
+def _plain_flash_attention(q, k, v, causal=True, scale=None):
+    from paddle_tpu_torch.ops.kernels.flash_attention import from_bh, to_bh
+
+    scale = 1.0 / float(q.shape[-1]) ** 0.5 if scale is None else scale
+    o = _PlainFlash.apply(to_bh(q).contiguous(), to_bh(k).contiguous(),
+                          to_bh(v).contiguous(), scale)
+    return from_bh(o, q.shape[0])
+
+
+def _width_step(d):
+    """One TrainStep of a two-layer GPTForCausalLMPipe at head width d,
+    batch 1 x seq 2048, bf16, from one seeded init: through the flash
+    kernels (launch counts asserted), then on a fresh copy through the
+    card's plain attention; the losses and every gradient compared."""
+    import paddle_tpu_torch.models.gpt as gpt
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.flash_attention import bwd_route
+
+    cfg = GPTConfig(vocab_size=32000, num_layers=2, max_seq_len=2048,
+                    dropout=0.0, dtype="bfloat16", recompute=True,
+                    **WIDTH_STEPS[d])
+    check(cfg.hidden_size // cfg.num_heads == d, f"head width {d}")
+    ids, labels = _train_batch(cfg.vocab_size, 1, 2048, 5, DEVICE)
+    out = {}
+    for route in ("kernel", "plain"):
+        model, step = _train_setup(cfg, torch.bfloat16, DEVICE, seed=3)
+        kernels.reset_launch_counts()
+        saved = gpt.flash_attention
+        if route == "plain":
+            gpt.flash_attention = _plain_flash_attention
+        try:
+            t0 = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            gpt.flash_attention = saved
+        out[route] = (loss.float().item(), ms, kernels.launch_counts(),
+                      {n: p.grad.float().clone()
+                       for n, p in model.named_parameters()})
+        del model, step
+        torch.cuda.empty_cache()
+    L = cfg.num_layers
+    rep = cfg.num_heads // cfg.num_kv_heads
+    route = bwd_route(rep, 2048, d)
+    counts = out["kernel"][2]
+    want = {"flash_attention_fwd": 2 * L,
+            "flash_attention_bwd": L if route == "fused" else 0,
+            "flash_attention_bwd_dq": L if route == "split" else 0,
+            "flash_attention_bwd_dkv": L if route == "split" else 0}
+    check({k: counts[k] for k in want} == want,
+          f"width {d}: flash launches {counts} != {want}")
+    check(all(out["plain"][2][k] == 0 for k in want),
+          f"width {d}: the plain step launched {out['plain'][2]}")
+    lk, lp = out["kernel"][0], out["plain"][0]
+    rel = {n: ((g - out["plain"][3][n]).norm()
+               / out["plain"][3][n].norm().clamp_min(1e-30)).item()
+           for n, g in out["kernel"][3].items()}
+    worst = max(rel, key=rel.get)
+    res = {"d": d, "heads": (cfg.num_heads, cfg.num_kv_heads),
+           "hidden": cfg.hidden_size, "bwd_route": route,
+           "loss_kernel": lk, "loss_plain": lp, "launches": counts,
+           "step_ms_kernel": out["kernel"][1],
+           "step_ms_plain": out["plain"][1],
+           "grad_rel_err": rel}
+    print(f"flash_widths: train step D={d} (hidden {cfg.hidden_size}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, backward {route}): "
+          f"loss {lk} kernels vs {lp} plain; gradients' largest relative "
+          f"error {rel[worst]:.3g} ({worst}); first-step ms kernels "
+          f"{out['kernel'][1]:.1f}, plain {out['plain'][1]:.1f}; flash "
+          f"launches {want}", flush=True)
+    check(abs(lk - lp) <= WIDTH_LOSS_RTOL * abs(lp),
+          f"width {d}: loss {lk} != {lp}")
+    check(rel[worst] <= FLASH_TOL[torch.bfloat16],
+          f"width {d}: gradient {worst} rel err {rel[worst]}")
+    return res
+
+
+def phase_flash_widths(config4_rows, ptxas_logs):
+    """The four flash kernels at every padded width (phase 3 holds
+    D = 128 at config 4's shape): each against its plain version in bf16
+    at [3, 2048, H, D] with its times, bound and SDPA's time, and in f32 at
+    [1, 256, 4/2, D]; the ptxas registers and spills of every instance;
+    then the two-layer training steps at D = 96 and 256."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    rows = {"flash_attention_fwd": [], "flash_attention_bwd": [],
+            "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for d, hq, hkv in FLASH_WIDTHS[:2] + ((128, 16, 16),) + FLASH_WIDTHS[2:]:
+        for dtype, b, s, h, k in ((torch.bfloat16, 3, 2048, hq, hkv),
+                                  (torch.float32, 1, 256, 4, 2)):
+            if d == 128 and dtype == torch.bfloat16:
+                cases = [next(r for r in config4_rows[n]
+                              if r["shape"] == "[3,2048,16/16,128] causal"
+                              and r["dtype"] == "bfloat16") for n in rows]
+            else:
+                fwd, bwd, (dq, dkv) = _flash_cases(b, h, k, s, d, dtype, gen)
+                cases = [fwd, bwd, dq, dkv]
+            for name, r in zip(rows, cases):
+                r = dict(r, d=d)
+                rows[name].append(r)
+                print(f"flash_widths: {name} D={d} {r['dtype']} "
+                      f"{r['shape']}: {r['ms']:.4f} ms (bound "
+                      f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA "
+                      f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}) "
+                      f"rel err {r['max_rel_err']:.3g}"
+                      + (f", lse err {r['lse_max_abs_err']:.3g}"
+                         if "lse_max_abs_err" in r else ""), flush=True)
+    ptxas = {}
+    for src in ("flash_attention.cu", "flash_attention_split.cu"):
+        for name, (regs, spill) in sorted(
+                ptxas_by_kernel(ptxas_logs[src], ("flash",)).items()):
+            ptxas[name] = (regs, spill)
+            print(f"flash_widths: ptxas {src} {name}: {regs} registers, "
+                  f"{spill} bytes spilled", flush=True)
+    check(all(spill == 0 for _, spill in ptxas.values()),
+          "a flash kernel spills")
+    steps = [_width_step(d) for d in WIDTH_STEPS]
+    return {"cases": rows, "ptxas": ptxas, "train_steps": steps}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1744,6 +1942,253 @@ def phase_serving_disagg(model, streams):
 
 
 # ------------------------------------------------------- incubate decoder
+# ------------------------------------------------------- phase telemetry
+TELEMETRY_DIR = Path(__file__).resolve().parent / "build" / "telemetry"
+
+
+def _collect(on):
+    """Telemetry and tracing on (emptied first) or off."""
+    from paddle_tpu_torch import telemetry
+
+    if on:
+        telemetry.reset()
+        telemetry.trace.reset()
+        telemetry.enable()
+        telemetry.trace.enable()
+    else:
+        telemetry.disable()
+        telemetry.trace.disable()
+
+
+def _tick_cost(eng, prompts, on):
+    """A batch of phase 4's prompts (cut to 512 tokens) prefilled, then
+    _decode_window's pure decode ticks with telemetry on or off."""
+    _collect(on)
+    for p in prompts:
+        eng.submit(p[:512])
+    while any(s is None for s in eng._slots) or any(
+            s.prefill_pos < len(s.seq_tokens) for s in eng._slots):
+        eng.step()
+    res = _decode_window(eng, 10)
+    eng.run_until_complete()
+    _collect(False)
+    return res
+
+
+def _served_with_telemetry(eng, prompts):
+    """Phase 4's schedule (five requests, two steps, three more) with
+    telemetry and tracing on; returns the streams in prompt order and the
+    number of step() calls."""
+    rids = [eng.submit(p) for p in prompts[:5]]
+    done, steps = {}, 0
+    for _ in range(2):
+        done.update(eng.step())
+        steps += 1
+    rids += [eng.submit(p) for p in prompts[5:]]
+    while eng._waiting or any(s is not None for s in eng._slots):
+        done.update(eng.step())
+        steps += 1
+    check(sorted(done) == sorted(rids), f"telemetry: completed {sorted(done)}")
+    return [done[r] for r in rids], steps
+
+
+def _check_serving_counters(snap, eng, steps, n, tag):
+    c, h = snap["counters"], snap["histograms"]
+    got = {"steps": c["serving_steps_total"].get("", 0),
+           "admissions": c["serving_admissions_total"],
+           "ttft": sum(v["count"] for v in
+                       h["serving_ttft_seconds"].values()),
+           "latency": sum(v["count"] for v in
+                          h["serving_request_latency_seconds"].values())}
+    want = {"steps": steps, "admissions": {"kind=prefill": n}, "ttft": n,
+            "latency": n}
+    print(f"telemetry: {tag}: counters {got}, engine {want}", flush=True)
+    check(got == want, f"telemetry {tag}: counters {got} != {want}")
+    check(snap["gauges"]["serving_int8_kv_active"] == {"": 0.0},
+          "serving_int8_kv_active")
+    return got
+
+
+def _check_trees(tag):
+    from paddle_tpu_torch import telemetry
+
+    trees = telemetry.trace.request_trees()
+    for rid, root in trees.items():
+        kids = {k["name"] for k in root["children"]}
+        marks = {m["name"] for m in root["marks"]}
+        check(root["name"] == "request" and root["end"] is not None
+              and {"queue", "prefill"} <= kids
+              and {"admitted", "first_token"} <= marks,
+              f"telemetry {tag}: request {rid} tree {kids} {marks}")
+    return len(trees)
+
+
+def _traced_train_step():
+    """Config 4's TrainStep traced: a warm-up step with telemetry off,
+    then two with telemetry and tracing on again (the serving readings
+    kept), each timed on CUDA events beside its train_step span;
+    step_anatomy of the two."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=32000, hidden_size=2048, num_layers=24,
+                    num_heads=16, max_seq_len=2048, dropout=0.0,
+                    dtype="bfloat16", recompute=True)
+    model, step = _train_setup(cfg, torch.bfloat16, DEVICE, seed=0)
+    ids, labels = _train_batch(cfg.vocab_size, 3, 2048, 0, DEVICE)
+    telemetry.disable()
+    telemetry.trace.disable()
+    step(ids, labels)                       # warm-up, telemetry off
+    torch.cuda.synchronize()
+    # on again, keeping the spec run's readings for the dumps
+    telemetry.enable()
+    telemetry.trace.enable()
+    event_ms = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(ids, labels)
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    spans = [e["dur"] * 1e3 for e in telemetry.trace.get_tracer().events()
+             if e["name"] == "train_step"]
+    anatomy = telemetry.trace.step_anatomy("train_step")
+    print(f"telemetry: config-4 TrainStep: train_step span ms {spans} "
+          f"(the host's dispatch of the step), CUDA-event step ms "
+          f"{event_ms}; anatomy {json.dumps(anatomy)}", flush=True)
+    check(anatomy is not None and anatomy["steps"] == 2
+          and {"dispatch", "grad_clip", "opt_update"}
+          <= set(anatomy["phases"]), f"train anatomy {anatomy}")
+    del model, step
+    torch.cuda.empty_cache()
+    return {"train_step_span_ms": spans, "cuda_event_step_ms": event_ms,
+            "anatomy": anatomy}
+
+
+def _dump_and_report():
+    """The Prometheus text, the JSONL and snapshot dumps, the Perfetto
+    trace and one flight bundle, each read by the repo's report tool."""
+    from paddle_tpu_torch import telemetry
+
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    d = TELEMETRY_DIR
+    prom = d / "metrics.prom"
+    telemetry.export_prometheus(str(prom))
+    telemetry.dump_jsonl(str(d / "metrics.jsonl"), mode="w")
+    (d / "snapshot.json").write_text(json.dumps(telemetry.snapshot()))
+    telemetry.trace.get_tracer().to_perfetto(str(d / "trace.json"))
+    rec = telemetry.flight.install(str(d / "flight"))
+    bundle = rec.dump("chip_smoke", force=True)
+    telemetry.flight.uninstall()
+    tools = Path(__file__).resolve().parent / "tools"
+    rcs = {}
+    for tool, args in (("telemetry_report.py", [str(d / "snapshot.json")]),
+                       ("trace_report.py", [str(d / "trace.json")]),
+                       ("flight_report.py", ["--quiet", bundle])):
+        proc = subprocess.run([sys.executable, str(tools / tool), *args],
+                              capture_output=True, text=True, timeout=120)
+        rcs[tool] = proc.returncode
+        print(f"telemetry: {tool}: exit {proc.returncode}; "
+              + " | ".join(proc.stdout.strip().splitlines()[:4]), flush=True)
+    check(all(rc == 0 for rc in rcs.values()), f"report tools: {rcs}")
+    return {"prometheus_bytes": prom.stat().st_size, "tool_exit": rcs}
+
+
+def phase_telemetry(model, streams):
+    """Phase 4's LLaMA-7B engine with telemetry: the graphed tick's wall
+    and host share with telemetry off and on (in turns, two batches
+    each); phase 4's requests served with telemetry and tracing on
+    (streams equal phase 4's, counters equal the engine's state, a full
+    span tree per request, the captures at the recompile watchdog); the
+    self-draft spec engine's counters against its own; a traced config-4
+    TrainStep; the dumps and the repo's three report tools on them."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    cfg = model.config
+    new = 32
+    warm, prompts = _serve_prompts(cfg)
+    out = {}
+    # the tick's cost, off and on in turns
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new, **SERVE_ENGINE)
+    eng.warmup()
+    eng.submit(warm)
+    eng.run_until_complete()
+    cost = {"off": [], "on": []}
+    for on in (False, True, False, True):
+        cost["on" if on else "off"].append(_tick_cost(eng, prompts, on))
+    out["tick"] = {k: {"wall_ms_per_tick": [r["wall_ms_per_tick"]
+                                            for r in v],
+                       "host_share": [r["host_share"] for r in v],
+                       "device_busy_ms_per_tick":
+                           [r["device_busy_ms_per_tick"] for r in v],
+                       "graph_replay_ms": [r["graph_replay_ms"]
+                                           for r in v]}
+                   for k, v in cost.items()}
+    off = statistics.mean(out["tick"]["off"]["wall_ms_per_tick"])
+    on_ = statistics.mean(out["tick"]["on"]["wall_ms_per_tick"])
+    out["tick"]["wall_change"] = on_ / off - 1
+    print(f"telemetry: graphed decode tick wall ms off "
+          f"{out['tick']['off']['wall_ms_per_tick']} on "
+          f"{out['tick']['on']['wall_ms_per_tick']} ({100 * (on_ / off - 1):+.2f}"
+          f"%); host share off {out['tick']['off']['host_share']} on "
+          f"{out['tick']['on']['host_share']}; replay ms off "
+          f"{out['tick']['off']['graph_replay_ms']} on "
+          f"{out['tick']['on']['graph_replay_ms']}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # phase 4's requests with telemetry and tracing on, from a fresh engine
+    _collect(True)
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new, **SERVE_ENGINE)
+    eng.warmup()
+    got, steps = _served_with_telemetry(eng, prompts)
+    check(got == streams, "telemetry: streams differ from phase 4's")
+    snap = telemetry.snapshot()
+    out["serving"] = _check_serving_counters(snap, eng, steps, len(prompts),
+                                             "serving")
+    out["serving"]["trees"] = _check_trees("serving")
+    wd = telemetry.recompile_watchdog().stats()
+    caps = snap["histograms"]["cuda_compile_seconds"]["event=graph_capture"]
+    print(f"telemetry: recompile watchdog {wd}; graph captures "
+          f"{caps['count']} in {caps['sum']:.3f} s", flush=True)
+    check(wd.get("ContinuousBatchingEngine._decode_step") == 1,
+          f"the tick's capture at the watchdog: {wd}")
+    out["serving"]["watchdog"] = wd
+    del eng
+    torch.cuda.empty_cache()
+
+    # the self-draft spec engine: its counters against its own state
+    _collect(True)
+    eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                   draft_model=model, spec_tokens=SPEC_K,
+                                   **SERVE_ENGINE)
+    eng.warmup()
+    got, steps = _served_with_telemetry(eng, prompts)
+    check(got == streams, "telemetry: spec streams differ from phase 4's")
+    c = telemetry.snapshot()["counters"]
+    spec = {"ticks": c["serving_spec_ticks_total"].get("mode=spec", 0),
+            "drafted": c["serving_spec_draft_tokens_total"].get("", 0),
+            "accepted": c["serving_spec_accepted_tokens_total"].get("", 0)}
+    want = {"ticks": eng.spec_ticks, "drafted": eng.spec_draft_tokens,
+            "accepted": eng.spec_accepted_tokens}
+    rate = eng.spec_acceptance_rate
+    print(f"telemetry: spec counters {spec}, engine {want}, acceptance "
+          f"{rate:.4f} x drafted = {rate * spec['drafted']:.1f}", flush=True)
+    check(spec == want and abs(spec["accepted"] - rate * spec["drafted"])
+          < 1e-6 * max(1, spec["drafted"]), f"spec counters {spec} {want}")
+    out["spec"] = dict(spec, acceptance=rate, trees=_check_trees("spec"))
+    del eng
+    torch.cuda.empty_cache()
+
+    out["train"] = _traced_train_step()
+    out["dumps"] = _dump_and_report()
+    _collect(False)
+    return out
+
+
 def incubate_params(model):
     """The decoder weights of a LlamaForCausalLM as the incubate decoder
     reads them."""
@@ -2620,7 +3065,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
     ap.add_argument("--quick", action="store_true",
-                    help="phases 1-3 only; no result line")
+                    help="phases 1-3 and flash_widths only; no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2643,6 +3088,8 @@ def main():
     report["device"] = run("device", phase_device)
     report["build"] = run("build", phase_build)
     report["kernels"] = run("kernels", phase_kernels)
+    report["flash_widths"] = run("flash_widths", phase_flash_widths,
+                                 report["kernels"], report["build"]["ptxas"])
     if not args.quick:
         report["serving"], model, streams = run("serving", phase_serving)
         report["serving_int8"] = run("serving_int8", phase_serving_int8,
@@ -2655,6 +3102,8 @@ def main():
                                       model, report["serving"], streams)
         report["serving_disagg"] = run("serving_disagg",
                                        phase_serving_disagg, model, streams)
+        report["telemetry"] = run("telemetry", phase_telemetry, model,
+                                  streams)
         report["incubate"] = run("incubate", phase_incubate, model)
         del model
         torch.cuda.empty_cache()

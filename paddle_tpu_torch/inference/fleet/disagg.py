@@ -15,15 +15,25 @@ pages and resume state move as a host snapshot (the swap-out machinery),
 and the decode worker's swap-restore admission copies them into its own
 pages. Exact caches move their values and int8 caches their codes and
 scales, unchanged, so greedy disaggregated output equals the single
-engine's. ``handoffs`` and ``handoff_bytes`` count the transfers; the JAX
-package's ``serving_handoffs_total`` counters and ``handoff`` trace marks
-wait for the port of its telemetry.
+engine's. ``handoffs`` and ``handoff_bytes`` count the transfers, and
+each handoff is traced as a per-request ``handoff`` mark and counted with
+its payload bytes in ``serving_handoffs_total`` and
+``serving_handoff_bytes_total``, as the reference does.
 """
 from __future__ import annotations
 
+from ... import telemetry as _telemetry
+from ...telemetry import trace as _trace
 from ..serving import ContinuousBatchingEngine, _kv_nbytes
 
 __all__ = ["DisaggregatedEngine"]
+
+_HANDOFFS = _telemetry.counter(
+    "serving_handoffs_total",
+    "prefill->decode KV transfers (docs/SERVING.md)")
+_HANDOFF_BYTES = _telemetry.counter(
+    "serving_handoff_bytes_total",
+    "KV snapshot bytes crossing the prefill->decode seam")
 
 
 class DisaggregatedEngine:
@@ -133,9 +143,14 @@ class DisaggregatedEngine:
                 # it, and step() returns it with the decode worker's
                 continue
             req = eng.extract(i)
+            size = (_kv_nbytes(req.swapped["k"])
+                    + _kv_nbytes(req.swapped["v"]))
             self.handoffs += 1
-            self.handoff_bytes += (_kv_nbytes(req.swapped["k"])
-                                   + _kv_nbytes(req.swapped["v"]))
+            self.handoff_bytes += size
+            _HANDOFFS.inc()
+            _HANDOFF_BYTES.inc(size)
+            _trace.async_instant("handoff", req.rid,
+                                 {"pages": req.swapped["n"], "bytes": size})
             self.decode.inject(req)
 
     def step(self):

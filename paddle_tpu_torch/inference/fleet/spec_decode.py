@@ -101,7 +101,9 @@ class DraftRunner(_DecoderStack):
             return self._propose(prev, cur, lens, tables)
         if self._propose_graph is None:
             self._propose_graph, self._propose_out, d = _capture(
-                lambda: self._propose(prev, cur, lens, tables), self.device)
+                lambda: self._propose(prev, cur, lens, tables), self.device,
+                "DraftRunner._propose",
+                self.engine._graph_signature(prev, cur, lens, tables))
             self._propose_out.copy_(d)
         else:
             self._propose_graph.replay()
@@ -127,6 +129,7 @@ class DraftRunner(_DecoderStack):
         elif self._catch_graph is None:
             self._catch_graph, _, _ = _capture(
                 lambda: self._window_step(tokens[:, None], lens, tables),
-                self.device)
+                self.device, "DraftRunner._window_step",
+                self.engine._graph_signature(tokens, lens, tables))
         else:
             self._catch_graph.replay()

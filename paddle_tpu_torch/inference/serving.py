@@ -70,10 +70,19 @@ Counterpart of ``paddle_tpu/inference/serving.py``:
   parameters, without a copy). ``max_new_cap``, ``spec_paused`` and
   ``prefill_chunk_cap`` are the brownout caps an overload controller sets.
 
+Telemetry (``paddle_tpu_torch.telemetry``): the reference's 16 serving
+metrics under its names, labels and buckets, updated at the same event
+sites; each request's async span tree (``request``, ``queue``,
+``prefill``, with ``admitted``, ``first_token`` and ``preempt`` marks) and
+the ``admission``, ``prefill_tick``, ``prefill_group``, ``decode_tick``,
+``spec_draft``, ``spec_verify``, ``spec_accept`` and ``detokenize``
+events. On the card the tick's spans wrap the graph replay from the host
+and its read-back; nothing goes into the graph, and every gauge reads the
+host's page pool and queues, never a device tensor.
+
 Unlike the JAX package, which donates its caches to functional updates,
 the KV writes here happen in place. Layers run as a Python loop (no scan).
-The telemetry gauges and trace spans, and a CUDA graph over the chunked
-prefill, are not ported yet.
+A CUDA graph over the chunked prefill is not ported yet.
 """
 from __future__ import annotations
 
@@ -86,19 +95,75 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry as _telemetry
 from ..device import resolve_device
 from ..memory import dequantize_rows_int8, quantize_rows_int8
 from ..models.gpt import _attention_plain, _rms_pure, _rope_at_positions
 from ..ops.kernels import CountedGraph
 from ..ops.kernels.decode_attention import (paged_attention,
                                             paged_attention_int8)
-from ..quant import int8_linear, int8_weights_enabled, quantize_linear_int8
+from ..quant import (GEMM_SITES, int8_linear, int8_weights_enabled,
+                     note_gemm_mode, note_step_tokens, quantize_linear_int8)
+from ..telemetry import trace as _trace
 
 __all__ = ["PagePool", "ContinuousBatchingEngine", "int8_kv_enabled",
            "DECODE_GEMM_ROWS"]
 
 _DECODE_WEIGHT_NAMES = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu",
                         "wd")
+
+# serving metrics (names, labels and help: the reference's, docs/
+# TELEMETRY.md). Gauges are refreshed once per step(); counters tick at the
+# event sites.
+_TELEMETRY_REG = _telemetry.get_registry()
+_QUEUE_DEPTH = _telemetry.gauge(
+    "serving_queue_depth", "requests waiting for admission")
+_SLOTS_OCCUPIED = _telemetry.gauge(
+    "serving_slots_occupied", "engine slots holding a live request")
+_BATCH_OCCUPANCY = _telemetry.histogram(
+    "serving_batch_occupancy", "live slots / max_slots per decode tick",
+    buckets=tuple(i / 8 for i in range(1, 9)))
+_KV_UTIL = _telemetry.gauge(
+    "serving_kv_page_utilization", "fraction of KV pages allocated")
+_ADMISSIONS = _telemetry.counter(
+    "serving_admissions_total", "requests admitted into slots",
+    labelnames=("kind",))
+_PREEMPTIONS = _telemetry.counter(
+    "serving_preemptions_total", "requests evicted under page pressure",
+    labelnames=("policy",))
+_STEPS = _telemetry.counter(
+    "serving_steps_total", "engine decode ticks")
+_REQ_LATENCY = _telemetry.histogram(
+    "serving_request_latency_seconds", "submit-to-completion wall time")
+_TTFT = _telemetry.histogram(
+    "serving_ttft_seconds", "submit-to-first-token wall time")
+_REF_UNDERFLOWS = _telemetry.counter(
+    "serving_page_ref_underflows_total",
+    "KV page refcount decremented below zero (double-release bug)")
+_CANCELLATIONS = _telemetry.counter(
+    "serving_cancellations_total",
+    "requests cancelled before completion (docs/SERVING.md)",
+    labelnames=("reason",))
+_SPEC_TICKS = _telemetry.counter(
+    "serving_spec_ticks_total",
+    "decode ticks under a draft model: 'spec' ran draft+verify, "
+    "'fallback' took the plain single-token path (sampled rows live)",
+    labelnames=("mode",))
+_SPEC_DRAFTED = _telemetry.counter(
+    "serving_spec_draft_tokens_total",
+    "draft tokens proposed to the verifier")
+_SPEC_ACCEPTED = _telemetry.counter(
+    "serving_spec_accepted_tokens_total",
+    "draft tokens accepted by the target verify pass")
+_INT8_KV = _telemetry.gauge(
+    "serving_int8_kv_active",
+    "1 when the engine stores paged KV as blockwise int8 (+fp32 "
+    "per-row scales in the page table) — docs/SERVING.md")
+_WEIGHT_BYTES = _telemetry.gauge(
+    "serving_weight_bytes",
+    "resident packed decode-weight bytes per storage dtype "
+    "(docs/QUANT.md: int8-packed replicas report the reduced footprint)",
+    labelnames=("dtype",))
 
 
 # ---------------------------------------------------------------- int8 KV
@@ -277,13 +342,14 @@ def _weight_nbytes(weights):
     return out
 
 
-def _capture(fn, device):
+def _capture(fn, device, name, signature):
     """Run ``fn()`` once eagerly on a side stream (PyTorch's condition for
     a capture: the pass builds the kernels and cuBLAS's state, and its
     result is this call's), then capture it into a ``CountedGraph``; the
-    capture runs nothing. Returns the graph, the graph's output tensors
-    (rewritten by every replay) and the eager pass's output. A capture
-    that fails raises."""
+    capture runs nothing, and reports ``name`` and ``signature`` (the
+    captured row count and shapes) to the recompile watchdog. Returns the
+    graph, the graph's output tensors (rewritten by every replay) and the
+    eager pass's output. A capture that fails raises."""
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(cur)
@@ -291,7 +357,7 @@ def _capture(fn, device):
         out = fn()
     cur.wait_stream(side)
     graph = CountedGraph()
-    return graph, graph.capture(fn), out
+    return graph, graph.capture(fn, name, signature), out
 
 
 class PagePool:
@@ -576,6 +642,7 @@ class ContinuousBatchingEngine(_DecoderStack):
         # int8-resident projections behind the quantizer's probe
         self.int8_weights = int8_weights_enabled(int8_weights)
         self._weights = _pack_weights(model, self.int8_weights)
+        self._publish_weights()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # int8 paged KV: codes plus one f32 scale per row, behind the
@@ -679,6 +746,7 @@ class ContinuousBatchingEngine(_DecoderStack):
         self._weights = _pack_weights(
             self._model if model is None else model, self.int8_weights,
             into=self._weights)
+        self._publish_weights()
         if (self._graph_ptrs is not None
                 and self._graph_ptrs != self._weight_ptrs()):
             self._graph = self._graph_ptrs = self._graph_out = None
@@ -694,6 +762,28 @@ class ContinuousBatchingEngine(_DecoderStack):
 
     def _weight_ptrs(self):
         return tuple(w.data_ptr() for w in _weight_leaves(self._weights))
+
+    def _publish_weights(self):
+        """The resident weight bytes by dtype, and the int8 GEMM's mode
+        per projection site with its FLOPs per token (path "serve")."""
+        for dt, nb in self.weight_bytes.items():
+            _WEIGHT_BYTES.set(float(nb), labels=(dt,))
+        if self.int8_weights:
+            flops = 2 * sum(w[0].numel() for lp in self._weights["layers"]
+                            for w in lp if isinstance(w, tuple))
+            note_gemm_mode("serve", GEMM_SITES, "int8", flops)
+        else:
+            note_gemm_mode("serve", frozenset(), None)
+
+    def _note_int8_tokens(self, n):
+        """``n`` tokens went through the int8 projections."""
+        if self.int8_weights:
+            note_step_tokens(n)
+
+    def _graph_signature(self, *tensors):
+        """A captured graph's watchdog signature: its row count and its
+        operands' shapes."""
+        return (self._rows, *(tuple(t.shape) for t in tensors))
 
     @property
     def weight_bytes(self):
@@ -723,6 +813,7 @@ class ContinuousBatchingEngine(_DecoderStack):
         B = len(reqs)
         x, lens = self._group_pass([r.pages for r in reqs],
                                    [r.seq_tokens for r in reqs])
+        self._note_int8_tokens(int(lens.sum()))
         x = _rms_pure(x, self._weights["fnorm"])
         last = x[torch.arange(B, device=self.device),
                  self._tensor(lens - 1, torch.long)]          # [B, H]
@@ -793,7 +884,9 @@ class ContinuousBatchingEngine(_DecoderStack):
             return self._decode_step(*args[:3])
         if self._graph is None:
             self._graph, self._graph_out, lg = _capture(
-                lambda: self._decode_step(*args[:3]), self.device)
+                lambda: self._decode_step(*args[:3]), self.device,
+                "ContinuousBatchingEngine._decode_step",
+                self._graph_signature(*args[:3]))
             self._graph_ptrs = self._weight_ptrs()
             return lg
         self._graph.replay()
@@ -803,31 +896,36 @@ class ContinuousBatchingEngine(_DecoderStack):
         """The tick's logits [max_slots, V] for int32 host arrays."""
         return self._tick(self._inputs(tokens, lens, tables))
 
-    def _spec_outputs(self, prev, cur, lens, tables):
+    def _spec_outputs(self, prev, cur, lens, tables, live=0):
         """The device half of a spec tick for int32 host arrays: the
         draft's proposal, then the verify, read back once as the drafts
         [B, K] and the target's tokens [B, K + 1] (int64 numpy). On the
         card each is a graph replay (the first spec tick runs them eagerly
         and captures them); the verify reads the proposal's output buffer
-        on the card."""
+        on the card. ``live`` (the live rows) goes to the verify span."""
         cur_t, lens_t, tables_t, prev_t = self._inputs(cur, lens, tables,
                                                        prev)
-        d = self._draft.propose(prev_t, cur_t, lens_t, tables_t)
+        K = self.spec_tokens
+        with _trace.span("spec_draft", attrs={"k": K}, cat="serve"):
+            d = self._draft.propose(prev_t, cur_t, lens_t, tables_t)
 
         def verify():
             return self._verify_step(cur_t, d, lens_t, tables_t)
 
-        if self.device.type != "cuda":
-            out = verify()
-        elif self._verify_graph is None:
-            self._verify_graph, self._verify_out, out = _capture(
-                verify, self.device)
-            self._graph_ptrs = self._weight_ptrs()
-        else:
-            self._verify_graph.replay()
-            out = self._verify_out
-        out = out.cpu().numpy()
-        K = self.spec_tokens
+        with _trace.span("spec_verify", attrs={"live": live, "k": K},
+                         cat="serve"):
+            if self.device.type != "cuda":
+                out = verify()
+            elif self._verify_graph is None:
+                self._verify_graph, self._verify_out, out = _capture(
+                    verify, self.device,
+                    "ContinuousBatchingEngine._verify_step",
+                    self._graph_signature(cur_t, d, lens_t, tables_t))
+                self._graph_ptrs = self._weight_ptrs()
+            else:
+                self._verify_graph.replay()
+                out = self._verify_out
+            out = out.cpu().numpy()
         return out[:, :K], out[:, K:]
 
     # -- engine surface -----------------------------------------------------
@@ -873,6 +971,11 @@ class ContinuousBatchingEngine(_DecoderStack):
         self._waiting.append(_Request(
             rid, [int(t) for t in prompt_ids], temperature, top_k, top_p,
             on_token, deadline=deadline))
+        # the request's span tree: "request" covers submit to retire,
+        # "queue" submit to admission (opened again on a requeue)
+        _trace.async_begin("request", rid,
+                           {"prompt_tokens": len(prompt_ids)})
+        _trace.async_begin("queue", rid)
         return rid
 
     # -- cancellation / deadlines -------------------------------------------
@@ -883,16 +986,21 @@ class ContinuousBatchingEngine(_DecoderStack):
         ``self.cancelled`` (rid -> reason)."""
         if slot_idx is not None:
             self._slots[slot_idx] = None
+            if req.first_token_t is None:
+                _trace.async_end("prefill", req.rid, {"cancelled": reason})
         else:
             try:
                 self._waiting.remove(req)
             except ValueError:
                 pass
+            _trace.async_end("queue", req.rid, {"cancelled": reason})
         if req.pages:
             self._release_pages(req, register=True)
         req.swapped = None
         self.cancelled[req.rid] = reason
         self.cancellations += 1
+        _CANCELLATIONS.inc(labels=(reason,))
+        _trace.async_end("request", req.rid, {"cancelled": reason})
 
     def cancel(self, rid, reason="user") -> bool:
         """Cancel a queued or running request by id. Returns True if it was
@@ -923,6 +1031,9 @@ class ContinuousBatchingEngine(_DecoderStack):
     def _emit(self, req, tok):
         if req.first_token_t is None:
             req.first_token_t = time.perf_counter()
+            _TTFT.observe(req.first_token_t - req.submit_t)
+            _trace.async_end("prefill", req.rid)
+            _trace.async_instant("first_token", req.rid)
         req.generated.append(tok)
         if req.on_token is not None:
             req.on_token(req.rid, tok)
@@ -967,6 +1078,17 @@ class ContinuousBatchingEngine(_DecoderStack):
                     # rebuilds at its prefill completion)
                     self._draft.prefill(
                         [req], [(req.prompt + req.generated)[:req.length]])
+                _ADMISSIONS.inc(labels=("swap_restore",))
+                _trace.async_end("queue", req.rid)
+                _trace.async_instant("admitted", req.rid,
+                                     {"kind": "swap_restore"})
+                if req.first_token_t is None:
+                    # a mid-prefill victim resumes its prefill here: the
+                    # span opens again so the TTFT anatomy keeps it
+                    _trace.async_begin(
+                        "prefill", req.rid,
+                        {"kind": "swap_restore",
+                         "resume_tokens": len(req.seq_tokens)})
                 continue  # not part of any prefill group
             # reserve only what prefill writes; decode pages are allocated
             # as the sequence grows. With the prefix cache on, pages that
@@ -1001,9 +1123,18 @@ class ContinuousBatchingEngine(_DecoderStack):
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
             self._slots[i] = req
+            _ADMISSIONS.inc(labels=("prefill",))
+            _trace.async_end("queue", req.rid)
+            _trace.async_instant("admitted", req.rid, {"kind": "prefill"})
+            if req.first_token_t is None:
+                _trace.async_begin("prefill", req.rid,
+                                   {"resume_tokens": len(req.seq_tokens)})
             group.append(req)
         if group and self.prefill_chunk is None:
-            for req, tok in zip(group, self._prefill_group(group)):
+            with _trace.span("prefill_group",
+                             attrs={"requests": len(group)}, cat="serve"):
+                first = self._prefill_group(group)
+            for req, tok in zip(group, first):
                 self._emit(req, tok)
         # chunked mode: KV fills incrementally in _prefill_tick
 
@@ -1080,6 +1211,7 @@ class ContinuousBatchingEngine(_DecoderStack):
         last = self._prefill_chunk_step(t(ids_np), t(pos0), t(nvalid),
                                         t(tok_pages), t(offs), t(hist))
         self.prefill_chunk_steps += 1
+        self._note_int8_tokens(int(nvalid.sum()))
         completed = []
         for i, r in enumerate(reqs):
             r.prefill_pos += int(nvalid[i])
@@ -1197,6 +1329,7 @@ class ContinuousBatchingEngine(_DecoderStack):
         for i, pg in enumerate(req.pages):
             ref = self._page_ref.get(pg, 0) - 1
             if ref < 0:
+                _REF_UNDERFLOWS.inc()
                 raise RuntimeError(
                     f"PagePool refcount underflow: page {pg} released by "
                     f"request {req.rid} but holds no claim (double "
@@ -1253,6 +1386,12 @@ class ContinuousBatchingEngine(_DecoderStack):
         self._slots[slot_idx] = None
         self._waiting.appendleft(r)
         self.preemptions += 1
+        _PREEMPTIONS.inc(labels=(self.preempt_policy,))
+        if r.first_token_t is None:
+            _trace.async_end("prefill", r.rid, {"preempted": True})
+        _trace.async_instant("preempt", r.rid,
+                             {"policy": self.preempt_policy})
+        _trace.async_begin("queue", r.rid, {"requeue": True})
 
     def _grow_pages(self):
         """Ensure every decoding slot owns pages for this tick's writes:
@@ -1303,8 +1442,14 @@ class ContinuousBatchingEngine(_DecoderStack):
                     and r.generated[-1] == self.eos))
 
     def _retire(self, req: _Request):
+        _REQ_LATENCY.observe(time.perf_counter() - req.submit_t)
         self._release_pages(req, register=True)
-        return req.prompt + req.generated
+        with _trace.span("detokenize", attrs={"rid": req.rid},
+                         cat="serve"):
+            out = req.prompt + req.generated
+        _trace.async_end("request", req.rid,
+                         {"generated_tokens": len(req.generated)})
+        return out
 
     @torch.inference_mode()
     def step(self):
@@ -1323,9 +1468,11 @@ class ContinuousBatchingEngine(_DecoderStack):
             if r is not None and self._finished(r):
                 newly[r.rid] = self._retire(r)
                 self._slots[i] = None
-        self._admit()
+        with _trace.span("admission", cat="serve"):
+            self._admit()
         if self.prefill_chunk is not None:
-            self._prefill_tick()
+            with _trace.span("prefill_tick", cat="serve"):
+                self._prefill_tick()
         self._grow_pages()
         # a request that finished at prefill completion this tick must not
         # decode once more
@@ -1333,12 +1480,23 @@ class ContinuousBatchingEngine(_DecoderStack):
                 [(i, r) for i, r in enumerate(self._slots)
                  if r is not None and r.generated and r.length > 0
                  and not self._finished(r)])
+        if _TELEMETRY_REG.enabled:
+            # host state only: the pool's free list and the queues
+            _STEPS.inc()
+            _QUEUE_DEPTH.set(len(self._waiting))
+            _SLOTS_OCCUPIED.set(sum(1 for s in self._slots if s is not None))
+            _KV_UTIL.set(1.0 - self.pool.available / self.pool.num_pages)
+            _INT8_KV.set(1.0 if self.int8_kv else 0.0)
+            if live:
+                _BATCH_OCCUPANCY.observe(len(live) / self.max_slots)
         if not live:
             return newly
         do_sample = any(r.temperature > 0.0 for _, r in live)
         if self._draft is not None and not do_sample and not self.spec_paused:
             self._spec_tick(live)
             return newly
+        if self._draft is not None:
+            _SPEC_TICKS.inc(labels=("fallback",))
         # fixed-width batch: pad with the first live row's state (its
         # results are discarded; its KV write repeats the same values)
         rows = [r for _, r in live] + [live[0][1]] * (
@@ -1347,22 +1505,29 @@ class ContinuousBatchingEngine(_DecoderStack):
             np.asarray([r.generated[-1] for r in rows], np.int32),
             np.asarray([r.length for r in rows], np.int32),
             self._table_rows(rows))
-        lg = self._tick(args)
-        if do_sample:
-            nxt = _sample_rows(
-                lg, self._tensor([r.temperature for r in rows], torch.float32),
-                self._tensor([r.top_k for r in rows], torch.long),
-                self._tensor([r.top_p for r in rows], torch.float32),
-                self._gen)
-        else:
-            nxt = lg.argmax(-1)
-        nxt = nxt.cpu().numpy()
+        with _trace.span("decode_tick", attrs={"live": len(live)},
+                         cat="serve"):
+            lg = self._tick(args)
+            if do_sample:
+                nxt = _sample_rows(
+                    lg,
+                    self._tensor([r.temperature for r in rows],
+                                 torch.float32),
+                    self._tensor([r.top_k for r in rows], torch.long),
+                    self._tensor([r.top_p for r in rows], torch.float32),
+                    self._gen)
+            else:
+                nxt = lg.argmax(-1)
+            # the read-back is the tick's sync point: inside the span, so
+            # its wall covers the device work
+            nxt = nxt.cpu().numpy()
         if self._draft is not None:
             # write the draft's KV row for each carry token (its proposal
             # is discarded), so the draft cache has no hole once greedy
             # ticks resume
             self._draft.catch_up(*args[:3])
         self.decode_ticks += 1
+        self._note_int8_tokens(len(live))
         for j, (_, r) in enumerate(live):
             r.length += 1
             self._emit(r, int(nxt[j]))
@@ -1393,7 +1558,7 @@ class ContinuousBatchingEngine(_DecoderStack):
         cur = np.asarray([ctx_tok(r, int(n)) for r, n in zip(rows, lens)],
                          np.int32)
         d_toks, t_np = self._spec_outputs(prev, cur, lens,
-                                          self._table_rows(rows))
+                                          self._table_rows(rows), len(live))
         accepted_total = 0
         for j, (_, r) in enumerate(live):
             drafts, targets = d_toks[j], t_np[j]
@@ -1412,8 +1577,16 @@ class ContinuousBatchingEngine(_DecoderStack):
             for t in out:
                 self._emit(r, t)
         self.spec_ticks += 1
+        self._note_int8_tokens((K + 1) * len(live))
         self.spec_draft_tokens += K * len(live)
         self.spec_accepted_tokens += accepted_total
+        if _TELEMETRY_REG.enabled:
+            _SPEC_TICKS.inc(labels=("spec",))
+            _SPEC_DRAFTED.inc(K * len(live))
+            _SPEC_ACCEPTED.inc(accepted_total)
+        _trace.instant("spec_accept", {"accepted": accepted_total,
+                                       "drafted": K * len(live)},
+                       cat="serve")
 
     @property
     def spec_acceptance_rate(self):

@@ -29,7 +29,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..memory.remat import anchor, parse_save_names, split_quant_entries
-from ..nn.functional.fused_cross_entropy import chunked_lm_loss_arrays
+from ..nn.functional.fused_cross_entropy import (chunked_lm_loss_arrays,
+                                                 record_head_mode)
 from ..nn.norm import RMSNorm as PlainRMSNorm
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.rms_norm import rms_norm
@@ -270,6 +271,8 @@ def compute_loss(hidden, weight, labels, *, config=None, transpose_y=True,
             vocab_chunk=getattr(config, "head_chunk", None),
             ignore_index=ignore_index)
     if mode == "dense":
+        vocab = weight.shape[0] if transpose_y else weight.shape[-1]
+        record_head_mode("dense", False, labels.numel(), vocab)
         logits = hidden @ (weight.t() if transpose_y else weight)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
                                labels.reshape(-1).long(),

@@ -24,7 +24,37 @@ from __future__ import annotations
 
 import torch
 
+from ... import telemetry as _telemetry
+
 DEFAULT_VOCAB_CHUNK = 8192
+
+
+_HEAD_MODE = _telemetry.gauge(
+    "loss_head_mode",
+    "active LM-head loss path: 1 on the (mode, int8) series that produced "
+    "the run's loss (mode: dense|chunked|sharded; int8: on|off)",
+    labelnames=("mode", "int8"))
+_HEAD_CHUNK_BYTES = _telemetry.gauge(
+    "loss_head_chunk_bytes",
+    "fp32 bytes of ONE [tokens, chunk] logits block resident per CE scan "
+    "step (the chunked head's peak logits footprint; dense = the full "
+    "[tokens, vocab] tensor)")
+
+_LAST_HEAD_MODE = [None]
+
+
+def record_head_mode(mode, int8, tokens, chunk):
+    """Set the loss-head telemetry gauges (the reference's :71-80). Only
+    one (mode, int8) series reads 1 at a time: the previously active series
+    is zeroed, so a run that switches paths names the path of its last
+    loss."""
+    active = (mode, "on" if int8 else "off")
+    prev = _LAST_HEAD_MODE[0]
+    if prev is not None and prev != active:
+        _HEAD_MODE.set(0, labels=prev)
+    _HEAD_MODE.set(1, labels=active)
+    _LAST_HEAD_MODE[0] = active
+    _HEAD_CHUNK_BYTES.set(int(tokens) * int(chunk) * 4)
 
 
 def resolve_vocab_chunk(vocab, vocab_chunk=None):
@@ -89,5 +119,6 @@ def chunked_lm_loss_arrays(h, w, y, *, transpose_y=True, vocab_chunk=None,
     valid = yf != ignore_index
     mask = valid.float()
     chunk = resolve_vocab_chunk(w2.shape[0], vocab_chunk)
+    record_head_mode("chunked", False, yf.numel(), chunk)
     total = _ChunkedCE.apply(hf, w2, torch.where(valid, yf, 0), mask, chunk)
     return total / mask.sum().clamp_min(1.0)

@@ -17,6 +17,9 @@ plain C launcher loaded with ``ctypes``; pointers and the stream travel as
 ``c_void_p`` (declared in the launcher's ``argtypes``) and the launcher
 returns ``cudaGetLastError()``, which the wrapper checks.
 
+Each build reports to the recompile watchdog of ``paddle_tpu_torch.
+telemetry`` (``nvcc:<source>``, with its seconds).
+
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches the
 kernel and nowhere else, so a run can show that its main path went through
 the kernels. A launch captured into a ``CountedGraph`` counts once for
@@ -32,6 +35,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ... import telemetry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -70,10 +75,13 @@ class CountedGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.launches: dict[str, int] = {}
 
-    def capture(self, fn):
+    def capture(self, fn, name=None, signature=None):
         """Capture ``fn()`` on PyTorch's capture stream; returns its output
-        tensors, which every replay rewrites in place."""
+        tensors, which every replay rewrites in place. A ``name`` reports
+        the capture to the recompile watchdog with its ``signature`` and
+        wall seconds (``cuda_compile_seconds{event="graph_capture"}``)."""
         before = dict(LAUNCHES)
+        t0 = time.perf_counter()
         try:
             with torch.cuda.graph(self.graph):
                 out = fn()
@@ -81,6 +89,10 @@ class CountedGraph:
             self.launches = {k: n - before[k] for k, n in LAUNCHES.items()
                              if n != before[k]}
             LAUNCHES.update(before)
+        if name is not None:
+            telemetry.record_compile(name, signature,
+                                     time.perf_counter() - t0,
+                                     "graph_capture")
         return out
 
     def replay(self) -> None:
@@ -148,6 +160,9 @@ def build(force: bool = False,
             errors.append(f"{src.name}:\n{log}")
             continue
         os.replace(tmp, out)
+        # seconds from the common start until this library was in place
+        telemetry.record_compile(f"nvcc:{src.name}", src.name,
+                                 time.perf_counter() - t0, "kernel_build")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0, logs

@@ -356,8 +356,8 @@ __device__ __forceinline__ float f32_inf() {
 }
 
 // A consumer's accumulator (rows 16 * warp + g + 8h of its 64, columns
-// 8j + 2t + {0, 1}) into its rows of a swizzled [128][D] bf16 tile made of
-// 64-column boxes `box` bytes apart, each value times `mul`.
+// 8j + 2t + {0, 1}) into rows 64c.. of a swizzled bf16 tile made of D / 64
+// column boxes `box` bytes apart, each value times `mul`.
 template <int D>
 __device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
                                            const float (&acc)[D / 2],
@@ -376,6 +376,25 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
   }
 }
 
+// acc[D/2] += A . B over one k16 step, D in {64, 128, 192, 256}: A the
+// bf16 fragments `a`, B the 16 rows at `b` of an MN-major [k][D] tile whose
+// 64-column boxes lie `box` bytes apart. An m64nN accumulator is its n64
+// pieces one after another (column 8j + 2t + (e & 1) sits at 4j + e), so
+// D = 192 is one n128 and one n64 product, D = 256 two n128.
+template <int D>
+__device__ __forceinline__ void rs_step(float (&acc)[D / 2],
+                                        const uint32_t (&a)[4], uint32_t b,
+                                        uint32_t box) {
+  static_assert(D % 64 == 0 && D <= 256, "D is 64, 128, 192 or 256");
+#pragma unroll
+  for (int p = 0; p < D / 128; ++p)
+    wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(acc + 64 * p), a,
+                     desc_b128(b + 2 * p * box, box, 1024), 1);
+  if constexpr (D % 128 != 0)
+    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(acc + D / 2 - 32), a,
+                    desc_b128(b + (D / 64 - 1) * box, box, 1024), 1);
+}
+
 // acc[D/2] += A . B over k = 64 (four k16 steps): A the bf16 fragments
 // `a`, B an MN-major [64][D] tile at `b` whose 64-column boxes lie `box`
 // bytes apart.
@@ -384,13 +403,7 @@ __device__ __forceinline__ void rs_k64(float (&acc)[D / 2],
                                        const uint32_t (&a)[4][4], uint32_t b,
                                        uint32_t box) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t bd = desc_b128(b + kk * 16 * 128, box, 1024);
-    if constexpr (D == 128)
-      wgmma_rs_n128<1>(acc, a[kk], bd, 1);
-    else
-      wgmma_rs_n64<1>(acc, a[kk], bd, 1);
-  }
+  for (int kk = 0; kk < 4; ++kk) rs_step<D>(acc, a[kk], b + kk * 16 * 128, box);
 }
 
 // d[32] = A . B^T over k = D: A the 64 rows at `a` of a K-major tile whose
@@ -460,7 +473,9 @@ inline bool make_map(
 }
 
 // A map over a row-major [bh, s, d] bf16 tensor (attention's kernel
-// layout) with boxes of 64 columns x `rows` rows.
+// layout) with boxes of 64 columns x `rows` rows. d is the tensor's own
+// width (a multiple of 8: TMA takes row strides of 16-byte multiples); a
+// box column at or past d loads as zero and is not stored.
 inline bool map_rows(CUtensorMap* map, const void* p, int bh, int s, int d,
                      int rows) {
   const uint64_t dims[3] = {(uint64_t)d, (uint64_t)s, (uint64_t)bh};
@@ -469,8 +484,9 @@ inline bool map_rows(CUtensorMap* map, const void* p, int bh, int s, int d,
   return make_map(map, p, 3, dims, strides, box);
 }
 
-// A map over a row-major [bh, s, d] f32 tensor with boxes of 32 columns
-// (128 bytes, the widest box the swizzle takes) x `rows` rows.
+// A map over a row-major [bh, s, d] f32 tensor (d a multiple of 4) with
+// boxes of 32 columns (128 bytes, the widest box the swizzle takes) x
+// `rows` rows.
 inline bool map_rows_f32(CUtensorMap* map, const void* p, int bh, int s,
                          int d, int rows) {
   const uint64_t dims[3] = {(uint64_t)d, (uint64_t)s, (uint64_t)bh};

@@ -44,7 +44,17 @@ Semantics kept from the JAX package:
   ``p`` to do's type before dV (:348, :415) and ``ds`` to q's type before
   dK and dQ (:308, :356, :422, :428); the dq pass keeps ``p`` in f32;
 - ``lse`` is plain ``[B*H, Sq]`` f32 (the TPU's 8-sublane padding is a
-  Mosaic artefact and is not ported).
+  Mosaic artefact and is not ported);
+- head widths: the kernels take every ``d <= 256``, as the reference takes
+  its Pallas kernel for every ``d <= 256`` (``paddle_tpu/nn/functional/
+  flash_attention.py:47-57``). They run on a padded width of 64, 128, 192
+  or 256 columns whose extra columns TMA fills with zeros, which is exact.
+  TMA takes rows of whole 16-byte vectors, so the wrappers pad q, k, v and
+  do of any other width with zero columns (to a multiple of 8 in bf16, 4 in
+  f32) and slice the results back; the scale stays ``1/sqrt(d)`` of the
+  real ``d``. Above 256 the reference takes XLA's plain attention, and
+  :func:`flash_attention` takes the plain version by the same rule
+  (:func:`fwd_route`).
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
 
@@ -59,6 +70,8 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the fused backward's dq scratch limit (``_bwd_impl`` :499-501)
 FUSED_DQ_SCRATCH_BYTES = 8 << 20
+#: the widest head the kernels take (``_use_pallas``'s ``d <= 256``)
+MAX_KERNEL_HEAD_DIM = 256
 
 
 def to_bh(x):
@@ -78,6 +91,28 @@ def bwd_route(rep, sq, d):
     ``rep * sq * d * 4`` bytes fits in 8 MiB, else ``"split"``: the
     reference's rule, so the same shapes take the same algorithm."""
     return "split" if rep * sq * d * 4 > FUSED_DQ_SCRATCH_BYTES else "fused"
+
+
+def fwd_route(d):
+    """``"kernel"`` for head widths up to :data:`MAX_KERNEL_HEAD_DIM`, else
+    ``"plain"``: the reference's rule, which leaves wider heads to XLA."""
+    return "kernel" if d <= MAX_KERNEL_HEAD_DIM else "plain"
+
+
+def _pad_width(*tensors):
+    """The tensors with zero columns appended up to the next width whose
+    rows are whole 16-byte vectors (TMA's row-stride rule), as they are when
+    the width already is one."""
+    d = tensors[0].shape[-1]
+    align = 16 // tensors[0].element_size()
+    width = -(-d // align) * align
+    if width == d:
+        return tensors
+    return tuple(F.pad(t, (0, width - d)).contiguous() for t in tensors)
+
+
+def _unpad(t, d):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _launcher(lib, name, n_ptrs):
@@ -218,9 +253,10 @@ def _check(name, tensors, q, k):
                              f"16-byte aligned")
     bhq, sq, d = q.shape
     bhk, sk, dk = k.shape
-    if d not in (64, 128) or dk != d:
-        raise ValueError(f"{name}: head_dim must be 64 or 128 on both "
-                         f"sides, got q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not 1 <= d <= MAX_KERNEL_HEAD_DIM or dk != d:
+        raise ValueError(f"{name}: head_dim must be at most "
+                         f"{MAX_KERNEL_HEAD_DIM} and equal on both sides, "
+                         f"got q {tuple(q.shape)} k {tuple(k.shape)}")
     if bhq % bhk or bhq > 65535:
         raise ValueError(f"{name}: q rows B*Hq ({bhq}) must be a multiple "
                          f"of the kv rows B*Hkv ({bhk}) and at most 65535")
@@ -252,14 +288,16 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         # the bf16 kernel takes the row max before scaling: (-q) k^T * -scale
         # is the same product, exactly
         q, scale = -q, -scale
+    q, k, v = _pad_width(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(bhq, sq, dtype=torch.float32, device=q.device)
     rc = _launcher("flash_attention", "flash_attention_fwd_launch", 5)(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), bhq, bhq // bhk, sq, sk, d,
-        float(scale), int(bool(causal)), _DTYPES[q.dtype], stream_handle(q))
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), bhq, bhq // bhk, sq, sk,
+        q.shape[-1], float(scale), int(bool(causal)), _DTYPES[q.dtype],
+        stream_handle(q))
     check_launch(rc, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
-    return o, lse
+    return _unpad(o, d), lse
 
 
 def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
@@ -272,17 +310,18 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
                                                causal, scale)
     bhq, sq, bhk, sk, d = _check_bwd("flash_attention_bwd", q, k, v, do, lse,
                                      delta)
-    dq_acc = torch.zeros(bhq, sq, d, dtype=torch.float32, device=q.device)
+    scale = _scale(q, scale)
+    q, k, v, do = _pad_width(q, k, v, do)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     rc = _launcher("flash_attention", "flash_attention_bwd_launch", 9)(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq_acc),
-        ptr(dk), ptr(dv), bhk, bhq // bhk, sq, sk, d,
-        float(_scale(q, scale)), int(bool(causal)), _DTYPES[q.dtype],
-        stream_handle(q))
+        ptr(dk), ptr(dv), bhk, bhq // bhk, sq, sk, q.shape[-1], float(scale),
+        int(bool(causal)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return (_unpad(dq_acc, d).to(q.dtype), _unpad(dk, d), _unpad(dv, d))
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
@@ -294,15 +333,17 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
                                             scale)
     bhq, sq, bhk, sk, d = _check_bwd("flash_attention_bwd_dq", q, k, v, do,
                                      lse, delta)
+    scale = _scale(q, scale)
+    q, k, v, do = _pad_width(q, k, v, do)
     dq = torch.empty_like(q)
     rc = _launcher("flash_attention_split", "flash_attention_bwd_dq_launch",
                    7)(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq), bhq,
-        bhq // bhk, sq, sk, d, float(_scale(q, scale)), int(bool(causal)),
+        bhq // bhk, sq, sk, q.shape[-1], float(scale), int(bool(causal)),
         _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "flash_attention_bwd_dq")
     LAUNCHES["flash_attention_bwd_dq"] += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
@@ -315,16 +356,18 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
                                              scale)
     bhq, sq, bhk, sk, d = _check_bwd("flash_attention_bwd_dkv", q, k, v, do,
                                      lse, delta)
+    scale = _scale(q, scale)
+    q, k, v, do = _pad_width(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     rc = _launcher("flash_attention_split", "flash_attention_bwd_dkv_launch",
                    8)(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk),
-        ptr(dv), bhk, bhq // bhk, sq, sk, d, float(_scale(q, scale)),
+        ptr(dv), bhk, bhq // bhk, sq, sk, q.shape[-1], float(scale),
         int(bool(causal)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "flash_attention_bwd_dkv")
     LAUNCHES["flash_attention_bwd_dkv"] += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
@@ -375,13 +418,19 @@ flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """[B, S, H, D] flash attention, differentiable. GQA reads the shared
-    kv heads in the kernel; kv is never repeated to q-head width."""
+    kv heads in the kernel; kv is never repeated to q-head width. Heads
+    wider than :data:`MAX_KERNEL_HEAD_DIM` take the plain version, through
+    autograd, on any device (:func:`fwd_route`)."""
     b, sq, hq, d = q.shape
     hk = k.shape[2]
     if hq % hk:
         raise ValueError(f"q heads ({hq}) must be a multiple of kv heads "
                          f"({hk})")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    o, _ = flash_fwd_op(to_bh(q).contiguous(), to_bh(k).contiguous(),
-                        to_bh(v).contiguous(), bool(causal), scale)
+    args = (to_bh(q).contiguous(), to_bh(k).contiguous(),
+            to_bh(v).contiguous(), bool(causal), scale)
+    if fwd_route(d) == "plain":
+        o, _ = flash_attention_fwd_plain(*args)
+    else:
+        o, _ = flash_fwd_op(*args)
     return from_bh(o, b)

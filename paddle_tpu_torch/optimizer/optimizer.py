@@ -18,12 +18,20 @@ Adam's L2 ``weight_decay`` (a regularizer on the gradient) is not ported.
 
 Unlike the JAX package, whose arrays are immutable, the update happens in
 place on the parameters and the state, under ``torch.no_grad``.
+``step()`` observes its wall time into ``optimizer_step_seconds``
+{optimizer}, as the reference's eager step does (the host's time: the
+update is queued on the card, not waited for).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..nn.clip import ClipGradByGlobalNorm
+
+_OPT_STEP_SECONDS = _telemetry.histogram(
+    "optimizer_step_seconds", "eager Optimizer.step wall time",
+    labelnames=("optimizer",))
 
 
 class Adam(torch.optim.Optimizer):
@@ -53,9 +61,11 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        if self.grad_clip is not None:
-            self.grad_clip([g for _, g in self.params_with_grads()])
-        self.apply_updates()
+        with _telemetry.timer(_OPT_STEP_SECONDS,
+                              labels=(type(self).__name__,)):
+            if self.grad_clip is not None:
+                self.grad_clip([g for _, g in self.params_with_grads()])
+            self.apply_updates()
         return loss
 
     @torch.no_grad()

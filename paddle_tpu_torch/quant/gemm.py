@@ -21,10 +21,58 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry as _telemetry
 from ..memory import SCALE_EPS, quantize_rows_int8
 
 __all__ = ["quantize_weight_cols_int8", "int8_weight_matmul",
-           "int8_weights_enabled", "quantize_linear_int8", "int8_linear"]
+           "int8_weights_enabled", "quantize_linear_int8", "int8_linear",
+           "GEMM_SITES", "note_gemm_mode", "note_step_tokens"]
+
+#: the decoder's projection sites (the reference's :51)
+GEMM_SITES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+# telemetry (the reference's :532-575): gemm_dtype_mode gauge and
+# quant_gemm_flops_total counter. The port's one narrow GEMM is the int8
+# weight GEMM of the serving engine (path "serve"), which notes its mode
+# when it packs its weights and its tokens once per forward.
+_GEMM_MODE = _telemetry.gauge(
+    "gemm_dtype_mode",
+    "Narrow-GEMM dtype per decoder site (0=wide, 1=int8, 2=fp8)",
+    labelnames=("site", "path"))
+_QUANT_FLOPS = _telemetry.counter(
+    "quant_gemm_flops_total",
+    "Cumulative forward FLOPs executed through narrow scaled GEMMs",
+    labelnames=("dtype",))
+
+_MODE_VALUE = {"int8": 1.0, "fp8": 2.0}
+
+#: last engagement noted: (path, dtype, flops_per_token)
+_LAST_MODE = [None]
+
+
+def note_gemm_mode(path, sites, dtype, flops_per_token=0):
+    """One ``gemm_dtype_mode`` series per site (0 for sites staying wide)
+    and the per-token narrow-FLOP rate :func:`note_step_tokens` counts
+    with."""
+    mode = _MODE_VALUE.get(dtype, 0.0)
+    for s in GEMM_SITES:
+        _GEMM_MODE.set(mode if s in sites else 0.0, labels=(s, path))
+    if sites:
+        _LAST_MODE[0] = (path, dtype, float(flops_per_token))
+    elif _LAST_MODE[0] is not None and _LAST_MODE[0][0] == path:
+        _LAST_MODE[0] = None
+
+
+def note_step_tokens(tokens):
+    """Tick ``quant_gemm_flops_total`` for ``tokens`` tokens through the
+    narrow GEMMs, at the rate the last engaged :func:`note_gemm_mode`
+    noted."""
+    info = _LAST_MODE[0]
+    if info is None:
+        return
+    _, dtype, per_tok = info
+    if per_tok > 0:
+        _QUANT_FLOPS.inc(per_tok * float(tokens), labels=(dtype,))
 
 #: ``torch._int_mm`` on CUDA takes more than 16 rows; fewer are padded to
 #: this many zero rows (an exact int32 sum, so no row's value changes)

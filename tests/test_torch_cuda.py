@@ -37,10 +37,11 @@ from paddle_tpu_torch.ops.kernels.decode_attention import (
     paged_attention, paged_attention_int8, paged_attention_int8_plain,
     paged_attention_plain, split_count)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_plain, flash_attention_bwd_dq,
     flash_attention_bwd_dq_plain, flash_attention_bwd_fused,
-    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain)
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain,
+    from_bh, fwd_route, to_bh)
 from paddle_tpu_torch.ops.kernels.rms_norm import (rms_norm_fwd,
                                                    rms_norm_plain)
 from paddle_tpu_torch.ops.kernels.swiglu_down import (swiglu_down_fwd,
@@ -756,6 +757,16 @@ FLASH_SHAPES = [  # (hq, hkv, d, sq, sk)
     (4, 4, 64, 100, 200), (4, 1, 128, 64, 192)]
 
 
+#: every padded width of the four flash kernels beside 64 and 128: 40
+#: (padded to 48 columns, then 64 in the kernel), Phi-2's 80, Phi-3-mini's
+#: 96 under GQA, 192, and Gemma's 256 under MHA and MQA (the 192/256-column
+#: backward's 64-key blocks); ragged sq and sk, sq < sk, sq > sk
+WIDTH_SHAPES = [  # (hq, hkv, d, sq, sk)
+    (4, 2, 40, 130, 257), (2, 2, 80, 257, 257), (8, 2, 96, 200, 300),
+    (2, 1, 192, 130, 130), (4, 4, 256, 257, 129), (8, 1, 256, 300, 300),
+    (16, 16, 96, 700, 900)]
+
+
 def _flash_inputs(hq, hkv, d, sq, sk, dtype, device, b=2):
     g = torch.Generator().manual_seed(hq * 1000 + d + sq)
     q = torch.randn(b * hq, sq, d, generator=g)
@@ -776,7 +787,8 @@ FWD_EDGE_SHAPES = [  # (hq, hkv, d, sq, sk)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES + FWD_EDGE_SHAPES)
+@pytest.mark.parametrize("hq,hkv,d,sq,sk",
+                         FLASH_SHAPES + FWD_EDGE_SHAPES + WIDTH_SHAPES)
 def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
                                         d, sq, sk):
     q, k, v, _ = _flash_inputs(hq, hkv, d, sq, sk, dtype, cuda_device)
@@ -802,7 +814,8 @@ FUSED_EDGE_SHAPES = [  # (hq, hkv, d, sq, sk)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES + FUSED_EDGE_SHAPES)
+@pytest.mark.parametrize("hq,hkv,d,sq,sk",
+                         FLASH_SHAPES + FUSED_EDGE_SHAPES + WIDTH_SHAPES)
 def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, causal, hq, hkv,
                                         d, sq, sk):
     q, k, v, do = _flash_inputs(hq, hkv, d, sq, sk, dtype, cuda_device)
@@ -858,7 +871,8 @@ SPLIT_EDGE_SHAPES = [  # (hq, hkv, d, sq, sk)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("hq,hkv,d,sq,sk", FLASH_SHAPES + SPLIT_EDGE_SHAPES)
+@pytest.mark.parametrize("hq,hkv,d,sq,sk",
+                         FLASH_SHAPES + SPLIT_EDGE_SHAPES + WIDTH_SHAPES)
 def test_flash_split_kernels_match_plain(cuda_device, dtype, causal, hq, hkv,
                                          d, sq, sk):
     """The dq and dk/dv kernels against their plain versions: MHA, GQA and
@@ -881,7 +895,8 @@ def test_flash_split_kernels_match_plain(cuda_device, dtype, causal, hq, hkv,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d,sq,sk",
-                         [(8, 2, 128, 300, 300)] + SPLIT_EDGE_SHAPES)
+                         [(8, 2, 128, 300, 300)] + SPLIT_EDGE_SHAPES
+                         + WIDTH_SHAPES)
 def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype, hq, hkv, d,
                                             sq, sk):
     """Each output element is summed by one thread in a fixed order: two
@@ -898,7 +913,8 @@ def test_flash_split_kernels_repeat_bitwise(cuda_device, dtype, hq, hkv, d,
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("hq,hkv,d,sq,sk", [
-    (16, 16, 128, 2048, 2048), (8, 2, 64, 257, 300), (4, 1, 128, 130, 130)])
+    (16, 16, 128, 2048, 2048), (8, 2, 64, 257, 300), (4, 1, 128, 130, 130),
+    (8, 2, 96, 257, 300), (8, 1, 256, 300, 300), (4, 4, 192, 200, 200)])
 def test_flash_split_kernels_match_fused(cuda_device, causal, hq, hkv, d, sq,
                                          sk):
     """The bf16 split pair against the bf16 fused kernel on the same
@@ -934,6 +950,30 @@ def test_flash_bwd_router_takes_split_above_8_mib(cuda_device, hq, hkv, sq,
             counts["flash_attention_bwd_dkv"]) == (1 - split, split, split)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_plain_above_256_by_the_reference_rule(
+        cuda_device, dtype):
+    """At head_dim 320 the reference takes XLA's plain attention
+    (``_use_pallas``: d <= 256); flash_attention takes the plain version,
+    with gradients, and launches no kernel. At 256 it launches both."""
+    for d, launches in ((320, 0), (256, 1)):
+        assert fwd_route(d) == ("plain" if d > 256 else "kernel")
+        q, k, v, do = _flash_inputs(4, 2, d, 130, 130, dtype, cuda_device,
+                                    b=1)
+        q4, k4, v4, do4 = (from_bh(t, 1).detach().requires_grad_()
+                           for t in (q, k, v, do))
+        kernels.reset_launch_counts()
+        o = flash_attention(q4, k4, v4, causal=True)
+        grads = torch.autograd.grad(o, (q4, k4, v4), do4)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (counts["flash_attention_fwd"],
+                counts["flash_attention_bwd"]) == (launches, launches)
+        ro, _ = flash_attention_fwd_plain(q, k, v, True)
+        assert _rel_err(to_bh(o), ro) <= FLASH_TOL[dtype]
+        assert all(torch.isfinite(g.float()).all() for g in grads)
+
+
 #: f32: summation order over M; bf16: the output rounding (2^-8) and
 #: products rounded from f32 values that differ in their last bits
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -961,7 +1001,7 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
                                 cuda_device)
     with pytest.raises(TypeError):
         flash_attention_fwd(q, k, v, True)
-    q, k, v, do = _flash_inputs(2, 2, 32, 64, 64, torch.float32,
+    q, k, v, do = _flash_inputs(2, 2, 320, 64, 64, torch.float32,
                                 cuda_device)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, v, True)

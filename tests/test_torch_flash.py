@@ -39,9 +39,15 @@ GRAD_ATOL = 1e-4
 #: the CUDA forward's tile edges (sq and sk off a multiple of 128, D 128)
 SHAPES = [(2, 4, 4, 64, 64, 64), (1, 8, 2, 128, 128, 64),
           (2, 4, 2, 64, 128, 32), (1, 4, 1, 32, 96, 64),
-          (1, 8, 2, 130, 257, 64), (1, 2, 2, 257, 257, 128)]
+          (1, 8, 2, 130, 257, 64), (1, 2, 2, 257, 257, 128),
+          # the kernels' other head widths: Phi-2's 80, Phi-3-mini's 96
+          # (GQA), Gemma's 256 (MQA), and 40 (padded to 48 columns on
+          # the card)
+          (1, 2, 2, 64, 96, 80), (1, 4, 2, 65, 65, 96), (1, 2, 1, 64, 64, 256),
+          (1, 2, 2, 33, 64, 40)]
 IDS = ["mha", "gqa4", "gqa2-sq<sk", "mqa-sq<sk", "gqa4-ragged-sq<sk",
-       "mha-ragged-d128"]
+       "mha-ragged-d128", "mha-sq<sk-d80", "gqa2-ragged-d96", "mqa-d256",
+       "mha-sq<sk-d40"]
 
 
 def _qkv(b, hq, hkv, sq, sk, d, seed=0):
@@ -126,10 +132,14 @@ def test_flash_row_that_sees_no_key_is_zero():
 #: (hq, hkv, sq, sk, d) at batch 1, kernel layout: the bf16 fused CUDA
 #: kernel's tile edges (128-key tiles, 64-row q tiles over the rep q heads,
 #: a [64 q x 64] dq product per consumer): 127, 129 and 257 keys, sq < sk,
-#: rep 1, 4 and 8, D 64 and 128
+#: rep 1, 4 and 8, D 64 and 128; then the widths the 192/256-column kernel
+#: takes (64-key blocks, dV and dK split between its consumers) and the
+#: padded 80, 96 and 40
 FUSED_EDGE_SHAPES = [(1, 1, 127, 127, 128), (4, 1, 129, 129, 64),
                      (8, 1, 100, 257, 64), (4, 1, 257, 257, 128),
-                     (2, 2, 64, 129, 128), (8, 2, 130, 257, 64)]
+                     (2, 2, 64, 129, 128), (8, 2, 130, 257, 64),
+                     (2, 1, 65, 129, 256), (4, 2, 63, 63, 96),
+                     (1, 1, 129, 129, 80), (2, 1, 64, 100, 40)]
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -224,6 +234,39 @@ def test_rms_norm_grad_matches_pallas():
     for name, a, b in zip(("dx", "dw"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
                                    rtol=1e-5, err_msg=name)
+
+
+def test_heads_above_256_take_plain_attention_as_the_reference(monkeypatch):
+    """Head width 320: the reference leaves it to XLA's plain attention
+    (``_use_pallas``: ``d <= 256``); flash_attention takes the plain
+    version by the same rule, never the flash op, with the same values and
+    gradients as the reference's ``_xla_sdpa``."""
+    from paddle_tpu.nn.functional.flash_attention import _xla_sdpa
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    assert fa.fwd_route(256) == "kernel" and fa.fwd_route(320) == "plain"
+
+    def refuse(*a, **k):
+        raise AssertionError("the flash op ran at head width 320")
+
+    monkeypatch.setattr(fa, "flash_fwd_op", refuse)
+    q, k, v, do = _qkv(1, 2, 2, 24, 24, 320, seed=4)
+
+    def jax_loss(q_, k_, v_):
+        return jnp.sum(_xla_sdpa(q_, k_, v_, causal=True) * jnp.asarray(do))
+
+    want_o = _xla_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=True)
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    o = fa.flash_attention(tq, tk, tv, causal=True)
+    got = torch.autograd.grad(o, (tq, tk, tv), _t(do))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o),
+                               atol=ATOL, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   rtol=0, err_msg=name)
 
 
 def test_cpu_route_of_the_training_kernels_counts_no_launch():

@@ -30,9 +30,14 @@ ATOL = 1e-4
 #: (PTPU_FA_BWD_BLOCK=256), so the causal clamps of both passes engage
 SHAPES = [(1, 2, 2, 128, 128, 64, None), (1, 4, 2, 128, 128, 64, None),
           (1, 4, 1, 64, 192, 32, None), (2, 4, 2, 64, 128, 32, None),
-          (1, 2, 1, 1024, 1024, 64, 256), (1, 2, 2, 512, 1024, 64, 256)]
+          (1, 2, 1, 1024, 1024, 64, 256), (1, 2, 2, 512, 1024, 64, 256),
+          # the kernels' other head widths (80, 96 and 40 padded on the
+          # card; 256 on the 192/256-column dk/dv kernel)
+          (1, 2, 2, 64, 128, 80, None), (1, 4, 2, 128, 128, 96, None),
+          (1, 8, 1, 128, 128, 256, None), (1, 2, 1, 64, 64, 40, None)]
 IDS = ["mha", "gqa", "mqa-sq<sk", "gqa-sq<sk", "mqa-4x4-tiles",
-       "mha-sq<sk-1x4-tiles"]
+       "mha-sq<sk-1x4-tiles", "mha-sq<sk-d80", "gqa-d96", "mqa8-d256",
+       "mqa-d40"]
 
 
 def _inputs(b, hq, hkv, sq, sk, d, seed=0):
@@ -91,12 +96,21 @@ def _reference_route(rep, sq, d):
     return {1: "fused", 2: "split"}[len(calls)]
 
 
-@pytest.mark.parametrize("rep,sq", [(1, 16384), (1, 16512), (4, 4096),
-                                    (4, 4224)])
-def test_bwd_route_is_the_reference_rule_at_8_mib(monkeypatch, rep, sq):
-    """Both sides of the 8 MiB dq scratch at head_dim 128: MHA at 16384
-    (exactly 8 MiB: fused) and 16512 tokens, GQA rep 4 at 4096 and 4224."""
+ROUTE_CASES = [(1, 16384, 128), (1, 16512, 128), (4, 4096, 128),
+               (4, 4224, 128), (4, 2048, 96), (1, 2048, 256), (8, 2048, 256),
+               (1, 8192, 256)]
+
+
+@pytest.mark.parametrize(
+    "rep,sq,d", ROUTE_CASES,
+    ids=[f"{r}-{s}" + ("" if d == 128 else f"-d{d}")
+         for r, s, d in ROUTE_CASES])
+def test_bwd_route_is_the_reference_rule_at_8_mib(monkeypatch, rep, sq, d):
+    """Both sides of the 8 MiB dq scratch: at head_dim 128 MHA at 16384
+    (exactly 8 MiB: fused) and 16512 tokens, GQA rep 4 at 4096 and 4224;
+    then the other widths' training shapes (Phi-3-mini's GQA 32/8 at 96,
+    Gemma's MHA and 8/1 at 256) and 8 MiB exactly at 256."""
     monkeypatch.delenv("PTPU_FA_FUSED_BWD", raising=False)
-    want = "fused" if rep * sq * 128 * 4 <= 8 << 20 else "split"
-    assert bwd_route(rep, sq, 128) == want
-    assert _reference_route(rep, sq, 128) == want
+    want = "fused" if rep * sq * d * 4 <= 8 << 20 else "split"
+    assert bwd_route(rep, sq, d) == want
+    assert _reference_route(rep, sq, d) == want

@@ -37,6 +37,9 @@ def test_scan_covers_the_package():
             "add_rms_norm.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     assert "paddle_tpu_torch/incubate/nn/functional/__init__.py" in rel
+    assert {f"paddle_tpu_torch/telemetry/{m}.py" for m in (
+        "__init__", "registry", "trace", "export", "watchdog", "timeseries",
+        "slo", "flight", "scrape")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
