@@ -119,6 +119,27 @@ Phases, each of which fails the run on error:
              change and equal a fresh engine's.
 7. training consistency - f32, full width, depth 2: three TrainSteps on
              the card equal the same three on the CPU (plain versions).
+   resilience - config 4 in bf16 at full width and depth, batch 3 x seq
+             2048, with LinearWarmup(CosineAnnealingDecay), a global-norm
+             clip and AdamW(factored) leaving the norms undecayed: four
+             clean unguarded runs of 8 steps (their largest loss
+             difference at a step is the card's run-to-run spread; the
+             first two runs' difference is printed too); a guarded run
+             (StepGuard over a CheckpointManager under build/ckpt/,
+             keep=2, and a HangWatchdog) with committed saves after steps
+             2 (sync) and 4 (async) and NaN gradients injected at step 5
+             for two attempts: exactly one skip and one rollback, no byte
+             of a parameter or slot changed by either discarded attempt,
+             every byte equal to step 4's after the restore, the replayed
+             step 5's loss equal to the discarded attempt's bit for bit,
+             every loss within the spread of a clean run's, the launch
+             counts of every attempt, and no watchdog fire; then a fresh
+             model and optimizer restored from the newest committed step
+             take step 5 to the same loss bit for bit. Prints the guarded
+             and unguarded step medians, the checkpoint's bytes, snapshot
+             and write-and-commit seconds (trace spans) and GB/s, and the
+             restore seconds, beside the card's name and power limit;
+             removes build/ckpt/.
 8. long_context - GPT-3 1.3B at seq 32768 as bench.py:81-86 builds it:
              selective remat "names:attn_res,attn_lse,attn_q,attn_k,attn_v,
              resid_mid", AdamW(lr=3e-4), TrainStep, batch 1, one warm-up,
@@ -2882,6 +2903,303 @@ def phase_train_consistency():
     return {"losses": losses, "grad_rel_err": worst}
 
 
+# ---------------------------------------------------------- resilience
+#: the guarded run: steps, the steps saved (sync, then async), the step
+#: whose gradients are NaN and for how many attempts
+RES_STEPS, RES_SAVES, RES_NAN_STEP, RES_NAN_COUNT = 8, (2, 4), 5, 2
+#: clean runs that measure the run-to-run spread. The fused backward's dq
+#: reduce-adds make each step's loss differ by a few 1e-4 from run to run
+#: (config 4 on an H100 80GB HBM3 at 700 W). A third run falls outside the
+#: spread of two at one of 7 steps about one time in four by chance (iid
+#: normal noise, simulated); outside the spread of four about one time in
+#: 100.
+RES_CLEAN_RUNS = 4
+#: the norm weights AdamW's apply_decay_param_fun leaves undecayed
+RES_NO_DECAY = ("decoder.ln1", "decoder.ln2", "final_norm.weight")
+
+
+def _res_setup(cfg, device, seed):
+    """Config 4 as _train_setup builds it, with a schedule, a clip and
+    the decay filter: AdamW(factored) over named parameters."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = GPTForCausalLMPipe(cfg, device=device).init_weights(gen,
+                                                                std=0.02)
+    sched = LinearWarmup(CosineAnnealingDecay(3e-4, T_max=8),
+                         warmup_steps=2, start_lr=0.0, end_lr=3e-4)
+    opt = AdamW(model.named_parameters(), lr=sched, weight_decay=0.01,
+                factored=True, grad_clip=ClipGradByGlobalNorm(1.0),
+                apply_decay_param_fun=lambda n: n not in RES_NO_DECAY)
+    return model, opt, sched, TrainStep(model, model.loss, opt)
+
+
+def _res_tensors(model, opt):
+    """Every parameter and optimizer slot, by name (live tensors)."""
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = p
+        for k, v in opt.state.get(p, {}).items():
+            out[f"{n}.{k}"] = v
+    return out
+
+
+def _res_same(live, snap):
+    """Names whose bytes differ between two {name: tensor} maps."""
+    return sorted(n for n in snap if not torch.equal(
+        live[n].detach().reshape(-1).view(torch.uint8),
+        snap[n].reshape(-1).view(torch.uint8)))
+
+
+def _hex32(v):
+    return np.float32(v).tobytes().hex()
+
+
+def phase_resilience(smi="", cfg=None, batch=3, seq=2048, device=DEVICE,
+                     root=Path("build/ckpt")):
+    """Config 4 (bf16, full width and depth, batch 3 x seq 2048) under
+    LinearWarmup(CosineAnnealingDecay), ClipGradByGlobalNorm(1.0) and
+    AdamW(factored) with the norms undecayed: (a) RES_CLEAN_RUNS clean
+    unguarded runs of RES_STEPS steps from one seed (the largest loss
+    difference among them at any step is the card's run-to-run spread;
+    the first two runs' own difference is printed too); (b) a guarded
+    run: StepGuard over a
+    CheckpointManager (keep=2) with a HangWatchdog, committed saves after
+    steps 2 (sync) and 4 (async), NaN gradients injected at step 5 for
+    two attempts: one skip, one rollback to step 4, a replay to step 8;
+    (c) a fresh model and optimizer restored from the newest committed
+    step take one step. The batch of step s is _train_batch(seed=s).
+    Tracing is on for the whole phase (the checkpoint's spans give the
+    snapshot and write times), so both step medians carry its few spans.
+    The checkpoint root is removed at the end, pass or fail. ``smi`` is
+    the card's name and power limit, printed beside the readings; the
+    other arguments let the same phase run at a small size on the CPU."""
+    import shutil
+
+    from paddle_tpu_torch.distributed.checkpoint import CHECKSUM_ALGO
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.telemetry import trace
+
+    if cfg is None:
+        cfg = GPTConfig(vocab_size=32000, hidden_size=2048, num_layers=24,
+                        num_heads=16, max_seq_len=2048, dropout=0.0,
+                        dtype="bfloat16", recompute=True)
+    t_phase = time.perf_counter()
+    batches = {s: _train_batch(cfg.vocab_size, batch, seq, s, device)
+               for s in range(1, RES_STEPS + 1)}
+    trace.enable()
+    trace.reset()
+    try:
+        res = _resilience_runs(cfg, device, root, batches)
+    finally:
+        trace.disable()
+        trace.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    snap_gbs = {s: round(v, 2) for s, v in res["snapshot_gb_per_s"].items()}
+    print(f"resilience: {smi}: step median unguarded "
+          f"{res['unguarded_step_ms_median']:.1f} ms, guarded "
+          f"{res['guarded_step_ms_median']:.1f} ms (host clock, each ends "
+          f"in a device read); checkpoint {res['checkpoint_bytes']} bytes "
+          f"on disk ({res['state_bytes']} of tensors); snapshot s "
+          f"{res['snapshot_s']} ({snap_gbs} GB/s); write and commit s "
+          f"{res['write_commit_s']}; restore s "
+          f"{res['rollback_restore_s']:.3f} (rollback), "
+          f"{res['fresh_restore_s']:.3f} (fresh); checksum "
+          f"{CHECKSUM_ALGO}; phase {res['seconds']:.1f} s (runs a, b, c: "
+          + ", ".join(f"{v:.1f}" for v in res["part_seconds"].values())
+          + ")", flush=True)
+    return res
+
+
+def _resilience_runs(cfg, device, root, batches):
+    """The three runs of :func:`phase_resilience`; returns the readings."""
+    from paddle_tpu_torch.distributed.checkpoint.manager import \
+        CheckpointManager
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import HangWatchdog, StepGuard
+    from paddle_tpu_torch.telemetry import trace
+    from paddle_tpu_torch.testing import chaos
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    part_s = {"a": time.perf_counter()}
+
+    # (a) clean unguarded runs
+    clean, clean_ms = [], []
+    for _ in range(RES_CLEAN_RUNS):
+        model, opt, sched, step = _res_setup(cfg, device, 0)
+        losses = []
+        for s in range(1, RES_STEPS + 1):
+            sched.step(s)
+            t0 = time.perf_counter()
+            losses.append(step(*batches[s]).item())
+            clean_ms.append((s, (time.perf_counter() - t0) * 1e3))
+        clean.append(losses)
+        del model, opt, step
+    spread = max(max(c) - min(c) for c in zip(*clean))
+    two = max(abs(a - b) for a, b in zip(clean[0], clean[1]))
+    print(f"resilience: (a) clean losses {clean}; largest difference of "
+          f"the first two runs {two!r}, of all {RES_CLEAN_RUNS} {spread!r} "
+          f"(the card's run-to-run spread)", flush=True)
+
+    # (b) the guarded run
+    part_s["b"] = time.perf_counter()
+    model, opt, sched, step = _res_setup(cfg, device, 0)
+    live = {}                 # every parameter and slot, once they exist
+    mgr = CheckpointManager(str(root), keep=2)
+    guard = StepGuard(step, manager=mgr, max_consecutive=2)
+    saved, seen = {}, {}
+    real_restore = mgr.restore_last_good
+
+    def restore_checked(model_, opt_, before_step=None, strict=True):
+        # the second discarded attempt changed nothing; then scribble over
+        # every live tensor, so the restore has to write each byte
+        seen["before_restore"] = _res_same(live, saved)
+        with torch.no_grad():
+            for t in live.values():
+                t.fill_(float("nan") if t.is_floating_point() else 0)
+        sync()
+        t0 = time.perf_counter()
+        restored = real_restore(model_, opt_, before_step=before_step,
+                                strict=strict)
+        sync()
+        seen["rollback_restore_s"] = time.perf_counter() - t0
+        seen["after_restore"] = _res_same(live, saved)
+        return restored
+
+    mgr.restore_last_good = restore_checked
+    log, guarded_ms, save_calls = [], [], {}
+    kernels.reset_launch_counts()
+    with HangWatchdog(root / "debris") as wd, \
+            chaos.inject_nonfinite(RES_NAN_STEP, kind="nan",
+                                   count=RES_NAN_COUNT):
+        gstep = 1
+        while gstep <= RES_STEPS:
+            sched.step(gstep)
+            wd.step_started(gstep)
+            t0 = time.perf_counter()
+            out = guard(gstep, *batches[gstep])
+            dt = (time.perf_counter() - t0) * 1e3
+            wd.step_finished()
+            log.append((gstep, out.action, out.health.loss))
+            if out.accepted:
+                guarded_ms.append((gstep, dt))
+                if gstep in RES_SAVES:
+                    t0 = time.perf_counter()
+                    mgr.save_training_state(
+                        gstep, model, opt,
+                        async_save=gstep == RES_SAVES[-1])
+                    save_calls[gstep] = time.perf_counter() - t0
+                    if gstep == RES_SAVES[-1]:
+                        live.update(_res_tensors(model, opt))
+                        saved = {n: t.detach().clone()
+                                 for n, t in live.items()}
+            elif out.action == "skip":
+                seen["after_skip"] = _res_same(live, saved)
+            gstep = out.next_step
+    mgr.wait()
+    sync()
+    counts = kernels.launch_counts()
+    spans = [e for e in trace.events()
+             if e["name"].startswith("ckpt:") and e["ph"] == "X"]
+    committed = mgr.latest_step()
+    ckpt_bytes = sum(f.stat().st_size
+                     for f in Path(mgr.step_dir(committed)).iterdir())
+    state_bytes = sum(t.numel() * t.element_size() for t in live.values())
+    del saved
+    print(f"resilience: (b) attempts {log}; skips {guard.skips}, "
+          f"rollbacks {guard.rollbacks}; bytes changed by the skip "
+          f"{seen.get('after_skip')}, by the second attempt "
+          f"{seen.get('before_restore')}, differing from step "
+          f"{RES_SAVES[-1]} after the restore {seen.get('after_restore')};"
+          f" watchdog debris {wd.debris_files}", flush=True)
+    check(guard.skips == 1 and guard.rollbacks == 1,
+          f"skips {guard.skips}, rollbacks {guard.rollbacks}")
+    check(seen.get("after_skip") == [] and seen.get("before_restore") == [],
+          f"a discarded attempt changed {seen}")
+    check(seen.get("after_restore") == [],
+          f"restored state differs from step {RES_SAVES[-1]}: {seen}")
+    check(not wd.debris_files, f"the hang watchdog fired: "
+                               f"{wd.debris_files}")
+    L, n = cfg.num_layers, len(log)
+    if cuda:
+        want = {"flash_attention_fwd": 2 * L * n,
+                "flash_attention_bwd": L * n, "swiglu_down": 2 * L * n,
+                "rms_norm": 4 * L * n}
+        check(all(counts[k] == v for k, v in want.items()),
+              f"guarded run launches {counts}, want {want} ({n} attempts)")
+    guarded = {s: loss for s, action, loss in log if action == "accept"}
+    first = next(loss for s, _, loss in log if s == RES_NAN_STEP)
+    replay = guarded[RES_NAN_STEP]
+    worst = max(min(abs(guarded[s] - c[s - 1]) for c in clean)
+                for s in guarded)
+    print(f"resilience: (b) losses {[guarded[s] for s in sorted(guarded)]};"
+          f" step {RES_NAN_STEP}: discarded attempt {_hex32(first)}, replay"
+          f" {_hex32(replay)}; largest distance to the nearest clean run "
+          f"{worst!r} (spread {spread!r})", flush=True)
+    check(_hex32(replay) == _hex32(first),
+          f"replayed step {RES_NAN_STEP} loss {replay!r} != the discarded "
+          f"attempt's {first!r}")
+    check(worst <= spread, f"guarded losses {guarded} leave the clean "
+                           f"runs' spread {spread}: {clean}")
+    del model, opt, step, guard, live
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) a fresh model and optimizer from the newest committed step
+    part_s["c"] = time.perf_counter()
+    model, opt, sched, step = _res_setup(cfg, device, 1)
+    sync()
+    t0 = time.perf_counter()
+    restored = mgr.restore_training_state(model, opt)
+    sync()
+    fresh_restore_s = time.perf_counter() - t0
+    sched.step(restored + 1)
+    resumed = step(*batches[restored + 1]).item()
+    print(f"resilience: (c) restored step {restored} into a fresh model "
+          f"in {fresh_restore_s:.3f} s; step {restored + 1} loss "
+          f"{_hex32(resumed)} against the guarded run's "
+          f"{_hex32(guarded[restored + 1])}", flush=True)
+    check(restored == RES_SAVES[-1], f"restored step {restored}")
+    check(_hex32(resumed) == _hex32(guarded[restored + 1]),
+          f"resumed loss {resumed!r} != {guarded[restored + 1]!r}")
+    del model, opt, step
+    mgr.close()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    part_s["end"] = time.perf_counter()
+    part_s = {k: part_s[n] - part_s[k] for k, n in
+              (("a", "b"), ("b", "c"), ("c", "end"))}
+
+    def med(rows):
+        return statistics.median(ms for s, ms in rows if s > 1)
+
+    snap = {e["attrs"]["step"]: e["dur"] for e in spans
+            if e["name"] == "ckpt:snapshot"}
+    write = {e["attrs"]["step"]: e["dur"] for e in spans
+             if e["name"] == "ckpt:write_commit"}
+    return {"clean_losses": clean, "spread": spread, "spread_of_two": two,
+            "guarded_losses": guarded, "attempts": log,
+            "unguarded_step_ms_median": med(clean_ms),
+            "guarded_step_ms_median": med(guarded_ms),
+            "checkpoint_bytes": ckpt_bytes, "state_bytes": state_bytes,
+            "save_call_s": save_calls, "snapshot_s": snap,
+            "snapshot_gb_per_s": {s: state_bytes / d / 1e9
+                                  for s, d in snap.items()},
+            "write_commit_s": write,
+            "rollback_restore_s": seen["rollback_restore_s"],
+            "fresh_restore_s": fresh_restore_s, "launches": counts,
+            "skips": 1, "rollbacks": 1, "part_seconds": part_s}
+
+
 # ---------------------------------------------------------------- phase 8
 #: bench.py:84-85, the long-context line's selective remat
 LONG_POLICY = "names:attn_res,attn_lse,attn_q,attn_k,attn_v,resid_mid"
@@ -3123,6 +3441,8 @@ def main():
         report["training"] = run("training", phase_training)
         report["train_consistency"] = run("train_consistency",
                                           phase_train_consistency)
+        report["resilience"] = run("resilience", phase_resilience,
+                                   report["device"]["smi"])
         report["long_context"] = run("long_context", phase_long_context)
         report["long_context_remat"] = run("long_context_remat",
                                            phase_long_context_remat)

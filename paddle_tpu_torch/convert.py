@@ -9,14 +9,15 @@ same on both sides (``model.layers.{i}.attn.q_proj.weight`` ...).
 The training model (``GPTForCausalLMPipe``) keeps the JAX package's
 stacked ``[L, in, out]`` layout and its names (``embed_tokens.weight``,
 ``decoder.{ln1,wq,wk,wv,wo,ln2,wg,wu,wd}``, ``final_norm.weight``), so
-its state dict carries over without a transpose.
+its state dict, and its optimizer slots with it
+(:func:`training_state_from_jax`), carry over without a transpose.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .models.gpt import BLOCK_PARAMS
+from .models.gpt import BLOCK_PARAMS, GPTForCausalLMPipe
 
 _LINEAR = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
            "down_proj", "lm_head")
@@ -96,3 +97,29 @@ def pipe_state_dict_to_jax(state: dict) -> dict[str, np.ndarray]:
     """Inverse of :func:`pipe_state_dict_from_jax` (float32 numpy)."""
     return {name: np.ascontiguousarray(t.detach().float().cpu().numpy())
             for name, t in state.items()}
+
+
+def training_state_from_jax(flat: dict, model) -> dict[str, torch.Tensor]:
+    """The JAX package's ``training_state_dict(model, opt)`` of a
+    ``GPTForCausalLMPipe``, taken as numpy arrays (parameters under their
+    names, slots as ``opt.<name>.<slot>``), -> the port's training state
+    in the same layout (CPU tensors, dtypes kept, bf16 included): what
+    ``CheckpointManager.save`` writes and ``restore_training_state``
+    copies into the port's model and optimizer. Only the Pipe: a serving
+    model's linear weights would need the transpose."""
+    if not isinstance(model, GPTForCausalLMPipe):
+        raise TypeError("training_state_from_jax carries a "
+                        "GPTForCausalLMPipe's state, got "
+                        f"{type(model).__name__}")
+    want = set(model.state_dict())
+    out = {}
+    for key, a in flat.items():
+        name = key[4:].rsplit(".", 1)[0] if key.startswith("opt.") else key
+        if name not in want:
+            raise KeyError(f"training_state_from_jax: {key!r} names no "
+                           "parameter of the model")
+        out[key] = _to_torch(np.asarray(a))
+    missing = sorted(want - set(out))
+    if missing:
+        raise KeyError(f"training_state_from_jax: missing {missing}")
+    return out

@@ -10,8 +10,11 @@ verify's position-0 logits against the tick's, streams and launches),
 int8-resident weights (the int8 GEMM bit for bit against the CPU's) and
 the disaggregated pair on the card against the CPU or the single engine,
 the incubate decoder of ``chip_smoke.py`` on the card against
-the CPU, and three training steps on the card against the same three on
-the CPU, under full and under selective remat.
+the CPU, three training steps on the card against the same three on
+the CPU, under full and under selective remat, a guarded step's
+keep-select on CUDA tensors (a NaN injection changes no byte of any
+parameter or slot) and a CheckpointManager round trip of CUDA tensors,
+bit for bit.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -46,7 +49,10 @@ from paddle_tpu_torch.ops.kernels.rms_norm import (rms_norm_fwd,
                                                    rms_norm_plain)
 from paddle_tpu_torch.ops.kernels.swiglu_down import (swiglu_down_fwd,
                                                       swiglu_down_plain)
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.distributed.checkpoint.manager import CheckpointManager
+from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.testing import chaos
 
 pytestmark = pytest.mark.cuda
 
@@ -1103,3 +1109,94 @@ def test_selective_remat_on_card_matches_cpu_and_launches_fwd_once(
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for n, g in out["cpu"][2].items():
         assert ((out["cuda"][2][n] - g).norm() / g.norm()).item() <= 5e-4, n
+
+
+def _guard_model(device, seed):
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256, recompute=True,
+                    dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return GPTForCausalLMPipe(cfg, device=device,
+                              dtype=torch.bfloat16).init_weights(gen,
+                                                                 std=0.05)
+
+
+def _state_bytes(model, opt):
+    out = {n: p.detach().reshape(-1).view(torch.uint8).to("cpu", copy=True)
+           for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        for k, v in opt.state.get(p, {}).items():
+            out[f"{n}.{k}"] = v.reshape(-1).view(torch.uint8).to("cpu",
+                                                                 copy=True)
+    return out
+
+
+GUARD_OPTS = {
+    "adamw-factored-decay_fun-clip": lambda P: AdamW(
+        P, lr=1e-3, factored=True, grad_clip=ClipGradByGlobalNorm(1.0),
+        apply_decay_param_fun=lambda n: "ln" not in n and "norm" not in n),
+    "adamw-multi_precision-amsgrad": lambda P: AdamW(
+        P, lr=1e-3, multi_precision=True, amsgrad=True),
+    "adam-int8": lambda P: Adam(P, lr=1e-3, moment_dtype="int8"),
+}
+
+
+@pytest.mark.parametrize("name", list(GUARD_OPTS))
+def test_guarded_step_on_card_keeps_every_byte_on_nan(cuda_device, name):
+    """A two-layer bf16 Pipe on the card: one clean step, then an armed
+    step with NaN gradients leaves every parameter and slot byte (moments,
+    factored statistics, int8 codes and scales, beta powers, master
+    weights) unchanged; the next armed clean step updates."""
+    model = _guard_model(cuda_device, 0)
+    opt = GUARD_OPTS[name](model.named_parameters())
+    step = TrainStep(model, model.loss, opt)
+    rng = np.random.default_rng(2)
+    ids = torch.as_tensor(rng.integers(0, 1024, (2, 256)),
+                          device=cuda_device)
+    step(ids, ids)
+    assert step.last_health.ok
+    before = _state_bytes(model, opt)
+    step._guard_threshold = float("inf")
+    with chaos.inject_nonfinite(step._call_index + 1):
+        step(ids, ids)
+    assert not step.last_health.ok and not step.last_health.finite
+    after = _state_bytes(model, opt)
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    step(ids, ids)
+    assert step.last_health.ok
+    moved = _state_bytes(model, opt)
+    assert not torch.equal(moved["decoder.wq"], before["decoder.wq"])
+
+
+def test_checkpoint_round_trip_of_cuda_tensors_is_bitwise(cuda_device,
+                                                          tmp_path):
+    """An async save of a CUDA model and optimizer, the live tensors
+    changed in place right after; restoring into a fresh model and into
+    the changed one gives the saved bytes, on the same CUDA tensors."""
+    model = _guard_model(cuda_device, 1)
+    opt = GUARD_OPTS["adamw-factored-decay_fun-clip"](
+        model.named_parameters())
+    step = TrainStep(model, model.loss, opt)
+    ids = torch.as_tensor(np.random.default_rng(3).integers(0, 1024,
+                                                            (2, 256)),
+                          device=cuda_device)
+    step(ids, ids)
+    saved = _state_bytes(model, opt)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save_training_state(1, model, opt, async_save=True)
+    step(ids, ids)                         # training goes on, in place
+    mgr.wait()
+    fresh = _guard_model(cuda_device, 2)
+    fresh_opt = GUARD_OPTS["adamw-factored-decay_fun-clip"](
+        fresh.named_parameters())
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    for m, o in ((fresh, fresh_opt), (model, opt)):
+        assert mgr.restore_training_state(m, o) == 1
+        got = _state_bytes(m, o)
+        assert got.keys() == saved.keys()
+        for k in saved:
+            assert torch.equal(got[k], saved[k]), k
+        assert all(p.device.type == cuda_device.type for p in m.parameters())
+    assert [p.data_ptr() for p in model.parameters()] == ptrs
+

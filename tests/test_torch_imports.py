@@ -1,8 +1,9 @@
 """The port imports torch, never jax, and nothing of the JAX package.
 
-A static scan of every module of ``paddle_tpu_torch`` and of
-``chip_smoke.py``: an ``import`` or ``from ... import`` of ``jax``,
-``jaxlib`` or ``paddle_tpu`` (other than ``paddle_tpu_torch``) fails.
+A static scan of every module of ``paddle_tpu_torch``, of
+``chip_smoke.py`` and of ``chip_ab.py``: an ``import`` or ``from ...
+import`` of ``jax``, ``jaxlib`` or ``paddle_tpu`` (other than
+``paddle_tpu_torch``) fails.
 """
 import ast
 from pathlib import Path
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -40,6 +41,12 @@ def test_scan_covers_the_package():
     assert {f"paddle_tpu_torch/telemetry/{m}.py" for m in (
         "__init__", "registry", "trace", "export", "watchdog", "timeseries",
         "slo", "flight", "scrape")} <= rel
+    assert {f"paddle_tpu_torch/{m}.py" for m in (
+        "optimizer/lr", "optimizer/regularizer", "optimizer/zoo",
+        "resilience/__init__", "resilience/guard", "resilience/watchdog",
+        "distributed/__init__", "distributed/checkpoint/__init__",
+        "distributed/checkpoint/manager", "testing/__init__",
+        "testing/chaos", "testing/train_worker")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
