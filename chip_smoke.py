@@ -110,7 +110,8 @@ Phases, each of which fails the run on error:
              pages exported from one engine and imported into another give
              hits and the donor's streams.
 6. training - GPT-3 1.3B (config 4) at full width and depth in bf16:
-             GPTForCausalLMPipe -> chunked-CE loss -> AdamW(factored) ->
+             GPTForCausalLMPipe -> chunked-CE loss (int8 logits, the
+             card's gated default) -> AdamW(factored) ->
              TrainStep, batch 3 x seq 2048, one warm-up and 5 timed steps
              and one profiled step. Checks finite, falling losses that
              start near ln(vocab) and the launch counts per step. Then the
@@ -118,7 +119,8 @@ Phases, each of which fails the run on error:
              one more step, reload_weights() and serves again: the streams
              change and equal a fresh engine's.
 7. training consistency - f32, full width, depth 2: three TrainSteps on
-             the card equal the same three on the CPU (plain versions).
+             the card equal the same three on the CPU (plain versions),
+             the CE head pinned to f32 logits on both.
    resilience - config 4 in bf16 at full width and depth, batch 3 x seq
              2048, with LinearWarmup(CosineAnnealingDecay), a global-norm
              clip and AdamW(factored) leaving the norms undecayed: four
@@ -140,6 +142,22 @@ Phases, each of which fails the run on error:
              and write-and-commit seconds (trace spans) and GB/s, and the
              restore seconds, beside the card's name and power limit;
              removes build/ckpt/.
+   quant_train - config 4 as phase 6 builds it, 8 steps of one seeded
+             batch per step number from the same seeded weights, three
+             runs: (a) names:<bench.py's base saves>,resid_mid,ffn_gate,
+             ffn_up with the head pinned to f32; (b) the same with
+             quant:all (fp8 forward GEMMs, torch._scaled_mm, delayed
+             scaling) and the default int8 head; (c) the all-int8 saves
+             with quant:all. Checks gemm_dtype_mode 2 for wq wk wv wo wg
+             wu and 0 for wd (swiglu_down owns it), the quant_gemm plan
+             verdicts, loss_head_mode, quant_gemm_flops_total per step,
+             the amax buffer after step 1, an armed NaN attempt leaving
+             every byte of quant_amax, the launch counts per step, finite
+             losses within 2% of (a)'s, the parity gate and the
+             loss-drift probe on the card; prints step medians, peak
+             memory, the relative drift per step, _scaled_mm and bf16
+             matmul at config 4's projection shapes with their bounds,
+             the quantize passes and the CE head's int8 and f32 times.
 8. long_context - GPT-3 1.3B at seq 32768 as bench.py:81-86 builds it:
              selective remat "names:attn_res,attn_lse,attn_q,attn_k,attn_v,
              resid_mid", AdamW(lr=3e-4), TrainStep, batch 1, one warm-up,
@@ -153,7 +171,7 @@ Phases, each of which fails the run on error:
 
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight and disaggregated serving,
-incubate, training and long-context runs; the last
+incubate, training, quant_train (run b) and long-context runs; the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
 line.
@@ -176,7 +194,8 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 DEVICE = "cuda"
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+            torch.float8_e4m3fn: 1979e12, torch.int8: 1979e12}
 
 
 def check(cond, msg):
@@ -2690,7 +2709,12 @@ def _profile_step(step, batch, wall_ms):
             "by_group_ms": groups, "port_kernels_ms": port}
 
 
-def _train_setup(cfg, dtype, device, seed):
+def _train_setup(cfg, dtype, device, seed, int8=None):
+    """Config ``cfg`` with seeded weights, AdamW(factored) and a TrainStep
+    over ``model.loss``; ``int8`` True or False pins the CE head's logits,
+    None leaves them to the device's default (int8 on the card)."""
+    import functools
+
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
     from paddle_tpu_torch.optimizer import AdamW
@@ -2701,7 +2725,8 @@ def _train_setup(cfg, dtype, device, seed):
         gen, std=0.02)
     opt = AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
                 factored=True)
-    return model, TrainStep(model, model.loss, opt)
+    return model, TrainStep(model, functools.partial(model.loss, int8=int8),
+                            opt)
 
 
 def _train_batch(vocab, batch, seq, seed, device):
@@ -2874,8 +2899,11 @@ def phase_train_consistency():
     cfg = GPTConfig(vocab_size=32000, hidden_size=2048, num_layers=2,
                     num_heads=16, max_seq_len=2048, dropout=0.0,
                     dtype="float32", recompute=True)
-    cpu_model, cpu_step = _train_setup(cfg, torch.float32, "cpu", seed=1)
-    gpu_model, gpu_step = _train_setup(cfg, torch.float32, DEVICE, seed=1)
+    # the same head on both sides: f32 logits (the card's default is int8)
+    cpu_model, cpu_step = _train_setup(cfg, torch.float32, "cpu", seed=1,
+                                       int8=False)
+    gpu_model, gpu_step = _train_setup(cfg, torch.float32, DEVICE, seed=1,
+                                       int8=False)
     gpu_model.load_state_dict(cpu_model.state_dict())
     losses, grads = {}, {}
     for dev, model, step in (("cpu", cpu_model, cpu_step),
@@ -3200,6 +3228,300 @@ def _resilience_runs(cfg, device, root, batches):
             "skips": 1, "rollbacks": 1, "part_seconds": part_s}
 
 
+# ---------------------------------------------------------- quant_train
+#: bench.py's base_saves (``rms_rstd`` saves nothing on the port's route)
+QT_BASE = "attn_res,attn_lse,attn_q,attn_k,attn_v,rms_rstd"
+#: the three runs: (policy, head). (a) bench.py's r5 row with the head
+#: pinned to f32; (b) the same with quant:all; (c) the planner grid's
+#: all-int8 row with quant:all; the head of (b) and (c) is the default
+QT_RUNS = {
+    "a": (f"names:{QT_BASE},resid_mid,ffn_gate,ffn_up", False),
+    "b": (f"names:{QT_BASE},resid_mid,ffn_gate,ffn_up,quant:all", None),
+    "c": (f"names:{QT_BASE},int8:resid_mid,int8:ffn_gate,int8:ffn_up,"
+          "quant:all", None),
+}
+QT_STEPS = 8
+#: each loss of (b) and (c) against (a)'s at the same step: the
+#: reference's end-to-end bound for int8 saves (tests/test_memory.py:
+#: 113-122)
+QT_LOSS_RTOL = 0.02
+#: bench.py:745-746, the QUANT gate's loss-drift budget
+QT_DRIFT_BUDGET = 0.005
+
+
+def _qt_config(policy, cfg=None):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    base = cfg.__dict__ if cfg is not None else dict(
+        vocab_size=32000, hidden_size=2048, num_layers=24, num_heads=16,
+        max_seq_len=2048, dropout=0.0, dtype="bfloat16", recompute=True)
+    return GPTConfig(**dict(base, recompute_policy=policy))
+
+
+def _qt_gemm_readings(cuda):
+    """``torch._scaled_mm`` (through the port's fp8 route, quantize
+    included and alone) against a bf16 ``torch.matmul`` at config 4's two
+    projection shapes, each with its bound; the quantize passes of one
+    site."""
+    from paddle_tpu_torch.quant import gemm as qg
+
+    out = {}
+    if not cuda:
+        return out
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    for m, k, n in ((6144, 2048, 2048), (6144, 2048, 5504)):
+        x = torch.randn(m, k, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16)
+        w = torch.randn(k, n, device=DEVICE, generator=gen,
+                        dtype=torch.bfloat16) * 0.02
+        one = torch.ones((), device=DEVICE)
+        sx = x.abs().amax().float() / 448.0
+        sw = w.abs().amax().float() / 448.0
+        xq = qg._quantize(x, sx, "fp8", m, k)
+        wq_t = qg._quantize(w.t(), sw, "fp8", n, k)
+        ops = 2.0 * m * n * k
+        fp8_ms = time_ms(lambda: torch._scaled_mm(
+            xq, wq_t.t(), scale_a=one, scale_b=one, out_dtype=torch.bfloat16,
+            use_fast_accum=False))
+        bf16_ms = time_ms(lambda: torch.matmul(x, w))
+        quant_ms = time_ms(lambda: (qg._quantize(x, sx, "fp8", m, k),
+                                    qg._quantize(w.t(), sw, "fp8", n, k),
+                                    x.abs().amax(), w.abs().amax()))
+        fp8_bound, fp8_by = bound_ms(m * k + k * n + 2 * m * n, ops,
+                                     torch.float8_e4m3fn)
+        bf16_bound, bf16_by = bound_ms(2 * (m * k + k * n + m * n), ops,
+                                       torch.bfloat16)
+        out[f"{m}x{k}x{n}"] = {
+            "scaled_mm_ms": fp8_ms, "scaled_mm_bound_ms": fp8_bound,
+            "scaled_mm_bound_by": fp8_by, "bf16_matmul_ms": bf16_ms,
+            "bf16_bound_ms": bf16_bound, "bf16_bound_by": bf16_by,
+            "quantize_pair_ms": quant_ms}
+        print(f"quant_train: [{m},{k}]x[{k},{n}]: _scaled_mm {fp8_ms:.4f} "
+              f"ms (bound {fp8_bound:.4f}, {fp8_by}), bf16 matmul "
+              f"{bf16_ms:.4f} ms (bound {bf16_bound:.4f}, {bf16_by}); "
+              f"quantize x and w with their amax {quant_ms:.4f} ms",
+              flush=True)
+    return out
+
+
+def _qt_head_readings(cfg, batch, seq, cuda):
+    """The chunked CE head's forward and backward at the step's shapes,
+    int8 against f32 logits, on CUDA events."""
+    from paddle_tpu_torch.nn.functional import chunked_lm_loss_arrays
+
+    if not cuda:
+        return {}
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    h = torch.randn(batch * seq, cfg.hidden_size, device=DEVICE,
+                    generator=gen, dtype=torch.bfloat16).requires_grad_()
+    w = (torch.randn(cfg.vocab_size, cfg.hidden_size, device=DEVICE,
+                     generator=gen, dtype=torch.bfloat16) * 0.02
+         ).requires_grad_()
+    y = torch.randint(0, cfg.vocab_size, (batch * seq,), device=DEVICE,
+                      generator=gen)
+    out = {}
+    for int8 in (True, False):
+        def run():
+            loss = chunked_lm_loss_arrays(h, w, y, int8=int8)
+            torch.autograd.grad(loss, (h, w))
+        out["int8" if int8 else "f32"] = time_ms(run, reps=5, inner=2)
+    print(f"quant_train: CE head forward + backward at [{batch * seq}, "
+          f"{cfg.hidden_size}] x [{cfg.vocab_size}, {cfg.hidden_size}]: "
+          f"int8 {out['int8']:.3f} ms, f32 {out['f32']:.3f} ms",
+          flush=True)
+    return out
+
+
+def _qt_run(name, cfg, batch, seq, device, batches, smi):
+    """One run of :func:`phase_quant_train`: QT_STEPS TrainSteps, the
+    checks of its run, and its readings."""
+    from paddle_tpu_torch import quant, telemetry
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing import chaos
+
+    policy, head = QT_RUNS[name]
+    cfg = _qt_config(policy, cfg)
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model, step = _train_setup(cfg, getattr(torch, cfg.dtype), device,
+                               seed=0, int8=head)
+    # bytes the forward leaves held for the backward (saved activations,
+    # the head's residuals), on the allocator's count
+    held = []
+    loss_fn = step.train_fn
+
+    def train_fn(*b):
+        base = torch.cuda.memory_allocated() if cuda else 0
+        loss = loss_fn(*b)
+        held.append((torch.cuda.memory_allocated() if cuda else 0) - base)
+        return loss
+
+    step.train_fn = train_fn
+    quantized = name != "a"
+    telemetry.reset()
+    telemetry.enable()
+    flops = []
+    losses, step_ms = [], []
+    try:
+        for s in range(1, QT_STEPS + 1):
+            if s == 2:
+                kernels.reset_launch_counts()
+            before = telemetry.snapshot()["counters"].get(
+                "quant_gemm_flops_total", {}).get("dtype=fp8", 0.0)
+            sync()
+            t0 = time.perf_counter()
+            losses.append(step(*batches[s]).item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            snap = telemetry.snapshot()
+            flops.append(snap["counters"].get("quant_gemm_flops_total", {})
+                         .get("dtype=fp8", 0.0) - before)
+            if s == 1:
+                first = snap
+                amax1 = (model.decoder.quant_amax.detach().cpu().clone()
+                         if quantized else None)
+        counts = kernels.launch_counts()
+    finally:
+        telemetry.disable()
+    peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+               else None)
+    L = cfg.num_layers
+    res = {"policy": policy, "head": "f32 (pinned)" if head is False
+           else "default", "losses": losses, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms[1:]),
+           "peak_memory_gib": peak_gb,
+           "forward_held_gib": held[-1] / 2 ** 30, "launches": counts}
+    if cuda:
+        res["profile"] = prof = _profile_step(step, batches[QT_STEPS],
+                                              res["step_ms_median"])
+        print(f"quant_train: ({name}) profiled step "
+              f"{prof['device_busy_ms']:.1f} ms device busy, host share "
+              f"{prof['host_share']}; by group "
+              + json.dumps({k: round(v, 2) for k, v in
+                            prof["by_group_ms"].items()}), flush=True)
+        for k, v in prof["top_kernels_ms"]:
+            print(f"quant_train:   {v:9.3f} ms/step  {k}", flush=True)
+    check(all(np.isfinite(losses)), f"quant_train ({name}) losses {losses}")
+    if cuda:
+        # attn_res and attn_lse saved: the flash forward once a block, the
+        # rest of the block (its FFN and both norms) recomputed
+        want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+                "swiglu_down": 2 * L, "rms_norm": 4 * L}
+        n = QT_STEPS - 1
+        check(all(counts[k] == v * n for k, v in want.items()),
+              f"quant_train ({name}) launches {counts}, want {want} x {n}")
+    heads = first["gauges"].get("loss_head_mode", {})
+    if quantized:
+        modes = {k.split(",")[0][5:]: v for k, v in
+                 first["gauges"]["gemm_dtype_mode"].items()
+                 if k.endswith("path=train")}
+        plans = first["counters"].get("plan_engagement_total", {})
+        res.update(gemm_dtype_mode=modes, plan_engagement=plans,
+                   loss_head_mode=heads, flops_per_step=flops)
+        want_flops = 2.0 * (4 * cfg.hidden_size ** 2 + 2 * cfg.hidden_size
+                            * cfg.intermediate_size) * L * batch * seq
+        print(f"quant_train: ({name}) gemm_dtype_mode {modes}; plans "
+              f"{plans}; loss_head_mode {heads}; quant_gemm_flops_total "
+              f"per step {set(flops)} (want {want_flops:.0f})", flush=True)
+        check(modes == {s: (0.0 if s == "wd" else 2.0)
+                        for s in quant.GEMM_SITES},
+              f"quant_train ({name}) gemm_dtype_mode {modes}")
+        check(plans == {
+            "plan=quant_gemm,verdict=engaged,reason=engaged": 1,
+            "plan=quant_gemm,verdict=declined,"
+            "reason=fused_kernel_owns_gemm": 1},
+            f"quant_train ({name}) plan_engagement {plans}")
+        check(set(flops) == {want_flops},
+              f"quant_train ({name}) flops per step {flops} != {want_flops}")
+        wd = quant.GEMM_SITES.index("wd")
+        check(bool((amax1[:, :wd, :, 0] > 0).all())
+              and not amax1[:, wd].any(),
+              f"quant_train ({name}) amax after step 1 {amax1[..., 0]}")
+        if cuda:
+            check(heads.get("mode=chunked,int8=on") == 1,
+                  f"quant_train ({name}) loss_head_mode {heads}")
+        # one armed attempt with NaN gradients: every byte of the
+        # histories stays
+        amax = model.decoder.quant_amax
+        old = amax.detach().clone()
+        step._guard_threshold = float("inf")
+        with chaos.inject_nonfinite(step._call_index + 1, kind="nan"):
+            step(*batches[QT_STEPS])
+        step._guard_threshold = None
+        sync()
+        health = step.last_health
+        same = torch.equal(amax.view(torch.uint8), old.view(torch.uint8))
+        res["nan_attempt_amax_unchanged"] = same
+        print(f"quant_train: ({name}) NaN attempt ok={health.ok}; "
+              f"quant_amax bytes unchanged: {same}", flush=True)
+        check(not health.ok and same,
+              f"quant_train ({name}) NaN attempt changed quant_amax")
+    elif cuda:
+        check(heads.get("mode=chunked,int8=off") == 1,
+              f"quant_train ({name}) loss_head_mode {heads}")
+    print(f"quant_train: ({name}) {policy}: losses "
+          f"{[round(x, 5) for x in losses]}; step median "
+          f"{res['step_ms_median']:.1f} ms (steps 2-{QT_STEPS}), peak "
+          f"memory {peak_gb} GiB, held by the forward "
+          f"{res['forward_held_gib']:.3f} GiB; {smi}", flush=True)
+    del model, step
+    return res
+
+
+def phase_quant_train(smi="", cfg=None, batch=3, seq=2048, device=DEVICE):
+    """Config 4 in bf16 (batch 3 x seq 2048, AdamW(lr=3e-4,
+    weight_decay=0.01, factored=True), one seeded batch per step number,
+    the same seeded weights) under the three policies of ``QT_RUNS``, 8
+    steps each: engagement, the FLOP counter, the amax buffer, a discarded
+    NaN attempt, launches and losses checked; the GEMMs, the quantize
+    passes and the CE head timed; the parity gate and the drift probe on
+    the card. ``cfg``, ``batch``, ``seq`` and ``device`` let the phase run
+    at a small size on the CPU."""
+    from paddle_tpu_torch import quant
+
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    batches = {s: _train_batch((cfg or _qt_config("full")).vocab_size,
+                               batch, seq, s, device)
+               for s in range(1, QT_STEPS + 1)}
+    runs = {name: _qt_run(name, cfg, batch, seq, device, batches, smi)
+            for name in QT_RUNS}
+    drift = {name: [abs(x - a) / abs(a) for x, a in
+                    zip(runs[name]["losses"], runs["a"]["losses"])]
+             for name in ("b", "c")}
+    print(f"quant_train: relative loss drift per step against (a): "
+          + json.dumps({k: [f"{x:.2e}" for x in v]
+                        for k, v in drift.items()}), flush=True)
+    check(max(max(v) for v in drift.values()) <= QT_LOSS_RTOL,
+          f"quant_train losses leave {QT_LOSS_RTOL} of (a)'s: {drift}")
+    gate = quant.quant_gate_report(device=device)
+    probe = quant.loss_drift_probe(device=device)
+    print(f"quant_train: parity gate on {device}: {gate}; loss_drift_probe "
+          f"{probe!r} (budget {QT_DRIFT_BUDGET})", flush=True)
+    check(gate["ok"] and gate["dtype"] == "fp8", f"quant gate {gate}")
+    check(probe < QT_DRIFT_BUDGET, f"loss_drift_probe {probe}")
+    res = {"runs": runs, "relative_drift": drift, "gate": gate,
+           "loss_drift_probe": probe,
+           "launches": runs["b"]["launches"] if cuda else {}}
+    res["gemm"] = _qt_gemm_readings(cuda)
+    cfg4 = cfg or _qt_config("full")
+    res["ce_head_ms"] = _qt_head_readings(cfg4, batch, seq, cuda)
+    if cuda:
+        # the scaled GEMMs run in the forward and again in the backward's
+        # recompute: 2 x L x (three [h, h] sites and wo, gate and up)
+        g = res["gemm"]
+        per = (4 * g["6144x2048x2048"]["quantize_pair_ms"]
+               + 2 * g["6144x2048x5504"]["quantize_pair_ms"])
+        res["quantize_ms_per_step"] = 2 * cfg4.num_layers * per
+        print(f"quant_train: quantize passes ~{res['quantize_ms_per_step']:.1f}"
+              f" ms a step (2 x L x the six sites' timed pairs); {smi}",
+              flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 # ---------------------------------------------------------------- phase 8
 #: bench.py:84-85, the long-context line's selective remat
 LONG_POLICY = "names:attn_res,attn_lse,attn_q,attn_k,attn_v,resid_mid"
@@ -3443,6 +3765,8 @@ def main():
                                           phase_train_consistency)
         report["resilience"] = run("resilience", phase_resilience,
                                    report["device"]["smi"])
+        report["quant_train"] = run("quant_train", phase_quant_train,
+                                    report["device"]["smi"])
         report["long_context"] = run("long_context", phase_long_context)
         report["long_context_remat"] = run("long_context_remat",
                                            phase_long_context_remat)
@@ -3487,7 +3811,8 @@ def main():
         by_path = {path: report[path]["launches"][name]
                    for path in ("serving", "serving_int8", "serving_spec",
                                 "serving_int8w", "serving_disagg",
-                                "incubate", "training", "long_context")}
+                                "incubate", "training", "quant_train",
+                                "long_context")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

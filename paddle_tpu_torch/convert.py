@@ -8,9 +8,11 @@ same on both sides (``model.layers.{i}.attn.q_proj.weight`` ...).
 
 The training model (``GPTForCausalLMPipe``) keeps the JAX package's
 stacked ``[L, in, out]`` layout and its names (``embed_tokens.weight``,
-``decoder.{ln1,wq,wk,wv,wo,ln2,wg,wu,wd}``, ``final_norm.weight``), so
-its state dict, and its optimizer slots with it
-(:func:`training_state_from_jax`), carry over without a transpose.
+``decoder.{ln1,wq,wk,wv,wo,ln2,wg,wu,wd}``, ``final_norm.weight``, and
+``decoder.quant_amax``, the delayed-scaling histories ``[L, 7, 2, H]``,
+where the policy requests ``quant:`` sites), so its state dict, and its
+optimizer slots with it (:func:`training_state_from_jax`), carry over
+without a transpose.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .models.gpt import BLOCK_PARAMS, GPTForCausalLMPipe
+from .quant import requested_quant_sites
 
 _LINEAR = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
            "down_proj", "lm_head")
@@ -75,8 +78,10 @@ def state_dict_to_jax(state: dict) -> dict[str, np.ndarray]:
 
 
 def pipe_expected_keys(config) -> list[str]:
+    amax = (["decoder.quant_amax"] if requested_quant_sites(config)
+            else [])
     return (["embed_tokens.weight"]
-            + [f"decoder.{n}" for n in BLOCK_PARAMS]
+            + [f"decoder.{n}" for n in BLOCK_PARAMS] + amax
             + ["final_norm.weight"])
 
 

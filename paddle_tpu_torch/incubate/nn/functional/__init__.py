@@ -16,6 +16,10 @@ package's plain route:
 - ``masked_multihead_attention`` runs the CUDA ``decode_attention`` kernel
   (its plain version on the CPU) unless ``src_mask`` is given: the kernel
   takes no mask, so a mask takes the plain route on every device.
+- ``fp8_gemm`` and ``fp8_linear`` (``paddle_tpu/incubate/nn/functional/
+  fp8.py:26-54``) are ``quant.inline_scaled_gemm(dtype="fp8")``: e4m3
+  operands with per-tensor absmax scales (``torch._scaled_mm`` on the card,
+  the plain route on the CPU) and the wide backward.
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ import torch.nn.functional as F
 from ....ops.kernels.add_rms_norm import add_rms_norm
 from ....ops.kernels.decode_attention import decode_attention
 from ....ops.kernels.rms_norm import rms_norm
+from ....quant.gemm import inline_scaled_gemm
 
-__all__ = ["fused_rms_norm", "masked_multihead_attention", "swiglu"]
+__all__ = ["fp8_gemm", "fp8_linear", "fused_rms_norm",
+           "masked_multihead_attention", "swiglu"]
 
 
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
@@ -58,6 +64,22 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
     if norm_bias is not None:
         out = out + norm_bias
     return (out, a) if residual is not None else out
+
+
+def fp8_gemm(x, y, transpose_x=False, transpose_y=False, name=None):
+    """``x @ y`` on the fp8 path: x [..., M, K] (2-D or more), y [K, N];
+    the transpose flags are ``paddle.matmul``'s."""
+    if transpose_x:
+        x = x.transpose(-1, -2)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    return inline_scaled_gemm(x, y, dtype="fp8")
+
+
+def fp8_linear(x, weight, bias=None, name=None):
+    """``x @ weight (+ bias)`` on the fp8 path, weight ``[in, out]``."""
+    out = inline_scaled_gemm(x, weight, dtype="fp8")
+    return out if bias is None else out + bias
 
 
 def swiglu(x, y=None, name=None):

@@ -24,6 +24,15 @@ then the reference's tail, in its order:
    adopts every update with plain copies, as before the guard existed,
    and reports ``ok`` true.
 
+The delayed-scaling amax histories of a quantized model (a ``quant_amax``
+buffer) are step state, like the reference's RNG-key chain: while the
+step runs, each owner holds its commit (``_amax_held``), and the new
+histories go through the same ``Optimizer._put`` after the update: an
+unguarded step adopts them, an armed one writes ``where(ok, new, old)``
+into the old tensor, so a skipped step leaves them unchanged byte for
+byte. Each step then ticks ``quant_gemm_flops_total`` for its tokens
+(``note_step_tokens``, the batch's first two dimensions).
+
 The guard operand is the reference's ``[spike_threshold, grad_inject,
 loss_inject, armed]``, held on the host (``_guard_operand``); the
 injection's "select" is a host branch, so a clean step runs exactly what
@@ -50,6 +59,7 @@ import torch
 
 from .. import resilience as _resilience
 from .. import telemetry as _telemetry
+from ..quant import note_step_tokens
 from ..nn.clip import ClipGradByGlobalNorm, global_grad_sumsq
 from ..resilience.guard import StepHealth
 from ..telemetry import trace as _trace
@@ -76,6 +86,10 @@ class TrainStep:
         self._guard_threshold = None
         self._call_index = 0
         self._last_health = None
+        # modules whose amax histories the step commits (a quantized
+        # model's decoder)
+        self._amax_owners = [m for m in model.modules()
+                             if "quant_amax" in m._buffers]
 
     def __call__(self, *batch):
         model_label = (type(self.model).__name__,)
@@ -122,8 +136,14 @@ class TrainStep:
         opt = self.optimizer
         thr, ginj, linj, armed = self._guard_operand()
         opt.zero_grad(set_to_none=True)
-        loss = self.train_fn(*batch)
-        loss.backward()
+        for m in self._amax_owners:
+            m._amax_held, m._amax_pending = True, None
+        try:
+            loss = self.train_fn(*batch)
+            loss.backward()
+        finally:
+            for m in self._amax_owners:
+                m._amax_held = False
         loss = loss.detach()
         with torch.no_grad():
             with _trace.span("grad_clip", cat="step"):
@@ -153,15 +173,28 @@ class TrainStep:
                     opt._keep = ok
                     try:
                         opt.apply_updates()
+                        self._commit_amax()
                     finally:
                         opt._keep = None
                 else:
                     ok = torch.ones_like(finite)
                     opt.apply_updates()
+                    self._commit_amax()
             # the device bundle; fetched only by last_health
             self._last_health = torch.stack(
                 [finite.float(), gnorm, loss32, ok.float()])
+        shape = getattr(batch[0], "shape", ()) if batch else ()
+        note_step_tokens(int(shape[0]) * int(shape[1])
+                         if len(shape) >= 2 else 0)
         return loss
+
+    def _commit_amax(self):
+        """Write each owner's new amax histories through the optimizer's
+        ``_put`` (a copy, or the guard's keep-select)."""
+        for m in self._amax_owners:
+            new, m._amax_pending = m._amax_pending, None
+            if new is not None:
+                self.optimizer._put(m.quant_amax, new)
 
     @property
     def last_health(self):

@@ -1,10 +1,16 @@
 """Memory formats of the port (counterpart of ``paddle_tpu/memory``): the
-row-wise int8 quantizer of the int8 KV cache, and the selective-remat
+int8 quantizers (row-wise for the int8 KV cache and weights, blockwise for
+the int8 activation saves), ``int8_checkpoint``, and the selective-remat
 save names and anchors."""
-from .int8 import SCALE_EPS, dequantize_rows_int8, quantize_rows_int8
+from .int8_ckpt import (INT8_BLOCK, SCALE_EPS, dequantize_blockwise_int8,
+                        dequantize_rows_int8, int8_checkpoint,
+                        int8_saved_nbytes, quantize_blockwise_int8,
+                        quantize_rows_int8)
 from .remat import (KERNEL_ANCHORS, anchor, parse_save_names,
                     split_quant_entries)
 
 __all__ = ["SCALE_EPS", "quantize_rows_int8", "dequantize_rows_int8",
-           "KERNEL_ANCHORS", "anchor", "parse_save_names",
-           "split_quant_entries"]
+           "INT8_BLOCK", "quantize_blockwise_int8",
+           "dequantize_blockwise_int8", "int8_saved_nbytes",
+           "int8_checkpoint", "KERNEL_ANCHORS", "anchor",
+           "parse_save_names", "split_quant_entries"]

@@ -11,20 +11,34 @@ input whose output the policy keeps, and whose gradient passes through
 unchanged. :func:`anchor` inserts it only where the active policy saves the
 name; every other anchor costs nothing.
 
-``int8:`` entries parse as in the reference. The int8 save points
-themselves (``int8_checkpoint``) are not ported; the model raises on them.
+``int8:`` entries parse as in the reference: an ``int8:<name>`` entry
+saves the anchor's blockwise int8 codes and f32 scales
+(``memory.int8_checkpoint``, anchors ``int8:<name>`` and
+``int8:<name>:scale``) in place of the tensor. ``quant:<site>`` entries
+name GEMM sites of the quantized compute path (``quant.gemm``), not
+anchors: :func:`split_quant_entries` takes them out first.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["KERNEL_ANCHORS", "anchor", "anchor_op", "parse_save_names",
-           "split_quant_entries"]
+__all__ = ["KERNEL_ANCHORS", "GEMM_SITES", "SITE_ALIASES", "anchor",
+           "anchor_op", "parse_save_names", "split_quant_entries"]
 
 #: anchors tagged inside custom kernels' vjps (flash / rms / add_rms): their
 #: save points are not routeable through ``int8_checkpoint``, so an
 #: ``int8:`` request for one is refused
 KERNEL_ANCHORS = frozenset({"attn_res", "attn_lse", "rms_rstd", "addrms_y"})
+
+#: the seven quantizable GEMM sites of one decoder block, in
+#: ``_block_pure`` order (the amax buffer's site axis), and the ``quant:``
+#: aliases that expand to them (``paddle_tpu/quant/gemm.py:51-58``)
+GEMM_SITES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+SITE_ALIASES = {
+    "attn": ("wq", "wk", "wv", "wo"),
+    "ffn": ("wg", "wu", "wd"),
+    "all": GEMM_SITES,
+}
 
 
 def parse_save_names(spec):
@@ -58,9 +72,12 @@ def parse_save_names(spec):
 
 
 def split_quant_entries(spec):
-    """Split the ``quant:<site>`` entries (GEMM sites of the quantized
-    compute path, not remat anchors) out of a ``names:`` payload ->
-    (the rest, as a comma-separated string; the sites)."""
+    """Split the ``quant:<site>`` entries out of a ``names:`` payload ->
+    (the rest, as a comma-separated string; the sites), as
+    ``paddle_tpu/quant/gemm.py:250-278``. A site is one of the block's
+    GEMMs (``wq wk wv wo wg wu wd``) or an alias (``attn``, ``ffn``,
+    ``all``) that expands to its sites; anything else raises a
+    ``ValueError`` naming the vocabulary."""
     rest, sites = [], set()
     for raw in str(spec).split(","):
         nm = raw.strip()
@@ -70,7 +87,14 @@ def split_quant_entries(spec):
             site = nm[len("quant:"):].strip()
             if not site:
                 raise ValueError(f"empty quant: entry in remat names {spec!r}")
-            sites.add(site)
+            if site in SITE_ALIASES:
+                sites.update(SITE_ALIASES[site])
+            elif site in GEMM_SITES:
+                sites.add(site)
+            else:
+                raise ValueError(
+                    f"quant:{site}: unknown GEMM site; expected one of "
+                    f"{GEMM_SITES} or aliases {tuple(SITE_ALIASES)}")
         else:
             rest.append(nm)
     return ",".join(rest), frozenset(sites)

@@ -13,7 +13,9 @@ two module trees:
   ``_block_pure`` on its single-device path (rms norm and flash attention
   kernels, ``swiglu_down`` where the JAX package's route takes it),
   recompute per block (full, or selective by the reference's anchor
-  names), the tied head and the chunked-CE loss. Layers run as a Python
+  names, with ``int8:`` saves), the scaled fp8/int8 GEMMs of ``quant:``
+  sites with their delayed-scaling ``quant_amax`` buffer, the tied head
+  and the chunked-CE loss (f32 or int8 logits). Layers run as a Python
   loop; the JAX package's scan has no counterpart here.
 """
 from __future__ import annotations
@@ -28,6 +30,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from .. import quant as _quant
+from ..memory.int8_ckpt import int8_checkpoint
 from ..memory.remat import anchor, parse_save_names, split_quant_entries
 from ..nn.functional.fused_cross_entropy import (chunked_lm_loss_arrays,
                                                  record_head_mode)
@@ -256,20 +260,23 @@ class GPTForCausalLM(nn.Module):
 # Training path: the JAX package's flagship GPTForCausalLMPipe on one device
 # ---------------------------------------------------------------------------
 def compute_loss(hidden, weight, labels, *, config=None, transpose_y=True,
-                 ignore_index=-100, mode="chunked"):
+                 ignore_index=-100, mode="chunked", int8=None):
     """LM-head matmul + CE (``paddle_tpu/models/gpt.py:93``).
 
     - ``chunked`` (the default): the chunked-CE head, whose f32
-      ``[tokens, vocab]`` logits never exist whole;
+      ``[tokens, vocab]`` logits never exist whole; ``int8`` (None: the
+      parity-gated default of ``int8_head_enabled``, on for a card, off
+      on the CPU) computes its logits in int8 (the reference's
+      ``PTPU_INT8_HEAD``);
     - ``dense``: full logits and ``F.cross_entropy``, the parity oracle.
 
-    The vocab-sharded and int8 heads are not ported yet (ROADMAP A.4).
+    The vocab-sharded head is not ported yet (ROADMAP A.10).
     """
     if mode == "chunked":
         return chunked_lm_loss_arrays(
             hidden, weight, labels, transpose_y=transpose_y,
             vocab_chunk=getattr(config, "head_chunk", None),
-            ignore_index=ignore_index)
+            ignore_index=ignore_index, int8=int8)
     if mode == "dense":
         vocab = weight.shape[0] if transpose_y else weight.shape[-1]
         record_head_mode("dense", False, labels.numel(), vocab)
@@ -286,7 +293,8 @@ def _rope_pure(x, base=10000.0):
     return _rope_at_positions(x, pos, base)
 
 
-def _block_pure(p, x, num_heads, save=frozenset()):
+def _block_pure(p, x, num_heads, save=frozenset(), int8_names=frozenset(),
+                quant=None):
     """One decoder block on tensors, ``p = (ln1, wq, wk, wv, wo, ln2, wg,
     wu, wd)`` with weights ``[in, out]`` (``models/gpt.py:663-809`` on its
     single-device path): rms -> q/k/v -> rope -> flash attention -> o-proj
@@ -301,25 +309,40 @@ def _block_pure(p, x, num_heads, save=frozenset()):
     ``ffn_gate``, ``ffn_up``; ``ffn_out`` on the unfused FFN only.
     ``attn_res``/``attn_lse`` are the flash op's outputs, which the policy
     keeps by op. ``attn_out`` is never tagged: attention here is always the
-    flash op, and the reference tags it only off its Pallas path."""
+    flash op, and the reference tags it only off its Pallas path.
+    ``int8_names``: the anchors saved as blockwise int8 through
+    ``int8_checkpoint`` instead (``int8:<name>`` entries).
+
+    ``quant``: a ``quant.GemmQuantCtx`` holding the layer's amax slice;
+    its engaged sites run the scaled GEMM and it collects their new
+    histories."""
+
+    def _save(t, name):
+        if name in int8_names:
+            return int8_checkpoint(t, name)
+        return anchor(t, name, save)
+
+    def _mm(a, w, site):
+        return quant.gemm(a, w, site) if quant is not None else a @ w
+
     ln1, wq, wk, wv, wo, ln2, wg, wu, wd = p
     b, s, hdim = x.shape
     hd = hdim // num_heads
     h = _rms_pure(x, ln1)
-    q = (h @ wq).reshape(b, s, -1, hd)
-    k = (h @ wk).reshape(b, s, -1, hd)
-    v = (h @ wv).reshape(b, s, -1, hd)
-    q = anchor(_rope_pure(q), "attn_q", save)
-    k = anchor(_rope_pure(k), "attn_k", save)
-    v = anchor(v, "attn_v", save)
+    q = _mm(h, wq, "wq").reshape(b, s, -1, hd)
+    k = _mm(h, wk, "wk").reshape(b, s, -1, hd)
+    v = _mm(h, wv, "wv").reshape(b, s, -1, hd)
+    q = _save(_rope_pure(q), "attn_q")
+    k = _save(_rope_pure(k), "attn_k")
+    v = _save(v, "attn_v")
     o = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
-    x = anchor(x + o @ wo, "resid_mid", save)
-    h2 = anchor(_rms_pure(x, ln2), "ln2_out", save)
-    gate = anchor(h2 @ wg, "ffn_gate", save)
-    up = anchor(h2 @ wu, "ffn_up", save)
+    x = _save(x + _mm(o, wo, "wo"), "resid_mid")
+    h2 = _save(_rms_pure(x, ln2), "ln2_out")
+    gate = _save(_mm(h2, wg, "wg"), "ffn_gate")
+    up = _save(_mm(h2, wu, "wu"), "ffn_up")
     if swiglu_down_supported(gate.shape, wd.shape):
         return x + swiglu_down(gate, up, wd)
-    return x + anchor(F.silu(gate) * up, "ffn_out", save) @ wd
+    return x + _mm(_save(F.silu(gate) * up, "ffn_out"), wd, "wd")
 
 
 #: the anchors of the coarse policies (``models/gpt.py:882-887``)
@@ -329,37 +352,67 @@ _POLICY_NAMES = {"attn": ("attn_out", "attn_res", "attn_lse"),
 
 def _resolve_remat(cfg):
     """The reference's policy parser (``models/gpt.py:858-888``) ->
-    ``None`` for "full" (save nothing), else ``(save names, dots)``:
+    ``None`` for "full" (save nothing), else ``(save names, dots, int8
+    anchors)``:
 
     - ``names:<list>``: the listed anchors (``save_only_these_names``); a
-      name the path does not tag saves nothing;
+      name the path does not tag saves nothing. An ``int8:<name>`` entry
+      saves that anchor's blockwise int8 codes and scales
+      (``int8_checkpoint``); ``quant:`` entries are GEMM sites
+      (:func:`_resolve_quant`) and are taken out first;
     - ``attn`` / ``attn_ffn``: the names of ``_POLICY_NAMES``;
     - ``dots``: the outputs of the 2-D matmuls
-      (``dots_with_no_batch_dims_saveable``).
-
-    ``quant:`` GEMM sites and ``int8:`` saves are not ported and raise."""
+      (``dots_with_no_batch_dims_saveable``)."""
     pol = cfg.recompute_policy
     if pol == "full":
         return None
     if pol == "dots":
-        return frozenset(), True
+        return frozenset(), True, frozenset()
     if pol in _POLICY_NAMES:
-        return frozenset(_POLICY_NAMES[pol]), False
+        return frozenset(_POLICY_NAMES[pol]), False, frozenset()
     if isinstance(pol, str) and pol.startswith("names:"):
-        spec, sites = split_quant_entries(pol[len("names:"):])
-        if sites:
-            raise NotImplementedError(
-                f"recompute_policy {pol!r}: quant: GEMM sites "
-                f"{sorted(sites)} need the quantized compute path, which is "
-                "not ported yet (ROADMAP A.9)")
+        spec, _ = split_quant_entries(pol[len("names:"):])
         save, int8 = parse_save_names(spec)
-        if int8:
-            raise NotImplementedError(
-                f"recompute_policy {pol!r}: int8: saves {sorted(int8)} "
-                "(memory/int8_ckpt.py int8_checkpoint) are not ported yet "
-                "(ROADMAP A.3)")
-        return frozenset(save), False
+        return frozenset(save), False, int8
     raise ValueError(f"unknown recompute_policy {pol!r}")
+
+
+def _resolve_quant(cfg, gate_shape, wd_shape, device, path="train"):
+    """The scaled-GEMM engagement of one forward (``models/gpt.py:
+    891-946``) -> ``(engaged sites, narrow dtype)``, each resolution noted
+    as a ``quant_gemm`` plan verdict:
+
+    - nothing requested: nothing engages and nothing is noted;
+    - a gate that fails on ``device`` declines every site
+      (``quant_parity_gate``);
+    - where ``swiglu_down_supported`` takes the FFN, the kernel owns
+      ``wd``, which stays wide (``fused_kernel_owns_gemm``); gate and up
+      feed it narrow.
+
+    The engaged sites' forward FLOPs per token are noted for
+    ``quant_gemm_flops_total``."""
+    sites = _quant.requested_quant_sites(cfg)
+    if not sites:
+        return frozenset(), None
+    dtype = _quant.quant_dtype(None, device)
+    if not _quant.quant_compute_enabled(True, device, dtype=dtype):
+        _quant.note_plan_engagement("quant_gemm", "quant_parity_gate")
+        _quant.note_gemm_mode(path, frozenset(), None)
+        return frozenset(), None
+    if "wd" in sites and swiglu_down_supported(gate_shape, wd_shape):
+        _quant.note_plan_engagement("quant_gemm", "fused_kernel_owns_gemm")
+        sites = sites - {"wd"}
+    if not sites:
+        return frozenset(), None
+    _quant.note_plan_engagement("quant_gemm", "engaged")
+    h = cfg.hidden_size
+    kv = cfg.num_kv_heads * (h // cfg.num_heads)
+    m = cfg.intermediate_size
+    dims = {"wq": h * h, "wk": h * kv, "wv": h * kv, "wo": h * h,
+            "wg": h * m, "wu": h * m, "wd": m * h}
+    flops_per_token = 2 * sum(dims[s] for s in sites) * cfg.num_layers
+    _quant.note_gemm_mode(path, sites, dtype, flops_per_token)
+    return frozenset(sites), dtype
 
 
 def _selective_policy(save, dots):
@@ -381,22 +434,35 @@ def _selective_policy(save, dots):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _make_block(cfg):
+def _make_block(cfg, quant_sites=frozenset(), quant_dtype=None):
     """One decoder block over (x, per-layer weights); with
     ``cfg.recompute`` each block is a non-reentrant
     ``torch.utils.checkpoint`` that reruns it in the backward, keeping
-    what the selective policy names."""
-    if not cfg.recompute:
-        return lambda x, p: _block_pure(p, x, cfg.num_heads)
-    remat = _resolve_remat(cfg)
-    save, policy = frozenset(), {}
-    if remat is not None:    # "full" stays a plain checkpoint
-        save, dots = remat
-        policy["context_fn"] = _selective_policy(save, dots)
+    what the selective policy names.
+
+    With ``quant_sites`` the block takes the layer's amax slice as a last
+    operand and returns ``(x, new amax slice)``. The slice is an input of
+    the checkpoint, so the recompute reads the histories the forward read
+    (the caller passes a copy nothing writes before the backward ends);
+    the recompute's own new histories are discarded, so they shift once a
+    step."""
+    save, int8_names, policy = frozenset(), frozenset(), {}
+    if cfg.recompute:
+        remat = _resolve_remat(cfg)
+        if remat is not None:    # "full" stays a plain checkpoint
+            save, dots, int8_names = remat
+            policy["context_fn"] = _selective_policy(save, dots)
 
     def block(x, *p):
-        return _block_pure(p, x, cfg.num_heads, save)
+        qctx = None
+        if quant_sites:
+            *p, amax_l = p
+            qctx = _quant.GemmQuantCtx(quant_sites, amax_l, quant_dtype)
+        out = _block_pure(p, x, cfg.num_heads, save, int8_names, qctx)
+        return out if qctx is None else (out, qctx.collect())
 
+    if not cfg.recompute:
+        return lambda x, p: block(x, *p)
     return lambda x, p: checkpoint(block, x, *p, use_reentrant=False,
                                    **policy)
 
@@ -410,8 +476,16 @@ class StackedDecoder(nn.Module):
     (``models/gpt.py:1065``), in the JAX package's ``[in, out]`` layout.
     Projections start as N(0, 0.02^2), norm gains as ones. The layers run
     as a loop over ``torch.unbind`` slices, whose backward stacks the L
-    per-layer gradients once. Single device: pipeline, tensor parallelism,
-    ZeRO and quantized compute are not ported (ROADMAP A.9, A.10)."""
+    per-layer gradients once. Single device: pipeline, tensor parallelism
+    and ZeRO are not ported (ROADMAP A.10).
+
+    A config whose policy requests ``quant:`` sites gets the buffer
+    ``quant_amax`` ``[L, 7, 2, H]`` (``models/gpt.py:1103-1111``): the
+    delayed-scaling state, saved and restored with the state dict. A
+    forward reads a copy of it and commits the new histories after the
+    forward, or leaves them to a ``TrainStep`` that holds the commit
+    (``_amax_held``) and writes them with the optimizer's update, under
+    the guard's keep-select."""
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -431,6 +505,12 @@ class StackedDecoder(nn.Module):
                 else:
                     t.normal_(0.0, 0.02)
             setattr(self, name, nn.Parameter(t))
+        if _quant.requested_quant_sites(config):
+            self.register_buffer("quant_amax", _quant.init_amax_state(
+                L, device=self.wq.device))
+        self._amax_held = False
+        self._amax_pending = None
+        self._quant_plans = {}
 
     def apply_tp_placements(self, *args, **kwargs):
         raise NotImplementedError("tensor parallelism is not ported yet "
@@ -438,11 +518,39 @@ class StackedDecoder(nn.Module):
 
     apply_pipeline_placements = apply_tp_placements
 
+    def _quant_plan(self, x):
+        """The engagement for this input's shapes and device, resolved (and
+        noted) once for each, as the reference resolves it once a
+        trace."""
+        cfg = self.config
+        gate_shape = (*x.shape[:-1], cfg.intermediate_size)
+        wd_shape = tuple(self.wd.shape[1:])
+        key = (gate_shape, x.device.type)
+        if key not in self._quant_plans:
+            self._quant_plans[key] = _resolve_quant(cfg, gate_shape,
+                                                    wd_shape, x.device)
+        return self._quant_plans[key]
+
     def forward(self, x):
-        block = _make_block(self.config)
         layers = zip(*(torch.unbind(getattr(self, n)) for n in BLOCK_PARAMS))
-        for p in layers:
-            x = block(x, p)
+        sites, dtype = ((frozenset(), None) if "quant_amax" not in
+                        self._buffers else self._quant_plan(x))
+        block = _make_block(self.config, sites, dtype)
+        if not sites:
+            for p in layers:
+                x = block(x, p)
+            return x
+        amax = self.quant_amax.detach().clone()
+        rows = []
+        for p, amax_l in zip(layers, amax):
+            x, new_l = block(x, (*p, amax_l))
+            rows.append(new_l)
+        new = torch.stack(rows)
+        if self._amax_held:
+            self._amax_pending = new
+        else:
+            with torch.no_grad():
+                self.quant_amax.copy_(new)
         return x
 
 
@@ -507,8 +615,12 @@ class GPTForCausalLMPipe(nn.Module):
     def forward(self, input_ids):
         return self._hidden(input_ids) @ self.embed_tokens.weight.t()
 
-    def loss(self, input_ids, labels):
+    def loss(self, input_ids, labels, int8=None):
         """Tied-head LM loss through the chunked-CE head: neither the f32
-        logits nor their gradient exists whole."""
+        logits nor their gradient exists whole. ``int8`` pins the head's
+        logits to int8 (True) or f32 (False); None leaves it to
+        ``int8_head_enabled`` (the int8 head on a card whose gate passes,
+        f32 on the CPU)."""
         return compute_loss(self._hidden(input_ids), self.embed_tokens.weight,
-                            labels, config=self.config, transpose_y=True)
+                            labels, config=self.config, transpose_y=True,
+                            int8=int8)

@@ -18,13 +18,29 @@ labels, computed blockwise over vocab chunks so that neither the f32
   The JAX package pads it with zero rows whose logits it masks to -inf;
   both give the same numbers.
 
-The int8 head and the vocab-sharded head are not ported yet.
+The int8 head (the reference's ``:91-241``): with ``int8`` the logits are
+``int8(h) @ int8(w_chunk)^T`` in int32, rescaled by the per-token row
+scales of h and the per-vocab-row scales of the chunk. The chunk is
+quantized inside the loop, so no whole int8 copy of the weight exists.
+The backward takes the softmax of the same int8 logits and contracts it
+against the real operands (straight through). The product is
+``torch._int_mm`` (cuBLAS on the card, exact int32 sums on either
+device), the counterpart of the reference's XLA einsum.
+:func:`int8_head_enabled` makes it the default on a card whose parity
+gate passes (the reference's non-CPU default); the CPU's default stays
+f32. The vocab-sharded head is not ported yet.
 """
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
 from ... import telemetry as _telemetry
+from ...device import resolve_device
+from ...memory import quantize_rows_int8
+from ...quant.gemm import _int_mm
 
 DEFAULT_VOCAB_CHUNK = 8192
 
@@ -57,6 +73,77 @@ def record_head_mode(mode, int8, tokens, chunk):
     _HEAD_CHUNK_BYTES.set(int(tokens) * int(chunk) * 4)
 
 
+# ---------------------------------------------------------------------------
+# the int8 head's parity gate
+
+#: the gate's loss tolerance (the reference's PTPU_INT8_HEAD_GATE_TOL)
+DEFAULT_INT8_HEAD_TOL = 0.02
+
+_GATE_CACHE = {}
+
+
+def int8_head_gate(tol=None, device=None):
+    """Run (once per tolerance and device type) the int8 head's parity
+    probe on ``device`` (default CUDA): chunked CE loss and gradients on a
+    fixed probe batch, f32 against int8. It passes when the loss moves by
+    less than ``tol`` (relative) and both gradients' mean absolute errors
+    stay below ``5 * tol`` of their mean magnitude. A crashed probe warns
+    and fails."""
+    tol = DEFAULT_INT8_HEAD_TOL if tol is None else float(tol)
+    dev = resolve_device(device)
+    key = (tol, dev.type)
+    if key in _GATE_CACHE:
+        return _GATE_CACHE[key]
+    rng = np.random.default_rng(0)
+    h0 = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)
+                          * 0.5)
+    w0 = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32)
+                          * 0.5)
+    y = torch.from_numpy(rng.integers(0, 256, (64,))).to(dev)
+
+    def loss_grads(int8):
+        h = h0.to(dev).requires_grad_()
+        w = w0.to(dev).requires_grad_()
+        loss = chunked_lm_loss_arrays(h, w, y, vocab_chunk=64, int8=int8)
+        gh, gw = torch.autograd.grad(loss, (h, w))
+        return loss.item(), gh.cpu().numpy(), gw.cpu().numpy()
+
+    try:
+        lf, ghf, gwf = loss_grads(False)
+        l8, gh8, gw8 = loss_grads(True)
+        ok = abs(l8 - lf) / max(abs(lf), 1e-9) < tol
+        for g8, gf in ((gh8, ghf), (gw8, gwf)):
+            denom = np.abs(gf).mean() + 1e-9
+            ok = ok and (np.abs(g8 - gf).mean() / denom < 5 * tol)
+    except Exception as e:  # noqa: BLE001 - a crashed probe means off
+        warnings.warn(f"int8_head_gate probe crashed ({type(e).__name__}: "
+                      f"{e}); the int8 LM head stays off", RuntimeWarning)
+        ok = False
+    _GATE_CACHE[key] = bool(ok)
+    return _GATE_CACHE[key]
+
+
+def int8_head_enabled(device=None):
+    """Whether the head's default on ``device`` is int8: on a card, when
+    the parity gate passes; on the CPU, never (there is no int8 rate to
+    win there, only quantization noise)."""
+    dev = resolve_device(device)
+    return dev.type != "cpu" and int8_head_gate(device=dev)
+
+
+#: per-row absmax int8 of the head's operands (``_quantize_rows``, :134)
+_quantize_rows = quantize_rows_int8
+
+
+def _chunk_logits(hf, wc, qh, sh):
+    """One ``[N, c]`` f32 logits block: f32, or (``qh`` given) int8 with the
+    chunk's rows quantized here."""
+    if qh is None:
+        return hf @ wc.float().t()
+    qw, sw = _quantize_rows(wc)
+    return _int_mm(qh, qw).float() * sh * sw.t()
+
+
 def resolve_vocab_chunk(vocab, vocab_chunk=None):
     """Effective chunk: the explicit argument, else 8192; clamped to
     [1, vocab]."""
@@ -66,18 +153,19 @@ def resolve_vocab_chunk(vocab, vocab_chunk=None):
 
 class _ChunkedCE(torch.autograd.Function):
     """Masked sum of per-token CE over vocab chunks: h [N, H], w2 [V, H],
-    y [N] int64 (in range), mask [N] f32."""
+    y [N] int64 (in range), mask [N] f32; int8 logits with ``int8``."""
 
     @staticmethod
-    def forward(ctx, h, w2, y, mask, chunk):
+    def forward(ctx, h, w2, y, mask, chunk, int8):
         hf = h.float()
+        qh, sh = _quantize_rows(h) if int8 else (None, None)
         n = h.shape[0]
         m = torch.full((n,), float("-inf"), device=h.device)
         s = torch.zeros(n, device=h.device)
         gold = torch.zeros(n, device=h.device)
         for c0 in range(0, w2.shape[0], chunk):
             wc = w2[c0:c0 + chunk]
-            logits = hf @ wc.float().t()
+            logits = _chunk_logits(hf, wc, qh, sh)
             m_new = torch.maximum(m, logits.amax(-1))
             s = s * torch.exp(m - m_new) + torch.exp(
                 logits - m_new[:, None]).sum(-1)
@@ -89,6 +177,7 @@ class _ChunkedCE(torch.autograd.Function):
         lse = m + torch.log(s)
         ctx.save_for_backward(h, w2, y, mask, lse)
         ctx.chunk = chunk
+        ctx.int8 = int8
         return ((lse - gold) * mask).sum()
 
     @staticmethod
@@ -96,29 +185,36 @@ class _ChunkedCE(torch.autograd.Function):
         h, w2, y, mask, lse = ctx.saved_tensors
         coeff = (grad * mask).float()
         hf = h.float()
+        qh, sh = _quantize_rows(h) if ctx.int8 else (None, None)
         dh = torch.zeros_like(hf)
         dw = torch.empty_like(w2)
         for c0 in range(0, w2.shape[0], ctx.chunk):
-            wcf = w2[c0:c0 + ctx.chunk].float()
-            p = torch.exp(hf @ wcf.t() - lse[:, None])
+            wc = w2[c0:c0 + ctx.chunk]
+            wcf = wc.float()
+            # straight through: the contractions take the real operands
+            p = torch.exp(_chunk_logits(hf, wc, qh, sh) - lse[:, None])
             cols = torch.arange(c0, c0 + wcf.shape[0], device=h.device)
             q = (p - (cols[None, :] == y[:, None]).float()) * coeff[:, None]
             dh += q @ wcf
             dw[c0:c0 + ctx.chunk] = (q.t() @ hf).to(w2.dtype)
-        return dh.to(h.dtype), dw, None, None, None
+        return dh.to(h.dtype), dw, None, None, None, None
 
 
 def chunked_lm_loss_arrays(h, w, y, *, transpose_y=True, vocab_chunk=None,
-                           ignore_index=-100):
+                           ignore_index=-100, int8=None):
     """Mean chunked CE. h [..., H]; w [V, H] (``transpose_y``) or [H, V];
     y [...] integer labels; tokens labelled ``ignore_index`` count for
-    nothing."""
+    nothing. ``int8`` True or False pins the logits' type; None takes
+    :func:`int8_head_enabled` for h's device."""
+    if int8 is None:
+        int8 = int8_head_enabled(h.device)
     w2 = w if transpose_y else w.t()
     hf = h.reshape(-1, h.shape[-1])
     yf = y.reshape(-1).long()
     valid = yf != ignore_index
     mask = valid.float()
     chunk = resolve_vocab_chunk(w2.shape[0], vocab_chunk)
-    record_head_mode("chunked", False, yf.numel(), chunk)
-    total = _ChunkedCE.apply(hf, w2, torch.where(valid, yf, 0), mask, chunk)
+    record_head_mode("chunked", int8, yf.numel(), chunk)
+    total = _ChunkedCE.apply(hf, w2, torch.where(valid, yf, 0), mask, chunk,
+                             bool(int8))
     return total / mask.sum().clamp_min(1.0)

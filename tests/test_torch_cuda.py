@@ -14,12 +14,17 @@ the CPU, three training steps on the card against the same three on
 the CPU, under full and under selective remat, a guarded step's
 keep-select on CUDA tensors (a NaN injection changes no byte of any
 parameter or slot) and a CheckpointManager round trip of CUDA tensors,
-bit for bit.
+bit for bit, and the low-precision training path: the fp8 and int8
+scaled GEMMs (``torch._scaled_mm``, ``torch._int_mm``) against the CPU's
+plain route, the int8 LM head against the CPU's, and a quantized
+two-layer step on the card against the CPU.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1054,7 +1059,8 @@ def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device):
     out = {}
     for model in (cpu, gpu):
         dev = model.device
-        step = TrainStep(model, model.loss,
+        # the same head on both: f32 logits (the card's default is int8)
+        step = TrainStep(model, functools.partial(model.loss, int8=False),
                          AdamW(model.parameters(), lr=1e-3, factored=True))
         kernels.reset_launch_counts()
         losses = [step(ids.to(dev), labels.to(dev)).item()]
@@ -1095,8 +1101,8 @@ def test_selective_remat_on_card_matches_cpu_and_launches_fwd_once(
     out = {}
     for model in (cpu, gpu):
         dev = model.device
-        step = TrainStep(model, model.loss, AdamW(model.parameters(),
-                                                  lr=3e-4))
+        step = TrainStep(model, functools.partial(model.loss, int8=False),
+                         AdamW(model.parameters(), lr=3e-4))
         kernels.reset_launch_counts()
         loss = step(ids.to(dev), ids.to(dev)).item()
         out[dev.type] = (loss, kernels.launch_counts(),
@@ -1200,3 +1206,139 @@ def test_checkpoint_round_trip_of_cuda_tensors_is_bitwise(cuda_device,
         assert all(p.device.type == cuda_device.type for p in m.parameters())
     assert [p.data_ptr() for p in model.parameters()] == ptrs
 
+
+
+# ------------------------------------------------- low-precision training
+@pytest.mark.parametrize("dtype", ["fp8", "int8"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,k,n", [(6144, 2048, 2048), (6144, 2048, 5504),
+                                   (77, 100, 40)],
+                         ids=["config4-attn", "config4-ffn", "padded-k100"])
+def test_scaled_gemm_on_card_matches_the_plain_route(cuda_device, monkeypatch,
+                                                     dtype, in_dtype, m, k,
+                                                     n):
+    """The card's narrow GEMM (``torch._scaled_mm`` for fp8, K and N
+    padded to multiples of 16; ``torch._int_mm`` for int8) against the
+    CPU's plain route on the same operands and histories, forward and the
+    wide backward. The codes and scales are the same on both devices; the
+    f32 sums run in other orders (f32: 1e-5 of the largest magnitude;
+    bf16 out: one bf16 rounding, 2**-7 of it). Hopper's fp8 tensor cores
+    keep their partial sums at about 14 bits between the f32 promotions
+    that ``use_fast_accum=False`` asks for: the fp8 forward in f32 is
+    held to 1e-3 of its largest magnitude (measured 2.0e-4 to 2.4e-4 on
+    an H100 80GB HBM3 at 700 W)."""
+    from paddle_tpu_torch.quant import gemm as qg
+
+    calls = []
+    real = torch._scaled_mm
+    monkeypatch.setattr(torch, "_scaled_mm",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(m, k, generator=g).to(in_dtype)
+    w = (torch.randn(k, n, generator=g) * 0.02).to(in_dtype)
+    gy = torch.randn(m, n, generator=g).to(in_dtype)
+    hist = torch.tensor([0.0, 2.0 * float(x.abs().max()), 0.0, 0.0])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xx = x.to(dev).requires_grad_()
+        ww = w.to(dev).requires_grad_()
+        h = hist.to(dev)
+        y, nhx, nhw = qg.scaled_gemm(xx, ww, h, torch.zeros_like(h),
+                                     dtype=dtype)
+        dx, dw = torch.autograd.grad(y, (xx, ww), gy.to(dev))
+        out[torch.device(dev).type] = [t.float().cpu() for t in
+                                       (y, dx, dw, nhx, nhw)]
+    assert len(calls) == (1 if dtype == "fp8" else 0)
+    rel = 1e-5 if in_dtype == torch.float32 else 2.0 ** -7
+    fwd_rel = 1e-3 if (dtype, in_dtype) == ("fp8", torch.float32) else rel
+    for got, want, r in zip(out["cuda"][:3], out["cpu"][:3],
+                            (fwd_rel, rel, rel)):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"{dtype} {in_dtype} [{m},{k}]x[{k},{n}]: {err:.3g} (tol {r})")
+        assert err <= r
+    assert torch.equal(out["cuda"][3], out["cpu"][3])
+    assert torch.equal(out["cuda"][4], out["cpu"][4])
+
+
+def test_int8_head_on_card_matches_the_cpu(cuda_device):
+    """The int8 LM head (``torch._int_mm`` logits over in-loop quantized
+    vocab chunks, straight-through backward) on the card against the
+    CPU's at a config-4 width: the codes, scales and int32 sums are the
+    same; the softmax and the f32 contractions sum in other orders
+    (1e-5). The card's default head is int8 behind its gate."""
+    from paddle_tpu_torch.nn.functional import (chunked_lm_loss_arrays,
+                                                int8_head_enabled)
+
+    assert int8_head_enabled(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    h = torch.randn(512, 2048, generator=g)
+    w = torch.randn(32000, 2048, generator=g) * 0.02
+    y = torch.randint(0, 32000, (512,), generator=g)
+    y[:5] = -100
+    out = {}
+    for dev in ("cpu", cuda_device):
+        hh = h.to(dev).requires_grad_()
+        ww = w.to(dev).requires_grad_()
+        loss = chunked_lm_loss_arrays(hh, ww, y.to(dev), int8=True)
+        gh, gw = torch.autograd.grad(loss, (hh, ww))
+        out[torch.device(dev).type] = (loss.item(), gh.cpu(), gw.cpu())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for i in (1, 2):
+        want = out["cpu"][i]
+        assert ((out["cuda"][i] - want).norm() / want.norm()).item() <= 1e-5
+
+
+def test_quantized_step_on_card_matches_cpu(cuda_device):
+    """Depth 2, f32, ``quant:all`` over the r5 saves: one TrainStep on the
+    card against the CPU from the same weights, the head pinned to f32:
+    loss, gradients, the new amax histories (``wd`` wide: swiglu_down owns
+    it) and the launches (the flash forward once a block). The card's fp8
+    GEMMs keep about 14 bits of their partial sums between f32 promotions
+    (2e-4 of a product's magnitude), which moves values across e4m3
+    rounding boundaries: each such code moves by an e4m3 step (up to 1/8
+    of the value), so the step is held as a quantized one is: loss 1e-3,
+    gradients 1e-1 of each leaf's norm, histories 2e-2 (measured on an
+    H100 80GB HBM3 at 700 W: loss 2.4e-4, gradients 3.2e-2, histories
+    5.9e-3)."""
+    from paddle_tpu_torch.quant import GEMM_SITES
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256, recompute=True,
+                    recompute_policy="names:attn_res,attn_lse,attn_q,attn_k,"
+                                     "attn_v,rms_rstd,resid_mid,ffn_gate,"
+                                     "ffn_up,quant:all")
+    cpu = GPTForCausalLMPipe(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(2), std=0.05)
+    gpu = GPTForCausalLMPipe(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.as_tensor(np.random.default_rng(2).integers(0, 1024,
+                                                            (2, 256)))
+    out = {}
+    for model in (cpu, gpu):
+        dev = model.device
+        step = TrainStep(model, functools.partial(model.loss, int8=False),
+                         AdamW(model.parameters(), lr=1e-3))
+        kernels.reset_launch_counts()
+        loss = step(ids.to(dev), ids.to(dev)).item()
+        out[dev.type] = (loss, kernels.launch_counts(),
+                         {n: p.grad.float().cpu()
+                          for n, p in model.named_parameters()},
+                         model.decoder.quant_amax.cpu())
+    L = cfg.num_layers
+    c = out["cuda"][1]
+    assert (c["flash_attention_fwd"], c["flash_attention_bwd"],
+            c["swiglu_down"], c["rms_norm"]) == (L, L, 2 * L, 4 * L)
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_err = {n: ((out["cuda"][2][n] - g).norm() / g.norm()).item()
+                for n, g in out["cpu"][2].items()}
+    amax = out["cuda"][3]
+    amax_err = ((amax - out["cpu"][3]).abs().max()
+                / out["cpu"][3].abs().max()).item()
+    print(f"quantized step card vs cpu: loss {loss_err:.3g}, grads "
+          f"{max(grad_err.values()):.3g}, amax {amax_err:.3g}")
+    assert loss_err <= 1e-3
+    assert max(grad_err.values()) <= 1e-1, grad_err
+    assert amax_err <= 2e-2
+    wd = GEMM_SITES.index("wd")
+    assert bool((amax[:, :wd, :, 0] > 0).all()) and not amax[:, wd].any()

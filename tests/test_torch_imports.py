@@ -46,7 +46,8 @@ def test_scan_covers_the_package():
         "resilience/__init__", "resilience/guard", "resilience/watchdog",
         "distributed/__init__", "distributed/checkpoint/__init__",
         "distributed/checkpoint/manager", "testing/__init__",
-        "testing/chaos", "testing/train_worker")} <= rel
+        "testing/chaos", "testing/train_worker", "memory/int8_ckpt",
+        "quant/gemm")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(

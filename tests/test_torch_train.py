@@ -251,18 +251,18 @@ def test_pipe_state_dict_round_trip():
 
 
 def test_selective_remat_policies_and_parallel_branches_raise():
-    """The remat entries that are not ported raise, naming their ROADMAP
-    items: ``int8:`` saves (A.3) and ``quant:`` GEMM sites (A.9); an
-    ``int8:`` kernel anchor is refused as in the reference."""
+    """The policies the reference refuses raise here too: an ``int8:``
+    kernel anchor, a ``quant:`` entry naming no GEMM site (the error names
+    the vocabulary) and an unknown policy; the parallel branches that are
+    not ported name their ROADMAP item (A.10)."""
     ids = torch.zeros(1, 8, dtype=torch.long)
     for policy, exc, item in (
-            ("names:attn_q,int8:resid_mid", NotImplementedError, "A.3"),
-            ("names:attn_res,quant:wq", NotImplementedError, "A.9"),
             ("names:int8:attn_res", ValueError, "kernel"),
+            ("names:attn_res,quant:wx", ValueError, "wq"),
             ("everything", ValueError, "recompute_policy")):
         cfg = GPTConfig(**dict(SMOKE, recompute_policy=policy))
-        tm = GPTForCausalLMPipe(cfg, device="cpu")
         with pytest.raises(exc, match=item):
+            tm = GPTForCausalLMPipe(cfg, device="cpu")
             tm.loss(ids, ids)
     with pytest.raises(NotImplementedError, match="A.10"):
         tm.decoder.apply_tp_placements(None)
