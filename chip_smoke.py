@@ -77,6 +77,20 @@ Phases, each of which fails the run on error:
    serving_disagg - phase 4's requests on a DisaggregatedEngine of 8
              prefill and 8 decode slots: streams equal phase 4's; handoffs,
              bytes and ms a handoff.
+   serving_fleet - the same model: (a) a FleetRouter over two replicas
+             of phase 4's engine (make_replicas, one model, the prefix
+             cache on) serving phase 4's requests under round_robin,
+             least_loaded and prefix_affinity: streams equal phase 4's,
+             outcomes conserved, launches per tick per replica exactly
+             paged_attention L and rms_norm 2L+1; tokens/s, TTFT, the
+             router's host ms a step; (b) kill_replica(1) after three
+             ticks: requeued onto replica 0, streams equal phase 4's, each
+             token delivered once; (c) overload_block, replica 1 a
+             flapping ChaosReplica, 48 requests of 128-512 tokens at twice
+             (a)'s capacity: tools/bench_gate.py's overload gate clean,
+             outcomes conserved, a breaker opened and no replica died, the
+             brownout ladder engaged and restored, every served stream a
+             prefix of a clean engine's.
    telemetry - the same model and requests with paddle_tpu_torch.
              telemetry: the graphed tick's wall, busy and host share with
              telemetry off and on (in turns, two batches each); phase 4's
@@ -108,7 +122,18 @@ Phases, each of which fails the run on error:
              the CPU's and the plain engine's, int8-weight streams the
              CPU's, a DisaggregatedEngine's the single engine's, and prefix
              pages exported from one engine and imported into another give
-             hits and the donor's streams.
+             hits and the donor's streams; a two-replica FleetRouter on the
+             card and on the CPU serve the single engine's streams.
+   fleet_procs - LLaMA-7B width at 8 layers in bf16, weights built from
+             a spec's seed: (a) FleetSupervisor(proc=True), two worker
+             processes on the card, upgrade_block with a SIGKILL and a
+             rolling upgrade: the upgrade gate clean, no lost or duplicate
+             token, a respawn, streams equal an in-process engine's, the
+             replica_death bundle read by tools/flight_report.py; spawn,
+             warmup, respawn and migration times, RPC round trips; (b)
+             partition_block over two local hosts (a TCPStore on
+             localhost): the partition gate clean, the severed host's
+             requests replayed, streams equal the in-process engine's.
 6. training - GPT-3 1.3B (config 4) at full width and depth in bf16:
              GPTForCausalLMPipe -> chunked-CE loss (int8 logits, the
              card's gated default) -> AdamW(factored) ->
@@ -170,8 +195,9 @@ Phases, each of which fails the run on error:
              remat.
 
 The line before the last lists every kernel with its launch counts on the
-serving, int8 serving, spec, int8-weight and disaggregated serving,
-incubate, training, quant_train (run b) and long-context runs; the last
+serving, int8 serving, spec, int8-weight, disaggregated and fleet
+serving, incubate, training, quant_train (run b) and long-context runs;
+the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
 line.
@@ -1981,6 +2007,525 @@ def phase_serving_disagg(model, streams):
     return res
 
 
+# ---------------------------------------------------------- serving fleet
+FLEET_POLICIES = ("round_robin", "least_loaded", "prefix_affinity")
+#: the overload scenario (c): 48 requests of 128-512 prompt tokens, 32 new
+OVERLOAD_REQUESTS = 48
+OVERLOAD_PROMPT_LENS = (128, 192, 256, 320, 384, 448, 512)
+#: a TTFT SLO in simulated seconds far above any TTFT the run sees, so the
+#: brownout pressure is the router's pending depth over shed_depth alone
+#: (a TTFT-driven pressure rides the measured tick times and its recovery
+#: is not deterministic)
+OVERLOAD_TTFT_SLO = 1000.0
+#: replica 1's flap: 12 clean steps, then 2 failing ones. A burst opens
+#: its breaker at most twice (at the threshold of 2 failures, or at each
+#: failing half-open probe), which is the bound the gate embeds; with 3
+#: failing steps a burst that finds the breaker already half-open (an
+#: idle replica) opens it three times
+OVERLOAD_FLAP = (12, 2)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bench_gate():
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "bench_gate.py"
+    spec = importlib.util.spec_from_file_location("bench_gate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _route_run(router, prompts, device, kill=None):
+    """Phase 4's schedule through a router: five requests, two fleet
+    ticks, the other three, then ticks until it drains. Returns the
+    streams in prompt order, the placement of each request, the tokens
+    each stream callback saw, TTFT per request, and the router's own host
+    ms per step (the step's wall minus the replicas' step times) with the
+    simulated-parallel seconds (each tick costs its slowest replica plus
+    the router, as fleet.soak's clock counts it). ``kill=(tick, idx)``
+    kills a replica after that many ticks."""
+    seen, first_t, submit_t, placed = {}, {}, {}, {}
+
+    def on_token(rid, tok):
+        seen[rid] = seen.get(rid, 0) + 1
+        first_t.setdefault(rid, time.perf_counter())
+
+    def submit(p):
+        t = time.perf_counter()
+        rid = router.submit(p, on_token=on_token)
+        submit_t[rid] = t
+        return rid
+
+    def note():
+        for rid, entry in router._inflight.items():
+            placed[rid] = entry[0]
+
+    done, host_ms, sim = {}, [], [0.0]
+
+    def tick():
+        busy0 = [h.busy_seconds for h in router.replicas]
+        t = time.perf_counter()
+        done.update(router.step())
+        _sync(device)
+        wall = time.perf_counter() - t
+        deltas = [h.busy_seconds - b for h, b in zip(router.replicas, busy0)]
+        host_ms.append((wall - sum(deltas)) * 1e3)
+        sim[0] += max(deltas) + max(0.0, wall - sum(deltas))
+        note()
+
+    t0 = time.perf_counter()
+    rids = [submit(p) for p in prompts[:5]]
+    note()
+    tick()
+    tick()
+    rids += [submit(p) for p in prompts[5:]]
+    note()
+    ticks = 2
+    while not router.drained():
+        tick()
+        ticks += 1
+        if kill is not None and ticks == kill[0]:
+            router.kill_replica(kill[1], RuntimeError(
+                f"chip_smoke: replica {kill[1]} killed"))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    return {"streams": [done[r] for r in rids],
+            "placed": [placed.get(r) for r in rids],
+            "seen": [seen.get(r, 0) for r in rids],
+            "ttft_ms": [(first_t[r] - submit_t[r]) * 1e3 for r in rids],
+            "wall_s": wall, "sim_s": sim[0], "router_steps": len(host_ms),
+            "router_host_ms_per_step": statistics.median(host_ms),
+            "router_host_ms_all": host_ms}
+
+
+def phase_serving_fleet(model, streams, device=DEVICE, new=32,
+                        engine_kw=None, prompts=None):
+    """(a) FleetRouter over two replicas of phase 4's engine on the one
+    model (make_replicas; the prefix cache on, so prefix_affinity has
+    pages to follow), phase 4's requests under each policy: streams equal
+    phase 4's, outcomes conserved, launches per tick per replica exactly
+    paged_attention L and rms_norm 2L+1. (b) kill_replica(1) after three
+    ticks: the requests requeue onto replica 0, streams equal phase 4's,
+    every stream callback saw each token once. (c) overload_block over two
+    replicas, replica 1 a flapping ChaosReplica, 48 requests at twice the
+    capacity (a) measured on the soak's clock: the bench_gate overload
+    gate clean, outcomes conserved, the breaker opened and no replica
+    died, the brownout ladder engaged and back at 0, every served stream
+    a prefix of a clean engine's. ``device``, ``engine_kw`` and
+    ``prompts`` let a CPU run rehearse it on a small model."""
+    from paddle_tpu_torch.inference.fleet import (FleetRouter, POLICIES,
+                                                  build_workload,
+                                                  overload_block)
+    from paddle_tpu_torch.inference.fleet.overload import OverloadConfig
+    from paddle_tpu_torch.inference.fleet.router import make_replicas
+    from paddle_tpu_torch.inference.fleet.soak import overload_workload
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing.chaos import ChaosReplica
+
+    cfg = model.config
+    L = cfg.num_layers
+    engine_kw = dict(SERVE_ENGINE if engine_kw is None else engine_kw,
+                     device=device, max_new_tokens=new)
+    if prompts is None:
+        _, prompts = _serve_prompts(cfg)
+    engines = make_replicas(lambda i: model, 2, enable_prefix_cache=True,
+                            **engine_kw)
+    build_s = [e.warmup() for e in engines]
+    res = {"build_seconds": build_s, "policies": {}}
+
+    def counters():
+        return [(e.decode_ticks, e.prefill_chunk_steps) for e in engines]
+
+    _sync(device)
+    kernels.reset_launch_counts()
+    c0 = counters()
+    for policy in FLEET_POLICIES:
+        router = FleetRouter(engines, policy=policy)
+        k0 = counters()
+        hits0 = [e.prefix_cache_hits for e in engines]
+        run = _route_run(router, prompts, device)
+        k1 = counters()
+        check(run["streams"] == streams,
+              f"serving_fleet {policy}: streams != phase 4's: "
+              f"{[a == b for a, b in zip(run['streams'], streams)]}")
+        out = router.outcomes()
+        check(out["served"] == len(prompts) and out["pending"] == 0
+              and out["inflight"] == 0 and out["cancelled"] == 0
+              and out["shed"] == 0, f"serving_fleet {policy}: {out}")
+        ticks = [b[0] - a[0] for a, b in zip(k0, k1)]
+        gen = new * len(prompts)
+        res["policies"][policy] = r = {
+            "tokens_per_s": gen / run["wall_s"], "wall_s": run["wall_s"],
+            "sim_s": run["sim_s"], "ttft_ms": run["ttft_ms"],
+            "decode_ticks": ticks,
+            "prefill_passes": [b[1] - a[1] for a, b in zip(k0, k1)],
+            "placed": run["placed"], "dispatched": [h.dispatched for h in
+                                                   router.replicas],
+            "router_steps": run["router_steps"],
+            "router_host_ms_per_step": run["router_host_ms_per_step"],
+            "router_host_ms_all": run["router_host_ms_all"],
+            "prefix_hits": [e.prefix_cache_hits - h
+                            for e, h in zip(engines, hits0)],
+            "outcomes": out}
+        print(f"serving_fleet {policy}: {gen} tokens in {run['wall_s']:.3f} "
+              f"s = {r['tokens_per_s']:.1f} tok/s (simulated-parallel "
+              f"{run['sim_s']:.3f} s); decode ticks {ticks}, prefill passes "
+              f"{r['prefill_passes']}; placed {run['placed']}; router host "
+              f"{run['router_host_ms_per_step']:.3f} ms a step (median of "
+              f"{run['router_steps']}); prefix hits {r['prefix_hits']}; "
+              f"TTFT ms {[round(x, 1) for x in run['ttft_ms']]}", flush=True)
+    _sync(device)
+    counts = kernels.launch_counts()
+    c1 = counters()
+    ticks = sum(b[0] - a[0] for a, b in zip(c0, c1))
+    chunks = sum(b[1] - a[1] for a, b in zip(c0, c1))
+    attn = "paged_attention_int8" if engines[0].int8_kv else "paged_attention"
+    # the CPU runs the plain versions, which count nothing
+    check(torch.device(device).type != "cuda" or (
+        counts[attn] == L * ticks
+        and counts["rms_norm"] == (2 * L + 1) * (ticks + chunks)),
+          f"serving_fleet: launches {counts} for {ticks} decode ticks and "
+          f"{chunks} prefill passes over both replicas")
+    res["launches"] = counts
+    aff = res["policies"]["prefix_affinity"]
+    check(aff["placed"] == res["policies"]["least_loaded"]["placed"]
+          and sum(aff["prefix_hits"]) > 0,
+          f"prefix_affinity: placed {aff['placed']}, hits "
+          f"{aff['prefix_hits']}")
+
+    # (b) requeue on death
+    router = FleetRouter(engines, policy="least_loaded")
+    run = _route_run(router, prompts, device, kill=(3, 1))
+    check(run["streams"] == streams,
+          "serving_fleet requeue: streams != phase 4's")
+    check(run["seen"] == [new] * len(prompts),
+          f"serving_fleet requeue: tokens seen per stream {run['seen']}")
+    check(router.requeues > 0 and not router.replicas[1].healthy
+          and set(run["placed"]) == {0},
+          f"serving_fleet requeue: {router.requeues} requeues, placed "
+          f"{run['placed']}")
+    res["requeue"] = {"requeues": router.requeues, "wall_s": run["wall_s"],
+                      "outcomes": router.outcomes()}
+    print(f"serving_fleet requeue: replica 1 killed after 3 ticks, "
+          f"{router.requeues} requests requeued onto replica 0, streams == "
+          f"phase 4's, each token delivered once", flush=True)
+
+    # (c) overload: the arrival rate is twice what (a) served a simulated
+    # second (round_robin, both replicas busy)
+    rr = res["policies"]["round_robin"]
+    capacity = len(prompts) / rr["sim_s"]
+    wl = overload_workload(capacity, OVERLOAD_REQUESTS, OVERLOAD_PROMPT_LENS,
+                           cfg.vocab_size, rate_x_capacity=2.0,
+                           batch_fraction=0.4, seed=11)
+    # the clean run every served stream must be a prefix of: replica 0
+    # (phase 4's engine with the prefix cache, which these random prompts
+    # never hit), all 48 requests
+    ref_rids = {engines[0].submit(p): tuple(p) for _, p, _ in wl}
+    ref_done = engines[0].run_until_complete()
+    ref = {p: ref_done[r] for r, p in ref_rids.items()}
+    del router, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    holder, routers = [], []
+
+    class Recorded(ChaosReplica):
+        """A ChaosReplica that keeps every completion it returns."""
+        _OWN = ChaosReplica._OWN | {"outputs"}
+
+        def step(self):
+            out = super().step()
+            self.outputs.update(out)
+            return out
+
+    def wrap(flap):
+        def fn(e):
+            holder.append(Recorded(e, flap=flap))
+            holder[-1].outputs = {}
+            return holder[-1]
+        return fn
+
+    def least_loaded(router, prompt, cands):
+        # the stock policy under its own name; keeps the router at hand
+        if not routers:
+            routers.append(router)
+        return POLICIES["least_loaded"](router, prompt, cands)
+
+    # shedding holds the pending depth at or under shed_depth, so the
+    # ladder steps down at a quarter of it
+    depth = 2 * engine_kw["max_slots"]
+    ov_cfg = OverloadConfig(
+        ttft_slo=OVERLOAD_TTFT_SLO, admit_depth=2 * depth, shed_depth=depth,
+        breaker_backoff=0.05, breaker_threshold=2, breaker_close_after=2,
+        brownout_high=0.25, brownout_low=0.1, brownout_up_ticks=2,
+        brownout_down_ticks=6)
+    t0 = time.perf_counter()
+    block = overload_block(
+        model, replicas=2, workload=wl, overload_cfg=ov_cfg,
+        policy=least_loaded, engine_kw=engine_kw,
+        chaos_wrap={0: wrap(None), 1: wrap(OVERLOAD_FLAP)},
+        shed_ceiling=0.9, rate_x_capacity=2.0)
+    wall = time.perf_counter() - t0
+    chaos = holder[1]
+    block["breaker_flap_bound"] = 2 * (
+        chaos.steps // sum(OVERLOAD_FLAP) + 1) + 2
+    violations = _bench_gate().overload_violations({"overload": block})
+    served = {**holder[0].outputs, **holder[1].outputs}
+    prompts_c = [p for _, p, _ in wl]
+    prefix_ok = all(
+        ref[tuple(max((q for q in prompts_c if ids[:len(q)] == q),
+                      key=len))][:len(ids)] == ids
+        for ids in served.values())
+    block["policy"] = "least_loaded"
+    res["overload"] = dict(block, wall_s=wall, capacity_req_per_sim_s=capacity,
+                           chaos={"flap": list(OVERLOAD_FLAP),
+                                  "steps": chaos.steps,
+                                  "faults": chaos.faults},
+                           ttft_slo=OVERLOAD_TTFT_SLO, violations=violations)
+    print(f"serving_fleet overload: {block['submitted']} submitted at 2x "
+          f"{capacity:.3f} req/sim-s: served {block['served']}, cancelled "
+          f"{block['cancelled']}, shed {block['shed']} "
+          f"{block['shed_reasons']}, rejected {block['rejected']} "
+          f"{block['reject_reasons']}; breaker opens "
+          f"{block['breaker_opens']} (bound {block['breaker_flap_bound']}), "
+          f"brownout {block['brownout']}; chaos faults {chaos.faults} of "
+          f"{chaos.steps} steps; p99 TTFT {block['p99_ttft_seconds']} "
+          f"sim-s; goodput {block['goodput_tokens_per_sec']} tok/sim-s; "
+          f"{wall:.1f} s wall; gate {violations}", flush=True)
+    check(violations == [], f"overload gate: {violations}")
+    check(block["conserved"] and block["served"] + block["cancelled"]
+          + block["shed"] + block["rejected"] == block["submitted"]
+          == OVERLOAD_REQUESTS, f"overload conservation: {block}")
+    check(block["breaker_opens"] >= 1 and chaos.faults > 0
+          and all(h.healthy for h in routers[0].replicas),
+          "overload: the breaker never opened, or a replica died")
+    check(block["brownout"]["max_level"] >= 1
+          and block["brownout"]["level"] == 0,
+          f"overload: brownout {block['brownout']}")
+    check(len(served) == block["served"] and prefix_ok,
+          "overload: a served stream is not a prefix of the clean engine's")
+    del holder, routers, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------------ fleet procs
+#: fleet_procs' replica: LLaMA-7B's width (hidden 4096, 32 heads of 128,
+#: FFN 11008, vocabulary 32000) at 8 of its 32 layers, bf16: every spawn,
+#: respawn and upgrade builds the weights anew in a fresh process
+FLEET_PROC_CONFIG = dict(vocab_size=32000, hidden_size=4096, num_layers=8,
+                         num_heads=32, num_kv_heads=32,
+                         intermediate_size=11008, max_seq_len=4096,
+                         dtype="bfloat16")
+FLEET_PROC_ENGINE = dict(max_slots=8, page_size=64, max_seq_len=2048,
+                         prefill_chunk=512, max_new_tokens=16, seed=0)
+FLEET_DIR = Path(__file__).resolve().parent / "build" / "fleet"
+
+
+def _timed(readings, fn):
+    """``fn`` with its wall seconds appended to ``readings``."""
+    def run(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        readings.append(time.perf_counter() - t)
+        return out
+    return run
+
+
+def _recording(sup):
+    """Every completion the supervisor's router returns, by rid."""
+    done = {}
+    step = sup.router.step
+
+    def recorded():
+        out = step()
+        done.update(out)
+        return out
+
+    sup.router.step = recorded
+    return done
+
+
+def phase_fleet_procs(smi="", config_kw=None, engine_kw=None,
+                      device=DEVICE, n_requests=16,
+                      prompt_lens=(128, 256, 384, 512)):
+    """(a) FleetSupervisor(spec, 2, proc=True): two worker processes on the
+    card, each building the spec's weights (LLaMA-7B width at 8 layers,
+    bf16) from its seed; upgrade_block with a SIGKILL at tick 2 and a
+    rolling upgrade (version_seed_stride 0) from tick 5: the bench_gate
+    upgrade gate clean, outcomes conserved, no lost or duplicate stream
+    token, the upgrade complete, a respawn, streams equal to an
+    in-process engine built from the same spec, and flight_report.py
+    --quiet exits 0 on the replica_death bundle. Readings: each worker's
+    spawn-to-ready and warmup seconds, the respawn's seconds, the
+    migration's bytes and ms, the RPC ping and step round trips. (b)
+    partition_block over two local hosts (agents in this process over the
+    port's TCPStore on localhost), one replica each, host0 severed at
+    tick 3: the partition gate clean, its requests replayed on host1, the
+    streams those of the in-process engine. ``config_kw``, ``engine_kw``
+    and ``device`` let a CPU run rehearse it small."""
+    import shutil
+
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.inference.fleet import (FleetSupervisor,
+                                                  build_model_from_spec,
+                                                  build_workload,
+                                                  make_model_spec,
+                                                  partition_block,
+                                                  upgrade_block)
+    from paddle_tpu_torch.inference.fleet import cluster, transport
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    config_kw = dict(config_kw or FLEET_PROC_CONFIG)
+    engine_kw = dict(engine_kw or FLEET_PROC_ENGINE)
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    flight_dir = FLEET_DIR / "flight"
+    spec = make_model_spec(config_kw, seed=0, engine_kw=engine_kw,
+                           flight_dir=str(flight_dir), device=device)
+    wl = build_workload(n_requests, 50.0, prompt_lens,
+                        config_kw["vocab_size"], seed=5)
+    t = time.perf_counter()
+    model = build_model_from_spec(spec)
+    _sync(device)
+    build_s = time.perf_counter() - t
+    nparams = sum(p.numel() for p in model.parameters())
+    eng = ContinuousBatchingEngine(model, device=device, **engine_kw)
+    rids = [eng.submit(p) for _, p, _ in wl]
+    done = eng.run_until_complete()
+    want = {i: done[r] for i, r in enumerate(rids)}
+    del eng, model, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fleet_procs: spec {nparams / 1e9:.3f} B params "
+          f"{config_kw['dtype']}, built in process in {build_s:.1f} s; "
+          f"{n_requests} requests served by the in-process engine",
+          flush=True)
+    from paddle_tpu_torch.inference.fleet import wire
+
+    res = {"params": nparams, "in_process_build_s": build_s,
+           "wire_codec": {wire.CODEC_MSGPACK: "msgpack",
+                          wire.CODEC_STDLIB: "stdlib"}[wire.DEFAULT_CODEC]}
+    gate = _bench_gate()
+
+    # (a) process replicas: a kill, a respawn and a rolling upgrade
+    spawn_s, warm_s, respawn_s, migrate_s = [], [], [], []
+    hs, warm = cluster.ProcChild._handshake, transport.RemoteEngine.warmup
+    cluster.ProcChild._handshake = _timed(spawn_s, hs)
+    transport.RemoteEngine.warmup = _timed(warm_s, warm)
+    rec = telemetry.flight.install(str(flight_dir))
+    try:
+        t = time.perf_counter()
+        sup = FleetSupervisor(spec, 2, proc=True,
+                              workdir=str(FLEET_DIR / "procs"))
+        start_s = time.perf_counter() - t
+        try:
+            check(sup.proc and all(c.pid > 0 for c in sup.children.values()),
+                  "fleet_procs: no worker processes")
+            sup._spawn_replacement = _timed(respawn_s, sup._spawn_replacement)
+            sup._migrate_off = _timed(migrate_s, sup._migrate_off)
+            got = _recording(sup)
+            t = time.perf_counter()
+            blk = upgrade_block(sup, wl, version=1, upgrade_tick=5,
+                                kill_tick=2)
+            wall = time.perf_counter() - t
+            live = next(h for h in sup.router.replicas
+                        if h.healthy and not h.retired)
+            rtt = {}
+            for name, call in (("ping", live.engine.ping),
+                               ("step", live.engine.step)):
+                ms = []
+                for _ in range(7):
+                    t = time.perf_counter()
+                    call()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                rtt[name] = statistics.median(ms[2:])
+        finally:
+            sup.close()
+    finally:
+        cluster.ProcChild._handshake = hs
+        transport.RemoteEngine.warmup = warm
+        telemetry.flight.uninstall()
+    deaths = [p for p in rec.bundle_paths() if "replica_death" in p]
+    report = (subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "tools"
+                             / "flight_report.py"), "--quiet", deaths[0]],
+        capture_output=True, text=True, timeout=120).returncode
+        if deaths else None)
+    violations = gate.upgrade_violations({"upgrade": blk})
+    up = blk["upgrade"]
+    res["upgrade"] = dict(
+        blk, wall_s=wall, supervisor_start_s=start_s,
+        spawn_to_ready_s=spawn_s, warmup_s=warm_s, respawn_s=respawn_s,
+        migrate_ms=[x * 1e3 for x in migrate_s], rpc_ms=rtt,
+        death_bundles=len(deaths), flight_report_exit=report,
+        violations=violations)
+    print(f"fleet_procs upgrade: {blk['served']}/{blk['submitted']} served "
+          f"in {wall:.1f} s; workers spawn-to-ready "
+          f"{[round(x, 2) for x in spawn_s]} s (handshake: import, weights, "
+          f"engine), warmup {[round(x, 2) for x in warm_s]} s, supervisor "
+          f"start {start_s:.1f} s, respawn {[round(x, 2) for x in respawn_s]}"
+          f" s; kill {blk['kill']}; upgrade complete {up['complete']} "
+          f"upgraded {up['upgraded_replicas']}, migrated "
+          f"{up['migrated_requests']} requests, {up['migration_bytes']} "
+          f"bytes in {[round(x * 1e3, 1) for x in migrate_s]} ms; RPC "
+          f"round trip ping {rtt['ping']:.3f} ms, idle step "
+          f"{rtt['step']:.3f} ms; stream tokens duplicate "
+          f"{blk['duplicate_stream_tokens']} lost "
+          f"{blk['lost_stream_tokens']}; wire codec {res['wire_codec']}; "
+          f"flight_report exit {report}; gate {violations}; {smi}",
+          flush=True)
+    check(violations == [], f"fleet_procs upgrade gate: {violations}")
+    check(blk["conserved"] and blk["served"] == n_requests
+          and blk["lost_requests"] == 0
+          and blk["duplicate_stream_tokens"] == 0
+          and blk["lost_stream_tokens"] == 0,
+          f"fleet_procs upgrade outcomes: {blk}")
+    check(up["complete"] and blk["kill"]["respawns"] >= 1,
+          f"fleet_procs: upgrade {up}, kill {blk['kill']}")
+    check({r: got.get(r) for r in want} == want,
+          "fleet_procs: process fleet streams != the in-process engine's")
+    check(report == 0, f"flight_report on {deaths}: exit {report}")
+
+    # (b) two hosts, one partitioned away and healed
+    got = None
+    t = time.perf_counter()
+    sup = FleetSupervisor(spec, 2, proc=False, hosts=2)
+    try:
+        got = _recording(sup)
+        blk = partition_block(sup, wl, host="host0", sever_tick=3)
+        requeues = sup.router.requeues
+    finally:
+        sup.close()
+    wall = time.perf_counter() - t
+    violations = gate.partition_violations({"partition": blk})
+    res["partition"] = dict(blk, wall_s=wall, requeues=requeues,
+                            violations=violations)
+    part = blk["partition"]
+    print(f"fleet_procs partition: {blk['served']}/{blk['submitted']} served "
+          f"in {wall:.1f} s; host0 severed at tick {part['sever_tick']}, "
+          f"healed {part['healed']} ({part['heal_tick']}); {requeues} "
+          f"requests replayed, respawns {blk['respawns']}, adopted "
+          f"{part['adopted_workers']}, lease epoch {part['lease_epoch']}; "
+          f"stream tokens duplicate {blk['duplicate_stream_tokens']} lost "
+          f"{blk['lost_stream_tokens']}; gate {violations}", flush=True)
+    check(violations == [], f"fleet_procs partition gate: {violations}")
+    check(blk["conserved"] and blk["served"] == n_requests
+          and requeues > 0 and blk["respawns"] >= 1
+          and part["host_severs"] == 1,
+          f"fleet_procs partition: {blk}")
+    check({r: got.get(r) for r in want} == want,
+          "fleet_procs partition: streams != the in-process engine's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------- incubate decoder
 # ------------------------------------------------------- phase telemetry
 TELEMETRY_DIR = Path(__file__).resolve().parent / "build" / "telemetry"
@@ -2550,9 +3095,12 @@ def phase_fleet_consistency(model, prompts):
     """f32, full width, depth 2, card against CPU: speculative decoding
     with a self-draft (acceptance exactly 1.0) and with a small draft, each
     equal to the plain engine on the card; int8-resident weights; a
-    DisaggregatedEngine against the single engine; prefix pages exported
-    from one engine and imported into another (hits, equal streams)."""
-    from paddle_tpu_torch.inference.fleet import DisaggregatedEngine
+    two-replica FleetRouter on the card and on the CPU against the single
+    engine; a DisaggregatedEngine against the single engine; prefix pages
+    exported from one engine and imported into another (hits, equal
+    streams)."""
+    from paddle_tpu_torch.inference.fleet import (DisaggregatedEngine,
+                                                  FleetRouter, make_replicas)
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -2602,6 +3150,19 @@ def phase_fleet_consistency(model, prompts):
     res["int8w_tokens_equal_to_exact"] = sum(
         a == b for r in range(3)
         for a, b in zip(out[DEVICE][r][-new:], plain[r][-new:]))
+    routed = {}
+    for dev, m in (("cpu", cpu_model), (DEVICE, model)):
+        router = FleetRouter(make_replicas(
+            lambda i, m=m: m, 2, max_new_tokens=new, device=dev,
+            **CONSIST_ENGINE), policy="round_robin")
+        routed[dev] = _staggered(router, prompts)
+        check([h.dispatched for h in router.replicas] == [2, 1],
+              f"router on {dev}: dispatched "
+              f"{[h.dispatched for h in router.replicas]}")
+        del router
+    check(routed[DEVICE] == routed["cpu"] == plain,
+          "2-replica router: card, CPU and single-engine streams differ")
+    res["router"] = {"replicas": 2, "policy": "round_robin"}
     del cpu_model
     single = _staggered(ContinuousBatchingEngine(
         model, max_new_tokens=new, prefill_chunk=64, device=DEVICE,
@@ -2637,7 +3198,8 @@ def phase_fleet_consistency(model, prompts):
     del donor, peer
     print(f"fleet consistency: f32 depth 2: spec streams (self and small "
           f"draft) card == CPU == the plain engine, self-draft acceptance "
-          f"1.0; int8 weights card == CPU; disaggregated == single engine "
+          f"1.0; int8 weights card == CPU; 2-replica router card == CPU == "
+          f"single engine; disaggregated == single engine "
           f"({res['disagg']['handoffs']} handoffs); prefix pages "
           f"{imported} imported, {res['prefix_import']['hits']} hits, "
           f"streams == the donor's", flush=True)
@@ -3742,6 +4304,8 @@ def main():
                                       model, report["serving"], streams)
         report["serving_disagg"] = run("serving_disagg",
                                        phase_serving_disagg, model, streams)
+        report["serving_fleet"] = run("serving_fleet", phase_serving_fleet,
+                                      model, streams)
         report["telemetry"] = run("telemetry", phase_telemetry, model,
                                   streams)
         report["incubate"] = run("incubate", phase_incubate, model)
@@ -3760,6 +4324,8 @@ def main():
             "fleet_consistency", phase_fleet_consistency, model, prompts)
         del model
         torch.cuda.empty_cache()
+        report["fleet_procs"] = run("fleet_procs", phase_fleet_procs,
+                                    report["device"]["smi"])
         report["training"] = run("training", phase_training)
         report["train_consistency"] = run("train_consistency",
                                           phase_train_consistency)
@@ -3811,8 +4377,8 @@ def main():
         by_path = {path: report[path]["launches"][name]
                    for path in ("serving", "serving_int8", "serving_spec",
                                 "serving_int8w", "serving_disagg",
-                                "incubate", "training", "quant_train",
-                                "long_context")}
+                                "serving_fleet", "incubate", "training",
+                                "quant_train", "long_context")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

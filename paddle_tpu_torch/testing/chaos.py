@@ -1,5 +1,5 @@
-"""Fault injection for the training loop (counterpart of the training
-half of ``paddle_tpu/testing/chaos.py``).
+"""Fault injection for the training loop and the serving fleet
+(counterpart of ``paddle_tpu/testing/chaos.py``).
 
 - **Writer faults**: ``transient_write_errors`` raises OSError on the
   first N write attempts (retry and backoff); ``failing_writes`` on every
@@ -15,11 +15,23 @@ half of ``paddle_tpu/testing/chaos.py``).
   kills it once its stdout reports a chosen step; ``run_to_completion``,
   ``step_losses`` and ``subprocess_env`` go with it.
 
+- **Fleet faults**: ``ChaosReplica`` wraps one serving replica's fleet
+  surface with deterministic tick-counted fault injection — step
+  latency (straggler), intermittent transient exceptions, a flapping
+  replica — the seam the FleetRouter circuit breakers are proven
+  against (docs/SERVING.md "Overload & degradation").
+- **Wire faults**: ``ChaosTransport`` wraps one fleet transport link
+  with deterministic send-ordinal-keyed frame faults — drop, delay,
+  duplicate, corrupt (byte flip past the header), and sever-for-N-calls
+  — the seam the RPC retry/idempotency machinery is proven against.
+  ``PartitionedLink`` holds one link severed as a STATE (sever/heal),
+  the network-partition seam the cross-host fencing machinery
+  (``inference.fleet.hosts``) is proven against.
+
 Every injector goes through a seam its subsystem exposes
 (``distributed.checkpoint._WRITE_FAULT_HOOK``,
-``resilience._ANOMALY_FAULT_HOOK``). The fleet half (``ChaosReplica``,
-``ChaosTransport``, ``PartitionedLink``) waits for the port's fleet
-(ROADMAP A.12).
+``resilience._ANOMALY_FAULT_HOOK``, a transport's byte-level
+``_send``/``_recv_bytes``, a replica's ``step``).
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import os
 import re
 import signal
 import subprocess
+import time
 
 from ..distributed import checkpoint as _ckpt
 
@@ -142,6 +155,90 @@ def die_during_write(match=None, exit_code=57):
 
     with _install_hook(hook):
         yield
+
+
+# ---------------------------------------------------------------------------
+# fleet fault seams (docs/SERVING.md "Overload & degradation")
+# ---------------------------------------------------------------------------
+class ChaosReplica:
+    """Wrap one engine's fleet surface with deterministic, tick-counted
+    fault injection — the seam ``FleetRouter``'s circuit breakers are
+    proven against (breaker open/half-open/close transitions,
+    exactly-once streaming across shed/retry/replay). Everything except
+    ``step()`` delegates to the wrapped engine; injected faults fire
+    BEFORE the wrapped step executes, so a faulted tick is effect-free
+    (the shape of a transient runtime error: the work did not happen).
+
+    Fault families (composable, all keyed on the 1-based step ordinal so
+    runs are reproducible with no wall-clock dependence):
+
+    - ``latency``: seconds of injected ``step()`` latency — a straggler
+      replica (slows the fleet tick; never fails).
+    - ``fail_ticks``: explicit step ordinals that raise.
+    - ``transient_every=k``: every k-th step raises — an intermittently
+      flaky replica (drives breaker open -> half-open -> close).
+    - ``flap=(up, down)``: ``up`` healthy steps then ``down`` failing
+      steps, cycling forever — the flapping replica the overload soak
+      scenario runs (breaker flap count must stay bounded).
+    - ``exc_factory``: exception builder taking the step ordinal
+      (default :class:`~paddle_tpu_torch.inference.fleet.overload.
+      TransientReplicaError`; pass e.g. ``RuntimeError`` to inject
+      FATAL-classified faults and exercise ``max_consecutive_fatal``).
+    """
+
+    _OWN = frozenset({"_engine", "latency", "fail_ticks",
+                      "transient_every", "flap", "_exc", "steps",
+                      "faults"})
+
+    def __init__(self, engine, *, latency=0.0, fail_ticks=(),
+                 transient_every=None, flap=None, exc_factory=None):
+        object.__setattr__(self, "_engine", engine)
+        self.latency = float(latency)
+        self.fail_ticks = frozenset(int(t) for t in fail_ticks)
+        self.transient_every = transient_every
+        self.flap = tuple(flap) if flap else None
+        self._exc = exc_factory
+        self.steps = 0
+        self.faults = 0
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "_engine"), name)
+
+    def __setattr__(self, name, value):
+        # brownout/controller writes (max_new_cap, spec_paused, ...)
+        # must land on the ENGINE — only this wrapper's own fields stay
+        # local, so the seam is invisible to every fleet consumer
+        if name in self._OWN:
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self._engine, name, value)
+
+    def _should_fail(self):
+        t = self.steps
+        if t in self.fail_ticks:
+            return True
+        if self.transient_every and t % int(self.transient_every) == 0:
+            return True
+        if self.flap:
+            up, down = self.flap
+            return (t - 1) % (up + down) >= up
+        return False
+
+    def step(self):
+        self.steps += 1
+        if self.latency:
+            time.sleep(self.latency)
+        if self._should_fail():
+            self.faults += 1
+            if self._exc is not None:
+                raise self._exc(
+                    f"chaos: injected fault at replica step {self.steps}")
+            from ..inference.fleet.overload import TransientReplicaError
+
+            raise TransientReplicaError(
+                f"chaos: injected transient fault at replica step "
+                f"{self.steps}")
+        return self._engine.step()
 
 
 # ---------------------------------------------------------------------------
@@ -277,3 +374,178 @@ def subprocess_env(extra=None):
     if extra:
         env.update(extra)
     return env
+
+
+class ChaosTransport:
+    """Deterministic frame-level fault injection on ONE fleet link.
+
+    Wraps a live :class:`~paddle_tpu_torch.inference.fleet.transport.Transport`
+    and interposes on its byte-level `_send` / `_recv_bytes` seam, so the
+    retry / idempotency / CRC machinery above it is exercised for real —
+    nothing here monkeypatches transport internals, and the call-level
+    semantics (ids, backoff, timeouts) are the wrapped transport's own.
+
+    Faults key on the 1-based SEND ordinal (every `_send` attempt,
+    including retries, increments it), so a schedule like
+    ``drop_sends={1}`` is reproducible run to run:
+
+    - ``drop_sends``: the frame silently vanishes (client times out and
+      re-sends the same call id; the server's idempotency cache keeps it
+      exactly-once).
+    - ``corrupt_sends``: one payload byte is flipped (server's CRC check
+      rejects it loudly; never half-parsed).
+    - ``duplicate_sends``: the frame is delivered twice (server replays
+      the cached reply; the duplicate must not re-execute).
+    - ``delay_sends`` + ``delay``: injected latency before delivery.
+    - ``sever_for(n)``: the next ``n`` send attempts raise
+      `TransportSevered` (a dead link that heals — the breaker's
+      backoff-and-replay case).
+    - ``corrupt_recvs``: flips a byte in a REPLY frame instead.
+    """
+
+    def __init__(self, inner, *, drop_sends=(), corrupt_sends=(),
+                 duplicate_sends=(), delay_sends=(), delay=0.0,
+                 corrupt_recvs=(), sleep=time.sleep):
+        self._inner = inner
+        self.drop_sends = set(drop_sends)
+        self.corrupt_sends = set(corrupt_sends)
+        self.duplicate_sends = set(duplicate_sends)
+        self.delay_sends = set(delay_sends)
+        self.delay = float(delay)
+        self.corrupt_recvs = set(corrupt_recvs)
+        self._sleep = sleep
+        self.sends = 0
+        self.recvs = 0
+        self.dropped = 0
+        self.corrupted = 0
+        self.duplicated = 0
+        self.severed_calls = 0
+        self._sever_left = 0
+        # the retry/call machinery runs on the wrapped transport with
+        # OUR byte seam spliced in
+        inner._send = self._send_faulted(inner.__class__._send, inner)
+        inner._recv_bytes = self._recv_faulted(
+            inner.__class__._recv_bytes, inner)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    # -- fault schedule ------------------------------------------------------
+    def sever_for(self, n):
+        """Sever the link for the next ``n`` send attempts."""
+        self._sever_left = int(n)
+
+    @staticmethod
+    def _flip_byte(frame):
+        """Flip one PAYLOAD byte (past the header) so the CRC check —
+        not the length prefix — is what catches it."""
+        from ..inference.fleet import wire as _wire
+
+        buf = bytearray(frame)
+        pos = _wire.HEADER_SIZE if len(buf) > _wire.HEADER_SIZE else 0
+        buf[pos] ^= 0xFF
+        return bytes(buf)
+
+    def _send_faulted(self, real_send, inner):
+        from ..inference.fleet.transport import TransportSevered
+
+        def _send(frame):
+            self.sends += 1
+            n = self.sends
+            if self._sever_left > 0:
+                self._sever_left -= 1
+                self.severed_calls += 1
+                raise TransportSevered(
+                    f"chaos: link severed ({self._sever_left} left)")
+            if n in self.drop_sends:
+                self.dropped += 1
+                return                      # the frame never arrives
+            if n in self.delay_sends and self.delay > 0:
+                self._sleep(self.delay)
+            if n in self.corrupt_sends:
+                self.corrupted += 1
+                frame = self._flip_byte(frame)
+            real_send(inner, frame)
+            if n in self.duplicate_sends:
+                self.duplicated += 1
+                real_send(inner, frame)
+
+        return _send
+
+    def _recv_faulted(self, real_recv, inner):
+        def _recv_bytes(timeout):
+            data = real_recv(inner, timeout)
+            self.recvs += 1
+            if self.recvs in self.corrupt_recvs:
+                self.corrupted += 1
+                data = self._flip_byte(data)
+            return data
+
+        return _recv_bytes
+
+
+class PartitionedLink:
+    """Network-partition seam for one supervisor->host fleet link.
+
+    Unlike :meth:`ChaosTransport.sever_for` (a count of failed send
+    attempts), a partition is a STATE: while :meth:`sever` holds, every
+    send raises `TransportSevered` immediately and every push frame the
+    server emits is swallowed before the client sees it — nothing
+    crosses in either direction until :meth:`heal`.  The supervisor's
+    host-lease machinery (fleet.hosts) is proven against this seam: a
+    severed host's replicas are fenced to a higher lease epoch and
+    replayed elsewhere, and a healed host's survivors self-quarantine
+    on first contact instead of double-serving.
+    """
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.severed = False
+        self.blocked_sends = 0
+        self.blocked_push = 0
+        # capture the BOUND send (which may already be chaos-spliced) so
+        # partition composes with ChaosTransport fault schedules
+        inner._send = self._send_gated(inner._send)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    @property
+    def epoch(self):
+        """Lease fencing token — delegated so the supervisor's epoch
+        stamp lands on the real transport, not the wrapper."""
+        return self._inner.epoch
+
+    @epoch.setter
+    def epoch(self, value):
+        self._inner.epoch = value
+
+    def sever(self):
+        self.severed = True
+
+    def heal(self):
+        self.severed = False
+
+    def open_push(self, on_msg):
+        """Push frames ride the same (conceptual) network: while the
+        partition holds they are dropped client-side, exactly as a real
+        severed connection would lose them — the pull path's event-log
+        resync is what recovers the stream."""
+        def gated(msg):
+            if self.severed:
+                self.blocked_push += 1
+                return
+            on_msg(msg)
+
+        return self._inner.open_push(gated)
+
+    def _send_gated(self, real_send):
+        from ..inference.fleet.transport import TransportSevered
+
+        def _send(frame):
+            if self.severed:
+                self.blocked_sends += 1
+                raise TransportSevered("chaos: network partition")
+            return real_send(frame)
+
+        return _send

@@ -17,7 +17,11 @@ parameter or slot) and a CheckpointManager round trip of CUDA tensors,
 bit for bit, and the low-precision training path: the fp8 and int8
 scaled GEMMs (``torch._scaled_mm``, ``torch._int_mm``) against the CPU's
 plain route, the int8 LM head against the CPU's, and a quantized
-two-layer step on the card against the CPU.
+two-layer step on the card against the CPU; the fleet: a two-replica
+FleetRouter on the card against the CPU's and the single engine's
+streams, a swapped bf16 and int8 KV snapshot through the wire and
+``inject`` bit for bit, and a worker process on the card that serves,
+is killed and is respawned.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -749,6 +753,92 @@ def test_disagg_on_card_matches_single_engine(cuda_device):
                               device=cuda_device)
     got = _serve(dis, prompts)
     assert got == want and dis.handoffs == len(prompts)
+
+
+def test_fleet_router_on_card_matches_single_engine(cuda_device):
+    from paddle_tpu_torch.inference.fleet import FleetRouter, make_replicas
+
+    cpu_eng, eng = _engine_pair(cuda_device, prefill_chunk=8)
+    prompts = [np.random.default_rng(15).integers(1, 96, n).tolist()
+               for n in (19, 7, 26, 4, 11, 30)]
+    want = _serve(eng, prompts)
+    kw = dict(max_slots=2, page_size=16, max_seq_len=64, max_new_tokens=6,
+              prefill_chunk=8)
+    for policy in ("round_robin", "least_loaded"):
+        routers = [FleetRouter(make_replicas(lambda i, m=m: m, 2, device=d,
+                                             **kw), policy=policy)
+                   for m, d in ((eng._model, cuda_device),
+                                (cpu_eng._model, "cpu"))]
+        got = [_serve(r, prompts) for r in routers]
+        assert got[0] == got[1] == want
+        assert all(h.dispatched > 0 for h in routers[0].replicas)
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["bf16", "int8"])
+def test_swapped_kv_crosses_the_wire_on_card(cuda_device, int8_kv):
+    from paddle_tpu_torch.inference.fleet import wire
+
+    cfg = LlamaConfig(vocab_size=96, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=128)
+    model = LlamaForCausalLM(cfg, device=cuda_device,
+                             dtype=torch.bfloat16).init_weights(
+        torch.Generator(device=cuda_device).manual_seed(3), std=0.2)
+    kw = dict(max_slots=2, page_size=16, max_seq_len=64, max_new_tokens=6,
+              int8_kv=int8_kv, device=cuda_device)
+    prompt = np.random.default_rng(16).integers(1, 96, 21).tolist()
+    ref = ContinuousBatchingEngine(model, **kw)
+    want = _serve(ref, [prompt])[0]
+    src = ContinuousBatchingEngine(model, **kw)
+    rid = src.submit(prompt)
+    while src._slots[0] is None or len(src._slots[0].generated) < 2:
+        src.step()
+    req = src.extract(0)
+    leaves = [x for c in (req.swapped["k"], req.swapped["v"])
+              for x in (c if isinstance(c, tuple) else (c,))]
+    assert leaves[0].dtype == (torch.int8 if int8_kv else torch.bfloat16)
+    for codec in wire.available_codecs():
+        back = wire.request_from_wire(wire.decode_frame(wire.encode_frame(
+            wire.request_to_wire(req), codec)))
+        got = [x for c in (back.swapped["k"], back.swapped["v"])
+               for x in (c if isinstance(c, tuple) else (c,))]
+        assert all(a.dtype == b.dtype and torch.equal(
+            a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(leaves, got))
+        dst = ContinuousBatchingEngine(model, **kw)
+        dst.inject(back)
+        assert dst.run_until_complete()[rid] == want
+
+
+def test_proc_child_on_card_serves_and_respawns(cuda_device, tmp_path):
+    from paddle_tpu_torch.inference.fleet import (FleetSupervisor,
+                                                  build_model_from_spec,
+                                                  make_model_spec)
+
+    spec = make_model_spec(
+        dict(vocab_size=96, hidden_size=256, num_layers=2, num_heads=4,
+             num_kv_heads=2, max_seq_len=128),
+        engine_kw=dict(max_slots=2, page_size=16, max_seq_len=64,
+                       max_new_tokens=6), device=cuda_device)
+    local = ContinuousBatchingEngine(build_model_from_spec(spec),
+                                     device=cuda_device,
+                                     **spec["engine_kw"])
+    prompts = [np.random.default_rng(17).integers(1, 96, n).tolist()
+               for n in (9, 14)]
+    want = sorted(_serve(local, prompts).values())
+    sup = FleetSupervisor(spec, 1, proc=True, lease_seconds=120.0,
+                          workdir=str(tmp_path))
+    try:
+        assert sup.children[0].pid > 0
+        assert sorted(_serve(sup, prompts).values()) == want
+        sup.children[0].kill()
+        for _ in range(20):
+            sup.step()
+            if sup.respawns:
+                break
+        assert sup.respawns == 1 and sup.router.replicas[1].healthy
+        assert sorted(_serve(sup, prompts).values()) == want
+    finally:
+        sup.close()
 
 
 def _rel_err(got, want):

@@ -47,7 +47,10 @@ def test_scan_covers_the_package():
         "distributed/__init__", "distributed/checkpoint/__init__",
         "distributed/checkpoint/manager", "testing/__init__",
         "testing/chaos", "testing/train_worker", "memory/int8_ckpt",
-        "quant/gemm")} <= rel
+        "quant/gemm", "distributed/store")} <= rel
+    assert {f"paddle_tpu_torch/inference/fleet/{m}.py" for m in (
+        "__init__", "overload", "router", "soak", "wire", "transport",
+        "worker", "cluster", "hosts", "disagg", "spec_decode")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
