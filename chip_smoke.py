@@ -193,10 +193,33 @@ Phases, each of which fails the run on error:
 9. long_context_remat - bf16, full width, depth 2, seq 32768: the step-1
              loss and gradients under that policy equal those under full
              remat.
+10. model_rest - the model files' one-card rest, bf16 at full width, 3
+             AdamW(factored) TrainSteps of batch 3 x seq 2048 each:
+             (a) config 5 at degree 1 (bench.py:253-257) through
+             LlamaForCausalLMPipe (launches asserted, step median,
+             tokens/s, model-flops share); (b) the GPT-3 architecture
+             (LayerNorm, exact gelu, learned positions) at config 4's
+             widths and depth through the per-layer GPTForCausalLM.loss
+             (flash fwd 2L and bwd L, rms_norm 0); (c) config 4's Pipe
+             with fused_addrms (add_rms_norm 2L, rms_norm 2L a step), with
+             int8_ffn (swiglu_down 0) and unfused on one seeded state and
+             batch: each seam's losses within 2% of the unfused run's;
+             (e) that int8_ffn Pipe and its optimizer saved through
+             CheckpointManager, restored into a per-layer GPTForCausalLM
+             by restore_decoder_any_layout and back into a fresh Pipe:
+             every converted tensor bytes-equal after the transpose, the
+             next loss of both trees within phase 7's bound; (d)
+             GPTForCausalLMMoE at config 4's width and depth, 8 experts
+             of FFN width 5504, top 2, gshard, capacity factor 2: losses,
+             aux loss, dropped (token, choice) pairs per layer, peak
+             memory; (f) f32 depth 2, card against CPU for (b)'s variant
+             and (d)'s MoE, phase 7's bounds. One more step of (a), (b)
+             and (d) runs under the profiler (busy, host share, groups).
 
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
-serving, incubate, training, quant_train (run b) and long-context runs;
+serving, incubate, training, quant_train (run b), long-context and
+model_rest runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -208,6 +231,7 @@ import argparse
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4263,6 +4287,439 @@ def phase_long_context_remat():
             "grads_not_bitwise": not_bitwise, "grad_rel_err": rel}
 
 
+# ------------------------------------------------------------ model_rest
+#: config 5 at degree 1 (bench.py:253-257): LLaMA-7B's widths at 8 layers
+CONFIG5 = dict(vocab_size=32000, hidden_size=4096, num_layers=8,
+               num_heads=32, num_kv_heads=8, intermediate_size=11008,
+               max_seq_len=2048, dropout=0.0, dtype="bfloat16",
+               recompute=True)
+#: config 4 (bench.py:259-262)
+CONFIG4 = dict(vocab_size=32000, hidden_size=2048, num_layers=24,
+               num_heads=16, max_seq_len=2048, dropout=0.0, dtype="bfloat16",
+               recompute=True)
+#: the GPT-3 architecture's variant knobs: LayerNorm, exact gelu, learned
+#: positions (intermediate 4H by the config rule)
+GPT3_ARCH = dict(norm_type="layernorm", act="gelu", rope=False)
+#: the MoE decoder of (d): 8 experts of config 4's FFN width, top 2
+MOE_KW = dict(num_experts=8, top_k=2, gate="gshard", capacity_factor=2.0)
+REST_STEPS = 3
+#: (c): a seam's losses against the unfused run's, the reference's bound
+#: for int8 saves (tests/test_memory.py:113-122)
+REST_SEAM_RTOL = 0.02
+
+
+def _rest_steps(tag, model, loss_fn, batches, want, profile=False):
+    """One AdamW(factored) TrainStep of ``loss_fn`` on each of
+    ``batches``: losses, each step's wall (host clock, ending in the
+    loss's read), the launches of all steps, each kernel in ``want``
+    asserted at its count per step times the steps. A new batch a step:
+    a wide model learns one repeated random batch by heart within two
+    steps. ``profile`` adds one more step on the last batch under the
+    profiler (``_profile_step``) on a card. Returns (readings,
+    optimizer)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                factored=True)
+    step = TrainStep(model, loss_fn, opt)
+    kernels.reset_launch_counts()
+    losses, ms = [], []
+    steps = len(batches)
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(step(*batch).item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    for name, per_step in want.items():
+        check(counts[name] == per_step * steps,
+              f"{tag}: {name} launches {counts[name]} != {per_step} x "
+              f"{steps}")
+    check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    res = {"losses": losses, "step_ms": ms,
+           "step_ms_median": statistics.median(ms), "launches": counts,
+           "launches_per_step": want}
+    if profile and next(model.parameters()).is_cuda:
+        res["profile"] = prof = _profile_step(step, batches[-1],
+                                              res["step_ms_median"])
+        print(f"model_rest {tag}: profiled step "
+              f"{prof['device_busy_ms']:.1f} ms device busy, host share "
+              f"{prof['host_share']}; by group "
+              + json.dumps({k: round(v, 2) for k, v in
+                            prof["by_group_ms"].items()})
+              + "; top kernels "
+              + json.dumps([(k[:60], round(v, 2))
+                            for k, v in prof["top_kernels_ms"][:5]]),
+              flush=True)
+    return res, opt
+
+
+def _rest_report(tag, res, nparams, tokens):
+    tps = tokens / (res["step_ms_median"] / 1e3)
+    res.update(params=nparams, tokens_per_s=tps,
+               model_flops_share=6.0 * nparams * tps
+               / PEAK_OPS[torch.bfloat16])
+    print(f"model_rest {tag}: {nparams / 1e9:.4f} B params, losses "
+          f"{[round(x, 4) for x in res['losses']]}, step ms "
+          f"{[round(x, 1) for x in res['step_ms']]} (median "
+          f"{res['step_ms_median']:.1f}, the first step included), "
+          f"{tps:.0f} tokens/s, model-flops share "
+          f"{res['model_flops_share']:.4f}; launches per step "
+          f"{res['launches_per_step']}", flush=True)
+
+
+def _first_loss_near_ln_v(tag, loss, vocab):
+    ln_v = float(np.log(vocab))
+    check(ln_v - 0.1 <= loss <= ln_v + 1.5,
+          f"{tag}: first loss {loss} outside [ln V - 0.1, ln V + 1.5]")
+
+
+def _nbytes_equal(a, b):
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _rest_layouts(pipe, popt, cfg, batch, root, device):
+    """(e): the Pipe's state and optimizer saved through CheckpointManager,
+    restored into a per-layer GPTForCausalLM (restore_decoder_any_layout),
+    saved again and restored into a fresh Pipe. Every converted tensor's
+    bytes (after the transpose, factored slots swapped) are asserted
+    equal; the factored norms' second moments, which have no counterpart
+    in the other layout, are listed. The next loss of both trees on one
+    batch agrees within phase 7's bound."""
+    from paddle_tpu_torch.distributed.checkpoint import (
+        training_state_dict, training_state_target)
+    from paddle_tpu_torch.distributed.checkpoint.manager import \
+        CheckpointManager
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTForCausalLMPipe,
+                                             convert_decoder_state_dict,
+                                             restore_decoder_any_layout)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def fresh(cls):
+        model = cls(cfg, device=device)
+        opt = AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                    factored=True)
+        return model, opt
+
+    def compare(src, dst, layout):
+        conv = convert_decoder_state_dict(src, layout)
+        same = [k for k, t in dst.items()
+                if k in conv and _nbytes_equal(conv[k], t)]
+        differ = sorted(k for k, t in dst.items()
+                        if k in conv and k not in same)
+        return len(same), differ, sorted(k for k in dst if k not in conv)
+
+    out = {}
+    mgr = CheckpointManager(str(root))
+    try:
+        t0 = time.perf_counter()
+        mgr.save_training_state(1, pipe, popt)
+        out["save_s"] = time.perf_counter() - t0
+        eager, eopt = fresh(GPTForCausalLM)
+        t0 = time.perf_counter()
+        check(restore_decoder_any_layout(mgr, eager, eopt, strict=False)
+              == 1, "layouts: restore into the per-layer tree")
+        out["to_per_layer_s"] = time.perf_counter() - t0
+        n, differ, kept = compare(training_state_dict(pipe, popt),
+                                  training_state_target(eager, eopt),
+                                  "per_layer")
+        check(not differ, f"layouts: bytes differ after the transpose: "
+                          f"{differ[:8]}")
+        out["per_layer"] = {"equal": n, "kept": kept}
+        with torch.no_grad():
+            loss = {k: m.loss(*batch, int8=False).item()
+                    for k, m in (("pipe", pipe), ("per_layer", eager))}
+        rel = abs(loss["per_layer"] - loss["pipe"]) / abs(loss["pipe"])
+        out.update(next_loss=loss, next_loss_rel=rel)
+        t0 = time.perf_counter()
+        mgr.save_training_state(2, eager, eopt)
+        out["save2_s"] = time.perf_counter() - t0
+        del eopt
+        back, bopt = fresh(GPTForCausalLMPipe)
+        t0 = time.perf_counter()
+        check(restore_decoder_any_layout(mgr, back, bopt, strict=False) == 2,
+              "layouts: restore back into the Pipe")
+        out["to_stacked_s"] = time.perf_counter() - t0
+        n2, differ2, kept2 = compare(training_state_dict(eager, None),
+                                     training_state_target(back, None),
+                                     "stacked")
+        mine = training_state_dict(pipe, popt)
+        theirs = training_state_target(back, bopt)
+        lost = sorted(k for k in mine if not _nbytes_equal(mine[k],
+                                                           theirs[k]))
+        check(not differ2, f"layouts: bytes differ coming back: {differ2}")
+        out["stacked"] = {"equal": n2, "not_round_tripped": lost}
+    finally:
+        mgr.close()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"model_rest (e): Pipe -> per-layer: {out['per_layer']['equal']} "
+          f"tensors bytes-equal after the transpose, kept at the target's "
+          f"own value {out['per_layer']['kept']}; per-layer -> Pipe: "
+          f"{out['stacked']['equal']} parameters bytes-equal, the round "
+          f"trip's changed tensors {out['stacked']['not_round_tripped']}; "
+          f"next loss {loss} (rel {rel:.2e}, tol {TRAIN_LOSS_RTOL}); save "
+          f"{out['save_s']:.1f} s, restore {out['to_per_layer_s']:.1f} s, "
+          f"save {out['save2_s']:.1f} s, restore {out['to_stacked_s']:.1f} "
+          "s", flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, f"layouts: next losses differ: {loss}")
+    check(all(k.endswith(("norm.weight.moment2", "ln1.vr", "ln1.vc",
+                          "ln2.vr", "ln2.vc"))
+              for k in out["per_layer"]["kept"]
+              + out["stacked"]["not_round_tripped"]),
+          "layouts: a tensor besides the factored norms' second moments "
+          "did not convert")
+    return out
+
+
+def _rest_card_vs_cpu(tag, build, loss_fn, vocab, device, seq=256):
+    """(f): f32, three AdamW(factored) TrainSteps of one model on the card
+    and on the CPU from the same weights, as phase 7: losses within
+    TRAIN_LOSS_RTOL, step-1 gradients within TRAIN_GRAD_RTOL of each
+    leaf's norm."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cpu = build("cpu")
+    gpu = build(device)
+    gpu.load_state_dict(cpu.state_dict())
+    losses, grads = {}, {}
+    for dev, model in (("cpu", cpu), (device, gpu)):
+        step = TrainStep(model, loss_fn(model), AdamW(
+            model.parameters(), lr=1e-3, factored=True))
+        ids, labels = _train_batch(vocab, 1, seq, 1, dev)
+        losses[dev] = [step(ids, labels).item()]
+        grads[dev] = {n: p.grad.detach().float().cpu().clone()
+                      for n, p in model.named_parameters()}
+        losses[dev] += [step(ids, labels).item() for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[device],
+                                                  losses["cpu"]))
+    worst = {n: ((grads[device][n] - g).norm()
+                 / g.norm().clamp_min(1e-30)).item()
+             for n, g in grads["cpu"].items()}
+    print(f"model_rest (f) {tag}: f32 depth 2 seq {seq}, losses card "
+          f"{losses[device]} cpu {losses['cpu']} (max rel {rel:.2e}, tol "
+          f"{TRAIN_LOSS_RTOL}); step-1 grads max rel "
+          f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}, tol "
+          f"{TRAIN_GRAD_RTOL})", flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, f"{tag}: losses differ: {losses}")
+    check(max(worst.values()) <= TRAIN_GRAD_RTOL,
+          f"{tag}: grads differ: {worst}")
+    return {"losses": losses, "grad_rel_err": worst}
+
+
+def phase_model_rest(smi="", cfg5=None, cfg4=None, batch=3, seq=2048,
+                     device=DEVICE, root=Path("build/ckpt_layouts"),
+                     steps=REST_STEPS):
+    """The model files' one-card rest, bf16 at full width:
+    (a) config 5 at degree 1 through LlamaForCausalLMPipe;
+    (b) the GPT-3 architecture (LayerNorm, gelu, learned positions) at
+        config 4's widths and depth through the per-layer
+        GPTForCausalLM.loss: the flash kernels under the per-layer tree,
+        rms_norm never;
+    (c) config 4's Pipe with fused_addrms, then with int8_ffn, and
+        unfused, on the same weights and batch (the CE head pinned to f32
+        logits in all three): exact launches, each seam's losses within
+        REST_SEAM_RTOL of the unfused run's;
+    (d) GPTForCausalLMMoE at config 4's width and depth, 8 experts of
+        FFN width 5504, top 2: losses, aux loss, tokens dropped per layer,
+        peak memory;
+    (e) the layout converters on (c)'s last Pipe and its optimizer;
+    (f) card against CPU, f32, depth 2, for (b)'s variant and (d)'s MoE.
+    Each of (a)-(d) runs ``steps`` AdamW(factored) TrainSteps, a seeded
+    batch x seq batch each (the same batches for the three runs of (c));
+    (a), (b) and (d) one more under the profiler (device busy, host
+    share, time by kernel group).
+    ``smi`` is printed beside the readings; the other arguments let
+    the phase run small on the CPU."""
+    import functools
+
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             GPTForCausalLMMoE,
+                                             GPTForCausalLMPipe)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLMPipe
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.swiglu_down import \
+        swiglu_down_supported
+
+    cuda = torch.device(device).type == "cuda"
+    cfg5 = GPTConfig(**(cfg5 or CONFIG5))
+    cfg4_kw = dict(cfg4 or CONFIG4)
+    cfg4 = GPTConfig(**cfg4_kw)
+    tokens = batch * seq
+    out = {"smi": smi, "part_seconds": {}}
+    launches = {k: 0 for k in kernels.launch_counts()}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        out["part_seconds"][part] = time.perf_counter() - t0
+        for k, v in res.get("launches", {}).items():
+            launches[k] += v
+        return res
+
+    def batches(cfg, seed):
+        return [_train_batch(cfg.vocab_size, batch, seq, 100 * seed + s,
+                             device) for s in range(steps)]
+
+    def model_of(cls, cfg, seed, **kw):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return cls(cfg, device=device, **kw).init_weights(gen, std=0.02)
+
+    def pipe_want(cfg, addrms=False, int8=False):
+        L = cfg.num_layers
+        m = cfg.intermediate_size
+        fused = swiglu_down_supported((batch, seq, m),
+                                      (m, cfg.hidden_size)) and not int8
+        return {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+                "flash_attention_bwd_dq": 0, "rms_norm": (2 + 2 * (
+                    not addrms)) * L, "add_rms_norm": 2 * L * addrms,
+                "swiglu_down": 2 * L * fused}
+
+    def part_a():
+        torch.cuda.reset_peak_memory_stats() if cuda else None
+        model = model_of(LlamaForCausalLMPipe, cfg5, seed=0)
+        res, _ = _rest_steps("(a)", model, model.loss, batches(cfg5, 0),
+                                pipe_want(cfg5) if cuda else {},
+                                profile=True)
+        _first_loss_near_ln_v("(a)", res["losses"][0], cfg5.vocab_size)
+        _rest_report("(a) config 5, LlamaForCausalLMPipe", res,
+                     sum(p.numel() for p in model.parameters()), tokens)
+        if cuda:
+            res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return res
+
+    def part_b():
+        cfg = GPTConfig(**dict(cfg4_kw, **GPT3_ARCH))
+        model = model_of(GPTForCausalLM, cfg, seed=1)
+        L = cfg.num_layers
+        want = ({"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+                 "rms_norm": 0, "add_rms_norm": 0, "swiglu_down": 0}
+                if cuda else {})
+        res, _ = _rest_steps("(b)", model, model.loss, batches(cfg, 1),
+                                want, profile=True)
+        _first_loss_near_ln_v("(b)", res["losses"][0], cfg.vocab_size)
+        _rest_report("(b) GPT-3 architecture, per-layer", res,
+                     sum(p.numel() for p in model.parameters()), tokens)
+        return res
+
+    keep = {}
+
+    def part_c():
+        b = batches(cfg4, 2)
+        runs = {}
+        for name, kw in (("unfused", {}), ("fused_addrms",
+                                           {"fused_addrms": True}),
+                         ("int8_ffn", {"int8_ffn": True})):
+            cfg = GPTConfig(**dict(cfg4_kw, **kw))
+            model = model_of(GPTForCausalLMPipe, cfg, seed=2)
+            want = pipe_want(cfg, addrms="fused_addrms" in kw,
+                             int8="int8_ffn" in kw) if cuda else {}
+            res, opt = _rest_steps(
+                f"(c) {name}", model, functools.partial(model.loss,
+                                                        int8=False),
+                b, want)
+            runs[name] = res
+            if name == "int8_ffn":
+                keep.update(pipe=model, opt=opt, batch=b[0])
+            del model, opt
+        base = runs["unfused"]["losses"]
+        for name in ("fused_addrms", "int8_ffn"):
+            rel = max(abs(a - u) / abs(u)
+                      for a, u in zip(runs[name]["losses"], base))
+            runs[name]["loss_rel_to_unfused"] = rel
+        print(f"model_rest (c) {smi}: config 4 Pipe, losses unfused "
+              f"{[round(x, 4) for x in base]}; "
+              + "; ".join(f"{n} {[round(x, 4) for x in r['losses']]} (max "
+                          f"rel {r.get('loss_rel_to_unfused', 0):.2e}, tol "
+                          f"{REST_SEAM_RTOL})"
+                          for n, r in runs.items() if n != "unfused")
+              + "; step medians ms "
+              + ", ".join(f"{n} {r['step_ms_median']:.1f}"
+                          for n, r in runs.items())
+              + f"; launches per step {runs['fused_addrms']['launches_per_step']}"
+              f" (seam), {runs['int8_ffn']['launches_per_step']} (int8 FFN)",
+              flush=True)
+        for name in ("fused_addrms", "int8_ffn"):
+            check(runs[name]["loss_rel_to_unfused"] <= REST_SEAM_RTOL,
+                  f"(c) {name}: losses {runs[name]['losses']} against "
+                  f"{base}")
+        launch = {k: sum(r["launches"][k] for r in runs.values())
+                  for k in launches}
+        return {"runs": runs, "launches": launch}
+
+    def part_d():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = model_of(GPTForCausalLMMoE, cfg4, seed=3, **MOE_KW)
+        L = cfg4.num_layers
+        want = ({"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+                 "rms_norm": 4 * L + 1, "swiglu_down": 0,
+                 "add_rms_norm": 0} if cuda else {})
+        res, _ = _rest_steps("(d)", model, model.loss, batches(cfg4, 3),
+                                want, profile=True)
+        _first_loss_near_ln_v("(d)", res["losses"][0], cfg4.vocab_size)
+        res["aux_loss"] = model.aux_loss().item()
+        res["dropped_per_layer"] = [int(l.moe.dropped) for l in model.layers]
+        res["routed_per_layer"] = tokens * MOE_KW["top_k"]
+        nparams = sum(p.numel() for p in model.parameters())
+        _rest_report("(d) MoE, 8 experts top 2", res, nparams, tokens)
+        if cuda:
+            res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"model_rest (d) {smi}: aux loss {res['aux_loss']:.4f}; "
+              f"(token, choice) pairs dropped per layer "
+              f"{res['dropped_per_layer']} of {res['routed_per_layer']}; "
+              f"peak memory {res.get('peak_memory_gib', 0):.1f} GiB",
+              flush=True)
+        return res
+
+    def part_f():
+        small = dict(cfg4_kw, num_layers=2, dtype="float32")
+        variant = GPTConfig(**dict(small, **GPT3_ARCH))
+        moe_cfg = GPTConfig(**small)
+
+        def build(cls, cfg, **kw):
+            def make(dev):
+                m = cls(cfg, device=dev, **kw)
+                if dev == "cpu":
+                    m.init_weights(torch.Generator().manual_seed(4), std=0.02)
+                return m
+            return make
+
+        return {"variant": _rest_card_vs_cpu(
+                    "GPT-3 architecture", build(GPTForCausalLM, variant),
+                    lambda m: functools.partial(m.loss, int8=False),
+                    variant.vocab_size, device, min(seq, 256)),
+                "moe": _rest_card_vs_cpu(
+                    "MoE", build(GPTForCausalLMMoE, moe_cfg, **MOE_KW),
+                    lambda m: m.loss, moe_cfg.vocab_size, device,
+                    min(seq, 256))}
+
+    out["a"] = timed("a", part_a)
+    out["b"] = timed("b", part_b)
+    out["c"] = timed("c", part_c)
+    out["e"] = timed("e", lambda: _rest_layouts(
+        keep["pipe"], keep["opt"], GPTConfig(**cfg4_kw), keep["batch"],
+        root, device))
+    keep.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["d"] = timed("d", part_d)
+    if cuda:
+        torch.cuda.empty_cache()
+    out["f"] = timed("f", part_f)
+    out["launches"] = launches
+    print(f"model_rest: {smi}: parts s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["part_seconds"].items())
+          + f"; launches {launches}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -4336,6 +4793,8 @@ def main():
         report["long_context"] = run("long_context", phase_long_context)
         report["long_context_remat"] = run("long_context_remat",
                                            phase_long_context_remat)
+        report["model_rest"] = run("model_rest", phase_model_rest,
+                                   report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -4378,7 +4837,8 @@ def main():
                    for path in ("serving", "serving_int8", "serving_spec",
                                 "serving_int8w", "serving_disagg",
                                 "serving_fleet", "incubate", "training",
-                                "quant_train", "long_context")}
+                                "quant_train", "long_context",
+                                "model_rest")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

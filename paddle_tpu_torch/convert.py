@@ -1,6 +1,7 @@
 """Carry weights between the JAX package and the port.
 
-Serving models (``GPTForCausalLM``, ``LlamaForCausalLM``): the JAX
+Per-layer models (``GPTForCausalLM`` in every variant,
+``LlamaForCausalLM``, ``GPTForCausalLMMoE``): the JAX
 package's ``Linear.weight`` is ``[in, out]`` (it computes ``x @ w``);
 ``torch.nn.Linear.weight`` is ``[out, in]``. The port keeps PyTorch's
 layout, so this module owns the one transpose, both ways. Names are the
@@ -23,23 +24,43 @@ from .models.gpt import BLOCK_PARAMS, GPTForCausalLMPipe
 from .quant import requested_quant_sites
 
 _LINEAR = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
-           "down_proj", "lm_head")
+           "down_proj", "lm_head", "fc1", "fc2", "gate")
 
 
 def _is_linear(name: str) -> bool:
+    """A ``Linear`` weight: the projections, gelu's ``fc1``/``fc2``, the MoE
+    gate's ``gate`` and the untied head. ``StackedExperts``' ``w1``/``w2``
+    keep the reference's einsum layout ``[E, in, out]``, as the Pipe keeps
+    ``[L, in, out]``."""
     return name.endswith(".weight") and name.split(".")[-2] in _LINEAR
 
 
-def expected_keys(config) -> list[str]:
+def expected_keys(config, moe=False) -> list[str]:
+    """The per-layer tree's state-dict keys, in the port's order, for
+    every variant: LayerNorm biases, ``fc1``/``fc2`` with biases under
+    gelu, ``embed_pos`` without rope; with ``moe`` the layers of
+    ``GPTForCausalLMMoE`` (experts, then the gate)."""
+    norm = (("weight",) if config.norm_type == "rmsnorm"
+            else ("weight", "bias"))
+    if moe:
+        ffn = ["moe.experts.w1", "moe.experts.b1", "moe.experts.w2",
+               "moe.experts.b2", "moe.gate.gate.weight", "moe.gate.gate.bias"]
+    elif config.act == "swiglu":
+        ffn = ["mlp.gate_proj.weight", "mlp.up_proj.weight",
+               "mlp.down_proj.weight"]
+    else:
+        ffn = ["mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
+               "mlp.fc2.bias"]
     keys = ["model.embed_tokens.weight"]
+    if not config.rope:
+        keys.append("model.embed_pos.weight")
     for i in range(config.num_layers):
         p = f"model.layers.{i}."
-        keys += [p + "input_norm.weight", p + "attn.q_proj.weight",
-                 p + "attn.k_proj.weight", p + "attn.v_proj.weight",
-                 p + "attn.o_proj.weight", p + "post_attn_norm.weight",
-                 p + "mlp.gate_proj.weight", p + "mlp.up_proj.weight",
-                 p + "mlp.down_proj.weight"]
-    keys.append("model.final_norm.weight")
+        keys += [p + "input_norm." + n for n in norm]
+        keys += [p + f"attn.{w}_proj.weight" for w in "qkvo"]
+        keys += [p + "post_attn_norm." + n for n in norm]
+        keys += [p + k for k in ffn]
+    keys += ["model.final_norm." + n for n in norm]
     if not config.tie_embeddings:
         keys.append("lm_head.weight")
     return keys
@@ -51,10 +72,12 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def state_dict_from_jax(params: dict, config) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(params: dict, config,
+                        moe=False) -> dict[str, torch.Tensor]:
     """The JAX model's ``state_dict()``, taken as numpy arrays, -> the
-    port's state dict (CPU tensors; ``load_state_dict`` moves them)."""
-    want = expected_keys(config)
+    port's state dict (CPU tensors; ``load_state_dict`` moves them).
+    ``moe``: the state of a ``GPTForCausalLMMoE``."""
+    want = expected_keys(config, moe)
     missing = [k for k in want if k not in params]
     extra = [k for k in params if k not in want]
     if missing or extra:

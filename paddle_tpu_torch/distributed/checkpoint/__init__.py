@@ -417,6 +417,20 @@ def load_state_dict(state_dict, path, strict=True):
     return state_dict
 
 
+def read_state_dict(path):
+    """``{key: CPU tensor}`` of every tensor saved under ``path``, by its
+    saved name and shape: no target is needed (the reference's
+    ``saved_state_template`` and load in one)."""
+    out, cache = {}, {}
+    for meta in _load_metadata(path):
+        for index, fn in meta.storage_metadata.items():
+            if fn not in cache:
+                cache[fn] = _read_payload(os.path.join(path, fn))
+            offset = ",".join(map(str, index.global_offset))
+            out[index.tensor_key] = cache[fn][f"{index.tensor_key}|{offset}"]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # model + optimizer training state, by the model's parameter names
 # ---------------------------------------------------------------------------
@@ -481,6 +495,7 @@ __all__ = [
     "CHECKSUM_ALGO", "CheckpointManager", "CheckpointValidationError",
     "Metadata", "MissingKeysError", "NoCheckpointError", "PreemptionGuard",
     "checksum_bytes", "load_checkpoint", "load_state_dict",
+    "read_state_dict",
     "optimizer_state_dict", "save_checkpoint", "save_state_dict",
     "training_state_dict", "training_state_target", "wait_async_save",
 ]

@@ -464,11 +464,16 @@ class CheckpointManager:
             fallback=fallback and step is None)
 
     def _restore_candidates(self, state_dict, candidates, strict=True,
-                            fallback=True):
+                            fallback=True, load=None):
         """Walk ``candidates`` (newest first) validating and loading; with
         ``fallback`` a failing step counts a validation failure and the
-        walk continues, else it raises."""
+        walk continues, else it raises. ``load(step_dir)``, where given,
+        replaces the load into ``state_dict``."""
         from . import MissingKeysError, _metrics, load_state_dict
+
+        if load is None:
+            def load(path):
+                load_state_dict(state_dict, path, strict=strict)
 
         last_err = None
         for s in candidates:
@@ -484,8 +489,7 @@ class CheckpointManager:
             try:
                 with _trace.span("ckpt:load", attrs={"step": s},
                                  cat="ckpt"):
-                    load_state_dict(state_dict, self.step_dir(s),
-                                    strict=strict)
+                    load(self.step_dir(s))
             except MissingKeysError:
                 raise  # wrong state shape, not corruption: older steps
                        # would silently resurrect stale values
@@ -502,6 +506,44 @@ class CheckpointManager:
         raise NoCheckpointError(
             f"no committed step under {self.root!r} passed validation "
             f"(last error: {last_err})")
+
+    def saved_keys(self, step=None):
+        """The keys of the newest good committed step (or of ``step``),
+        from its metadata alone: no payload read, no validation. Lets a
+        caller choose how to restore before paying for a load
+        (``models.gpt.restore_decoder_any_layout``)."""
+        from . import _load_metadata
+
+        s = int(step) if step is not None else self.last_good_step()
+        if s is None:
+            raise NoCheckpointError(
+                f"no committed checkpoint step under {self.root!r}")
+        keys = set()
+        for meta in _load_metadata(self.step_dir(s)):
+            keys.update(meta.state_dict_metadata)
+        return keys
+
+    def read_state(self, step=None):
+        """``(state, step)``: every tensor of the newest good committed
+        and valid step (or exactly ``step``) as CPU tensors by their saved
+        names, with no target model. Corrupt steps fall back as in
+        :meth:`restore` when ``step`` is None."""
+        from . import read_state_dict
+
+        candidates = ([int(step)] if step is not None
+                      else list(reversed(self.good_steps())))
+        if not candidates:
+            raise NoCheckpointError(
+                f"no committed checkpoint step under {self.root!r}")
+        loaded = {}
+
+        def load(path):
+            loaded.clear()
+            loaded.update(read_state_dict(path))
+
+        s = self._restore_candidates(None, candidates,
+                                     fallback=step is None, load=load)
+        return dict(loaded), s
 
     def restore_last_good(self, model, optimizer=None, before_step=None,
                           strict=True):

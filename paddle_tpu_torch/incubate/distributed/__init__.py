@@ -1,0 +1,2 @@
+"""Distributed incubate APIs of the port (counterpart of
+``paddle_tpu/incubate/distributed``): the MoE layer."""

@@ -1,5 +1,11 @@
-from .gpt import GPTConfig, GPTForCausalLM
-from .llama import LlamaConfig, LlamaForCausalLM, llama_preset
+from .gpt import (GPTConfig, GPTForCausalLM, GPTForCausalLMMoE,
+                  GPTForCausalLMPipe, convert_decoder_state_dict,
+                  decoder_state_layout, restore_decoder_any_layout)
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaForCausalLMPipe,
+                    LlamaModel, llama_preset)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM",
-           "llama_preset"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTForCausalLMMoE",
+           "GPTForCausalLMPipe", "LlamaConfig", "LlamaForCausalLM",
+           "LlamaForCausalLMPipe", "LlamaModel", "convert_decoder_state_dict",
+           "decoder_state_layout", "llama_preset",
+           "restore_decoder_any_layout"]

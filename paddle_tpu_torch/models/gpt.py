@@ -20,6 +20,7 @@ two module trees:
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -31,11 +32,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from .. import quant as _quant
-from ..memory.int8_ckpt import int8_checkpoint
+from ..memory.int8_ckpt import int8_checkpoint, quantize_rows_int8
 from ..memory.remat import anchor, parse_save_names, split_quant_entries
 from ..nn.functional.fused_cross_entropy import (chunked_lm_loss_arrays,
                                                  record_head_mode)
+from ..nn.norm import LayerNorm
 from ..nn.norm import RMSNorm as PlainRMSNorm
+from ..ops.kernels.add_rms_norm import add_rms_norm
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.rms_norm import rms_norm
 from ..ops.kernels.swiglu_down import swiglu_down, swiglu_down_supported
@@ -49,7 +52,7 @@ class GPTConfig:
                  max_seq_len=2048, norm_type="rmsnorm", act="swiglu",
                  rope=True, dropout=0.0, tie_embeddings=True,
                  dtype="float32", recompute=False, recompute_policy="full",
-                 head_chunk=None):
+                 head_chunk=None, int8_ffn=False, fused_addrms=False):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -72,6 +75,11 @@ class GPTConfig:
         self.recompute_policy = recompute_policy
         # vocab chunk of the chunked CE head (None = 8192)
         self.head_chunk = head_chunk
+        # the stacked block's FFN with int8-saved gate/up (_FFNInt8; the
+        # reference's PTPU_INT8_FFN) and its attn->norm seam through the
+        # add_rms_norm kernel (the reference's PTPU_FUSED_ADDRMS)
+        self.int8_ffn = int8_ffn
+        self.fused_addrms = fused_addrms
 
 
 def _rope_at_positions(x, pos, base=10000.0):
@@ -121,19 +129,53 @@ def _attention_plain(q, k, v, mask):
 
 
 def _check_supported(config):
-    if (config.norm_type != "rmsnorm" or config.act != "swiglu"
-            or not config.rope):
-        raise NotImplementedError(
-            "paddle_tpu_torch ports the rmsnorm + swiglu + rope family; "
-            f"got norm_type={config.norm_type!r} act={config.act!r} "
-            f"rope={config.rope!r}")
+    """The per-layer tree takes every variant the reference builds
+    (rmsnorm or layernorm, swiglu or gelu, rope or learned positions);
+    dropout stays refused, as the reference's StackedDecoder refuses it."""
     if config.dropout:
         raise NotImplementedError("dropout is not supported (the JAX "
                                   "StackedDecoder refuses it too)")
 
 
-def _linear(i, o, device, dtype):
-    return nn.Linear(i, o, bias=False, device=device, dtype=dtype)
+def _check_stacked(config):
+    """The stacked decoder's refusals, with the reference's messages
+    (``models/gpt.py:1076-1083``)."""
+    if config.norm_type != "rmsnorm" or config.act != "swiglu":
+        raise ValueError("StackedDecoder supports the rmsnorm+swiglu family")
+    if not config.rope:
+        raise ValueError("StackedDecoder requires rope positions "
+                         "(learned embed_pos is not supported)")
+    if config.dropout:
+        raise ValueError("StackedDecoder does not support dropout")
+
+
+#: the ROADMAP item that owns what the per-layer tree does not run yet
+PER_LAYER_ITEM = "ROADMAP A.14"
+
+
+def _check_per_layer(config):
+    """What only the stacked decoder's shared block runs: a non-``full``
+    remat policy, the int8-saved FFN, the attn->norm seam and ``quant:``
+    GEMMs. The per-layer tree keeps its module loop (full recompute), so
+    each raises here."""
+    if config.recompute and config.recompute_policy != "full":
+        raise NotImplementedError(
+            f"recompute_policy={config.recompute_policy!r} on the per-layer "
+            "tree: it recomputes whole layers only (use GPTForCausalLMPipe "
+            f"for selective remat; {PER_LAYER_ITEM})")
+    for flag in ("int8_ffn", "fused_addrms"):
+        if getattr(config, flag):
+            raise NotImplementedError(
+                f"{flag}=True runs in GPTForCausalLMPipe's block only "
+                f"({PER_LAYER_ITEM})")
+    if _quant.requested_quant_sites(config):
+        raise NotImplementedError(
+            f"quant: sites run in GPTForCausalLMPipe's block only "
+            f"({PER_LAYER_ITEM})")
+
+
+def _linear(i, o, device, dtype, bias=False):
+    return nn.Linear(i, o, bias=bias, device=device, dtype=dtype)
 
 
 class RMSNorm(nn.Module):
@@ -147,6 +189,38 @@ class RMSNorm(nn.Module):
         return _rms_pure(x, self.weight, self.eps)
 
 
+def _norm(config, device, dtype):
+    """``norm_type`` "rmsnorm" -> the rms_norm kernel's layer, anything
+    else -> ``LayerNorm`` (the reference's rule, ``models/gpt.py:217``)."""
+    if config.norm_type == "rmsnorm":
+        return RMSNorm(config.hidden_size, device=device, dtype=dtype)
+    return LayerNorm(config.hidden_size, device=device, dtype=dtype)
+
+
+def _masked_attention(q, k, v, mask):
+    """Causal attention under a user mask, as the reference's ``_xla_sdpa``
+    (``nn/functional/flash_attention.py:20-44``): a bool mask keeps the
+    True entries, any other mask is added to the scores; f32 softmax,
+    probabilities rounded to q's type. q [B, T, Hq, D], k/v [B, S, Hkv,
+    D], mask broadcastable to [B, Hq, T, S]."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bthd,bshd->bhts", q * scale, k)
+    t, s = logits.shape[-2:]
+    causal = torch.ones(t, s, dtype=torch.bool, device=q.device).tril(s - t)
+    logits = logits.masked_fill(~causal, -math.inf)
+    mask = torch.as_tensor(mask, device=q.device)
+    if mask.dtype == torch.bool:
+        logits = logits.masked_fill(~mask, -math.inf)
+    else:
+        logits = logits + mask.to(logits.dtype)
+    probs = torch.softmax(logits.float(), -1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
 class Attention(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -154,6 +228,7 @@ class Attention(nn.Module):
         self.num_heads = config.num_heads
         self.num_kv_heads = config.num_kv_heads
         self.head_dim = h // config.num_heads
+        self.rope = config.rope
         self.q_proj = _linear(h, self.num_heads * self.head_dim, device, dtype)
         self.k_proj = _linear(h, self.num_kv_heads * self.head_dim, device,
                               dtype)
@@ -161,61 +236,131 @@ class Attention(nn.Module):
                               dtype)
         self.o_proj = _linear(self.num_heads * self.head_dim, h, device, dtype)
 
-    def forward(self, x):
+    def forward(self, x, attn_mask=None):
+        """Causal self-attention. Without a mask it is the flash op (the
+        kernels on CUDA tensors, their plain versions on CPU tensors; kv
+        heads shared in the kernel), as the reference's ``sdpa_arrays``
+        takes its Pallas kernel; with one, :func:`_masked_attention`."""
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        pos = torch.zeros(b, dtype=torch.long, device=x.device)
-        q, k = _rope_at_positions(q, pos), _rope_at_positions(k, pos)
-        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-        out = _attention_plain(q, k, v, causal)
+        if self.rope:
+            q, k = _rope_pure(q), _rope_pure(k)
+        if attn_mask is None:
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = _masked_attention(q, k, v, attn_mask)
         return self.o_proj(out.reshape(b, s, -1))
 
 
 class MLP(nn.Module):
+    """``swiglu``: gate/up/down without biases; anything else: ``fc1`` and
+    ``fc2`` with biases (paddle's ``nn.Linear`` default) around the exact
+    erf gelu (``F.gelu(approximate=False)`` in the reference)."""
+
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(h, m, device, dtype)
-        self.up_proj = _linear(h, m, device, dtype)
-        self.down_proj = _linear(m, h, device, dtype)
+        self.swiglu = config.act == "swiglu"
+        if self.swiglu:
+            self.gate_proj = _linear(h, m, device, dtype)
+            self.up_proj = _linear(h, m, device, dtype)
+            self.down_proj = _linear(m, h, device, dtype)
+        else:
+            self.fc1 = _linear(h, m, device, dtype, bias=True)
+            self.fc2 = _linear(m, h, device, dtype, bias=True)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.swiglu:
+            return self.down_proj(F.silu(self.gate_proj(x))
+                                  * self.up_proj(x))
+        return self.fc2(F.gelu(self.fc1(x)))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
-        self.input_norm = RMSNorm(config.hidden_size, device=device,
-                                  dtype=dtype)
+        self.input_norm = _norm(config, device, dtype)
         self.attn = Attention(config, device, dtype)
-        self.post_attn_norm = RMSNorm(config.hidden_size, device=device,
-                                      dtype=dtype)
+        self.post_attn_norm = _norm(config, device, dtype)
         self.mlp = MLP(config, device, dtype)
 
-    def forward(self, x):
-        h = x + self.attn(self.input_norm(x))
+    def forward(self, x, attn_mask=None):
+        h = x + self.attn(self.input_norm(x), attn_mask)
         return h + self.mlp(self.post_attn_norm(h))
 
 
+def _layer_rng(layers):
+    """``context_fn`` for a layer's checkpoint that replays the noise the
+    layer drew: the generators of its gates (``SwitchGate.generator``)
+    are put back where the forward found them for the recompute, and left
+    where the forward left them after it. None when no layer draws."""
+    gens = [m.generator for m in layers.modules()
+            if isinstance(getattr(m, "generator", None), torch.Generator)]
+    if not gens:
+        return None
+
+    def context_fn():
+        start = []
+
+        @contextlib.contextmanager
+        def forward():
+            start[:] = [g.get_state() for g in gens]
+            yield
+
+        @contextlib.contextmanager
+        def recompute():
+            now = [g.get_state() for g in gens]
+            for g, st in zip(gens, start):
+                g.set_state(st)
+            try:
+                yield
+            finally:
+                for g, st in zip(gens, now):
+                    g.set_state(st)
+
+        return forward(), recompute()
+
+    return context_fn
+
+
 class GPTModel(nn.Module):
-    def __init__(self, config, device=None, dtype=None):
+    """Embedding (+ learned positions where ``rope=False``), the layers,
+    the final norm. With ``config.recompute`` each layer is a
+    non-reentrant ``torch.utils.checkpoint`` (the reference's
+    ``fleet.utils.recompute`` over each layer, ``models/gpt.py:261-264``).
+    ``layer_cls(config, device, dtype)`` builds each layer."""
+
+    def __init__(self, config, device=None, dtype=None,
+                 layer_cls=DecoderLayer):
         super().__init__()
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
                                          device=device, dtype=dtype)
+        if not config.rope:
+            self.embed_pos = nn.Embedding(config.max_seq_len,
+                                          config.hidden_size, device=device,
+                                          dtype=dtype)
         self.layers = nn.ModuleList(
-            [DecoderLayer(config, device, dtype)
+            [layer_cls(config, device, dtype)
              for _ in range(config.num_layers)])
-        self.final_norm = RMSNorm(config.hidden_size, device=device,
-                                  dtype=dtype)
+        self.final_norm = _norm(config, device, dtype)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, attn_mask=None):
         x = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            x = layer(x)
+        if not self.config.rope:
+            x = x + self.embed_pos(torch.arange(input_ids.shape[1],
+                                                device=x.device))
+        if self.config.recompute:
+            ctx = _layer_rng(self.layers)
+            kw = {} if ctx is None else {"context_fn": ctx}
+            for layer in self.layers:
+                x = checkpoint(layer, x, attn_mask, use_reentrant=False,
+                               **kw)
+        else:
+            for layer in self.layers:
+                x = layer(x, attn_mask)
         return self.final_norm(x)
 
 
@@ -223,13 +368,15 @@ class GPTForCausalLM(nn.Module):
     """Decoder LM. ``device`` defaults to CUDA (raising where there is
     none); ``dtype`` defaults to ``config.dtype``."""
 
-    def __init__(self, config, device=None, dtype=None):
+    def __init__(self, config, device=None, dtype=None,
+                 layer_cls=DecoderLayer):
         super().__init__()
         _check_supported(config)
+        _check_per_layer(config)
         device = resolve_device(device)
         dtype = dtype or _DTYPES[config.dtype]
         self.config = config
-        self.model = GPTModel(config, device, dtype)
+        self.model = GPTModel(config, device, dtype, layer_cls)
         self.lm_head = (None if config.tie_embeddings else
                         _linear(config.hidden_size, config.vocab_size, device,
                                 dtype))
@@ -240,20 +387,31 @@ class GPTForCausalLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator, std=0.02):
-        """Random weights from ``generator``: every matrix ~ N(0, std^2),
-        norm gains 1."""
+        """Random weights from ``generator``: every matrix and embedding
+        ~ N(0, std^2), norm gains 1, biases 0."""
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
+            elif name.endswith((".bias", ".b1", ".b2")):
+                p.zero_()
             else:
                 p.normal_(0.0, std, generator=generator)
         return self
 
-    def forward(self, input_ids):
-        hidden = self.model(input_ids)
-        head = (self.model.embed_tokens.weight if self.lm_head is None
+    def _head(self):
+        return (self.model.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
-        return F.linear(hidden, head)
+
+    def forward(self, input_ids, attn_mask=None):
+        return F.linear(self.model(input_ids, attn_mask), self._head())
+
+    def loss(self, input_ids, labels, int8=None):
+        """LM loss through the chunked-CE head (``models/gpt.py:405-415``):
+        the tied head reads the embedding, the untied one ``lm_head``
+        (``[V, H]`` here, where the reference's is ``[H, V]``). ``int8``
+        as for ``GPTForCausalLMPipe.loss``."""
+        return compute_loss(self.model(input_ids), self._head(), labels,
+                            config=self.config, transpose_y=True, int8=int8)
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +451,52 @@ def _rope_pure(x, base=10000.0):
     return _rope_at_positions(x, pos, base)
 
 
+class _FFNInt8(torch.autograd.Function):
+    """``(silu(h2 @ wg) * (h2 @ wu)) @ wd`` whose backward reads gate and up
+    from int8 row codes (``memory.quantize_rows_int8``) instead of running
+    the two matmuls again: the reference's ``_ffn_i8`` custom_vjp
+    (``models/gpt.py:521-580``). The forward is exact; the backward follows
+    ``_ffn_i8_bwd`` step for step (dequantize in f32, silu and its
+    derivative in f32, the products rounded to h2's type)."""
+
+    @staticmethod
+    def forward(ctx, h2, wg, wu, wd):
+        gate = h2 @ wg
+        up = h2 @ wu
+        qg, sg = quantize_rows_int8(gate)
+        qu, su = quantize_rows_int8(up)
+        ctx.save_for_backward(h2, wg, wu, wd, qg, sg, qu, su)
+        return (F.silu(gate) * up) @ wd
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, wg, wu, wd, qg, sg, qu, su = ctx.saved_tensors
+        gate = qg.float() * sg
+        up = qu.float() * su
+        sig = torch.sigmoid(gate)
+        silu = gate * sig
+        dsilu = sig * (1.0 + gate * (1.0 - sig))
+        ffn = (silu * up).to(h2.dtype)
+        dffn = g @ wd.t()
+        m, h = wd.shape
+        dwd = (ffn.reshape(-1, m).t() @ g.reshape(-1, h)).to(wd.dtype)
+        gf = dffn.float()
+        dgate = (gf * up * dsilu).to(h2.dtype)
+        dup = (gf * silu).to(h2.dtype)
+        dh2 = dgate @ wg.t() + dup @ wu.t()
+        h2r = h2.reshape(-1, h2.shape[-1]).t()
+        dwg = (h2r @ dgate.reshape(-1, m)).to(wg.dtype)
+        dwu = (h2r @ dup.reshape(-1, m)).to(wu.dtype)
+        return dh2, dwg, dwu, dwd
+
+
+def ffn_i8(h2, wg, wu, wd):
+    """The swiglu FFN with int8-saved gate/up (:class:`_FFNInt8`)."""
+    return _FFNInt8.apply(h2, wg, wu, wd)
+
+
 def _block_pure(p, x, num_heads, save=frozenset(), int8_names=frozenset(),
-                quant=None):
+                quant=None, fused_addrms=False, int8_ffn=False):
     """One decoder block on tensors, ``p = (ln1, wq, wk, wv, wo, ln2, wg,
     wu, wd)`` with weights ``[in, out]`` (``models/gpt.py:663-809`` on its
     single-device path): rms -> q/k/v -> rope -> flash attention -> o-proj
@@ -315,7 +517,13 @@ def _block_pure(p, x, num_heads, save=frozenset(), int8_names=frozenset(),
 
     ``quant``: a ``quant.GemmQuantCtx`` holding the layer's amax slice;
     its engaged sites run the scaled GEMM and it collects their new
-    histories."""
+    histories.
+
+    ``fused_addrms``: the attn->norm seam, ``add_rms_norm`` in place of the
+    residual add and the second rms (``config.fused_addrms``).
+    ``int8_ffn``: the whole FFN as :func:`ffn_i8`, ahead of
+    ``swiglu_down`` (``config.int8_ffn``; the reference's block takes it
+    first, ``:781-790``)."""
 
     def _save(t, name):
         if name in int8_names:
@@ -336,8 +544,15 @@ def _block_pure(p, x, num_heads, save=frozenset(), int8_names=frozenset(),
     k = _save(_rope_pure(k), "attn_k")
     v = _save(v, "attn_v")
     o = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
-    x = _save(x + _mm(o, wo, "wo"), "resid_mid")
-    h2 = _save(_rms_pure(x, ln2), "ln2_out")
+    if fused_addrms:
+        # the attn->norm seam: residual add and rms in one kernel; no
+        # resid_mid or ln2_out anchor on this path (``:764-773``)
+        x, h2 = add_rms_norm(_mm(o, wo, "wo"), x, ln2)
+    else:
+        x = _save(x + _mm(o, wo, "wo"), "resid_mid")
+        h2 = _save(_rms_pure(x, ln2), "ln2_out")
+    if int8_ffn:
+        return x + ffn_i8(h2, wg, wu, wd)
     gate = _save(_mm(h2, wg, "wg"), "ffn_gate")
     up = _save(_mm(h2, wu, "wu"), "ffn_up")
     if swiglu_down_supported(gate.shape, wd.shape):
@@ -387,7 +602,8 @@ def _resolve_quant(cfg, gate_shape, wd_shape, device, path="train"):
       (``quant_parity_gate``);
     - where ``swiglu_down_supported`` takes the FFN, the kernel owns
       ``wd``, which stays wide (``fused_kernel_owns_gemm``); gate and up
-      feed it narrow.
+      feed it narrow. Under ``int8_ffn`` the int8-saved FFN owns all
+      three of its GEMMs instead.
 
     The engaged sites' forward FLOPs per token are noted for
     ``quant_gemm_flops_total``."""
@@ -399,7 +615,13 @@ def _resolve_quant(cfg, gate_shape, wd_shape, device, path="train"):
         _quant.note_plan_engagement("quant_gemm", "quant_parity_gate")
         _quant.note_gemm_mode(path, frozenset(), None)
         return frozenset(), None
-    if "wd" in sites and swiglu_down_supported(gate_shape, wd_shape):
+    if cfg.int8_ffn:
+        owned = sites & {"wg", "wu", "wd"}
+        if owned:
+            _quant.note_plan_engagement("quant_gemm",
+                                        "fused_kernel_owns_gemm")
+            sites = sites - owned
+    elif "wd" in sites and swiglu_down_supported(gate_shape, wd_shape):
         _quant.note_plan_engagement("quant_gemm", "fused_kernel_owns_gemm")
         sites = sites - {"wd"}
     if not sites:
@@ -458,7 +680,8 @@ def _make_block(cfg, quant_sites=frozenset(), quant_dtype=None):
         if quant_sites:
             *p, amax_l = p
             qctx = _quant.GemmQuantCtx(quant_sites, amax_l, quant_dtype)
-        out = _block_pure(p, x, cfg.num_heads, save, int8_names, qctx)
+        out = _block_pure(p, x, cfg.num_heads, save, int8_names, qctx,
+                          cfg.fused_addrms, cfg.int8_ffn)
         return out if qctx is None else (out, qctx.collect())
 
     if not cfg.recompute:
@@ -467,8 +690,21 @@ def _make_block(cfg, quant_sites=frozenset(), quant_dtype=None):
                                    **policy)
 
 
+#: _block_pure's parameter order as (StackedDecoder attribute, per-layer
+#: state-dict suffix): also the layout contract of the converters below
+BLOCK_PARAM_FIELDS = (
+    ("ln1", "input_norm.weight"),
+    ("wq", "attn.q_proj.weight"),
+    ("wk", "attn.k_proj.weight"),
+    ("wv", "attn.v_proj.weight"),
+    ("wo", "attn.o_proj.weight"),
+    ("ln2", "post_attn_norm.weight"),
+    ("wg", "mlp.gate_proj.weight"),
+    ("wu", "mlp.up_proj.weight"),
+    ("wd", "mlp.down_proj.weight"),
+)
 #: _block_pure's parameter order, as StackedDecoder attributes
-BLOCK_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd")
+BLOCK_PARAMS = tuple(attr for attr, _ in BLOCK_PARAM_FIELDS)
 
 
 class StackedDecoder(nn.Module):
@@ -489,7 +725,7 @@ class StackedDecoder(nn.Module):
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
-        _check_supported(config)
+        _check_stacked(config)
         L, h = config.num_layers, config.hidden_size
         kv = config.num_kv_heads * (h // config.num_heads)
         m = config.intermediate_size
@@ -624,3 +860,293 @@ class GPTForCausalLMPipe(nn.Module):
         return compute_loss(self._hidden(input_ids), self.embed_tokens.weight,
                             labels, config=self.config, transpose_y=True,
                             int8=int8)
+
+
+# ---------------------------------------------------------------------------
+# Stacked <-> per-layer checkpoint layouts (``models/gpt.py:1564-1770``)
+# ---------------------------------------------------------------------------
+_SUFFIX_TO_ATTR = {suffix: attr for attr, suffix in BLOCK_PARAM_FIELDS}
+_ATTR_TO_SUFFIX = dict(BLOCK_PARAM_FIELDS)
+#: the projections: ``[in, out]`` per layer in the stacked tree, ``[out,
+#: in]`` (``torch.nn.Linear``) in the per-layer tree
+_LINEAR_ATTRS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd"})
+#: a factored second moment's row and column statistics: transposing the
+#: weight swaps them
+_FACTORED_SWAP = {".vr": ".vc", ".vc": ".vr"}
+#: blockwise-int8 moment slots (``AdamW(moment_dtype="int8")``)
+_INT8_SLOTS = frozenset({".moment1_q", ".moment1_s", ".moment2_q",
+                         ".moment2_s"})
+#: top-level keys: stacked-side name -> per-layer name
+_TOP_KEY_MAP = {"embed_tokens.weight": "model.embed_tokens.weight",
+                "final_norm.weight": "model.final_norm.weight"}
+
+
+def _split_opt_key(key):
+    """("opt." or "", the parameter name with its slot suffix)."""
+    return ("opt.", key[4:]) if key.startswith("opt.") else ("", key)
+
+
+def _match_layer_key(rest):
+    """"model.layers.3.attn.q_proj.weight[.slot]" -> (3, "wq", ".slot" or
+    ""), else None."""
+    prefix = "model.layers."
+    if not rest.startswith(prefix):
+        return None
+    idx, _, tail = rest[len(prefix):].partition(".")
+    if not idx.isdigit():
+        return None
+    for suffix, attr in _SUFFIX_TO_ATTR.items():
+        if tail == suffix:
+            return int(idx), attr, ""
+        if tail.startswith(suffix + "."):
+            return int(idx), attr, tail[len(suffix):]
+    return None
+
+
+def _match_stacked_key(rest):
+    """"decoder.wq[.slot]" -> ("wq", ".slot" or ""), else None."""
+    if not rest.startswith("decoder."):
+        return None
+    attr, _, slot = rest[len("decoder."):].partition(".")
+    if attr not in _ATTR_TO_SUFFIX:
+        return None
+    return attr, ("." + slot if slot else "")
+
+
+def _rename_top(rest, mapping):
+    for src, dst in mapping.items():
+        if rest == src:
+            return dst
+        if rest.startswith(src + "."):
+            return dst + rest[len(src):]
+    return rest
+
+
+def decoder_state_layout(state):
+    """"stacked", "per_layer" or None for a LM state dict's keys."""
+    for key in state:
+        _, rest = _split_opt_key(key)
+        if _match_stacked_key(rest) is not None:
+            return "stacked"
+        if _match_layer_key(rest) is not None:
+            return "per_layer"
+    return None
+
+
+def _refuse_int8(key, slot):
+    if slot in _INT8_SLOTS:
+        raise ValueError(
+            f"{key}: blockwise-int8 moment slots do not convert exactly "
+            "(their quant-block grid spans the stacked axis); restore them "
+            "under the layout that wrote them")
+
+
+def convert_decoder_state_dict(state, target):
+    """Convert a LM state dict of tensors (parameters and optimizer
+    entries ``opt.<param>.<slot>``) to ``target``, "stacked" (the Pipe's
+    ``decoder.<attr>`` ``[L, in, out]``) or "per_layer" (``model.layers.
+    {i}...`` ``[out, in]``), as the reference's converter
+    (``models/gpt.py:1653-1740``) with the port's layouts:
+
+    - projections are stacked or sliced along the layer axis and
+      transposed; their parameter-shaped slots with them;
+    - a factored second moment's ``vr`` and ``vc`` swap, since the
+      transpose swaps rows and columns;
+    - other slots follow the reference: sliced where their leading axis
+      is the layer count, replicated otherwise; 0-d slots (the beta
+      powers) replicate when unstacked and must agree bitwise across the
+      layers when stacked;
+    - blockwise-int8 moment slots raise ``ValueError`` (the reference's
+      reason);
+    - other keys pass through (a strict restore reports them).
+
+    The values are the inputs' bytes, rearranged: nothing is rounded."""
+    if target not in ("stacked", "per_layer"):
+        raise ValueError(f"target={target!r}: expected stacked|per_layer")
+    out = {}
+    if target == "stacked":
+        pending = {}            # (pre, attr, slot) -> {layer: tensor}
+        for key, v in state.items():
+            pre, rest = _split_opt_key(key)
+            m = _match_layer_key(rest)
+            if m is None:
+                out[pre + _rename_top(
+                    rest, {b: a for a, b in _TOP_KEY_MAP.items()})] = v
+                continue
+            i, attr, slot = m
+            _refuse_int8(key, slot)
+            if attr in _LINEAR_ATTRS:
+                if slot in _FACTORED_SWAP:
+                    slot = _FACTORED_SWAP[slot]
+                elif v.dim() == 2:
+                    v = v.t()
+            pending.setdefault((pre, attr, slot), {})[i] = v
+        for (pre, attr, slot), by_layer in pending.items():
+            L = max(by_layer) + 1
+            missing = [i for i in range(L) if i not in by_layer]
+            if missing:
+                raise ValueError(
+                    f"per-layer state is missing layers {missing} of "
+                    f"{attr}{slot} (found {sorted(by_layer)})")
+            arrs = [by_layer[i] for i in range(L)]
+            if arrs[0].dim() == 0:
+                ref = arrs[0].reshape(1).view(torch.uint8)
+                for i, a in enumerate(arrs[1:], 1):
+                    if not torch.equal(a.reshape(1).view(torch.uint8), ref):
+                        raise ValueError(
+                            f"scalar slot {attr}{slot} differs between "
+                            f"layers 0 and {i}: cannot collapse into one "
+                            "stacked entry")
+                out[pre + "decoder." + attr + slot] = arrs[0]
+            else:
+                out[pre + "decoder." + attr + slot] = torch.stack(arrs)
+        return out
+
+    num_layers = None
+    for key, v in state.items():
+        m = _match_stacked_key(_split_opt_key(key)[1])
+        if m is not None and m[1] == "":
+            num_layers = int(v.shape[0])
+            break
+    for key, v in state.items():
+        pre, rest = _split_opt_key(key)
+        m = _match_stacked_key(rest)
+        if m is None:
+            out[pre + _rename_top(rest, _TOP_KEY_MAP)] = v
+            continue
+        if num_layers is None:
+            raise ValueError("cannot infer num_layers: no stacked decoder "
+                             "parameter entry in the state dict")
+        attr, slot = m
+        _refuse_int8(key, slot)
+        linear = attr in _LINEAR_ATTRS
+        new_slot = _FACTORED_SWAP.get(slot, slot) if linear else slot
+        for i in range(num_layers):
+            per = (v[i] if v.dim() >= 1 and v.shape[0] == num_layers
+                   else v)
+            if linear and per.dim() == 2:
+                per = per.t().contiguous()
+            out[f"{pre}model.layers.{i}.{_ATTR_TO_SUFFIX[attr]}{new_slot}"] \
+                = per
+    return out
+
+
+def restore_decoder_any_layout(manager, model, optimizer=None, step=None,
+                               strict=True):
+    """``CheckpointManager.restore_training_state`` that also takes a
+    checkpoint written under the other decoder layout
+    (``models/gpt.py:1743-1770``): a metadata-only peek at the saved keys
+    sends a same-layout checkpoint down the native restore (with the
+    caller's ``strict``); another layout's is read whole
+    (``manager.read_state``), converted, and copied into the live model
+    and optimizer. ``strict`` raises ``MissingKeysError`` for target keys
+    the converted state lacks. Returns the step restored."""
+    from ..distributed.checkpoint import (MissingKeysError,
+                                          training_state_target)
+
+    want = decoder_state_layout(model.state_dict())
+    have = decoder_state_layout(manager.saved_keys(step=step))
+    if want is None or have is None or have == want:
+        try:
+            return manager.restore_training_state(model, optimizer,
+                                                  step=step, strict=strict)
+        except MissingKeysError:
+            if want is None:
+                raise
+            # a mixed-layout root: the native walk fell back onto a step
+            # of the other layout, converted below
+    state, s = manager.read_state(step=step)
+    target = training_state_target(model, optimizer)
+    want = decoder_state_layout(target) or "per_layer"
+    conv = convert_decoder_state_dict(state, want)
+    missing = [k for k in target if k not in conv]
+    if missing and strict:
+        raise MissingKeysError(missing, manager.step_dir(s))
+    with torch.no_grad():
+        for k, t in target.items():
+            if k not in conv:
+                continue
+            if tuple(conv[k].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"{k}: converted shape {tuple(conv[k].shape)} != model "
+                    f"shape {tuple(t.shape)}")
+            t.copy_(conv[k])
+    return s
+
+
+# ---------------------------------------------------------------------------
+# MoE decoder (``models/gpt.py:1773-1845``)
+# ---------------------------------------------------------------------------
+class MoEDecoderLayer(nn.Module):
+    """A decoder block whose MLP is a mixture of ``StackedExperts`` of
+    width ``config.intermediate_size``."""
+
+    def __init__(self, config, device=None, dtype=None, num_experts=8,
+                 top_k=2, gate="gshard", capacity_factor=2.0):
+        super().__init__()
+        from ..incubate.distributed.models.moe import MoELayer, StackedExperts
+
+        self.input_norm = _norm(config, device, dtype)
+        self.attn = Attention(config, device, dtype)
+        self.post_attn_norm = _norm(config, device, dtype)
+        self.moe = MoELayer(
+            config.hidden_size,
+            StackedExperts(num_experts, config.hidden_size,
+                           config.intermediate_size, device=device,
+                           dtype=dtype),
+            gate={"type": gate, "top_k": top_k},
+            capacity_factor=capacity_factor)
+
+    def forward(self, x, attn_mask=None):
+        h = x + self.attn(self.input_norm(x), attn_mask)
+        return h + self.moe(self.post_attn_norm(h))
+
+
+class GPTForCausalLMMoE(GPTForCausalLM):
+    """Decoder LM with MoE FFNs; ``loss`` adds ``aux_loss_weight`` times
+    the summed gates' aux losses. The head is tied."""
+
+    def __init__(self, config, num_experts=8, top_k=2, gate="gshard",
+                 aux_loss_weight=0.01, capacity_factor=2.0, device=None,
+                 dtype=None):
+        if not config.tie_embeddings:
+            raise ValueError("GPTForCausalLMMoE ties the lm head to the "
+                             "token embedding")
+        if gate == "switch" and top_k != 1:
+            raise ValueError("switch gate is top-1: pass top_k=1")
+        super().__init__(config, device, dtype, layer_cls=functools.partial(
+            MoEDecoderLayer, num_experts=num_experts, top_k=top_k,
+            gate=gate, capacity_factor=capacity_factor))
+        self.aux_loss_weight = aux_loss_weight
+
+    @property
+    def layers(self):
+        return self.model.layers
+
+    def aux_loss(self):
+        """The sum of the layers' ``l_aux`` from the last forward (None
+        under the naive gate)."""
+        total = None
+        for layer in self.model.layers:
+            la = layer.moe.l_aux
+            if la is not None:
+                total = la if total is None else total + la
+        return total
+
+    def loss(self, input_ids, labels):
+        """Dense logits and cross entropy, as the reference
+        (``:1828-1836``): f32 log-softmax, a label of -100 adds 0 and
+        still counts in the mean (the reference's ``cross_entropy`` masks
+        only a non-negative ``ignore_index``)."""
+        logits = self(input_ids).reshape(-1, self.config.vocab_size)
+        nll = F.cross_entropy(logits.float(), labels.reshape(-1).long(),
+                              reduction="none")
+        lm = nll.mean()
+        aux = self.aux_loss()
+        if aux is not None:
+            lm = lm + self.aux_loss_weight * aux
+        return lm
+
+    def apply_expert_placements(self, *args, **kwargs):
+        raise NotImplementedError("expert parallelism is not ported yet "
+                                  "(ROADMAP A.10)")

@@ -5,6 +5,7 @@ family core (rmsnorm + swiglu + rope + GQA) with LLaMA naming and presets,
 plus a greedy/sampling ``generate`` loop over a dense KV cache, which the
 serving tests use as their reference; ``generate(int8_weights=True)``
 decodes with int8-resident projections, as the serving engine can.
+``LlamaForCausalLMPipe`` is the stacked training model (config 5).
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..quant import int8_linear, int8_weights_enabled, quantize_linear_int8
-from .gpt import (GPTConfig, GPTForCausalLM, _attention_plain, _rms_pure,
-                  _rope_at_positions)
+from .gpt import (GPTConfig, GPTForCausalLM, GPTForCausalLMPipe, GPTModel,
+                  _attention_plain, _rms_pure, _rope_at_positions)
 
 #: the projections ``generate(int8_weights=True)`` quantizes
 _PROJECTIONS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
@@ -46,6 +47,10 @@ def llama_preset(size="7b", **overrides):
     cfg = dict(presets[size])
     cfg.update(overrides)
     return LlamaConfig(**cfg)
+
+
+class LlamaModel(GPTModel):
+    """The per-layer LLaMA core (``models/llama.py:53``): ``GPTModel``."""
 
 
 class LlamaForCausalLM(GPTForCausalLM):
@@ -149,3 +154,10 @@ class LlamaForCausalLM(GPTForCausalLM):
             out.append(nxt[:, None])
             pos += 1
         return torch.cat(out, dim=1)
+
+
+class LlamaForCausalLMPipe(GPTForCausalLMPipe):
+    """Config 5's model class (``models/llama.py:236``): the stacked
+    decoder under LLaMA's name. It keeps the Pipe's tie rule, so a
+    ``llama_preset`` config (untied) raises unless ``tie_embeddings=True``
+    is passed."""

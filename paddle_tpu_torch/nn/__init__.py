@@ -3,8 +3,8 @@
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_, global_grad_norm,
                    global_grad_sumsq)
-from .norm import RMSNorm
+from .norm import LayerNorm, RMSNorm
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "RMSNorm", "clip_grad_norm_", "clip_grad_value_",
+           "LayerNorm", "RMSNorm", "clip_grad_norm_", "clip_grad_value_",
            "global_grad_norm", "global_grad_sumsq"]

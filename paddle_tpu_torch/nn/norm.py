@@ -1,7 +1,9 @@
-"""``RMSNorm`` layer (counterpart of ``paddle_tpu/nn/layer/norm.py:109``)."""
+"""``RMSNorm`` and ``LayerNorm`` layers (counterparts of
+``paddle_tpu/nn/layer/norm.py:82, 109``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .functional.norm import rms_norm
@@ -18,3 +20,21 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis, a gain of ones and a bias of zeros,
+    ``epsilon=1e-5`` (the reference's defaults). The reference leaves it
+    to XLA, so it is plain ``F.layer_norm`` here: no kernel."""
+
+    def __init__(self, hidden_size, epsilon=1e-5, device=None, dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(
+            torch.ones(hidden_size, device=device, dtype=dtype))
+        self.bias = nn.Parameter(
+            torch.zeros(hidden_size, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias,
+                            self.epsilon)

@@ -21,7 +21,10 @@ two-layer step on the card against the CPU; the fleet: a two-replica
 FleetRouter on the card against the CPU's and the single engine's
 streams, a swapped bf16 and int8 KV snapshot through the wire and
 ``inject`` bit for bit, and a worker process on the card that serves,
-is killed and is respawned.
+is killed and is respawned; the per-layer ``Attention`` on the flash
+kernels against the CPU, the stacked block's attn->norm seam and
+int8-saved FFN with their launch counts, and a small MoE decoder on the
+card against the CPU.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -1432,3 +1435,116 @@ def test_quantized_step_on_card_matches_cpu(cuda_device):
     assert amax_err <= 2e-2
     wd = GEMM_SITES.index("wd")
     assert bool((amax[:, :wd, :, 0] > 0).all()) and not amax[:, wd].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_per_layer_attention_launches_flash_and_matches_cpu(cuda_device,
+                                                            dtype, tol):
+    """The per-layer ``Attention`` (GQA 8/2, rope) launches the flash
+    forward and backward on CUDA tensors and matches its CPU plain route;
+    a masked call takes the plain masked attention and launches none."""
+    from paddle_tpu_torch.models.gpt import Attention
+
+    cfg = GPTConfig(hidden_size=512, num_heads=8, num_kv_heads=2)
+    cpu = Attention(cfg, device="cpu", dtype=dtype)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(0))
+    gpu = Attention(cfg, device=cuda_device, dtype=dtype)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 256, 512, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for mod in (cpu, gpu):
+        dev = mod.q_proj.weight.device
+        xi = x.to(dev, dtype, copy=True).requires_grad_()
+        kernels.reset_launch_counts()
+        y = mod(xi)
+        y.float().square().mean().backward()
+        counts = kernels.launch_counts()
+        out[dev.type] = (y.float().cpu(), xi.grad.float().cpu(), counts)
+    assert out["cpu"][2] == {k: 0 for k in out["cpu"][2]}
+    assert out["cuda"][2]["flash_attention_fwd"] == 1
+    assert (out["cuda"][2]["flash_attention_bwd"]
+            + out["cuda"][2]["flash_attention_bwd_dq"]) == 1
+    for i in (0, 1):
+        want = out["cpu"][i]
+        assert ((out["cuda"][i] - want).norm() / want.norm()).item() <= tol
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        gpu(x.to(cuda_device, dtype), torch.ones(256, 256, dtype=torch.bool,
+                                                 device=cuda_device))
+    assert kernels.launch_counts()["flash_attention_fwd"] == 0
+
+
+@pytest.mark.parametrize("seam,grad_tol", [("fused_addrms", 5e-4),
+                                           ("int8_ffn", 2e-3)])
+def test_pipe_seams_on_card_count_launches_and_match_cpu(cuda_device, seam,
+                                                         grad_tol):
+    """Depth 2, f32, full recompute: one TrainStep with the attn->norm seam
+    (add_rms_norm 2L, rms_norm 2L: the seam takes each block's second
+    norm) or the int8-saved FFN (swiglu_down 0) on the card against the
+    CPU. Under int8_ffn the two devices' gate and up differ in their last
+    bits, which can move an int8 code by one step, hence its bound."""
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=4, num_kv_heads=2, max_seq_len=256,
+                    recompute=True, **{seam: True})
+    cpu = GPTForCausalLMPipe(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0), std=0.05)
+    gpu = GPTForCausalLMPipe(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, 1024, (2, 200)))
+    labels = torch.as_tensor(rng.integers(0, 1024, (2, 200)))
+    out = {}
+    for model in (cpu, gpu):
+        dev = model.device
+        step = TrainStep(model, functools.partial(model.loss, int8=False),
+                         AdamW(model.parameters(), lr=1e-3, factored=True))
+        kernels.reset_launch_counts()
+        loss = step(ids.to(dev), labels.to(dev)).item()
+        out[dev.type] = (loss, {n: p.grad.float().cpu()
+                                for n, p in model.named_parameters()},
+                         kernels.launch_counts())
+    L = cfg.num_layers
+    addrms = seam == "fused_addrms"
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+            "add_rms_norm": 2 * L if addrms else 0,
+            "rms_norm": 2 * L if addrms else 4 * L,
+            "swiglu_down": 2 * L if addrms else 0}
+    assert {k: out["cuda"][2][k] for k in want} == want
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for n, g in out["cpu"][1].items():
+        err = (out["cuda"][1][n] - g).norm() / g.norm()
+        assert err.item() <= grad_tol, n
+
+
+def test_moe_decoder_on_card_matches_cpu(cuda_device):
+    """A two-layer GPTForCausalLMMoE (gshard, top 2, 8 experts), f32: the
+    loss and its gradients on the card against the CPU, the attention on
+    the flash kernels."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMMoE
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256, intermediate_size=512)
+    torch.manual_seed(0)
+    cpu = GPTForCausalLMMoE(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0), std=0.05)
+    gpu = GPTForCausalLMMoE(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    ids = torch.as_tensor(rng.integers(0, 512, (2, 128)))
+    out = {}
+    for model in (cpu, gpu):
+        dev = model.device
+        kernels.reset_launch_counts()
+        loss = model.loss(ids.to(dev), ids.to(dev))
+        loss.backward()
+        out[dev.type] = (loss.item(), {n: p.grad.float().cpu()
+                                       for n, p in model.named_parameters()},
+                         kernels.launch_counts())
+    assert out["cuda"][2]["flash_attention_fwd"] == cfg.num_layers
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for n, g in out["cpu"][1].items():
+        err = (out["cuda"][1][n] - g).norm() / g.norm().clamp_min(1e-30)
+        assert err.item() <= 5e-4, n

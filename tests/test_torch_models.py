@@ -130,6 +130,15 @@ def test_model_without_device_needs_cuda():
 
 
 def test_unported_variants_raise():
+    """The per-layer tree takes the gelu, LayerNorm and learned-position
+    variants (tests/test_torch_model_variants.py); dropout stays refused,
+    and the stacked training decoder refuses the variants."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+
     with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(LlamaConfig(**{**TINY, "act": "gelu"}),
+        LlamaForCausalLM(LlamaConfig(**{**TINY, "dropout": 0.1}),
                          device="cpu")
+    with pytest.raises(ValueError, match="rmsnorm\\+swiglu"):
+        GPTForCausalLMPipe(LlamaConfig(**{**TINY, "act": "gelu",
+                                          "tie_embeddings": True}),
+                           device="cpu")
