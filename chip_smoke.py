@@ -110,13 +110,32 @@ Phases, each of which fails the run on error:
              [2, 8, 32, 2048, 128] cache per layer, swiglu), 8 rows joining
              at staggered steps: decode_attention L, add_rms_norm 2L and
              rms_norm once per token.
+   incubate_surface - the same model: (a) a paged decoder built from
+             fused_rms_norm, fused_linear and block_multihead_attention
+             over [MaxBlockNum, 32, 64, 128] caches serves phase 4's 8
+             prompts for 32 new tokens: paged_attention L and rms_norm
+             2L + 1 per decode step (the kernel reads the page-major cache
+             in place), ms per token, new tokens equal to generate's as a
+             reading (phase 5 holds the streams equal in f32);
+             (b) FusedMultiTransformer at config 4's widths (FFN 8192,
+             gelu, 24 layers) on [3, 2048] bf16: the non-causal flash
+             forward L times, each layer within FLASH_TOL of the plain
+             route from the same input; (c) a
+             training step of 2 FusedTransformerEncoderLayers: the
+             non-causal backward once a layer, gradients within FLASH_TOL
+             of the plain route's; (d) fused_linear_cross_entropy at config
+             4's head against the Pipe's head (1e-4), with ms; (e) the
+             non-causal flash forward and backward alone with bound and
+             SDPA's ms.
 5. consistency - f32, full width, depth 2: the engine's greedy streams
              equal the dense-cache generate token for token; the int8
              engine on the card equals the same engine on the CPU under
              group and chunked prefill; the incubate decoder's streams
              equal generate; the engine on the card equals the CPU's under
-             swap preemption and under the prefix cache; a
-             GPTForCausalLMPipe and a tied LlamaForCausalLM on the same
+             swap preemption and under the prefix cache; the paged decoder
+             of incubate_surface (block_multihead_attention) serves phase
+             4's prompts with generate's and the incubate decoder's
+             streams; a GPTForCausalLMPipe and a tied LlamaForCausalLM on the same
              weights serve the same streams; spec streams (self-draft at
              acceptance exactly 1.0, and a small draft) on the card equal
              the CPU's and the plain engine's, int8-weight streams the
@@ -215,11 +234,23 @@ Phases, each of which fails the run on error:
              memory; (f) f32 depth 2, card against CPU for (b)'s variant
              and (d)'s MoE, phase 7's bounds. One more step of (a), (b)
              and (d) runs under the profiler (busy, host share, groups).
+11. shared_block - config 4's widths and depth as a per-layer
+             GPTForCausalLM whose layers run through the shared block, bf16,
+             a warm-up and 3 timed AdamW(factored) steps of batch 3 x seq
+             2048 under (a) full
+             recompute, (b) phase 8's names: policy, (c) fused_addrms:
+             launches a step asserted (flash fwd 2L or L, bwd L,
+             swiglu_down 2L, rms_norm 4L + 1, or 2L + 1 with add_rms_norm
+             2L), finite losses in phase 6's window; (a)'s first loss
+             against the Pipe on the same weights, step medians, tokens/s
+             and host share beside phase 6's, the down projections' copies
+             a step; f32 depth 2: per-layer against the Pipe and card
+             against CPU within phase 7's bounds.
 
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
-serving, incubate, training, quant_train (run b), long-context and
-model_rest runs;
+serving, incubate, incubate_surface, training, quant_train (run b),
+long-context, model_rest and shared_block runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -3245,6 +3276,28 @@ def phase_incubate_consistency(model, prompts, want):
     torch.cuda.empty_cache()
     return {"prompts": [len(p) for p in prompts], "new_tokens": new}
 
+def phase_blha_consistency(model):
+    """f32, full width, depth 2: the paged decoder of blha_generate serves
+    phase 4's 8 prompts for 32 new tokens with the streams of generate and
+    of the incubate decoder."""
+    _, prompts = _serve_prompts(model.config)
+    new = 32
+    want = [model.generate(np.asarray([p]), max_new_tokens=new)[0].tolist()
+            for p in prompts]
+    inc, _ = incubate_generate(model, prompts, [0] * len(prompts), new,
+                               max(len(p) for p in prompts) + new)
+    got = blha_generate(model, prompts, new)
+    for i, (g, w, c) in enumerate(zip(got, want, inc)):
+        check(g == w, f"paged decoder vs generate, row {i}: {g[-new:]} != "
+                      f"{w[-new:]}")
+        check(g == c, f"paged decoder vs incubate decoder, row {i}: "
+                      f"{g[-new:]} != {c[-new:]}")
+    print("blha consistency: f32 depth-2 paged decoder streams == generate "
+          "== incubate decoder on phase 4's 8 prompts, 32 new tokens",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {"prompts": [len(p) for p in prompts], "new_tokens": new}
+
 # ---------------------------------------------------------------- phase 6
 #: the port's kernels as the profiler names them (the bf16 TMA/wgmma
 #: forward, fused and split backward and swiglu_down, the first port's
@@ -4720,6 +4773,594 @@ def phase_model_rest(smi="", cfg5=None, cfg4=None, batch=3, seq=2048,
     return out
 
 
+# ------------------------------------------------------- incubate_surface
+#: the paged decoder's page (block) size: block_multihead_attention's
+#: caches are [MaxBlockNum, Hkv, 64, D]
+BLHA_PAGE = 64
+
+
+def blha_generate(model, prompts, new, page=BLHA_PAGE, step_ms=None,
+                  counts=None):
+    """Greedy streams of a paged decoder built from the incubate ops:
+    fused_rms_norm, fused_linear (the model's [out, in] weights with
+    transpose_weight) and block_multihead_attention over one
+    [MaxBlockNum, Hkv, page, D] key and value cache per layer, whose pages
+    a seeded permutation scatters; rope from a caller's table (neox
+    halves, base 10000, as the model's). The prompts are prefilled by one
+    call per layer, then every row takes one token per decode call. The
+    sequence lengths travel as CPU tensors, so no call waits for the
+    card to read them. ``step_ms`` collects each decode step's ms (host
+    clock, synchronised); ``counts`` the kernel launches of each decode
+    step. Returns prompt + ``new`` tokens per row."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        block_multihead_attention, fused_linear, fused_rms_norm, swiglu)
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = model.config
+    params = incubate_params(model)
+    dev, dtype = params["embed"].device, params["embed"].dtype
+    hd = cfg.hidden_size // cfg.num_heads
+    b = len(prompts)
+    lens = np.array([len(p) for p in prompts])
+    max_pos = int(lens.max()) + new
+    pps = -(-max_pos // page)
+    nblocks = b * pps
+    perm = torch.randperm(nblocks, generator=torch.Generator().manual_seed(3))
+    tables = perm.reshape(b, pps).to(dev, torch.int32)
+    caches = [tuple(torch.zeros(nblocks, cfg.num_kv_heads, page, hd,
+                                dtype=dtype, device=dev) for _ in range(2))
+              for _ in params["layers"]]
+    inv = 10000.0 ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                    device=dev) / hd)
+    ang = torch.arange(max_pos, dtype=torch.float32, device=dev)[:, None] * inv
+    rope = torch.stack([ang.cos(), ang.sin()])[:, None, :, None, :].expand(
+        2, b, max_pos, 1, hd // 2)
+
+    def lin(x, w):
+        return fused_linear(x, w, transpose_weight=True)
+
+    def forward(tokens, enc, dec, this):
+        meta = [torch.as_tensor(a, dtype=torch.int32)[:, None]
+                for a in (enc, dec, this)]
+        x = params["embed"][tokens]
+        for lp, (kc, vc) in zip(params["layers"], caches):
+            h = fused_rms_norm(x, lp["ln1"])
+            qkv = torch.cat([lin(h, lp[w]) for w in ("wq", "wk", "wv")], -1)
+            out, _, _, _ = block_multihead_attention(
+                qkv, kc, vc, *meta, None, None, None, None, tables,
+                rope_emb=rope, block_size=page, use_neox_style=True)
+            x = x + lin(out, lp["wo"])
+            h2 = fused_rms_norm(x, lp["ln2"])
+            x = x + lin(swiglu(lin(h2, lp["wg"]), lin(h2, lp["wu"])),
+                        lp["wd"])
+        return fused_rms_norm(x, params["fnorm"])
+
+    outs = [list(p) for p in prompts]
+    with torch.inference_mode():
+        ids = torch.as_tensor(np.concatenate(prompts), device=dev)
+        last = torch.as_tensor(np.cumsum(lens) - 1, device=dev)
+        x = forward(ids, lens, np.zeros(b, np.int64), lens)[last]
+        nxt = F.linear(x, params["head"]).float().argmax(-1)
+        for o, t in zip(outs, nxt.tolist()):
+            o.append(t)
+        for i in range(new - 1):
+            t0 = time.perf_counter()
+            if counts is not None:
+                kernels.reset_launch_counts()
+            x = forward(nxt, np.zeros(b, np.int64), lens + i,
+                        np.ones(b, np.int64))
+            nxt = F.linear(x, params["head"]).float().argmax(-1)
+            toks = nxt.tolist()
+            if step_ms is not None:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            if counts is not None:
+                counts.append(kernels.launch_counts())
+            for o, t in zip(outs, toks):
+                o.append(t)
+    return outs
+
+
+def _fused_init(module, seed, std=0.02):
+    """Seeded weights for a Fused* module: matrices N(0, std^2), biases 0,
+    LayerNorm scales 1."""
+    gen = torch.Generator(device=next(module.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("_scale"):
+                p.fill_(1.0)
+            elif p.dim() == 1:
+                p.zero_()
+            else:
+                p.normal_(0.0, std, generator=gen)
+    return module
+
+
+def _leaf_errs(got, want):
+    """Each leaf's relative error against its norm."""
+    return {n: ((got[n].float() - g.float()).norm()
+                / g.float().norm().clamp_min(1e-30)).item()
+            for n, g in want.items()}
+
+
+#: config 4's widths as a FusedMultiTransformer (bench.py:259-262, hidden
+#: 2048, 16 heads, 24 layers; the fused layers' FFN 4H, gelu)
+FMT_KW = dict(embed_dim=2048, num_heads=16, dim_feedforward=8192,
+              activation="gelu", normalize_before=True, num_layers=24)
+#: (b), (c) and (e)'s batch x seq (config 4's), and (d)'s head: config
+#: 4's tokens a step x its vocabulary
+SURFACE_SHAPE = dict(batch=3, seq=2048, vocab=32000)
+
+
+def phase_incubate_surface(model, smi=""):
+    """incubate_surface on phase 4's LLaMA-7B model, bf16:
+    (a) the paged decoder of blha_generate serving phase 4's 8 prompts for
+        32 new tokens over [MaxBlockNum, 32, 64, 128] caches:
+        paged_attention L and rms_norm 2L + 1 per decode step, ms per
+        token, no page-layout copy (the kernel reads the page-major cache
+        in place), the new tokens equal to generate's as a reading (in
+        bf16 no two of the port's decoders round alike; phase 5's
+        blha_consistency holds the streams equal in f32);
+    (b) FusedMultiTransformer at config 4's widths (FFN 8192, gelu, 24
+        layers, normalize_before) on [3, 2048] in eval mode: the non-causal
+        flash forward L times, each layer's output within FLASH_TOL of the
+        same layer through the plain attention (an all-True mask) from the
+        same input, the whole stack's difference a reading;
+    (c) one training step of a 2-layer FusedTransformerEncoderLayer stack
+        at those widths, dropout 0: the non-causal backward L times (the
+        fused kernel or the split pair), every gradient within FLASH_TOL of
+        its leaf's norm against the plain route;
+    (d) fused_linear_cross_entropy at config 4's head, [6144, 2048] x
+        [32000, 2048], against the Pipe's head (chunked_lm_loss_arrays) on
+        the same tensors under the same int8-head gate: loss within 1e-4
+        relative, forward and backward ms of both;
+    (e) the non-causal flash forward and fused backward alone at (b)'s
+        shape [3, 2048, 16/16, 128]: ms, bound (B*H*S^2 pairs) and SDPA's
+        (is_causal=False) ms."""
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedTransformerEncoderLayer)
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy
+    from paddle_tpu_torch.nn.functional import (chunked_lm_loss_arrays,
+                                                int8_head_enabled)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_fused,
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    cfg = model.config
+    L = cfg.num_layers
+    bsz, seq = SURFACE_SHAPE["batch"], SURFACE_SHAPE["seq"]
+    e, nh = FMT_KW["embed_dim"], FMT_KW["num_heads"]
+    out = {"smi": smi, "part_seconds": {}}
+    launches = {k: 0 for k in kernels.launch_counts()}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(DEVICE)
+        out["part_seconds"][name] = time.perf_counter() - t0
+        for k, v in res.get("launches", {}).items():
+            launches[k] += v
+        out[name] = res
+        return res
+
+    def part_a():
+        _, prompts = _serve_prompts(cfg)
+        new = 32
+        blha_generate(model, [prompts[0][:64]], 2)              # warm-up
+        step_ms, counts = [], []
+        streams = blha_generate(model, prompts, new, step_ms=step_ms,
+                                counts=counts)
+        per_step = {k: [c[k] for c in counts] for k in counts[0]}
+        want = [model.generate(np.asarray([p]), max_new_tokens=new)[0]
+                .tolist() for p in prompts]
+        same = [sum(a == b for a, b in zip(s[len(p):], w[len(p):]))
+                for s, w, p in zip(streams, want, prompts)]
+        res = {"rows": len(prompts), "prompt_lens": [len(p) for p in prompts],
+               "new_tokens": new, "page": BLHA_PAGE,
+               "ms_per_token_median": statistics.median(step_ms),
+               "ms_per_token_all": step_ms,
+               "page_layout_copy_ms": 0.0,
+               "paged_attention_per_step": per_step["paged_attention"],
+               "rms_norm_per_step": per_step["rms_norm"],
+               "new_tokens_equal_generate": same,
+               "launches": {k: sum(v) for k, v in per_step.items()}}
+        print(f"incubate_surface (a) {smi}: paged decoder over "
+              f"[{8 * -(-(1024 + new) // BLHA_PAGE)}, {cfg.num_kv_heads}, "
+              f"{BLHA_PAGE}, {cfg.hidden_size // cfg.num_heads}] caches, 8 "
+              f"rows: median {res['ms_per_token_median']:.2f} ms per token "
+              f"(decode step); launches per step: paged_attention "
+              f"{sorted(set(res['paged_attention_per_step']))}, rms_norm "
+              f"{sorted(set(res['rms_norm_per_step']))} (L = {L}); page-"
+              "layout copy 0 ms (read in place); bf16 new tokens equal to "
+              f"generate's {same} of {new} (a reading: equality is held in "
+              "f32, blha_consistency)", flush=True)
+        check(all(n == L for n in res["paged_attention_per_step"])
+              and all(n == 2 * L + 1 for n in res["rms_norm_per_step"]),
+              f"(a) launches per step {per_step}")
+        check(all(len(s) == len(p) + new
+                  and all(0 <= t < cfg.vocab_size for t in s)
+                  for s, p in zip(streams, prompts)), "(a) streams")
+        return res
+
+    def part_b():
+        fmt = _fused_init(FusedMultiTransformer(
+            **FMT_KW, device=DEVICE, dtype=torch.bfloat16), seed=5).eval()
+        x = torch.randn(bsz, seq, e, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(6)
+                        ).to(torch.bfloat16)
+        every = torch.ones(seq, seq, dtype=torch.bool, device=DEVICE)
+        with torch.no_grad():
+            fmt(x)                                          # warm-up
+            _sync(DEVICE)
+            kernels.reset_launch_counts()
+            got = fmt(x)
+            _sync(DEVICE)
+            counts = kernels.launch_counts()
+            # each layer through the flash op and through the plain route
+            # from the same input: FLASH_TOL is a layer's bound; the whole
+            # stack's difference compounds over 24 bf16 layers (a reading)
+            layer_rel, h = [], x
+            for layer in fmt.layers:
+                flash = layer(h)
+                layer_rel.append(_rel_err(flash, layer(
+                    h, src_mask=every))[1])
+                h = flash
+            err, rel = _rel_err(got, fmt(x, attn_mask=every))
+            ms = time_ms(lambda: fmt(x), reps=5, inner=1)
+            plain_ms = time_ms(lambda: fmt(x, attn_mask=every), reps=3,
+                               inner=1)
+        res = {"shape": f"[{bsz}, {seq}, {e}] bf16, {FMT_KW['num_layers']} "
+                        "layers", "launches": counts,
+               "layer_max_rel_err": layer_rel, "stack_max_abs_err": err,
+               "stack_max_rel_err": rel, "forward_ms": ms,
+               "plain_route_forward_ms": plain_ms}
+        print(f"incubate_surface (b) {smi}: FusedMultiTransformer at config "
+              f"4's widths, {res['shape']} eval: flash fwd launches "
+              f"{counts['flash_attention_fwd']} (L = {FMT_KW['num_layers']});"
+              f" each layer against the plain route from the same input: "
+              f"max rel err {max(layer_rel):.4g} (tol "
+              f"{FLASH_TOL[torch.bfloat16]}); the whole stack's {rel:.4g} "
+              f"(max abs {err:.4g}); forward {ms:.2f} ms, plain route "
+              f"{plain_ms:.2f} ms", flush=True)
+        check(counts["flash_attention_fwd"] == FMT_KW["num_layers"],
+              f"(b) flash fwd launches {counts}")
+        check(torch.isfinite(got.float()).all().item() and
+              max(layer_rel) <= FLASH_TOL[torch.bfloat16],
+              f"(b) rel errs by layer {layer_rel}")
+        del fmt
+        return res
+
+    def part_c():
+        stack = torch.nn.Sequential(*(
+            FusedTransformerEncoderLayer(
+                e, nh, FMT_KW["dim_feedforward"], dropout_rate=0.0,
+                activation="gelu", normalize_before=True, device=DEVICE,
+                dtype=torch.bfloat16) for _ in range(2)))
+        _fused_init(stack, seed=7)
+        x = torch.randn(bsz, seq, e, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(8)
+                        ).to(torch.bfloat16)
+        every = torch.ones(seq, seq, dtype=torch.bool, device=DEVICE)
+
+        def grads(mask):
+            stack.zero_grad()
+            h = x
+            for layer in stack:
+                h = layer(h, src_mask=mask)
+            loss = h.float().square().mean()
+            loss.backward()
+            # pre-LayerNorm layers leave their post-LayerNorm unused
+            return loss.item(), {n: p.grad.detach().clone()
+                                 for n, p in stack.named_parameters()
+                                 if p.grad is not None}
+
+        grads(None)                                         # warm-up
+        _sync(DEVICE)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, got = grads(None)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        ploss, want = grads(every)
+        errs = _leaf_errs(got, want)
+        bwd = (counts["flash_attention_bwd"]
+               + counts["flash_attention_bwd_dq"])
+        res = {"launches": counts, "loss": loss, "plain_loss": ploss,
+               "grad_rel_err": errs, "step_ms": step_ms}
+        print(f"incubate_surface (c) {smi}: 2 FusedTransformerEncoderLayers "
+              f"at config 4's widths, [{bsz}, {seq}] bf16, dropout 0: "
+              "launches "
+              f"fwd {counts['flash_attention_fwd']}, fused bwd "
+              f"{counts['flash_attention_bwd']}, split dq/dkv "
+              f"{counts['flash_attention_bwd_dq']}/"
+              f"{counts['flash_attention_bwd_dkv']}; loss {loss:.6f} against "
+              f"the plain route's {ploss:.6f}; grads max rel "
+              f"{max(errs.values()):.3e} ({max(errs, key=errs.get)}, tol "
+              f"{FLASH_TOL[torch.bfloat16]}); step {step_ms:.1f} ms",
+              flush=True)
+        check(counts["flash_attention_fwd"] == 2 and bwd == 2,
+              f"(c) launches {counts}")
+        check(max(errs.values()) <= FLASH_TOL[torch.bfloat16],
+              f"(c) gradients {errs}")
+        del stack
+        return res
+
+    def part_d():
+        g = torch.Generator(DEVICE).manual_seed(9)
+        vocab = SURFACE_SHAPE["vocab"]
+        h = (torch.randn(bsz * seq, e, device=DEVICE, generator=g)
+             ).to(torch.bfloat16).requires_grad_()
+        w = (0.02 * torch.randn(vocab, e, device=DEVICE, generator=g)
+             ).to(torch.bfloat16).requires_grad_()
+        y = torch.randint(0, vocab, (bsz * seq,), device=DEVICE, generator=g)
+        int8 = int8_head_enabled(h.device)
+
+        def run(fn):
+            loss = fn()
+            gh, gw = torch.autograd.grad(loss, (h, w))
+            return loss.item(), gh, gw
+
+        fused = lambda: fused_linear_cross_entropy(h, w, y)     # noqa: E731
+        pipe = lambda: chunked_lm_loss_arrays(h, w, y)          # noqa: E731
+        lf, ghf, gwf = run(fused)
+        lp, ghp, gwp = run(pipe)
+        rel = abs(lf - lp) / abs(lp)
+        gerr = _leaf_errs({"h": ghf, "w": gwf}, {"h": ghp, "w": gwp})
+        res = {"int8_head": int8, "loss": lf, "pipe_loss": lp,
+               "loss_rel": rel, "grad_rel_err": gerr,
+               "ms": time_ms(lambda: run(fused), reps=5, inner=1),
+               "pipe_ms": time_ms(lambda: run(pipe), reps=5, inner=1),
+               "forward_ms": time_ms(lambda: fused().item(), reps=5,
+                                     inner=1),
+               "pipe_forward_ms": time_ms(lambda: pipe().item(), reps=5,
+                                          inner=1)}
+        print(f"incubate_surface (d) {smi}: fused_linear_cross_entropy "
+              f"[{bsz * seq}, {e}] x [{vocab}, {e}] bf16, int8 head {int8}: "
+              "loss "
+              f"{lf:.6f} against the Pipe head's {lp:.6f} (rel {rel:.2e}, "
+              f"tol 1e-4), grads rel {gerr}; forward+backward "
+              f"{res['ms']:.2f} ms against {res['pipe_ms']:.2f}, forward "
+              f"{res['forward_ms']:.2f} against {res['pipe_forward_ms']:.2f}",
+              flush=True)
+        check(rel <= 1e-4, f"(d) loss {lf} against {lp}")
+        return res
+
+    def part_e():
+        b, hh, s, d = bsz, nh, seq, e // nh
+        dtype = torch.bfloat16
+        gen = torch.Generator(DEVICE).manual_seed(10)
+        q, k, v, do = (torch.randn(b * hh, s, d, generator=gen,
+                                   device=DEVICE).to(dtype)
+                       for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, False)
+        ro, rlse = flash_attention_fwd_plain(q, k, v, False)
+        ferr, frel = _rel_err(o, ro)
+        grads = flash_attention_bwd(q, k, v, ro, rlse, do, False)
+        want = flash_attention_bwd_plain(q, k, v, ro, rlse, do, False)
+        berr, brel = _rel_err(grads, want)
+        check(frel <= FLASH_TOL[dtype] and brel <= FLASH_TOL[dtype],
+              f"(e) non-causal rel errs {frel}, {brel}")
+        q4, k4, v4, do4 = (t.view(b, hh, s, d) for t in (q, k, v, do))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=False)
+        pairs = b * hh * s * s
+        io = b * hh * s * d * q.element_size()
+        fb, fby = bound_ms(4 * io + b * hh * s * 4, 4 * d * pairs, dtype)
+        bb, bby = bound_ms(7 * io + 2 * b * hh * s * 4, 10 * d * pairs,
+                           dtype)
+        delta = (do.float() * ro.float()).sum(-1)
+        res = {"shape": f"[{b},{s},{hh}/{hh},{d}] non-causal",
+               "fwd": {"max_abs_err": ferr, "max_rel_err": frel,
+                       "ms": time_ms(lambda: flash_attention_fwd(
+                           q, k, v, False)),
+                       "library_ms": time_ms(
+                           lambda: F.scaled_dot_product_attention(
+                               q4, k4, v4, is_causal=False)),
+                       "bound_ms": fb, "bound_by": fby},
+               "bwd": {"max_abs_err": berr, "max_rel_err": brel,
+                       "ms": time_ms(lambda: flash_attention_bwd_fused(
+                           q, k, v, do, rlse, delta, False)),
+                       "with_delta_ms": time_ms(lambda: flash_attention_bwd(
+                           q, k, v, ro, rlse, do, False)),
+                       "library_ms": time_ms(lambda: torch.autograd.grad(
+                           lib, (ql, kl, vl), do4, retain_graph=True)),
+                       "bound_ms": bb, "bound_by": bby}}
+        for key in ("fwd", "bwd"):
+            r = res[key]
+            print(f"incubate_surface (e) {smi}: non-causal flash {key} "
+                  f"{res['shape']} bf16: {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA "
+                  f"{r['library_ms']:.4f} ms, max rel err "
+                  f"{r['max_rel_err']:.3g}", flush=True)
+        return res
+
+    part("a", part_a)
+    torch.cuda.empty_cache()
+    part("b", part_b)
+    part("c", part_c)
+    torch.cuda.empty_cache()
+    part("d", part_d)
+    part("e", part_e)
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    print(f"incubate_surface: {smi}: parts s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["part_seconds"].items())
+          + f"; launches {launches}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------- shared_block
+def phase_shared_block(smi="", cfg4=None, batch=3, seq=2048, device=DEVICE,
+                       steps=REST_STEPS, pipe_step=None):
+    """Config 4's widths and depth as a per-layer GPTForCausalLM, whose
+    layers run through the shared block (_make_block on the layers' own
+    weights, transposed views), bf16, a warm-up and ``steps`` timed
+    AdamW(factored) TrainSteps of a seeded batch x seq batch each (the
+    step median over the timed ones), under (a) full recompute, (b) the
+    long-context names: policy, (c) fused_addrms: launches a step
+    asserted (flash fwd 2L, or L under (b); bwd L; swiglu_down 2L;
+    rms_norm 4L + 1, the +1 the final norm; 2L + 1 and add_rms_norm 2L
+    under (c)), finite losses with the first in phase 6's window. Readings:
+    (a)'s first loss against config 4's Pipe on the same weights
+    (convert_decoder_state_dict, the head pinned to f32 on both); step
+    median, tokens/s and host share beside ``pipe_step`` (phase 6's
+    results); the per-step copy of every down projection into the
+    contiguous [M, H] swiglu_down takes (2L a step), timed. Then f32,
+    depth 2, 1 x 256: the per-layer model against the Pipe on the same
+    weights, and the card against the CPU, within phase 7's bounds."""
+    import functools
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             GPTForCausalLMPipe,
+                                             convert_decoder_state_dict)
+    from paddle_tpu_torch.ops.kernels.swiglu_down import \
+        swiglu_down_supported
+
+    cuda = torch.device(device).type == "cuda"
+    cfg_kw = dict(cfg4 or CONFIG4)
+    L = cfg_kw["num_layers"]
+    tokens = batch * seq
+    out = {"smi": smi, "part_seconds": {}}
+    launches = {}
+
+    def model_of(cfg, seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return GPTForCausalLM(cfg, device=device).init_weights(gen, std=0.02)
+
+    def batches(vocab, seed):
+        return [_train_batch(vocab, batch, seq, 100 * seed + s, device)
+                for s in range(steps + 1)]
+
+    def want(cfg, fwd_per_layer, addrms=False):
+        m = cfg.intermediate_size
+        fused = swiglu_down_supported((batch, seq, m), (m, cfg.hidden_size))
+        return {"flash_attention_fwd": fwd_per_layer * L,
+                "flash_attention_bwd": L, "flash_attention_bwd_dq": 0,
+                "swiglu_down": 2 * L * fused,
+                "rms_norm": (2 + 2 * (not addrms)) * L + 1,
+                "add_rms_norm": 2 * L * addrms} if cuda else {}
+
+    runs = {}
+    for name, kw, fwd in (("a", {}, 2),
+                          ("b", {"recompute_policy": LONG_POLICY}, 1),
+                          ("c", {"fused_addrms": True}, 2)):
+        t0 = time.perf_counter()
+        cfg = GPTConfig(**dict(cfg_kw, **kw))
+        model = model_of(cfg, seed=11)
+        if name == "a":
+            ids, labels = _train_batch(cfg.vocab_size, batch, seq, 1100,
+                                       device)
+            pipe = GPTForCausalLMPipe(GPTConfig(**cfg_kw), device=device)
+            pipe.load_state_dict(convert_decoder_state_dict(
+                model.state_dict(), "stacked"))
+            with torch.no_grad():
+                first = {"per_layer": model.loss(ids, labels,
+                                                 int8=False).item(),
+                         "pipe": pipe.loss(ids, labels, int8=False).item()}
+            del pipe
+            first["rel"] = abs(first["per_layer"] - first["pipe"]) / abs(
+                first["pipe"])
+            out["loss_against_pipe"] = first
+        res, _ = _rest_steps(f"shared_block ({name})", model, model.loss,
+                             batches(cfg.vocab_size, 11), want(cfg, fwd,
+                                                                "fused_addrms"
+                                                                in kw),
+                             profile=True)
+        _first_loss_near_ln_v(f"shared_block ({name})", res["losses"][0],
+                              cfg.vocab_size)
+        res["warmup_step_ms"] = res["step_ms"][0]
+        res["step_ms_median"] = statistics.median(res["step_ms"][1:])
+        nparams = sum(p.numel() for p in model.parameters())
+        tps = tokens / (res["step_ms_median"] / 1e3)
+        res.update(params=nparams, tokens_per_s=tps,
+                   model_flops_share=6.0 * nparams * tps
+                   / PEAK_OPS[torch.bfloat16])
+        print(f"shared_block ({name}) {smi}: per-layer config 4, "
+              f"{kw or 'full recompute'}: {nparams / 1e9:.4f} B params, "
+              f"losses {[round(x, 4) for x in res['losses']]}, step ms "
+              f"{[round(x, 1) for x in res['step_ms']]} (median of the "
+              f"timed steps {res['step_ms_median']:.1f}), {tps:.0f} "
+              f"tokens/s, model-flops share "
+              f"{res['model_flops_share']:.4f}; launches per step "
+              f"{res['launches_per_step']}", flush=True)
+        if name == "a" and cuda:
+            wds = [l.mlp.down_proj.weight for l in model.model.layers]
+            res["wd_copy_ms_per_step"] = 2 * time_ms(
+                lambda: [w.t().contiguous() for w in wds], reps=5, inner=1)
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = res
+        out["part_seconds"][name] = time.perf_counter() - t0
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+    out["runs"] = runs
+    pipe_med = None if pipe_step is None else pipe_step["step_ms_median"]
+    pipe_host = (None if pipe_step is None
+                 else pipe_step.get("profile", {}).get("host_share"))
+    print(f"shared_block {smi}: (a) first loss per-layer "
+          f"{out['loss_against_pipe']['per_layer']:.6f} against the Pipe's "
+          f"{out['loss_against_pipe']['pipe']:.6f} on the same weights (rel "
+          f"{out['loss_against_pipe']['rel']:.2e}, f32 head); step medians "
+          + ", ".join(f"({n}) {r['step_ms_median']:.1f} ms "
+                      f"{r['tokens_per_s']:.0f} tok/s host share "
+                      f"{r.get('profile', {}).get('host_share')}"
+                      for n, r in runs.items())
+          + f"; phase 6's Pipe step {pipe_med} ms, host share "
+          f"{pipe_host}; the down projections' copies "
+          f"{runs['a'].get('wd_copy_ms_per_step')} ms a step", flush=True)
+
+    t0 = time.perf_counter()
+    small = GPTConfig(**dict(cfg_kw, num_layers=2, dtype="float32"))
+
+    def build(dev):
+        m = GPTForCausalLM(small, device=dev)
+        if dev == "cpu":
+            m.init_weights(torch.Generator().manual_seed(12), std=0.02)
+        return m
+
+    out["card_vs_cpu"] = _rest_card_vs_cpu(
+        "shared block", build, lambda m: functools.partial(m.loss,
+                                                           int8=False),
+        small.vocab_size, device, min(seq, 256))
+    per_layer = build("cpu").to(device)
+    pipe = GPTForCausalLMPipe(small, device=device)
+    pipe.load_state_dict(convert_decoder_state_dict(per_layer.state_dict(),
+                                                    "stacked"))
+    ids, labels = _train_batch(small.vocab_size, 1, min(seq, 256), 13,
+                               device)
+    res = {}
+    for tag, m in (("per_layer", per_layer), ("pipe", pipe)):
+        loss = m.loss(ids, labels, int8=False)
+        loss.backward()
+        res[tag] = (loss.item(), {n: p.grad.detach().float().cpu()
+                                  for n, p in m.named_parameters()})
+    pl_grads = convert_decoder_state_dict(res["per_layer"][1], "stacked")
+    errs = _leaf_errs(pl_grads, res["pipe"][1])
+    rel = abs(res["per_layer"][0] - res["pipe"][0]) / abs(res["pipe"][0])
+    out["per_layer_vs_pipe"] = {"losses": [res["per_layer"][0],
+                                           res["pipe"][0]],
+                                "loss_rel": rel, "grad_rel_err": errs}
+    print(f"shared_block {smi}: f32 depth 2 seq {min(seq, 256)}: per-layer "
+          f"loss {res['per_layer'][0]} against the Pipe's {res['pipe'][0]} "
+          f"(rel {rel:.2e}, tol {TRAIN_LOSS_RTOL}); grads max rel "
+          f"{max(errs.values()):.2e} (tol {TRAIN_GRAD_RTOL})", flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, f"per-layer against the Pipe: {rel}")
+    check(max(errs.values()) <= TRAIN_GRAD_RTOL,
+          f"per-layer grads against the Pipe: {errs}")
+    out["part_seconds"]["f32"] = time.perf_counter() - t0
+    out["launches"] = launches
+    del per_layer, pipe
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -4766,6 +5407,9 @@ def main():
         report["telemetry"] = run("telemetry", phase_telemetry, model,
                                   streams)
         report["incubate"] = run("incubate", phase_incubate, model)
+        report["incubate_surface"] = run(
+            "incubate_surface", phase_incubate_surface, model,
+            report["device"]["smi"])
         del model
         torch.cuda.empty_cache()
         report["consistency"], model, prompts, want = run(
@@ -4775,6 +5419,8 @@ def main():
         report["incubate_consistency"] = run(
             "incubate_consistency", phase_incubate_consistency, model,
             prompts, want)
+        report["blha_consistency"] = run(
+            "blha_consistency", phase_blha_consistency, model)
         report["engine_consistency"] = run(
             "engine_consistency", phase_engine_consistency, model, prompts)
         report["fleet_consistency"] = run(
@@ -4795,6 +5441,9 @@ def main():
                                            phase_long_context_remat)
         report["model_rest"] = run("model_rest", phase_model_rest,
                                    report["device"]["smi"])
+        report["shared_block"] = run(
+            "shared_block", phase_shared_block, report["device"]["smi"],
+            None, 3, 2048, DEVICE, REST_STEPS, report["training"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -4836,9 +5485,10 @@ def main():
         by_path = {path: report[path]["launches"][name]
                    for path in ("serving", "serving_int8", "serving_spec",
                                 "serving_int8w", "serving_disagg",
-                                "serving_fleet", "incubate", "training",
+                                "serving_fleet", "incubate",
+                                "incubate_surface", "training",
                                 "quant_train", "long_context",
-                                "model_rest")}
+                                "model_rest", "shared_block")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -38,7 +38,8 @@ def _is_linear(name: str) -> bool:
 def expected_keys(config, moe=False) -> list[str]:
     """The per-layer tree's state-dict keys, in the port's order, for
     every variant: LayerNorm biases, ``fc1``/``fc2`` with biases under
-    gelu, ``embed_pos`` without rope; with ``moe`` the layers of
+    gelu, ``embed_pos`` without rope, ``model.quant_amax`` where the policy
+    requests ``quant:`` sites; with ``moe`` the layers of
     ``GPTForCausalLMMoE`` (experts, then the gate)."""
     norm = (("weight",) if config.norm_type == "rmsnorm"
             else ("weight", "bias"))
@@ -51,7 +52,9 @@ def expected_keys(config, moe=False) -> list[str]:
     else:
         ffn = ["mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
                "mlp.fc2.bias"]
-    keys = ["model.embed_tokens.weight"]
+    keys = (["model.quant_amax"] if requested_quant_sites(config) and not moe
+            else [])
+    keys.append("model.embed_tokens.weight")
     if not config.rope:
         keys.append("model.embed_pos.weight")
     for i in range(config.num_layers):
@@ -150,4 +153,26 @@ def training_state_from_jax(flat: dict, model) -> dict[str, torch.Tensor]:
     missing = sorted(want - set(out))
     if missing:
         raise KeyError(f"training_state_from_jax: missing {missing}")
+    return out
+
+
+def fused_state_dict_from_jax(params: dict, module) -> dict[str, torch.Tensor]:
+    """A JAX ``incubate.nn`` ``Fused*`` layer's ``state_dict()``, taken as
+    numpy arrays, -> a state dict for the port's layer of the same class
+    (CPU tensors; ``load_state_dict`` moves them). Both keep the same
+    names and ``[in, out]`` shapes, so nothing is transposed; a missing,
+    unexpected or differently shaped entry raises."""
+    want = {k: tuple(t.shape) for k, t in module.state_dict().items()}
+    missing = [k for k in want if k not in params]
+    extra = [k for k in params if k not in want]
+    if missing or extra:
+        raise KeyError(f"fused_state_dict_from_jax: missing {missing}, "
+                       f"unexpected {extra}")
+    out = {}
+    for name, shape in want.items():
+        a = np.asarray(params[name])
+        if a.shape != shape:
+            raise ValueError(f"fused_state_dict_from_jax: {name} is "
+                             f"{a.shape}, the layer's {shape}")
+        out[name] = _to_torch(a)
     return out

@@ -7,7 +7,9 @@ two module trees:
 - ``GPTForCausalLM`` (serving): per-layer modules with the JAX package's
   state-dict names (``model.layers.{i}.attn.q_proj.weight`` ...) and
   ``torch.nn.Linear`` weights ``[out, in]``; ``convert.py`` owns the
-  transpose from the JAX package's ``[in, out]``.
+  transpose from the JAX package's ``[in, out]``. An rmsnorm + swiglu +
+  rope stack runs its layers through the training model's block
+  (``GPTModel._shared_block_eligible``), any other through its modules.
 - ``GPTForCausalLMPipe`` (training): the flagship ``StackedDecoder`` with
   the JAX package's stacked ``[L, in, out]`` weights, the block
   ``_block_pure`` on its single-device path (rms norm and flash attention
@@ -149,29 +151,18 @@ def _check_stacked(config):
         raise ValueError("StackedDecoder does not support dropout")
 
 
-#: the ROADMAP item that owns what the per-layer tree does not run yet
-PER_LAYER_ITEM = "ROADMAP A.14"
-
-
-def _check_per_layer(config):
-    """What only the stacked decoder's shared block runs: a non-``full``
-    remat policy, the int8-saved FFN, the attn->norm seam and ``quant:``
-    GEMMs. The per-layer tree keeps its module loop (full recompute), so
-    each raises here."""
+def _block_only_options(config):
+    """The options only the shared decoder block runs (``_block_pure``): a
+    selective remat policy, the int8-saved FFN, the attn->norm seam and
+    ``quant:`` GEMM sites, as the names a refusal gives them."""
+    opts = []
     if config.recompute and config.recompute_policy != "full":
-        raise NotImplementedError(
-            f"recompute_policy={config.recompute_policy!r} on the per-layer "
-            "tree: it recomputes whole layers only (use GPTForCausalLMPipe "
-            f"for selective remat; {PER_LAYER_ITEM})")
-    for flag in ("int8_ffn", "fused_addrms"):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"{flag}=True runs in GPTForCausalLMPipe's block only "
-                f"({PER_LAYER_ITEM})")
+        opts.append(f"recompute_policy={config.recompute_policy!r}")
+    opts += [f"{flag}=True" for flag in ("int8_ffn", "fused_addrms")
+             if getattr(config, flag)]
     if _quant.requested_quant_sites(config):
-        raise NotImplementedError(
-            f"quant: sites run in GPTForCausalLMPipe's block only "
-            f"({PER_LAYER_ITEM})")
+        opts.append("quant: sites")
+    return opts
 
 
 def _linear(i, o, device, dtype, bias=False):
@@ -325,11 +316,85 @@ def _layer_rng(layers):
     return context_fn
 
 
-class GPTModel(nn.Module):
+class _SharedBlockRunner:
+    """The layer loop over ``_make_block`` that ``StackedDecoder`` and an
+    eligible per-layer ``GPTModel`` share, with the delayed-scaling state
+    of ``quant:`` sites.
+
+    A config whose policy requests ``quant:`` sites gets the buffer
+    ``quant_amax`` ``[L, 7, 2, H]`` (``models/gpt.py:1103-1111``): the
+    delayed-scaling state, saved and restored with the state dict. A
+    forward reads a copy of it and commits the new histories after the
+    forward, or leaves them to a ``TrainStep`` that holds the commit
+    (``_amax_held``) and writes them with the optimizer's update, under
+    the guard's keep-select."""
+
+    def _init_quant(self, config, device):
+        if _quant.requested_quant_sites(config):
+            self.register_buffer("quant_amax", _quant.init_amax_state(
+                config.num_layers, device=device))
+        self._amax_held = False
+        self._amax_pending = None
+        self._quant_plans = {}
+
+    def _quant_plan(self, x):
+        """The engagement for this input's shapes and device, resolved (and
+        noted) once for each, as the reference resolves it once a
+        trace."""
+        cfg = self.config
+        gate_shape = (*x.shape[:-1], cfg.intermediate_size)
+        wd_shape = (cfg.intermediate_size, cfg.hidden_size)
+        key = (gate_shape, x.device.type)
+        if key not in self._quant_plans:
+            self._quant_plans[key] = _resolve_quant(cfg, gate_shape,
+                                                    wd_shape, x.device)
+        return self._quant_plans[key]
+
+    def _run_blocks(self, x, layers):
+        """``x`` through one block per entry of ``layers`` (each a tuple
+        of weights in ``BLOCK_PARAMS`` order, ``[in, out]``)."""
+        sites, dtype = ((frozenset(), None) if "quant_amax" not in
+                        self._buffers else self._quant_plan(x))
+        block = _make_block(self.config, sites, dtype)
+        if not sites:
+            for p in layers:
+                x = block(x, p)
+            return x
+        amax = self.quant_amax.detach().clone()
+        rows = []
+        for p, amax_l in zip(layers, amax):
+            x, new_l = block(x, (*p, amax_l))
+            rows.append(new_l)
+        new = torch.stack(rows)
+        if self._amax_held:
+            self._amax_pending = new
+        else:
+            with torch.no_grad():
+                self.quant_amax.copy_(new)
+        return x
+
+
+class GPTModel(_SharedBlockRunner, nn.Module):
     """Embedding (+ learned positions where ``rope=False``), the layers,
-    the final norm. With ``config.recompute`` each layer is a
-    non-reentrant ``torch.utils.checkpoint`` (the reference's
-    ``fleet.utils.recompute`` over each layer, ``models/gpt.py:261-264``).
+    the final norm (``models/gpt.py:231-372``).
+
+    A stack the shared block can run (:meth:`_shared_block_eligible`)
+    runs every layer through ``_make_block`` on the layer's own weights,
+    seen through transposed views (``[out, in]`` -> ``[in, out]``), so
+    the gradients land on the ``nn.Linear`` parameters and nothing is
+    stacked: the reference's ``_run_stacked``. There it takes every
+    ``recompute_policy``, ``int8_ffn``, ``fused_addrms`` and ``quant:``
+    sites (with the ``quant_amax`` buffer ``[L, 7, 2, H]`` and
+    ``StackedDecoder``'s commit rule), and launches ``swiglu_down`` and
+    the norm kernels as the Pipe's block does.
+
+    Any other stack (LayerNorm, gelu, learned positions, a layer that is
+    not a ``DecoderLayer``, or a call with ``attn_mask``) runs the module
+    loop: with ``config.recompute`` each layer is a non-reentrant
+    ``torch.utils.checkpoint`` (the reference's ``fleet.utils.recompute``
+    over each layer). The reference's loop ignores the block-only
+    options; here a model or call that asks for one of them raises
+    ``ValueError`` naming the condition that failed.
     ``layer_cls(config, device, dtype)`` builds each layer."""
 
     def __init__(self, config, device=None, dtype=None,
@@ -346,12 +411,64 @@ class GPTModel(nn.Module):
             [layer_cls(config, device, dtype)
              for _ in range(config.num_layers)])
         self.final_norm = _norm(config, device, dtype)
+        self._refuse_block_only(None)
+        self._init_quant(config, self.embed_tokens.weight.device)
+
+    def _shared_block_refusal(self, attn_mask):
+        """None when the stack can run through the shared block, else the
+        condition that failed (the reference's ``_shared_block_eligible``,
+        ``models/gpt.py:271-301``). Not checked yet, as the port has
+        neither: the reference's amp autocast condition (A.13 (d) adds
+        it back with ``amp``) and its per-layer placement and pp-mesh
+        conditions (A.10 adds them back with the placements)."""
+        cfg = self.config
+        if attn_mask is not None:
+            return "attn_mask is given"
+        if cfg.dropout:
+            return f"dropout={cfg.dropout}"
+        if not cfg.rope:
+            return "rope=False (learned positions)"
+        if cfg.norm_type != "rmsnorm":
+            return f"norm_type={cfg.norm_type!r} (the block is rmsnorm)"
+        if cfg.act != "swiglu":
+            return f"act={cfg.act!r} (the block is swiglu)"
+        for layer in self.layers:
+            if type(layer) is not DecoderLayer:
+                return (f"a layer is a {type(layer).__name__}, not a plain "
+                        "DecoderLayer")
+        return None
+
+    def _shared_block_eligible(self, attn_mask):
+        return self._shared_block_refusal(attn_mask) is None
+
+    def _refuse_block_only(self, attn_mask):
+        """Raise where the module loop would ignore a block-only option."""
+        opts = _block_only_options(self.config)
+        why = self._shared_block_refusal(attn_mask) if opts else None
+        if why is not None:
+            raise ValueError(f"{', '.join(opts)}: only the shared decoder "
+                             f"block runs this, and this stack cannot take "
+                             f"it: {why}")
+
+    def _block_params(self):
+        """Each layer's weights in ``BLOCK_PARAMS`` order, the projections
+        as ``[in, out]`` views of their ``[out, in]`` parameters."""
+        def weight(layer, attr, suffix):
+            w = layer.get_parameter(suffix)
+            return w.t() if attr in _LINEAR_ATTRS else w
+
+        return [tuple(weight(layer, attr, suffix)
+                      for attr, suffix in BLOCK_PARAM_FIELDS)
+                for layer in self.layers]
 
     def forward(self, input_ids, attn_mask=None):
         x = self.embed_tokens(input_ids)
         if not self.config.rope:
             x = x + self.embed_pos(torch.arange(input_ids.shape[1],
                                                 device=x.device))
+        if self._shared_block_eligible(attn_mask):
+            return self.final_norm(self._run_blocks(x, self._block_params()))
+        self._refuse_block_only(attn_mask)
         if self.config.recompute:
             ctx = _layer_rng(self.layers)
             kw = {} if ctx is None else {"context_fn": ctx}
@@ -372,7 +489,6 @@ class GPTForCausalLM(nn.Module):
                  layer_cls=DecoderLayer):
         super().__init__()
         _check_supported(config)
-        _check_per_layer(config)
         device = resolve_device(device)
         dtype = dtype or _DTYPES[config.dtype]
         self.config = config
@@ -707,21 +823,14 @@ BLOCK_PARAM_FIELDS = (
 BLOCK_PARAMS = tuple(attr for attr, _ in BLOCK_PARAM_FIELDS)
 
 
-class StackedDecoder(nn.Module):
+class StackedDecoder(_SharedBlockRunner, nn.Module):
     """Every decoder block as leading-axis-stacked parameters ``[L, ...]``
     (``models/gpt.py:1065``), in the JAX package's ``[in, out]`` layout.
     Projections start as N(0, 0.02^2), norm gains as ones. The layers run
     as a loop over ``torch.unbind`` slices, whose backward stacks the L
     per-layer gradients once. Single device: pipeline, tensor parallelism
-    and ZeRO are not ported (ROADMAP A.10).
-
-    A config whose policy requests ``quant:`` sites gets the buffer
-    ``quant_amax`` ``[L, 7, 2, H]`` (``models/gpt.py:1103-1111``): the
-    delayed-scaling state, saved and restored with the state dict. A
-    forward reads a copy of it and commits the new histories after the
-    forward, or leaves them to a ``TrainStep`` that holds the commit
-    (``_amax_held``) and writes them with the optimizer's update, under
-    the guard's keep-select."""
+    and ZeRO are not ported (ROADMAP A.10). ``quant:`` sites add the
+    ``quant_amax`` buffer (:class:`_SharedBlockRunner`)."""
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -741,12 +850,7 @@ class StackedDecoder(nn.Module):
                 else:
                     t.normal_(0.0, 0.02)
             setattr(self, name, nn.Parameter(t))
-        if _quant.requested_quant_sites(config):
-            self.register_buffer("quant_amax", _quant.init_amax_state(
-                L, device=self.wq.device))
-        self._amax_held = False
-        self._amax_pending = None
-        self._quant_plans = {}
+        self._init_quant(config, self.wq.device)
 
     def apply_tp_placements(self, *args, **kwargs):
         raise NotImplementedError("tensor parallelism is not ported yet "
@@ -754,40 +858,9 @@ class StackedDecoder(nn.Module):
 
     apply_pipeline_placements = apply_tp_placements
 
-    def _quant_plan(self, x):
-        """The engagement for this input's shapes and device, resolved (and
-        noted) once for each, as the reference resolves it once a
-        trace."""
-        cfg = self.config
-        gate_shape = (*x.shape[:-1], cfg.intermediate_size)
-        wd_shape = tuple(self.wd.shape[1:])
-        key = (gate_shape, x.device.type)
-        if key not in self._quant_plans:
-            self._quant_plans[key] = _resolve_quant(cfg, gate_shape,
-                                                    wd_shape, x.device)
-        return self._quant_plans[key]
-
     def forward(self, x):
-        layers = zip(*(torch.unbind(getattr(self, n)) for n in BLOCK_PARAMS))
-        sites, dtype = ((frozenset(), None) if "quant_amax" not in
-                        self._buffers else self._quant_plan(x))
-        block = _make_block(self.config, sites, dtype)
-        if not sites:
-            for p in layers:
-                x = block(x, p)
-            return x
-        amax = self.quant_amax.detach().clone()
-        rows = []
-        for p, amax_l in zip(layers, amax):
-            x, new_l = block(x, (*p, amax_l))
-            rows.append(new_l)
-        new = torch.stack(rows)
-        if self._amax_held:
-            self._amax_pending = new
-        else:
-            with torch.no_grad():
-                self.quant_amax.copy_(new)
-        return x
+        return self._run_blocks(x, zip(*(torch.unbind(getattr(self, n))
+                                         for n in BLOCK_PARAMS)))
 
 
 class GPTForCausalLMPipe(nn.Module):
@@ -876,9 +949,11 @@ _FACTORED_SWAP = {".vr": ".vc", ".vc": ".vr"}
 #: blockwise-int8 moment slots (``AdamW(moment_dtype="int8")``)
 _INT8_SLOTS = frozenset({".moment1_q", ".moment1_s", ".moment2_q",
                          ".moment2_s"})
-#: top-level keys: stacked-side name -> per-layer name
+#: top-level keys: stacked-side name -> per-layer name (the delayed-scaling
+#: histories are ``[L, 7, 2, H]`` in both trees)
 _TOP_KEY_MAP = {"embed_tokens.weight": "model.embed_tokens.weight",
-                "final_norm.weight": "model.final_norm.weight"}
+                "final_norm.weight": "model.final_norm.weight",
+                "decoder.quant_amax": "model.quant_amax"}
 
 
 def _split_opt_key(key):

@@ -56,6 +56,12 @@
 //   scale * log2 e); f32 q takes expf.
 // - q f32 or bf16; K/V rows of q's type or int8; D in {64, 80, 96, 128,
 //   256}; any rep >= 1; any page.
+// - Page layout. A paged route finds row `pos` of kv head h at row
+//   h * head_stride + tables[pos / page] * page_stride + pos % page of its
+//   pages, so the head-major layout [Hkv, num_pages, page, D] (head_stride
+//   num_pages * page, page_stride page) and the page-major one
+//   [num_pages, Hkv, page, D] (head_stride page, page_stride Hkv * page)
+//   are read in place; only the addresses differ.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -87,6 +93,7 @@ struct Params {
   void* out;           // [B, Hq, D]
   int hkv, rep, groups, split;
   int num_pages, page, pages_per_seq;  // paged route
+  int head_stride, page_stride;        // paged route, in rows of D values
   int seq;                             // dense route
   float scale;
 };
@@ -272,7 +279,7 @@ __device__ __forceinline__ void attend(const Params& p) {
     s0 = min(rank * per, len);
     s1 = min(s0 + per, len);
   }
-  const size_t head_rows = kPaged ? (size_t)h * p.num_pages * p.page
+  const size_t head_rows = kPaged ? (size_t)h * p.head_stride
                                   : ((size_t)b * p.hkv + h) * p.seq;
   const KV* kb = reinterpret_cast<const KV*>(p.k) + head_rows * D;
   const KV* vb = reinterpret_cast<const KV*>(p.v) + head_rows * D;
@@ -321,7 +328,7 @@ __device__ __forceinline__ void attend(const Params& p) {
       if (ok) {
         if constexpr (kPaged) {
           const int pg = min(max(tab[pos / p.page], 0), p.num_pages - 1);
-          row = pg * p.page + pos % p.page;
+          row = pg * p.page_stride + pos % p.page;
         } else {
           row = pos;
         }

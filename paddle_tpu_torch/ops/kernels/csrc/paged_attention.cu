@@ -8,6 +8,9 @@
 // over the first lengths[b] positions of sequence b, whose keys and values
 // live in pages [Hkv, num_pages, page, D] addressed by block_tables[b, j]
 // (clamped to [0, num_pages - 1]); p is rounded to V's type before p.V.
+// The pages may also be page-major, [num_pages, Hkv, page, D] (the cache
+// layout of PaddlePaddle's block_multihead_attention): the launcher takes
+// the head and page strides in rows, so either layout is read in place.
 //
 // Bound: the live KV rows' bytes over the card's memory rate. The body,
 // its design and what it does about that bound are in decode_split.cuh,
@@ -39,15 +42,19 @@ struct Paged {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; split: CTAs per cluster (1..8).
-// Returns the launch's CUDA error (cudaErrorInvalidValue for shapes the
+// dtype: 0 = float32, 1 = bfloat16; split: CTAs per cluster (1..8);
+// head_stride, page_stride: rows of D values between two kv heads and
+// between two pages (num_pages * page and page for [Hkv, num_pages, page,
+// D]). Returns the launch's CUDA error (cudaErrorInvalidValue for shapes the
 // kernel does not take).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* lengths, void* out, int batch, int hkv,
     int rep, int head_dim, int num_pages, int page, int pages_per_seq,
-    int split, float scale, int dtype, void* stream) {
-  if (page < 1 || num_pages < 1 || pages_per_seq < 1)
+    int split, int head_stride, int page_stride, float scale, int dtype,
+    void* stream) {
+  if (page < 1 || num_pages < 1 || pages_per_seq < 1 || head_stride < 0 ||
+      page_stride < page)
     return (int)cudaErrorInvalidValue;
   decode_split::Params p = {};
   p.q = q;
@@ -62,6 +69,8 @@ extern "C" int paged_attention_launch(
   p.num_pages = num_pages;
   p.page = page;
   p.pages_per_seq = pages_per_seq;
+  p.head_stride = head_stride;
+  p.page_stride = page_stride;
   p.scale = scale;
   return decode_split::launch<Paged>(p, batch, head_dim, dtype,
                                      (cudaStream_t)stream);

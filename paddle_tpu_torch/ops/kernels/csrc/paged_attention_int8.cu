@@ -77,6 +77,8 @@ extern "C" int paged_attention_int8_launch(
   p.num_pages = num_pages;
   p.page = page;
   p.pages_per_seq = pages_per_seq;
+  p.head_stride = num_pages * page;  // head-major [Hkv, num_pages, page, D]
+  p.page_stride = page;
   p.scale = scale;
   return decode_split::launch<PagedInt8>(p, batch, head_dim, dtype,
                                          (cudaStream_t)stream);

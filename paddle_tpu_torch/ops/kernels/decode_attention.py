@@ -28,6 +28,11 @@ Layouts (those of the JAX package):
   [Hkv, NumPages, PageSize, 1] f32); block_tables [B, PagesPerSeq] int32;
   dense cache [B, Hkv, S, D]; lengths [B] int32 (valid kv rows, counting
   the current token's freshly written row).
+``paged_attention`` also reads pages that are a view with those sizes over
+another order of heads and pages, such as ``cache.transpose(0, 1)`` of a
+page-major ``[NumPages, Hkv, PageSize, D]`` cache (the layout of
+``block_multihead_attention``): the kernel takes the head and page strides
+as launch arguments, so no copy is made.
 q head ``h * rep + r`` reads kv head ``h`` (``rep = Hq // Hkv``). Each
 kernel takes D in ``EXACT_HEAD_DIMS`` and any rep, and raises on other
 shapes.
@@ -44,7 +49,7 @@ from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: C launcher -> (pointer arguments, int arguments) before (scale, dtype,
 #: stream)
-_SIGNATURES = {"paged_attention": (6, 8), "paged_attention_int8": (8, 8),
+_SIGNATURES = {"paged_attention": (6, 10), "paged_attention_int8": (8, 8),
                "decode_attention": (5, 6)}
 #: head widths of the decode kernels: GPT-2 and Falcon-7B 64, Phi-2 80,
 #: Phi-3-mini and GPT-NeoX-20B 96, LLaMA 128, Gemma and GPT-J 256
@@ -174,10 +179,27 @@ def _check_tables(name, block_tables, b):
                          "[B, PagesPerSeq]")
 
 
+def _page_strides(name, k_pages, v_pages):
+    """(head stride, page stride) in rows of D values of pages whose rows
+    are contiguous: each page's [PageSize, D] block dense, heads and pages
+    in any order (``[Hkv, P, page, D]`` contiguous, or the transpose of a
+    contiguous ``[P, Hkv, page, D]``)."""
+    d = k_pages.shape[-1]
+    st = k_pages.stride()
+    if (v_pages.stride() != st or st[3] != 1 or st[2] != d
+            or st[0] % d or st[1] % d):
+        raise ValueError(f"{name}: k_pages and v_pages must share their "
+                         "strides, with each page's [PageSize, D] rows "
+                         f"contiguous; got strides {st} and "
+                         f"{v_pages.stride()}")
+    return st[0] // d, st[1] // d
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     scale=None):
     """Paged-KV decode attention. CUDA tensors launch the kernel; CPU
-    tensors run :func:`paged_attention_plain`."""
+    tensors run :func:`paged_attention_plain`. The pages may be a strided
+    view (:func:`_page_strides`), read in place."""
     if not use_kernel(q, k_pages, v_pages, block_tables, lengths):
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      lengths, scale=scale)
@@ -190,8 +212,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError("paged_attention: k_pages and v_pages differ in "
                          "shape")
     _check_common("paged_attention", q, hkv, dk, lengths,
-                  {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-                   "block_tables": block_tables})
+                  {"q": q, "block_tables": block_tables})
+    head_stride, page_stride = _page_strides("paged_attention", k_pages,
+                                             v_pages)
     _check_tables("paged_attention", block_tables, b)
     _check_aligned("paged_attention", {"k_pages": k_pages,
                                        "v_pages": v_pages})
@@ -200,8 +223,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     rc = _launcher("paged_attention")(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(block_tables), ptr(lengths),
         ptr(out), b, hkv, hq // hkv, d, num_pages, page, pps,
-        split_count(pps * page), float(_scale(scale, d)), _DTYPES[q.dtype],
-        stream_handle(q))
+        split_count(pps * page), head_stride, page_stride,
+        float(_scale(scale, d)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     return out

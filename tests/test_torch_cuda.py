@@ -24,7 +24,11 @@ streams, a swapped bf16 and int8 KV snapshot through the wire and
 is killed and is respawned; the per-layer ``Attention`` on the flash
 kernels against the CPU, the stacked block's attn->norm seam and
 int8-saved FFN with their launch counts, and a small MoE decoder on the
-card against the CPU.
+card against the CPU; a per-layer model through the shared block (its
+launches and the CPU's step), the paged kernel over a page-major cache
+against the contiguous one bit for bit, ``block_multihead_attention``'s
+decode against its CPU route, and ``FusedMultiHeadAttention`` on the
+non-causal flash kernels against the plain route.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -1548,3 +1552,178 @@ def test_moe_decoder_on_card_matches_cpu(cuda_device):
     for n, g in out["cpu"][1].items():
         err = (out["cuda"][1][n] - g).norm() / g.norm().clamp_min(1e-30)
         assert err.item() <= 5e-4, n
+
+
+# ------------------------------------ the shared block, the incubate surface
+@pytest.mark.parametrize("case", ["full", "names", "fused_addrms"])
+def test_per_layer_shared_block_launches_and_matches_cpu(cuda_device, case):
+    """Depth 2, f32: a per-layer LLaMA-family GPTForCausalLM runs its
+    layers through the shared block, so one TrainStep launches what the
+    Pipe's block does (flash fwd 2L, or L under the names: policy that
+    keeps the flash outputs; bwd L; swiglu_down 2L; rms_norm 4L + 1, the
+    final norm being the kernel's; 2L + 1 and add_rms_norm 2L under the
+    seam), with the loss and gradients of the same step on the CPU."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    opts = {"full": {}, "fused_addrms": {"fused_addrms": True},
+            "names": {"recompute_policy": "names:attn_res,attn_lse,attn_q,"
+                                          "attn_k,attn_v,resid_mid"}}[case]
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=4, num_kv_heads=2, max_seq_len=256,
+                    recompute=True, **opts)
+    cpu = GPTForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0), std=0.05)
+    gpu = GPTForCausalLM(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, 1024, (2, 200)))
+    labels = torch.as_tensor(rng.integers(0, 1024, (2, 200)))
+    out = {}
+    for model in (cpu, gpu):
+        dev = model.device
+        step = TrainStep(model, functools.partial(model.loss, int8=False),
+                         AdamW(model.parameters(), lr=1e-3, factored=True))
+        kernels.reset_launch_counts()
+        loss = step(ids.to(dev), labels.to(dev)).item()
+        out[dev.type] = (loss, {n: p.grad.float().cpu()
+                                for n, p in model.named_parameters()},
+                         kernels.launch_counts())
+    L = cfg.num_layers
+    addrms = case == "fused_addrms"
+    want = {"flash_attention_fwd": L if case == "names" else 2 * L,
+            "flash_attention_bwd": L, "swiglu_down": 2 * L,
+            "rms_norm": (2 if addrms else 4) * L + 1,
+            "add_rms_norm": 2 * L if addrms else 0}
+    assert {k: out["cuda"][2][k] for k in want} == want
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for n, g in out["cpu"][1].items():
+        err = (out["cuda"][1][n] - g).norm() / g.norm()
+        assert err.item() <= 5e-4, n
+
+
+@pytest.mark.parametrize("d", EXACT_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_reads_a_page_major_cache_bit_for_bit(cuda_device,
+                                                              dtype, d):
+    """The paged kernel over the transposed view of a page-major
+    ``[P, Hkv, page, D]`` cache (head and page strides as launch
+    arguments) gives the bits it gives over the contiguous copy, at rep 1,
+    4 and 8 and pages of 16 and 64."""
+    g = torch.Generator().manual_seed(d)
+    for rep, page in ((1, 16), (4, 64), (8, 16)):
+        hkv, b, pps = 2, 3, 5
+        num_pages = b * pps + 2
+        cache = [torch.randn(num_pages, hkv, page, d, generator=g).to(
+            cuda_device, dtype) for _ in range(2)]
+        q = torch.randn(b, hkv * rep, d, generator=g).to(cuda_device, dtype)
+        tables = torch.randperm(num_pages, generator=g)[:b * pps].reshape(
+            b, pps).to(cuda_device, torch.int32)
+        lens = torch.tensor([1, page * pps, page * 2 + 3], dtype=torch.int32,
+                            device=cuda_device)
+        views = [c.transpose(0, 1) for c in cache]
+        assert not views[0].is_contiguous()
+        kernels.reset_launch_counts()
+        got = paged_attention(q, *views, tables, lens)
+        want = paged_attention(q, *(v.contiguous() for v in views), tables,
+                               lens)
+        assert kernels.launch_counts()["paged_attention"] == 2
+        assert torch.equal(got, want), (rep, page)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_block_multihead_attention_decode_on_card_matches_cpu(cuda_device,
+                                                              dtype, tol):
+    """A prefill then two decode steps of block_multihead_attention (GQA
+    8/2, D 128, pages of 64 scattered, rope from a table, slot 1 finished
+    at the second step) on the card against its CPU route: each decode
+    step is one paged_attention launch, the outputs within the kernel's
+    tolerance, the caches written in place."""
+    g = torch.Generator().manual_seed(0)
+    hq, hkv, d, page, b = 8, 2, 128, 64, 3
+    width = (hq + 2 * hkv) * d
+    cache = torch.zeros(16, hkv, page, d)
+    tables = torch.randperm(16, generator=g)[:12].reshape(b, 4).int()
+    ang = torch.rand(b, 256, 1, d // 2, generator=g) * 3
+    rope = torch.stack([ang.cos(), ang.sin()])
+    dev = {"cpu": [cache.clone().to(dtype), cache.clone().to(dtype)],
+           "cuda": [cache.to(cuda_device, dtype),
+                    cache.to(cuda_device, dtype)]}
+    lens = np.array([100, 40, 130])
+    steps = [(lens, np.zeros(b, int)), (np.ones(b, int), lens),
+             (np.array([1, 0, 1]), lens + 1)]
+    for i, (this, dec) in enumerate(steps):
+        qkv = torch.randn(int(this.sum()), width, generator=g).to(dtype)
+        enc = np.where(dec == 0, this, 0)
+        outs = {}
+        for name, (kc, vc) in dev.items():
+            at = cuda_device if name == "cuda" else "cpu"
+            kernels.reset_launch_counts()
+            out, _, kc2, vc2 = TF.block_multihead_attention(
+                qkv.to(at), kc, vc,
+                *(torch.as_tensor(a, dtype=torch.int32)[:, None]
+                  for a in (enc, dec, this)),
+                None, None, None, None, tables.to(at),
+                rope_emb=rope.to(at), use_neox_style=True)
+            assert kc2 is kc and vc2 is vc
+            outs[name] = (out.float().cpu(), kernels.launch_counts())
+        assert outs["cuda"][1]["paged_attention"] == (i > 0)
+        err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
+        assert err <= tol * outs["cpu"][0].abs().max().item(), i
+        for c_gpu, c_cpu in zip(dev["cuda"], dev["cpu"]):
+            torch.testing.assert_close(c_gpu.cpu(), c_cpu, atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_multi_head_attention_on_card_matches_the_plain_route(
+        cuda_device, dtype, tol):
+    """FusedMultiHeadAttention (E 512, 4 heads of 128, seq 256) in
+    training at dropout 0: the non-causal flash forward and backward
+    launch once each, and the output and every gradient agree with the
+    same module through the plain attention (an all-True mask), and in f32
+    with the CPU's (a bf16 CPU run rounds its LayerNorm and GEMMs in other
+    places)."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiHeadAttention
+
+    cpu = FusedMultiHeadAttention(512, 4, dropout_rate=0.0,
+                                  attn_dropout_rate=0.0,
+                                  normalize_before=True, device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    gpu = FusedMultiHeadAttention(512, 4, dropout_rate=0.0,
+                                  attn_dropout_rate=0.0,
+                                  normalize_before=True, device=cuda_device,
+                                  dtype=dtype)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.to(dtype)
+    x = torch.randn(2, 256, 512, generator=torch.Generator().manual_seed(2))
+    every = torch.ones(256, 256, dtype=torch.bool)
+    runs = {}
+    for tag, mod, mask in (("flash", gpu, None),
+                           ("plain", gpu, every.to(cuda_device)),
+                           ("cpu", cpu, None)):
+        mod.zero_grad()
+        xi = x.to(mod.qkv_weight.device, dtype)
+        kernels.reset_launch_counts()
+        y = mod(xi, attn_mask=mask)
+        y.float().square().mean().backward()
+        runs[tag] = (y.float().cpu(),
+                     {n: p.grad.float().cpu()
+                      for n, p in mod.named_parameters()
+                      if p.grad is not None}, kernels.launch_counts())
+    counts = runs["flash"][2]
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd"] + counts["flash_attention_bwd_dq"] \
+        == 1
+    assert runs["plain"][2]["flash_attention_fwd"] == 0
+    for other in ("plain", "cpu") if dtype == torch.float32 else ("plain",):
+        want = runs[other]
+        assert ((runs["flash"][0] - want[0]).norm()
+                / want[0].norm()).item() <= tol
+        for n, g in want[1].items():
+            err = (runs["flash"][1][n] - g).norm() / g.norm().clamp_min(
+                1e-30)
+            assert err.item() <= tol, (other, n)

@@ -189,16 +189,22 @@ def test_forward_with_attn_mask_matches_jax(kind):
 
 
 def test_per_layer_refusals_name_their_items():
-    """Dropout stays refused; what only the stacked block runs (a
-    selective policy, the int8 FFN, the seam) names ROADMAP A.14; the
+    """Dropout stays refused; what only the shared block runs (a selective
+    policy, the int8 FFN, the seam, ``quant:`` sites) builds on a stack the
+    block takes and raises ``ValueError`` naming the failed condition on
+    one it cannot (the reference's module loop would ignore it); the
     stacked decoder refuses the variants with the reference's messages."""
     with pytest.raises(NotImplementedError, match="dropout"):
         GPTForCausalLM(GPTConfig(**dict(TINY, dropout=0.1)), device="cpu")
+    failed = {"layernorm": "norm_type='layernorm'", "gelu": "act='gelu'",
+              "learned-pos": "rope=False", "all-three": "rope=False"}
     for kw in (dict(recompute=True, recompute_policy="attn"),
                dict(recompute_policy="names:quant:all"),
                dict(int8_ffn=True), dict(fused_addrms=True)):
-        with pytest.raises(NotImplementedError, match="A.14"):
-            GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")
+        GPTForCausalLM(GPTConfig(**TINY, **kw), device="cpu")
+        for variant, vkw in VARIANTS.items():
+            with pytest.raises(ValueError, match=failed[variant]):
+                GPTForCausalLM(GPTConfig(**TINY, **vkw, **kw), device="cpu")
     for variant, kw in VARIANTS.items():
         with pytest.raises(ValueError) as want:
             JaxPipe(JaxGPTConfig(**TINY, **kw))
