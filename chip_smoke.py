@@ -246,11 +246,35 @@ Phases, each of which fails the run on error:
              and host share beside phase 6's, the down projections' copies
              a step; f32 depth 2: per-layer against the Pipe and card
              against CPU within phase 7's bounds.
+12. paddle_surface - BERT-base pretraining (config 3 at degree 1: vocab
+             30522, hidden 768, 12 layers, 12 heads, FFN 3072; dropout 0.1)
+             at batch 32 x seq 512, a seeded batch a step, written only
+             with ``import paddle_tpu_torch as paddle``, in this order:
+             (f) the flash forward and fused backward at [32, 512,
+             12/12, 64] non-causal in f32 and bf16 against their plain
+             versions, with bounds and SDPA's forward and backward
+             times; (e) depth 2, f32, 2 x 128, card against CPU within
+             phase 7's bounds; (a) f32 eager ``loss.backward()``,
+             ``opt.step()``, ``opt.clear_grad()`` with ``AdamW``, 3
+             steps, flash forward 12 and fused backward 12 launches a
+             step asserted, finite losses, then three steps on one
+             repeated batch whose third loss is below the first (AdamW
+             at 1e-4 without warmup can raise the first step's); the
+             first loss beside ln V + ln 2, the step median, the ops a
+             step and the host share of one profiled step; (c) an
+             all-ones ``attention_mask`` against none in eval: 0 flash
+             launches and the sequence output within FLASH_TOL; (b)
+             ``model.bfloat16()`` through ``jit.TrainStep`` with
+             ``AdamW(multi_precision=True)``, a warm-up and 3 timed
+             steps, the same launches asserted: step median, tokens/s,
+             model-flops share, host share, peak memory; (d) host
+             microseconds per op through ``Tensor`` against raw torch
+             (add, matmul, reshape, getitem, one Linear).
 
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, training, quant_train (run b),
-long-context, model_rest and shared_block runs;
+long-context, model_rest, shared_block and paddle_surface runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -1289,7 +1313,11 @@ def _decode_window(engine, ticks, replays=None):
     busy = 0.0
     by_kernel = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range on the card's timeline (such as
+        # torch.optim's "Optimizer.step#AdamW.step") spans kernels that
+        # are counted on their own
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
             dt = ev.time_range.elapsed_us()
             busy += dt
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
@@ -3326,7 +3354,11 @@ def _profile_step(step, batch, wall_ms):
     busy = 0.0
     by_kernel = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range on the card's timeline (such as
+        # torch.optim's "Optimizer.step#AdamW.step") spans kernels that
+        # are counted on their own
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
             dt = ev.time_range.elapsed_us()
             busy += dt
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
@@ -5361,6 +5393,355 @@ def phase_shared_block(smi="", cfg4=None, batch=3, seq=2048, device=DEVICE,
     return out
 
 
+# -------------------------------------------------------- paddle_surface
+#: BERT-base pretraining (BASELINE.md config 3 at degree 1): batch x seq
+BERT_BATCH, BERT_SEQ = 32, 512
+#: steps of (a), f32 eager, and of (b), bf16 through TrainStep, timed
+SURFACE_STEPS = 3
+#: (e): BERT at depth 2, f32, dropout 0, batch x seq, card against CPU
+SURFACE_CPU_SHAPE = (2, 128)
+#: host-cost reading (d): calls per op, after a warm-up
+HOST_CALLS = 1000
+
+
+def _bert_batch(paddle, vocab, batch, seq, seed):
+    """Seeded token ids, MLM labels on 15% of positions (the rest -100)
+    and NSP labels, as Tensors on the current place."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    labels = np.full((batch, seq), -100, np.int64)
+    pick = rng.rand(batch, seq) < 0.15
+    labels[pick] = rng.randint(0, vocab, int(pick.sum()))
+    nsp = rng.randint(0, 2, (batch,)).astype(np.int64)
+    return (paddle.to_tensor(ids), paddle.to_tensor(labels),
+            paddle.to_tensor(nsp))
+
+
+def _surface_launches(L, counts, tag):
+    """One BERT step: flash forward L, fused backward L, nothing else."""
+    want = {name: 0 for name in counts}
+    want["flash_attention_fwd"] = want["flash_attention_bwd"] = L
+    check(counts == want, f"paddle_surface {tag}: launches {counts}, want "
+          f"flash_attention_fwd {L}, flash_attention_bwd {L}, others 0")
+
+
+def _bert_flash_case(dtype, gen, b, h, s, d):
+    """The flash forward and fused backward at BERT's non-causal shape
+    against their plain versions, with times, bounds, and SDPA's forward and
+    autograd backward on the same data."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_fused, flash_attention_bwd_fused_plain,
+        flash_attention_fwd, flash_attention_fwd_plain)
+
+    q, k, v, do = (torch.randn(b * h, s, d, generator=gen, device=DEVICE)
+                   .to(dtype) for _ in range(4))
+    shape = f"[{b},{s},{h}/{h},{d}] non-causal"
+    name = str(dtype).replace("torch.", "")
+    o, lse = flash_attention_fwd(q, k, v, False)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, False)
+    err, rel = _rel_err(o, ro)
+    check(rel <= FLASH_TOL[dtype], f"flash fwd {name} {shape}: rel {rel}")
+    delta = (do.float() * ro.float()).sum(-1)
+    grads = flash_attention_bwd_fused(q, k, v, do, rlse, delta, False)
+    want = flash_attention_bwd_fused_plain(q, k, v, do, rlse, delta, False)
+    berr, brel = _rel_err(grads, want)
+    check(brel <= FLASH_TOL[dtype], f"flash bwd {name} {shape}: rel {brel}")
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+    item = q.element_size()
+    pairs = b * h * s * s
+    io, rows = b * h * s * d * item, b * h * s * 4
+    fbms, fby = bound_ms(4 * io + rows, 4 * d * pairs, dtype)
+    bbms, bby = bound_ms(7 * io + 2 * rows, 10 * d * pairs, dtype)
+    fwd = {"shape": shape, "dtype": name, "max_abs_err": err,
+           "max_rel_err": rel,
+           "ms": time_ms(lambda: flash_attention_fwd(q, k, v, False)),
+           "plain_ms": time_ms(lambda: flash_attention_fwd_plain(
+               q, k, v, False), reps=5, inner=1),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4)),
+           "bound_ms": fbms, "bound_by": fby}
+    bwd = {"shape": shape, "dtype": name, "max_abs_err": berr,
+           "max_rel_err": brel,
+           "ms": time_ms(lambda: flash_attention_bwd_fused(
+               q, k, v, do, rlse, delta, False)),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_fused_plain(
+               q, k, v, do, rlse, delta, False), reps=5, inner=1),
+           "library_ms": time_ms(lambda: torch.autograd.grad(
+               lib_out, (ql, kl, vl), do4, retain_graph=True)),
+           "bound_ms": bbms, "bound_by": bby}
+    return fwd, bwd
+
+
+def _host_us(fn, calls=HOST_CALLS):
+    """Median host microseconds of one call, over ``calls`` calls after a
+    warm-up (the card's work is queued, not waited for)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def _wrapper_cost(paddle):
+    """(d): microseconds per op through ``Tensor`` against raw torch on the
+    same CUDA tensors."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    a = torch.randn(32, 768, generator=gen, device=DEVICE)
+    b = torch.randn(32, 768, generator=gen, device=DEVICE)
+    w = torch.randn(768, 768, generator=gen, device=DEVICE)
+    ta, tb, tw = (paddle.to_tensor(t) for t in (a, b, w))
+    lin = paddle.nn.Linear(768, 768)
+    lw, lb = lin.weight._data, lin.bias._data
+    pairs = {
+        "add": (lambda: ta + tb, lambda: a + b),
+        "matmul": (lambda: paddle.matmul(ta, tw), lambda: torch.matmul(a, w)),
+        "reshape": (lambda: ta.reshape([64, 384]), lambda: a.reshape(64, 384)),
+        "getitem": (lambda: ta[1:9], lambda: a[1:9]),
+        "linear": (lambda: lin(ta), lambda: F.linear(a, lw.t(), lb)),
+    }
+    out = {}
+    for name, (wrapped, raw) in pairs.items():
+        out[name] = {"tensor_us": _host_us(wrapped), "torch_us": _host_us(raw)}
+        out[name]["overhead_us"] = (out[name]["tensor_us"]
+                                    - out[name]["torch_us"])
+    return out
+
+
+def phase_paddle_surface(smi="", cfg_kw=None, batch=BERT_BATCH,
+                         seq=BERT_SEQ, place="gpu"):
+    """BERT-base pretraining through ``import paddle_tpu_torch as paddle``:
+    (f) the flash kernels at BERT's shape, (e) card against CPU at depth
+    2, (a) f32 eager steps, (c) the masked route, (b) bf16 through
+    ``TrainStep``, (d) the wrapper's host cost. ``cfg_kw`` (BertConfig
+    overrides), ``batch``, ``seq`` and ``place="cpu"`` rehearse it small."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.dispatch import _OP_DISPATCH
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+
+    K = paddle.ops.kernels
+    t_phase = time.perf_counter()
+    paddle.set_device(place)
+    res = {"smi": smi}
+    cfg = bert_base(dropout=0.1, **(cfg_kw or {}))
+    if cfg_kw is None:
+        check((cfg.vocab_size, cfg.hidden_size, cfg.num_layers,
+               cfg.num_heads, cfg.intermediate_size, cfg.max_seq_len)
+              == (30522, 768, 12, 12, 3072, 512), "BERT-base config")
+    L, V = cfg.num_layers, cfg.vocab_size
+    b, s = batch, seq
+    # (f) the flash kernels at BERT's shape, non-causal
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    res["flash_at_bert_shape"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd, bwd = _bert_flash_case(dtype, gen, b, cfg.num_heads, s,
+                                    cfg.hidden_size // cfg.num_heads)
+        res["flash_at_bert_shape"][fwd["dtype"]] = {"fwd": fwd, "bwd": bwd}
+        for tag, row in (("fwd", fwd), ("bwd", bwd)):
+            print(f"paddle_surface: flash {tag} {row['dtype']} "
+                  f"{row['shape']}: {row['ms']:.3f} ms, plain "
+                  f"{row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f}, "
+                  f"bound {row['bound_ms']:.3f} ({row['bound_by']}), err "
+                  f"{row['max_abs_err']:.2e}", flush=True)
+
+    # (e) card against CPU: depth 2, f32, dropout 0, the same weights
+    small = bert_base(**dict(cfg_kw or {}, num_layers=2, dropout=0.0))
+    sb, ss = SURFACE_CPU_SHAPE
+    got = {}
+    paddle.seed(1)
+    for where in ("cpu", place):
+        paddle.set_device(where)
+        m = BertForPretraining(small)
+        if got:
+            m.set_state_dict(got["cpu"][2])
+        loss = m.loss(*_bert_batch(paddle, V, sb, ss, 3))
+        loss.backward()
+        got[where if not got else "card"] = (
+            float(loss), {n: p.grad.numpy() for n, p in m.named_parameters()
+                          if p.grad is not None}, m.state_dict())
+    paddle.set_device(place)
+    loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    g_cpu, g_gpu = got["cpu"][1], got["card"][1]
+    check(set(g_cpu) == set(g_gpu), "card vs cpu: other leaves have grads")
+    top = max(np.linalg.norm(g) for g in g_cpu.values())
+    # the key biases' exact gradient is 0 (softmax ignores a shift common
+    # to a row): their norm is measured against 1e-4 of the largest leaf's
+    grad_rel = {n: float(np.linalg.norm(g_gpu[n] - g)
+                         / max(np.linalg.norm(g), 1e-4 * top))
+                for n, g in g_cpu.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"card vs cpu loss rel {loss_rel}")
+    check(grad_rel[worst] <= TRAIN_GRAD_RTOL,
+          f"card vs cpu grad {worst} rel {grad_rel[worst]}")
+    res["card_vs_cpu"] = {"losses": [got["cpu"][0], got["card"][0]],
+                          "loss_rel": loss_rel, "grad_rel_max": grad_rel[worst],
+                          "grad_rel_worst": worst}
+    print(f"paddle_surface: depth 2 card vs cpu loss rel {loss_rel:.2e} "
+          f"(tol {TRAIN_LOSS_RTOL}), grads max rel {grad_rel[worst]:.2e} "
+          f"({worst}, tol {TRAIN_GRAD_RTOL})", flush=True)
+    del got
+
+    torch.cuda.reset_peak_memory_stats()
+    paddle.seed(0)
+    model = BertForPretraining(cfg)
+    nparams = sum(p.size for p in model.parameters())
+    res["params"] = nparams
+    launches = {name: 0 for name in K.launch_counts()}
+
+    # (a) f32, eager: loss.backward(), opt.step(), opt.clear_grad()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+
+    def eager_step(ids, labels, nsp):
+        loss = model.loss(ids, labels, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, step_ms = [], []
+    for i in range(SURFACE_STEPS):
+        batch = _bert_batch(paddle, V, b, s, 100 + i)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = eager_step(*batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        _surface_launches(L, counts, f"f32 eager step {i}")
+        for name, n in counts.items():
+            launches[name] += n
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), f"f32 losses {losses}")
+    # one repeated batch: AdamW without warmup at 1e-4 still carries the
+    # momentum of the earlier batches into the first step on it, which
+    # can raise its loss (both packages on the CPU do the same), so the
+    # third loss on it is held below the first
+    rep = _bert_batch(paddle, V, b, s, 7)
+    repeated = [float(eager_step(*rep)) for _ in range(3)]
+    check(repeated[2] < repeated[0], f"repeated batch not learned: {repeated}")
+    med = statistics.median(step_ms)
+    _OP_DISPATCH.clear()
+    paddle.telemetry.enable()
+    eager_step(*rep)
+    paddle.telemetry.disable()
+    ops = _OP_DISPATCH.series()
+    prof = _profile_step(eager_step, rep, med)
+    res["f32_eager"] = {
+        "losses": losses, "first_loss": losses[0],
+        "ln_vocab_plus_ln2": float(np.log(V) + np.log(2)),
+        "repeated_batch_losses": repeated, "step_ms": step_ms,
+        "step_ms_median": med, "tokens_per_s": b * s / (med / 1e3),
+        "host_share": prof["host_share"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "by_group_ms": prof["by_group_ms"],
+        "port_kernels_ms": prof["port_kernels_ms"],
+        "top_kernels_ms": prof["top_kernels_ms"],
+        "ops_per_step": sum(ops.values()),
+        "top_ops": sorted(((k[0], v) for k, v in ops.items()),
+                          key=lambda kv: -kv[1])[:8]}
+    print(f"paddle_surface: BERT-base {nparams / 1e6:.1f} M params, batch "
+          f"{b} x {s}; f32 eager losses {[round(x, 4) for x in losses]} "
+          f"(ln V + ln 2 = {res['f32_eager']['ln_vocab_plus_ln2']:.4f}), "
+          f"repeated batch {[round(x, 4) for x in repeated]}; step median "
+          f"{med:.1f} ms ({[round(x, 1) for x in step_ms]}), host share "
+          f"{prof['host_share']}, {sum(ops.values())} ops a step", flush=True)
+
+    # (c) the masked route: an all-ones attention_mask against none
+    model.eval()
+    ids = _bert_batch(paddle, V, b, s, 100)[0]
+    with paddle.no_grad():
+        K.reset_launch_counts()
+        free, _ = model.bert(ids)
+        free_counts = K.launch_counts()
+        K.reset_launch_counts()
+        masked, _ = model.bert(ids, attention_mask=paddle.ones([b, s],
+                                                               "int64"))
+        masked_counts = K.launch_counts()
+    check(free_counts["flash_attention_fwd"] == L,
+          f"unmasked forward launches {free_counts}")
+    check(sum(masked_counts.values()) == 0,
+          f"masked forward launched {masked_counts}")
+    merr, mrel = _rel_err(masked._data, free._data)
+    check(mrel <= FLASH_TOL[torch.float32],
+          f"masked vs unmasked: rel err {mrel}")
+    res["masked_route"] = {"max_abs_err": merr, "max_rel_err": mrel,
+                           "tol": FLASH_TOL[torch.float32],
+                           "masked_launches": masked_counts}
+    model.train()
+    del free, masked, opt
+    print(f"paddle_surface: masked route max abs err {merr:.3e} (rel "
+          f"{mrel:.3e}, tol {FLASH_TOL[torch.float32]}), 0 flash launches",
+          flush=True)
+
+    # (b) bf16 through jit.TrainStep: model.bfloat16(), AdamW(multi_precision)
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    step = paddle.jit.TrainStep(model, lambda i, y, n: model.loss(i, y, n),
+                                opt)
+    torch.cuda.reset_peak_memory_stats()
+    bf_losses = [float(step(*_bert_batch(paddle, V, b, s, 200)))]  # warm-up
+    bf_ms = []
+    for i in range(SURFACE_STEPS):
+        batch = _bert_batch(paddle, V, b, s, 201 + i)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        bf_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        _surface_launches(L, counts, f"bf16 TrainStep step {i}")
+        for name, n in counts.items():
+            launches[name] += n
+        bf_losses.append(float(loss))
+    check(all(np.isfinite(bf_losses)), f"bf16 losses {bf_losses}")
+    bf_med = statistics.median(bf_ms)
+    tps = b * s / (bf_med / 1e3)
+    bprof = _profile_step(step, batch, bf_med)
+    res["bf16_train_step"] = {
+        "losses": bf_losses, "step_ms": bf_ms, "step_ms_median": bf_med,
+        "tokens_per_s": tps,
+        "model_flops_share": 6.0 * nparams * tps / PEAK_OPS[torch.bfloat16],
+        "model_flops_formula": "6 * params * tokens_per_s / 989e12 "
+                               "(phase 6's; H100 SXM dense bf16)",
+        "host_share": bprof["host_share"],
+        "device_busy_ms": bprof["device_busy_ms"],
+        "by_group_ms": bprof["by_group_ms"],
+        "port_kernels_ms": bprof["port_kernels_ms"],
+        "top_kernels_ms": bprof["top_kernels_ms"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    r = res["bf16_train_step"]
+    print(f"paddle_surface: bf16 TrainStep losses "
+          f"{[round(x, 4) for x in bf_losses]}; step median {bf_med:.1f} ms "
+          f"({[round(x, 1) for x in bf_ms]}), {tps:.0f} tokens/s, "
+          f"model-flops share {r['model_flops_share']:.4f}, host share "
+          f"{r['host_share']}, peak memory {r['peak_memory_gib']:.1f} GiB",
+          flush=True)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+
+    # (d) the wrapper's host cost
+    res["wrapper_us"] = _wrapper_cost(paddle)
+    print("paddle_surface: host us per op (Tensor / torch): " + json.dumps(
+        {k: [round(v["tensor_us"], 2), round(v["torch_us"], 2)]
+         for k, v in res["wrapper_us"].items()}), flush=True)
+
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -5444,6 +5825,9 @@ def main():
         report["shared_block"] = run(
             "shared_block", phase_shared_block, report["device"]["smi"],
             None, 3, 2048, DEVICE, REST_STEPS, report["training"])
+        report["paddle_surface"] = run("paddle_surface",
+                                       phase_paddle_surface,
+                                       report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -5488,7 +5872,8 @@ def main():
                                 "serving_fleet", "incubate",
                                 "incubate_surface", "training",
                                 "quant_train", "long_context",
-                                "model_rest", "shared_block")}
+                                "model_rest", "shared_block",
+                                "paddle_surface")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -176,3 +176,19 @@ def fused_state_dict_from_jax(params: dict, module) -> dict[str, torch.Tensor]:
                              f"{a.shape}, the layer's {shape}")
         out[name] = _to_torch(a)
     return out
+
+
+def layer_state_from_numpy(state: dict, layer) -> None:
+    """Load a JAX ``Layer``'s ``state_dict()``, given as numpy arrays by
+    structured name, into the port's ``Layer`` of the same class, in
+    place. Paddle's layout is the same on both sides (``Linear.weight`` is
+    ``[in, out]``), so nothing is transposed; bf16 arrays cross through
+    float32. The names must match exactly, both ways."""
+    own = layer.state_dict()
+    missing = sorted(set(own) - set(state))
+    unexpected = sorted(set(state) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state names differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    for name, t in own.items():
+        t.set_value(_to_torch(np.asarray(state[name])))

@@ -1,0 +1,72 @@
+"""``apply_op``: run a torch function over Tensors and wrap its outputs.
+
+Counterpart of ``paddle_tpu/core/dispatch.py:85``. Every op of the
+surface is a torch function over ``torch.Tensor`` payloads: ``apply_op``
+unwraps the Tensors in its arguments (and in lists, tuples and dicts of
+them), calls the function, and wraps the torch tensors it returns. The
+autograd record is torch's own, made by the function as it runs; the
+reference's ``GradNode``, its pure-function capture and ``run_vjp`` have
+no counterpart.
+
+This is the hot path of every op, and paths of many small ops are
+host-bound on the card: there is no pytree flatten and no registry lookup
+per op, and the ``op_dispatch_total{op}`` counter costs one attribute
+check while telemetry is off.
+
+Not ported, each with its own item: the amp autocast hook
+(``_maybe_autocast``, A.13 (d)), the checkify hook (``_check_nan_inf``,
+A.6 item 3) and static-program recording (``_record_static``, A.13 (e)).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import telemetry as _telemetry
+from .tensor import Parameter, Tensor
+
+# module-level handles: the disabled path costs one attribute check
+_TELEMETRY_REG = _telemetry.get_registry()
+_OP_DISPATCH = _telemetry.counter(
+    "op_dispatch_total", "eager ops dispatched through apply_op",
+    labelnames=("op",), max_series=2048)
+
+_TENSOR_TYPES = (Tensor, Parameter)
+
+
+def unwrap(a):
+    """Tensors -> torch tensors, through lists, tuples and dicts."""
+    t = type(a)
+    if t in _TENSOR_TYPES:
+        return a._data
+    if t is list:
+        return [unwrap(x) for x in a]
+    if t is tuple:
+        return tuple(unwrap(x) for x in a)
+    if t is dict:
+        return {k: unwrap(v) for k, v in a.items()}
+    if isinstance(a, Tensor):
+        return a._data
+    return a
+
+
+def wrap(o):
+    """torch tensors -> Tensors, through lists and tuples (a torch
+    ``return_types`` named tuple becomes a plain tuple)."""
+    if isinstance(o, torch.Tensor):
+        return Tensor._wrap(o)
+    t = type(o)
+    if t is list:
+        return [wrap(x) for x in o]
+    if isinstance(o, tuple):
+        return tuple(wrap(x) for x in o)
+    return o
+
+
+def apply_op(fn, *args, _op_name=None, **kwargs):
+    """``fn(*args, **kwargs)`` on the torch payloads; outputs as Tensors."""
+    if _TELEMETRY_REG.enabled:
+        _OP_DISPATCH.inc(labels=(_op_name or getattr(fn, "__name__", "op"),))
+    args = [unwrap(a) for a in args]
+    if kwargs:
+        kwargs = {k: unwrap(v) for k, v in kwargs.items()}
+    return wrap(fn(*args, **kwargs))

@@ -59,6 +59,7 @@ import torch
 
 from .. import resilience as _resilience
 from .. import telemetry as _telemetry
+from ..core.tensor import Tensor
 from ..quant import note_step_tokens
 from ..nn.clip import ClipGradByGlobalNorm, global_grad_sumsq
 from ..resilience.guard import StepHealth
@@ -73,9 +74,10 @@ _TRAIN_STEPS = _telemetry.counter(
 
 
 class TrainStep:
-    """``train_fn(*batch) -> scalar loss``, closing over ``model``;
-    ``optimizer`` one of :mod:`paddle_tpu_torch.optimizer`'s, over the
-    model's parameters."""
+    """``train_fn(*batch) -> scalar loss``, closing over ``model`` (a
+    ``torch.nn.Module`` or a Paddle ``nn.Layer``); ``optimizer`` one of
+    :mod:`paddle_tpu_torch.optimizer`'s, over the model's parameters. A
+    ``train_fn`` that returns a Paddle ``Tensor`` gets one back."""
 
     def __init__(self, model, train_fn, optimizer):
         self.model = model
@@ -88,7 +90,9 @@ class TrainStep:
         self._last_health = None
         # modules whose amax histories the step commits (a quantized
         # model's decoder)
-        self._amax_owners = [m for m in model.modules()
+        modules = (model.sublayers(include_self=True)
+                   if hasattr(model, "sublayers") else model.modules())
+        self._amax_owners = [m for m in modules
                              if "quant_amax" in m._buffers]
 
     def __call__(self, *batch):
@@ -140,6 +144,9 @@ class TrainStep:
             m._amax_held, m._amax_pending = True, None
         try:
             loss = self.train_fn(*batch)
+            paddle_loss = isinstance(loss, Tensor)
+            if paddle_loss:
+                loss = loss._data
             loss.backward()
         finally:
             for m in self._amax_owners:
@@ -186,7 +193,7 @@ class TrainStep:
         shape = getattr(batch[0], "shape", ()) if batch else ()
         note_step_tokens(int(shape[0]) * int(shape[1])
                          if len(shape) >= 2 else 0)
-        return loss
+        return Tensor._wrap(loss) if paddle_loss else loss
 
     def _commit_amax(self):
         """Write each owner's new amax histories through the optimizer's

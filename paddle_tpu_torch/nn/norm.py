@@ -1,12 +1,14 @@
-"""``RMSNorm`` and ``LayerNorm`` layers (counterparts of
-``paddle_tpu/nn/layer/norm.py:82, 109``)."""
+"""Torch-level ``RMSNorm`` and ``LayerNorm`` modules (counterparts of
+``paddle_tpu/nn/layer/norm.py:82, 109``) that the port's models build on.
+The Paddle surface's ``nn.RMSNorm`` and ``nn.LayerNorm`` are the
+``Layer``s of ``nn/layer/norm.py``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .functional.norm import rms_norm
+from .functional.norm import rms_norm_arrays
 
 
 class RMSNorm(nn.Module):
@@ -19,7 +21,7 @@ class RMSNorm(nn.Module):
             torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.epsilon)
+        return rms_norm_arrays(x, self.weight, self.epsilon)
 
 
 class LayerNorm(nn.Module):

@@ -48,12 +48,23 @@ place, on the live tensors' device.
 ``step()`` observes its wall time into ``optimizer_step_seconds``
 {optimizer}, as the reference's eager step does (the host's time: the
 update is queued on the card, not waited for).
+
+Two keyword sets: every optimizer takes torch's (``params``, ``lr``) and
+the reference's (``parameters=``, ``learning_rate=``,
+``paddle_tpu/optimizer/optimizer.py:27-33``). Paddle ``Parameter``s (of
+the surface's ``nn.Layer``) are accepted anywhere parameters are: each
+travels as its ``torch.nn.Parameter`` under its Paddle name, which
+``apply_decay_param_fun`` then sees. ``clear_grad(set_to_zero=False)`` and
+``minimize(loss)`` are the reference's (:133, :147).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import telemetry as _telemetry
+from ..core.tensor import Tensor
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .lr import LRScheduler
 from .regularizer import L2Decay
@@ -63,6 +74,36 @@ _OPT_STEP_SECONDS = _telemetry.histogram(
     labelnames=("optimizer",))
 
 _CLIPS = (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue)
+
+
+def _torch_params(params):
+    """Paddle ``Parameter``s (bare or in param-group dicts) as
+    ``(name, torch.nn.Parameter)`` pairs; anything else as given."""
+    def conv(seq):
+        return [(p.name, p._data) if isinstance(p, Tensor) else p
+                for p in seq]
+
+    params = list(params)
+    if params and isinstance(params[0], dict):
+        return [dict(g, params=conv(g["params"])) for g in params]
+    return conv(params)
+
+
+def _paddle_keywords(init):
+    """``__init__`` taking the reference's ``parameters=`` and
+    ``learning_rate=`` beside torch's ``params`` and ``lr``."""
+    @functools.wraps(init)
+    def __init__(self, *args, parameters=None, learning_rate=None,
+                 name=None, **kwargs):
+        if parameters is not None:
+            args = (parameters,) + args
+        if args:
+            args = (_torch_params(args[0]),) + args[1:]
+        if learning_rate is not None:
+            kwargs["lr"] = learning_rate
+        init(self, *args, **kwargs)
+
+    return __init__
 
 
 class Optimizer(torch.optim.Optimizer):
@@ -87,6 +128,25 @@ class Optimizer(torch.optim.Optimizer):
                                else weight_decay)
         self._step_count = 0
         self._keep = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if "__init__" in cls.__dict__:
+            cls.__init__ = _paddle_keywords(cls.__dict__["__init__"])
+
+    # -- the reference's eager surface ---------------------------------------
+    def clear_grad(self, set_to_zero=False):
+        self.zero_grad(set_to_none=not set_to_zero)
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, ``step()``, ``clear_grad()``."""
+        loss.backward()
+        self.step()
+        self.clear_grad()
+        return None, None
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self):
@@ -223,6 +283,9 @@ class Optimizer(torch.optim.Optimizer):
                     nbytes = -(-nbytes // int(shard_degree))
                 total += nbytes
         return total
+
+
+Optimizer.__init__ = _paddle_keywords(Optimizer.__init__)
 
 
 # ------------------------------------------------------------ int8 moments

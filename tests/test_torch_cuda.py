@@ -28,7 +28,10 @@ card against the CPU; a per-layer model through the shared block (its
 launches and the CPU's step), the paged kernel over a page-major cache
 against the contiguous one bit for bit, ``block_multihead_attention``'s
 decode against its CPU route, and ``FusedMultiHeadAttention`` on the
-non-causal flash kernels against the plain route.
+non-causal flash kernels against the plain route; the Paddle surface: a
+tensor made with no place on the card, ``F.scaled_dot_product_attention``
+through the flash kernels against its CPU route, BERT at depth 2 on the
+card against the CPU, and ``bfloat16()`` keeping ``parameters()`` live.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -1727,3 +1730,118 @@ def test_fused_multi_head_attention_on_card_matches_the_plain_route(
             err = (runs["flash"][1][n] - g).norm() / g.norm().clamp_min(
                 1e-30)
             assert err.item() <= tol, (other, n)
+
+
+# -- the Paddle surface (import paddle_tpu_torch as paddle) -------------------
+@pytest.fixture
+def surface(cuda_device):
+    """``paddle_tpu_torch`` with no place chosen yet; restored after."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as pdevice
+
+    prev = (getattr(pdevice._state, "device", None),
+            getattr(pdevice._state, "place", None))
+    pdevice._state.device = pdevice._state.place = None
+    yield paddle
+    pdevice._state.device, pdevice._state.place = prev
+
+
+def test_surface_tensor_lands_on_the_card(surface):
+    paddle = surface
+    t = paddle.ones([2, 3])
+    assert t.place == paddle.CUDAPlace(0) and t._data.is_cuda
+    assert paddle.to_tensor(np.arange(3)).place.is_gpu_place()
+    assert paddle.get_device() == "gpu:0"
+    assert paddle.nn.Linear(4, 2).weight._data.is_cuda
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("hk,causal", [(4, False), (2, True)])
+def test_surface_sdpa_launches_flash_and_matches_cpu(surface, dtype, tol, hk,
+                                                     causal):
+    """F.scaled_dot_product_attention on CUDA tensors launches the flash
+    forward and backward once each, and its output and gradients match the
+    CPU route's (the kernels' plain versions)."""
+    paddle = surface
+    rng = np.random.RandomState(0)
+    arrays = [rng.randn(2, 128, h, 64).astype(np.float32)
+              for h in (4, hk, hk)]
+    res = {}
+    for place in ("cpu", "gpu"):
+        paddle.set_device(place)
+        ts = [paddle.to_tensor(a).astype(dtype) for a in arrays]
+        for t in ts:
+            t.stop_gradient = False
+        kernels.reset_launch_counts()
+        out = paddle.nn.functional.scaled_dot_product_attention(
+            *ts, is_causal=causal)
+        (out.astype("float32") ** 2).sum().backward()
+        counts = kernels.launch_counts()
+        res[place] = [out.numpy()] + [t.grad.numpy() for t in ts]
+        if place == "gpu":
+            assert counts["flash_attention_fwd"] == 1
+            assert counts["flash_attention_bwd"] == 1
+            assert sum(counts.values()) == 2
+    for a, b in zip(res["cpu"], res["gpu"]):
+        assert np.abs(b - a).max() <= tol * max(np.abs(a).max(), 1e-6)
+
+
+def test_surface_bert_depth2_on_card_matches_cpu(surface):
+    """BERT at depth 2, f32: the card's loss and step-1 gradients against
+    the CPU's on the same weights (phase 7's bounds: loss 1e-4 relative,
+    each leaf's gradient norm 5e-4, the zero-gradient key biases against
+    1e-4 of the largest leaf's norm)."""
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+
+    paddle = surface
+    cfg = bert_base(vocab_size=1024, num_layers=2, dropout=0.0)
+    rng = np.random.RandomState(2)
+    ids = rng.randint(0, 1024, (2, 128))
+    labels = np.where(rng.rand(2, 128) < 0.15, rng.randint(0, 1024, (2, 128)),
+                      -100)
+    nsp = rng.randint(0, 2, (2,))
+    got = {}
+    for place in ("cpu", "gpu"):
+        paddle.set_device(place)
+        paddle.seed(4)
+        m = BertForPretraining(cfg)
+        if got:
+            m.set_state_dict(got["cpu"][2])
+        kernels.reset_launch_counts()
+        loss = m.loss(*(paddle.to_tensor(a) for a in (ids, labels, nsp)))
+        loss.backward()
+        if place == "gpu":
+            counts = kernels.launch_counts()
+            assert counts["flash_attention_fwd"] == 2
+            assert counts["flash_attention_bwd"] == 2
+        got[place] = (float(loss),
+                      {n: q.grad.numpy() for n, q in m.named_parameters()
+                       if q.grad is not None}, m.state_dict())
+    assert abs(got["gpu"][0] - got["cpu"][0]) <= 1e-4 * abs(got["cpu"][0])
+    top = max(np.linalg.norm(g) for g in got["cpu"][1].values())
+    for n, g in got["cpu"][1].items():
+        denom = max(np.linalg.norm(g), 1e-4 * top)
+        assert np.linalg.norm(got["gpu"][1][n] - g) <= 5e-4 * denom, n
+
+
+def test_surface_bfloat16_keeps_parameters_live(surface):
+    """``model.bfloat16()`` on the card keeps ``parameters()`` naming the
+    live tensors: an optimizer made after it updates what the model
+    reads."""
+    paddle = surface
+    net = paddle.nn.Sequential(paddle.nn.Linear(64, 32),
+                               paddle.nn.LayerNorm(32))
+    params = net.parameters()
+    net.bfloat16()
+    assert [q for q in net.parameters()] == params
+    assert all(q._data.is_cuda and q.dtype == paddle.bfloat16
+               for q in params)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2, parameters=params,
+                                 multi_precision=True)
+    before = [q.numpy().copy() for q in params]
+    x = paddle.randn([8, 64]).astype("bfloat16")
+    opt.minimize(net(x).astype("float32").square().mean())
+    assert all(np.abs(q.numpy() - b).max() > 0
+               for q, b in zip(params, before))
+    assert all(q.grad is None for q in params)

@@ -50,6 +50,10 @@ def test_scan_covers_the_package():
         "distributed/checkpoint/manager", "testing/__init__",
         "testing/chaos", "testing/train_worker", "memory/int8_ckpt",
         "quant/gemm", "distributed/store")} <= rel
+    assert {f"paddle_tpu_torch/{m}.py" for m in (
+        "core/tensor", "core/dispatch", "models/bert", "autograd/__init__",
+        "nn/layer/layers", "nn/functional/flash_attention", "ops/math",
+        "device/__init__")} <= rel
     assert {f"paddle_tpu_torch/inference/fleet/{m}.py" for m in (
         "__init__", "overload", "router", "soak", "wire", "transport",
         "worker", "cluster", "hosts", "disagg", "spec_decode")} <= rel

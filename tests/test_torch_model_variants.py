@@ -29,7 +29,7 @@ from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            LlamaForCausalLMPipe, LlamaModel,
                                            llama_preset)
-from paddle_tpu_torch.nn import LayerNorm
+from paddle_tpu_torch.nn.norm import LayerNorm
 
 
 @pytest.fixture(autouse=True)
