@@ -270,11 +270,44 @@ Phases, each of which fails the run on error:
              model-flops share, host share, peak memory; (d) host
              microseconds per op through ``Tensor`` against raw torch
              (add, matmul, reshape, getitem, one Linear).
+13. vision - configs 1 and 2 through ``import paddle_tpu_torch as
+             paddle`` (no kernel of the port lies on this path: convs,
+             pools and batch norms are plain PyTorch, cuDNN for the
+             convs): (e) LeNet and resnet18 (4 classes, 2 x 3 x 64 x 64)
+             one f32 train step each, card against CPU within phase 7's
+             bounds and the running statistics within 1e-5, and the conv
+             and pooling functionals at the reference's forms (groups,
+             dilation, "SAME" at stride 2 in NCHW and NHWC, a transposed
+             conv's output_size, exclusive and inclusive average pools,
+             adaptive pools at sizes that do not divide), the pooling mask
+             bitwise, under cudnn allow_tf32=False; (a) config 1: LeNet
+             through ``Model.fit`` (Adam 1e-3, CrossEntropyLoss,
+             Accuracy) on 256 separable FakeMNIST images, batch 64
+             shuffled, 6 epochs, then ``evaluate`` on 128 held-out images
+             (accuracy above 0.8) and ``predict``; (b) config 2 at degree
+             1: ``vision.models.resnet50()`` (25.56 M parameters, f32,
+             NCHW) at batch 256 x 3 x 224 x 224, a seeded batch a step,
+             labels uniform over 1000, ``Momentum(0.1, 0.9,
+             L2Decay(1e-4))`` through ``jit.TrainStep``: a warm-up and 3
+             timed steps with cuDNN's default TF32 and again with it off,
+             the first loss within 0.5 of ln 1000 + s^2 / 2 (s the spread
+             of the first batch's logits), the running statistics moved
+             and finite; step median, images/s, model-flops share (6 x
+             conv and linear MACs x batch), host share, peak memory; (d)
+             the same step fed by ``io.DataLoader`` over
+             ``vision.datasets.FakeData`` (8 batches, a transform that
+             calls ``paddle.to_tensor`` after ``Normalize``, 4 worker
+             processes forked after CUDA started here): every batch on the
+             card, the workers other processes, the labels in the
+             sampler's order; the loader alone in images/s, the fed step
+             median against the resident one, the host share and longest
+             idle gap of one profiled fed step; (c) ``model.bfloat16()``
+             (buffers too), the same step, a warm-up and 3 timed steps.
 
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, training, quant_train (run b),
-long-context, model_rest, shared_block and paddle_surface runs;
+long-context, model_rest, shared_block, paddle_surface and vision runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -3338,21 +3371,28 @@ PORT_KERNEL_SYMBOLS = ("flash_fwd_wgmma", "flash_fwd_kernel",
                        "rms_norm_kernel", "paged_attention_kernel")
 
 
-def _profile_step(step, batch, wall_ms):
-    """One step under the profiler: device busy time (sum of kernel
-    times), the host share against the unprofiled step wall, the top 8
-    kernels by time (as _decode_window does for serving), and the busy
-    time split into the port's kernels, cuBLAS GEMMs and everything
-    else (elementwise, copies, reductions)."""
+def _profile_step(step, batch, wall_ms, kernel_groups=None, repeat=1):
+    """``repeat`` steps back to back under the profiler: device busy time
+    (sum of kernel times), the host share against the unprofiled wall of
+    those steps, the top 8 kernels by time (as _decode_window does for
+    serving), and the busy time split into the port's kernels, cuBLAS
+    GEMMs and everything else (elementwise, copies, reductions); with
+    ``kernel_groups`` (group -> name fragments, the first match wins,
+    "other" the rest) also that split. Also the union of the kernels'
+    intervals and the longest gap between them on the card's timeline:
+    across ``repeat`` > 1 steps that gap sees what the host does between
+    steps (such as waiting for a loader's batch)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(*batch)
+        for _ in range(repeat):
+            step(*batch)
         torch.cuda.synchronize()
     busy = 0.0
     by_kernel = {}
+    spans = []
     for ev in prof.events():
         # a record_function range on the card's timeline (such as
         # torch.optim's "Optimizer.step#AdamW.step") spans kernels that
@@ -3362,6 +3402,17 @@ def _profile_step(step, batch, wall_ms):
             dt = ev.time_range.elapsed_us()
             busy += dt
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dt
+            spans.append((ev.time_range.start, ev.time_range.end))
+    longest, union, end = 0.0, 0.0, None
+    for s, e in sorted(spans):
+        if end is not None and s > end:
+            longest = max(longest, s - end)
+        if end is None or s > end:
+            union += e - s
+            end = e
+        elif e > end:
+            union += e - end
+            end = e
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     groups = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     port = {}
@@ -3374,10 +3425,19 @@ def _profile_step(step, batch, wall_ms):
             groups["gemm"] += v / 1e3
         else:
             groups["other"] += v / 1e3
-    return {"device_busy_ms": busy / 1e3,
-            "host_share": (1 - busy / 1e3 / wall_ms) if busy > 0 else None,
-            "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
-            "by_group_ms": groups, "port_kernels_ms": port}
+    out = {"device_busy_ms": busy / 1e3,
+           "host_share": (1 - busy / 1e3 / wall_ms) if busy > 0 else None,
+           "device_union_ms": union / 1e3, "longest_idle_ms": longest / 1e3,
+           "top_kernels_ms": [(k[:80], v / 1e3) for k, v in top],
+           "by_group_ms": groups, "port_kernels_ms": port}
+    if kernel_groups is not None:
+        split = dict.fromkeys(list(kernel_groups) + ["other"], 0.0)
+        for k, v in by_kernel.items():
+            name = next((g for g, frags in kernel_groups.items()
+                         if any(f in k for f in frags)), "other")
+            split[name] += v / 1e3
+        out["by_kernel_group_ms"] = split
+    return out
 
 
 def _train_setup(cfg, dtype, device, seed, int8=None):
@@ -5742,6 +5802,601 @@ def phase_paddle_surface(smi="", cfg_kw=None, batch=BERT_BATCH,
     return res
 
 
+# ------------------------------------------------------------ phase vision
+VISION_BATCH = 256            # the per-256 batch of the ImageNet recipe
+VISION_LR = 0.1               # 0.1 per 256 images (Goyal et al. 2017)
+VISION_STEPS = 3
+VISION_LOADER_BATCHES = 8
+VISION_WORKERS = 4
+LENET_EPOCHS = 6
+#: the card against the CPU: a conv's sums run in another order (no TF32)
+VISION_CONV_TOL = 1e-4        # of the output's largest entry
+PEAK_TF32 = 494.7e12          # H100 SXM dense TF32
+#: where a vision step's time goes, by kernel name (the first match wins):
+#: cuDNN's convs with their layout transposes and the head's GEMM; the
+#: pools; the reductions (the norms' statistics and their backward); every
+#: other elementwise pass (the norms, ReLUs, residual adds, the optimizer)
+VISION_KERNEL_GROUPS = {
+    "conv_gemm": ("conv", "xmma", "implicit_gemm", "wgrad", "dgrad", "cudnn",
+             "nchwToNhwc", "nhwcToNchw", "sm80_", "sm90_", "nvjet",
+             "gemm"),
+    "pool": ("pool",),
+    "reduce": ("reduce_kernel",),
+    "elementwise": ("elementwise",),
+}
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _fake_mnist(paddle, n, seed):
+    """``tests/test_hapi_lenet.py``'s separable digits: a band of rows per
+    label under 0.05 noise."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, (n,))
+    images = np.zeros((n, 1, 28, 28), np.float32)
+    for i, lab in enumerate(labels):
+        images[i, 0, lab * 2:lab * 2 + 4, :] = 1.0
+        images[i] += rng.randn(1, 28, 28).astype(np.float32) * 0.05
+
+    class FakeMNIST(paddle.io.Dataset):
+        def __getitem__(self, idx):
+            return images[idx], np.int64(labels[idx])
+
+        def __len__(self):
+            return n
+
+    return FakeMNIST()
+
+
+def _conv_macs(paddle, model, image):
+    """Multiply-adds of one ``image`` x ``image`` forward: every Conv2D
+    (out_h * out_w * out_c * in_c / groups * k_h * k_w) and Linear (in *
+    out), counted by forward hooks on a batch of 1."""
+    macs = []
+
+    def conv_hook(layer, inputs, out):
+        k = layer.weight.shape
+        macs.append(out.shape[2] * out.shape[3] * k[0] * k[1] * k[2] * k[3])
+
+    def linear_hook(layer, inputs, out):
+        macs.append(layer.weight.shape[0] * layer.weight.shape[1])
+
+    hooks = [layer.register_forward_post_hook(
+        conv_hook if isinstance(layer, paddle.nn.Conv2D) else linear_hook)
+        for layer in model.sublayers()
+        if isinstance(layer, (paddle.nn.Conv2D, paddle.nn.Linear))]
+    was_training = model.training
+    model.eval()
+    with paddle.no_grad():
+        model(paddle.zeros([1, 3, image, image]))
+    if was_training:
+        model.train()
+    for h in hooks:
+        h.remove()
+    return sum(macs)
+
+
+def _cuda_ms(fn, reps=3):
+    """``fn()``'s device time (ms) by CUDA events: the median of ``reps``
+    after one warm-up call."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return statistics.median(ms)
+
+
+def _batch_norm_ms(paddle, model, b, image):
+    """The batch norms of one training step, timed apart from the step:
+    each ``BatchNorm2D``'s input shape from forward hooks on a 1-image
+    forward, then for each distinct shape a fresh ``BatchNorm2D`` in
+    train mode, its forward and backward (the gradients of the input, the
+    gain and the bias, as in the step) at batch ``b``, times the number
+    of the model's norms at that shape. Returns the total (ms) and
+    ``{"CxHxW": [layers, ms of one]}``."""
+    import collections
+
+    shapes = []
+
+    def hook(layer, inputs, out):
+        shapes.append(tuple(inputs[0].shape[1:]))
+
+    hooks = [layer.register_forward_post_hook(hook)
+             for layer in model.sublayers()
+             if isinstance(layer, paddle.nn.BatchNorm2D)]
+    was_training = model.training
+    model.eval()
+    with paddle.no_grad():
+        model(paddle.zeros([1, 3, image, image]))
+    if was_training:
+        model.train()
+    for h in hooks:
+        h.remove()
+    per = {}
+    for (c, h, w), n in collections.Counter(shapes).items():
+        bn = paddle.nn.BatchNorm2D(c)
+        x = paddle.randn([b, c, h, w])
+        x.stop_gradient = False
+        g = torch.randn(b, c, h, w, device=x._data.device)
+        leaves = [x._data, bn.weight._data, bn.bias._data]
+
+        def fwd_bwd():
+            torch.autograd.grad(bn(x)._data, leaves, g)
+
+        per[f"{c}x{h}x{w}"] = [n, _cuda_ms(fwd_bwd)]
+        del bn, x, g, leaves
+    return sum(n * ms for n, ms in per.values()), per
+
+
+def _optimizer_ms(paddle, lr):
+    """The step's optimizer timed apart from it: ``_vision_step``'s
+    Momentum with L2 decay over a second ResNet-50's parameters, each
+    with a random gradient."""
+    net = paddle.vision.models.resnet50()
+    opt = paddle.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9,
+        weight_decay=paddle.regularizer.L2Decay(1e-4),
+        parameters=net.parameters())
+    for p in net.parameters():
+        p._data.grad = torch.randn_like(p._data)
+    ms = _cuda_ms(opt.step)
+    del opt, net
+    return ms
+
+
+def _iterable_loader_check(paddle, workers, n=16):
+    """An IterableDataset whose ``__iter__`` makes each sample with
+    ``paddle.to_tensor`` (in a forked worker that must be a CPU tensor),
+    sharded by ``io.get_worker_info``, read by ``workers`` processes:
+    every sample arrives once and each batch holds its own labels. Returns
+    the one device type of every batch."""
+    class Stream(paddle.io.IterableDataset):
+        def __iter__(self):
+            info = paddle.io.get_worker_info()
+            for i in range(info.id, n, info.num_workers):
+                yield (paddle.to_tensor(np.full((3, 8, 8), i, np.float32)),
+                       np.int64(i))
+
+    seen, types = [], set()
+    for x, y in paddle.io.DataLoader(Stream(), batch_size=4,
+                                     num_workers=workers):
+        types |= {x._data.device.type, y._data.device.type}
+        check((x.numpy()[:, 0, 0, 0] == y.numpy()).all(),
+              "an iterable batch's images and labels parted")
+        seen += y.numpy().tolist()
+    check(sorted(seen) == list(range(n)), f"iterable loader gave {seen}")
+    check(len(types) == 1, f"iterable batches on {types}")
+    return types.pop()
+
+
+def _damped(paddle, model, last_bn):
+    """``model`` with the last batch norm of each residual branch at a
+    fifth of its gain, as nets are initialised to train well: a deep net
+    in train mode at a batch of 2 is otherwise so ill-conditioned that two
+    libraries' f32 sums part by percents."""
+    with paddle.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("layer") and name.endswith(last_bn):
+                p.set_value(p * 0.2)
+    return model
+
+
+def _vision_card_vs_cpu(paddle, place):
+    """(e): one train step of LeNet and of resnet18 (4 classes) in f32 on
+    the card against the CPU on the same weights (TF32 off), and the
+    conv and pooling functionals at the forms the reference's quirks
+    live in. Returns the readings."""
+    F = paddle.nn.functional
+    res = {}
+    rng = np.random.RandomState(11)
+    cases = {
+        "lenet": (lambda: paddle.vision.models.LeNet(), (4, 1, 28, 28)),
+        "resnet18": (lambda: _damped(paddle, paddle.vision.models.resnet18(
+            num_classes=4), "bn2.weight"), (2, 3, 64, 64)),
+    }
+    for tag, (build, shape) in cases.items():
+        x = rng.randn(*shape).astype(np.float32)
+        y = rng.randint(0, 10 if tag == "lenet" else 4,
+                        (shape[0],)).astype(np.int64)
+        got, init = {}, None
+        for where in ("cpu", place):
+            paddle.set_device(where)
+            paddle.seed(12)
+            m = build()
+            if init is None:
+                init = {k: v.numpy() for k, v in m.state_dict().items()}
+            else:
+                m.set_state_dict(init)
+            m.train()
+            loss = F.cross_entropy(m(paddle.to_tensor(x)),
+                                   paddle.to_tensor(y))
+            loss.backward()
+            got["card" if got else "cpu"] = (
+                float(loss),
+                {n: p.grad.numpy() for n, p in m.named_parameters()},
+                {k: v.numpy() for k, v in m.state_dict().items()})
+        loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        grad_rel = {n: float(np.linalg.norm(got["card"][1][n] - g)
+                             / max(np.linalg.norm(g), 1e-12))
+                    for n, g in got["cpu"][1].items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        stat_err = max([float(np.abs(got["card"][2][k] - v).max())
+                        for k, v in got["cpu"][2].items()
+                        if k.endswith(("_mean", "_variance"))] or [0.0])
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{tag} card vs cpu loss rel "
+              f"{loss_rel}")
+        check(grad_rel[worst] <= TRAIN_GRAD_RTOL, f"{tag} card vs cpu grad "
+              f"{worst} rel {grad_rel[worst]}")
+        check(stat_err <= 1e-5, f"{tag} running statistics err {stat_err}")
+        res[tag] = {"loss_rel": loss_rel, "grad_rel_max": grad_rel[worst],
+                    "grad_rel_worst": worst, "stat_abs_err": stat_err,
+                    "shape": list(shape)}
+
+    x = rng.randn(2, 8, 17, 15).astype(np.float32)
+    w = rng.randn(8, 4, 3, 3).astype(np.float32)
+    wt = rng.randn(8, 3, 3, 3).astype(np.float32)
+    xt = rng.randn(2, 8, 7, 6).astype(np.float32)
+
+    def nhwc(a):
+        return a.transpose([0, 2, 3, 1])
+
+    funcs = {
+        "conv2d_groups_dilation": lambda t: F.conv2d(
+            t(x), t(w), groups=2, dilation=2, padding=[1, 2, 0, 1]),
+        "conv2d_same_s2_nchw": lambda t: F.conv2d(
+            t(x), t(w), stride=2, padding="SAME", groups=2),
+        "conv2d_same_s2_nhwc": lambda t: F.conv2d(
+            nhwc(t(x)), t(w), stride=2, padding="SAME", groups=2,
+            data_format="NHWC"),
+        "conv2d_transpose_output_size": lambda t: F.conv2d_transpose(
+            t(xt), t(wt), stride=2, padding=1, output_size=[14, 12]),
+        "avg_pool2d_exclusive": lambda t: F.avg_pool2d(
+            t(x), 3, 2, [0, 1, 1, 2], exclusive=True),
+        "avg_pool2d_inclusive": lambda t: F.avg_pool2d(
+            t(x), 3, 2, 1, exclusive=False),
+        "adaptive_avg_pool2d": lambda t: F.adaptive_avg_pool2d(t(x), [4, 6]),
+        "adaptive_max_pool2d": lambda t: F.adaptive_max_pool2d(t(x), [5, 4]),
+        "max_pool2d": lambda t: F.max_pool2d(t(x), 3, 2, 1),
+        "max_pool2d_mask": lambda t: F.max_pool2d(t(x), 3, 2, 1,
+                                                  return_mask=True)[1],
+    }
+    res["functionals"] = {}
+    for name, fn in funcs.items():
+        outs = {}
+        for where in ("cpu", place):
+            paddle.set_device(where)
+            outs[where] = fn(paddle.to_tensor).numpy()
+        a, b = outs["cpu"], outs[place]
+        check(a.shape == b.shape, f"{name} shapes {a.shape} {b.shape}")
+        if name == "max_pool2d_mask":
+            check(np.array_equal(a, b) and b.dtype == np.int32,
+                  f"{name} not bitwise equal")
+            err = 0.0
+        else:
+            err = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-12))
+            tol = VISION_CONV_TOL if name.startswith("conv") else 1e-6
+            check(err <= tol, f"{name} card vs cpu rel err {err}")
+        res["functionals"][name] = err
+    paddle.set_device(place)
+    return res
+
+
+
+def _vision_step(paddle, model, lr):
+    """``Momentum(lr, 0.9, L2Decay(1e-4))`` through ``jit.TrainStep`` over
+    cross entropy."""
+    opt = paddle.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9,
+        weight_decay=paddle.regularizer.L2Decay(1e-4),
+        parameters=model.parameters())
+    step = paddle.jit.TrainStep(
+        model, lambda x, y: paddle.nn.functional.cross_entropy(model(x), y),
+        opt)
+    return step, opt
+
+
+def _imagenet_batch(paddle, b, image, seed, dtype="float32"):
+    """A seeded batch: N(0, 1) images and labels uniform over 1000, made
+    on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(b, 3, image, image, generator=gen, device=DEVICE)
+    y = torch.randint(0, 1000, (b,), generator=gen, device=DEVICE)
+    return (paddle.to_tensor(x).astype(dtype), paddle.to_tensor(y))
+
+
+def _timed_steps(step, batches):
+    """Each step's wall time (ms) with the card drained before and after,
+    and the losses."""
+    ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return ms, losses
+
+
+def _step_readings(ms, flops, peak, b, prof):
+    med = statistics.median(ms)
+    return {"step_ms": ms, "step_ms_median": med,
+            "images_per_s": b / (med / 1e3),
+            "model_flops_share": flops / (med / 1e3) / peak,
+            "host_share": prof["host_share"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "by_kernel_group_ms": prof["by_kernel_group_ms"],
+            "top_kernels_ms": prof["top_kernels_ms"]}
+
+
+def phase_vision(smi="", batch=VISION_BATCH, image=224, lr=VISION_LR,
+                 place="gpu", lenet_epochs=LENET_EPOCHS):
+    """The vision path through ``import paddle_tpu_torch as paddle``: (e)
+    the card against the CPU, (a) config 1 (LeNet through ``Model.fit``),
+    (b) config 2 at degree 1 (ResNet-50, f32, TF32 on and off), (d) the
+    same step fed by ``io.DataLoader`` over ``vision.datasets.FakeData``
+    with 4 worker processes, (c) ResNet-50 in bf16. ``batch``, ``image``,
+    ``lenet_epochs`` and ``place="cpu"`` rehearse it small."""
+    import os
+
+    import paddle_tpu_torch as paddle
+
+    K = paddle.ops.kernels
+    t_phase = time.perf_counter()
+    paddle.set_device(place)
+    res = {"smi": smi}
+    # CUDA starts in this process before any loader forks (trap of the
+    # forked workers)
+    paddle.zeros([1])
+    K.reset_launch_counts()
+
+    # (e) card against CPU
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        res["card_vs_cpu"] = _vision_card_vs_cpu(paddle, place)
+    cv = res["card_vs_cpu"]
+    print(f"vision: card vs cpu lenet loss rel {cv['lenet']['loss_rel']:.2e}"
+          f" grad {cv['lenet']['grad_rel_max']:.2e}; resnet18 loss rel "
+          f"{cv['resnet18']['loss_rel']:.2e} grad "
+          f"{cv['resnet18']['grad_rel_max']:.2e} stats "
+          f"{cv['resnet18']['stat_abs_err']:.2e}; functionals max rel "
+          f"{max(cv['functionals'].values()):.2e}, mask bitwise", flush=True)
+
+    # (a) config 1: LeNet through Model.fit
+    paddle.seed(0)
+    model = paddle.Model(paddle.vision.models.LeNet(num_classes=10))
+    model.prepare(paddle.optimizer.Adam(
+        learning_rate=1e-3, parameters=model.network.parameters()),
+        paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    train = paddle.io.DataLoader(_fake_mnist(paddle, 256, 0), batch_size=64,
+                                 shuffle=True)
+    _sync(DEVICE)
+    t0 = time.perf_counter()
+    model.fit(train, epochs=lenet_epochs, verbose=0)
+    _sync(DEVICE)
+    fit_s = time.perf_counter() - t0
+    held = paddle.io.DataLoader(_fake_mnist(paddle, 128, 1), batch_size=64)
+    ev = model.evaluate(held, verbose=0)
+    preds = model.predict(held)
+    out0 = preds[0][0] if isinstance(preds[0], (list, tuple)) else preds[0]
+    check(ev["acc"] > 0.8, f"LeNet held-out accuracy {ev}")
+    check(out0.shape[-1] == 10 and len(preds) == 2,
+          f"LeNet predictions {out0.shape} x {len(preds)}")
+    steps = lenet_epochs * len(train)
+    res["lenet_fit"] = {"epochs": lenet_epochs, "steps": steps,
+                        "fit_s": fit_s, "steps_per_s": steps / fit_s,
+                        "eval": ev, "pred_shape": out0.shape}
+    print(f"vision: LeNet Model.fit {lenet_epochs} epochs ({steps} steps) "
+          f"{fit_s:.2f} s, {steps / fit_s:.1f} steps/s; held-out {ev}",
+          flush=True)
+    del model, train, held, preds
+
+    # (b) config 2 at degree 1: ResNet-50, f32, NCHW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.seed(0)
+    net = paddle.vision.models.resnet50()
+    nparams = sum(p.size for p in net.parameters())
+    check(abs(nparams - 25.56e6) < 0.05e6, f"ResNet-50 params {nparams}")
+    macs = _conv_macs(paddle, net, image)
+    flops = 6.0 * macs * batch          # 2 FLOP a MAC, forward + 2 x back
+    # random init at the reference's initializers: logits of spread s give
+    # a first loss near ln 1000 + s^2 / 2 (train mode, the first batch)
+    with paddle.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                      allow_tf32=True):
+        logits = net(_imagenet_batch(paddle, batch, image, 200)[0])
+    spread = float(logits.astype("float32").std())
+    want_first = float(np.log(1000) + spread ** 2 / 2)
+    del logits
+    stats0 = {k: v.numpy().copy() for k, v in net.state_dict().items()
+              if k.endswith(("_mean", "_variance"))}
+    step, opt = _vision_step(paddle, net, lr)
+    b = batch
+    res["resnet50"] = {"params": nparams, "batch": b, "image": image,
+                       "lr": lr, "macs_per_image": macs,
+                       "flops_per_step": flops,
+                       "flops_formula": "6 * conv+linear MACs per image "
+                                        "* batch (hooks on a 1-image "
+                                        "forward)"}
+    f32 = {}
+    first = None
+    for tag, tf32 in (("tf32_default", True), ("tf32_off", False)):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            batches = [_imagenet_batch(paddle, b, image, 100 * (tf32 + 1) + i)
+                       for i in range(VISION_STEPS + 1)]
+            warm = float(step(*batches[0]))
+            first = warm if first is None else first
+            ms, losses = _timed_steps(step, batches[1:])
+            prof = _profile_step(step, batches[1], statistics.median(ms),
+                                 VISION_KERNEL_GROUPS)
+        peak = PEAK_TF32 if tf32 else PEAK_OPS[torch.float32]
+        f32[tag] = dict(_step_readings(ms, flops, peak, b, prof),
+                        losses=[warm] + losses,
+                        cudnn_allow_tf32=tf32,
+                        matmul_allow_tf32=torch.backends.cuda.matmul.
+                        allow_tf32, peak_flops=peak)
+        check(all(np.isfinite(f32[tag]["losses"])), f"f32 losses {f32[tag]}")
+        del batches
+    f32["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(abs(first - want_first) <= 0.5,
+          f"first loss {first}, ln 1000 + s^2/2 = {want_first}")
+    stats1 = {k: v.numpy() for k, v in net.state_dict().items()
+              if k.endswith(("_mean", "_variance"))}
+    check(len(stats1) == 106, f"{len(stats1)} running statistics")
+    check(all(np.isfinite(v).all() and not np.array_equal(v, stats0[k])
+              for k, v in stats1.items()),
+          "running statistics unchanged or not finite")
+    f32.update(first_loss=first, logit_std=spread,
+               ln1000_plus_half_s2=want_first)
+    # the decomposed batch norms and the optimizer, each timed apart
+    bn_ms, bn_shapes = _batch_norm_ms(paddle, net, b, image)
+    opt_ms = _optimizer_ms(paddle, lr)
+    nbn = sum(n for n, _ in bn_shapes.values())
+    check(nbn == 53, f"{nbn} batch norms timed")
+    busy = f32["tf32_default"]["device_busy_ms"]
+    f32["apart"] = {"batch_norms_ms": bn_ms, "optimizer_ms": opt_ms,
+                    "batch_norm_shapes": bn_shapes,
+                    "batch_norms_share_of_busy": bn_ms / busy,
+                    "optimizer_share_of_busy": opt_ms / busy}
+    res["resnet50"]["f32"] = f32
+    for tag in ("tf32_default", "tf32_off"):
+        r = f32[tag]
+        print(f"vision: ResNet-50 f32 batch {b} ({tag}) step median "
+              f"{r['step_ms_median']:.1f} ms {[round(v, 1) for v in r['step_ms']]}"
+              f", {r['images_per_s']:.0f} images/s, model-flops share "
+              f"{r['model_flops_share']:.3f} of {r['peak_flops'] / 1e12:.1f} "
+              f"TFLOP/s, host share {r['host_share']}, busy by kernel "
+              f"group {r['by_kernel_group_ms']}, losses "
+              f"{[round(v, 3) for v in r['losses']]}", flush=True)
+    print(f"vision: ResNet-50 {nparams / 1e6:.2f} M params, {macs / 1e9:.2f} "
+          f"G MACs an image, first loss {first:.3f} (ln 1000 + s^2/2 = "
+          f"{want_first:.3f}, s {spread:.3f}), peak memory "
+          f"{f32['peak_memory_gib']:.1f} GiB", flush=True)
+    print(f"vision: timed apart, the {nbn} batch norms' forward and backward "
+          f"{bn_ms:.1f} ms ({bn_ms / busy:.3f} of the TF32 step's busy "
+          f"{busy:.1f} ms), the Momentum update {opt_ms:.2f} ms "
+          f"({opt_ms / busy:.3f})", flush=True)
+
+    # (d) the same f32 step fed by the loader, after CUDA started here
+    normalize = paddle.vision.transforms.Normalize(IMAGENET_MEAN,
+                                                   IMAGENET_STD)
+
+    def to_tensor_after_normalize(img):
+        return paddle.to_tensor(normalize(img))
+
+    data = paddle.vision.datasets.FakeData(
+        size=VISION_LOADER_BATCHES * b, image_shape=(3, image, image),
+        num_classes=1000, transform=to_tensor_after_normalize)
+    loader = paddle.io.DataLoader(data, batch_size=b, shuffle=True,
+                                  num_workers=VISION_WORKERS)
+    labels_of = paddle.vision.datasets.FakeData(
+        size=VISION_LOADER_BATCHES * b, image_shape=(3, image, image),
+        num_classes=1000)
+    fed = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        t0 = time.perf_counter()
+        it = iter(loader)
+        pids = [p.pid for p in it._workers]
+        order = [list(ix) for ix in it._batches]
+        got = list(it)
+        _sync(DEVICE)
+        alone_s = time.perf_counter() - t0
+        check(len(got) == VISION_LOADER_BATCHES, f"{len(got)} batches")
+        check(os.getpid() not in pids and len(set(pids)) == VISION_WORKERS,
+              f"worker pids {pids} parent {os.getpid()}")
+        for (x, y), ix in zip(got, order):
+            check(x._data.device.type == torch.device(DEVICE).type,
+                  f"batch on {x._data.device}")
+            check(list(x.shape) == [b, 3, image, image]
+                  and x.dtype == paddle.float32, f"batch {x.shape}")
+            check(y.numpy().tolist() == [int(labels_of[i][1]) for i in ix],
+                  "labels out of the sampler's order")
+        del got
+        fed["loader_alone_s"] = alone_s
+        fed["loader_images_per_s"] = VISION_LOADER_BATCHES * b / alone_s
+        it = iter(loader)
+        ms, wait_ms = [], []
+        for _ in range(VISION_LOADER_BATCHES - 2):
+            _sync(DEVICE)
+            t0 = time.perf_counter()
+            x, y = next(it)
+            wait_ms.append((time.perf_counter() - t0) * 1e3)
+            loss = step(x, y)
+            _sync(DEVICE)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(float(loss)), "fed loss not finite")
+
+        def fed_step():
+            return step(*next(it))
+
+        # the last two batches back to back: the gap between them is the
+        # wait for the next batch and the step's host work
+        med = statistics.median(ms)
+        prof = _profile_step(fed_step, (), 2 * med, repeat=2)
+        fed.update(step_ms=ms, step_ms_median=med, next_wait_ms=wait_ms,
+                   next_wait_ms_median=statistics.median(wait_ms),
+                   resident_step_ms_median=f32["tf32_default"][
+                       "step_ms_median"],
+                   host_share_2_steps=1 - prof["device_union_ms"] / (2 * med),
+                   device_union_ms_2_steps=prof["device_union_ms"],
+                   longest_idle_ms_2_steps=prof["longest_idle_ms"],
+                   top_kernels_ms_2_steps=prof["top_kernels_ms"],
+                   workers=VISION_WORKERS, worker_pids=pids)
+        # an IterableDataset's workers, forked after CUDA started here
+        fed["iterable_batches_on"] = _iterable_loader_check(paddle, 2)
+        check(fed["iterable_batches_on"] == torch.device(DEVICE).type,
+              f"iterable batches on {fed['iterable_batches_on']}")
+    res["resnet50"]["fed"] = fed
+    del it, loader
+    print(f"vision: loader alone {fed['loader_images_per_s']:.0f} images/s "
+          f"({VISION_WORKERS} workers); fed step median {med:.1f} ms against "
+          f"resident {fed['resident_step_ms_median']:.1f} ms, of it the wait "
+          f"for the batch {[round(v, 1) for v in wait_ms]} ms; two fed "
+          f"steps back to back: host share "
+          f"{fed['host_share_2_steps']:.3f}, longest idle "
+          f"{fed['longest_idle_ms_2_steps']:.1f} ms, top kernels "
+          f"{[(k[:40], round(v, 1)) for k, v in prof['top_kernels_ms'][:4]]}"
+          f"; an iterable loader's batches on "
+          f"{fed['iterable_batches_on']}", flush=True)
+
+    # (c) ResNet-50 in bf16: model.bfloat16() with its buffers
+    del step, opt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net.bfloat16()
+    check(all(b_.dtype == paddle.bfloat16 for b_ in net.buffers()),
+          "bfloat16() left a buffer in f32")
+    step, opt = _vision_step(paddle, net, lr)
+    batches = [_imagenet_batch(paddle, b, image, 300 + i, "bfloat16")
+               for i in range(VISION_STEPS + 1)]
+    warm = float(step(*batches[0]))
+    ms, losses = _timed_steps(step, batches[1:])
+    prof = _profile_step(step, batches[1], statistics.median(ms),
+                         VISION_KERNEL_GROUPS)
+    bf = dict(_step_readings(ms, flops, PEAK_OPS[torch.bfloat16], b, prof),
+              losses=[warm] + losses,
+              peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(all(np.isfinite(bf["losses"])), f"bf16 losses {bf['losses']}")
+    res["resnet50"]["bf16"] = bf
+    print(f"vision: ResNet-50 bf16 step median {bf['step_ms_median']:.1f} ms "
+          f"{[round(v, 1) for v in ms]}, {bf['images_per_s']:.0f} images/s, "
+          f"model-flops share {bf['model_flops_share']:.3f}, host share "
+          f"{bf['host_share']}, busy by kernel group "
+          f"{bf['by_kernel_group_ms']}, peak memory "
+          f"{bf['peak_memory_gib']:.1f} GiB, "
+          f"losses {[round(v, 3) for v in bf['losses']]}", flush=True)
+    del step, opt, net, batches
+    torch.cuda.empty_cache()
+    res["launches"] = K.launch_counts()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -5828,6 +6483,8 @@ def main():
         report["paddle_surface"] = run("paddle_surface",
                                        phase_paddle_surface,
                                        report["device"]["smi"])
+        report["vision"] = run("vision", phase_vision,
+                               report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -5873,7 +6530,7 @@ def main():
                                 "incubate_surface", "training",
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
-                                "paddle_surface")}
+                                "paddle_surface", "vision")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -10,7 +10,9 @@ that the CPU runs.
 ``import paddle_tpu_torch as paddle`` gives the Paddle surface: ``Tensor``
 (over one ``torch.Tensor``, with torch's autograd), ``to_tensor``, the
 dtypes, the ops, ``nn`` and ``nn.functional``, ``optimizer`` and
-``jit.TrainStep``. A tensor made with no place lands on the CUDA card
+``jit.TrainStep``, and the vision user's path: ``io`` (``DataLoader``
+with worker processes), ``metric``, ``Model`` with ``callbacks``,
+``save``/``load`` and ``vision``. A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
 making it raises. Imports run one way: the surface imports the torch-level
 port (``ops.kernels``, ``optimizer``, ``jit``, ``telemetry``), which imports
@@ -45,9 +47,18 @@ from . import autograd  # noqa: F401,E402
 from .autograd import grad, PyLayer  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
+from . import regularizer  # noqa: F401,E402
 from . import jit  # noqa: F401,E402
 from . import device  # noqa: F401,E402
 from .param_attr import ParamAttr  # noqa: F401,E402
+from . import io  # noqa: F401,E402
+from . import metric  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from .hapi.model import Model, summary  # noqa: F401,E402
+from .framework_io import (  # noqa: F401,E402
+    async_save, clear_async_save_task_queue, load, save)
 
 import math as _math  # noqa: E402
 

@@ -179,9 +179,10 @@ def fused_state_dict_from_jax(params: dict, module) -> dict[str, torch.Tensor]:
 
 
 def layer_state_from_numpy(state: dict, layer) -> None:
-    """Load a JAX ``Layer``'s ``state_dict()``, given as numpy arrays by
-    structured name, into the port's ``Layer`` of the same class, in
-    place. Paddle's layout is the same on both sides (``Linear.weight`` is
+    """Load a JAX ``Layer``'s ``state_dict()`` (parameters and persistable
+    buffers, such as a batch norm's ``_mean`` and ``_variance``), given as
+    numpy arrays by structured name, into the port's ``Layer`` of the same
+    class, in place. Paddle's layout is the same on both sides (``Linear.weight`` is
     ``[in, out]``), so nothing is transposed; bf16 arrays cross through
     float32. The names must match exactly, both ways."""
     own = layer.state_dict()

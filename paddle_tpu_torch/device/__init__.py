@@ -132,6 +132,19 @@ def _current_device() -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
+def _place_scope(dev: torch.device):
+    """This thread's place is ``dev`` inside the block (the DataLoader's
+    seam: a batch is built on the device its iterator captured, in
+    whichever thread builds it)."""
+    prev = (getattr(_state, "device", None), getattr(_state, "place", None))
+    _state.device, _state.place = dev, _place_of(dev)
+    try:
+        yield
+    finally:
+        _state.device, _state.place = prev
+
+
 def _current_place() -> Place:
     _current_device()
     return _state.place

@@ -123,6 +123,9 @@ def default_generator() -> Generator:
 
     dev = _current_device()
     if dev.type == "cuda":
+        # the card's generators exist once CUDA is initialized, which no
+        # op may have done yet
+        torch.cuda.init()
         idx = dev.index if dev.index is not None else torch.cuda.current_device()
         return Generator(generator=torch.cuda.default_generators[idx])
     return Generator(generator=torch.default_generator)

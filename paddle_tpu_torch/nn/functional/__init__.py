@@ -2,11 +2,12 @@
 ``paddle_tpu/nn/functional``), beside the torch-level functionals the
 port's models use (``fused_cross_entropy``'s and ``norm.rms_norm_arrays``).
 
-Not ported yet: ``conv`` and ``pooling`` (``ROADMAP.md`` A.13 (c)) and
-``compat`` (A.13 (b)).
+Not ported yet: ``compat`` (``ROADMAP.md`` A.13 (b)).
 """
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .flash_attention import (  # noqa: F401

@@ -31,7 +31,11 @@ decode against its CPU route, and ``FusedMultiHeadAttention`` on the
 non-causal flash kernels against the plain route; the Paddle surface: a
 tensor made with no place on the card, ``F.scaled_dot_product_attention``
 through the flash kernels against its CPU route, BERT at depth 2 on the
-card against the CPU, and ``bfloat16()`` keeping ``parameters()`` live.
+card against the CPU, and ``bfloat16()`` keeping ``parameters()`` live;
+the vision path: LeNet and resnet18 one step and the conv and pooling
+functionals on the card against the CPU, the DataLoader's batches on the
+card from its prefetch thread and from worker processes forked after
+CUDA started, and a ResNet's ``bfloat16()`` casting its buffers.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -1845,3 +1849,84 @@ def test_surface_bfloat16_keeps_parameters_live(surface):
     assert all(np.abs(q.numpy() - b).max() > 0
                for q, b in zip(params, before))
     assert all(q.grad is None for q in params)
+
+
+# -- the vision path (conv, pooling, io, hapi, vision) ------------------------
+def test_vision_card_vs_cpu(surface):
+    """chip_smoke's part (e): LeNet and resnet18 one f32 train step and the
+    conv and pooling functionals on the card against the CPU (TF32 off),
+    the pooling mask bit for bit."""
+    from chip_smoke import _vision_card_vs_cpu
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        res = _vision_card_vs_cpu(surface, "gpu")
+    assert res["functionals"]["max_pool2d_mask"] == 0.0
+    assert res["resnet18"]["loss_rel"] <= 1e-4
+
+
+def _vision_dataset(paddle):
+    class DS(paddle.io.Dataset):
+        def __getitem__(self, i):
+            # a transform's to_tensor: in a forked worker it must land on
+            # the CPU, where the child can make it
+            return (paddle.to_tensor(np.full((3, 4, 4), i, np.float32)),
+                    np.int64(i))
+
+        def __len__(self):
+            return 8
+
+    return DS()
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_loader_batches_land_on_the_card(surface, workers):
+    """After ``set_device("gpu")`` a prefetching loader (its producer a
+    thread of its own) and a worker pool forked after CUDA started both
+    yield CUDA tensors, in the sampler's order."""
+    paddle = surface
+    paddle.set_device("gpu")
+    paddle.zeros([1])                       # CUDA started in the parent
+    loader = paddle.io.DataLoader(_vision_dataset(paddle), batch_size=4,
+                                  num_workers=workers, prefetch_factor=2)
+    seen = []
+    for x, y in loader:
+        assert x._data.is_cuda and y._data.is_cuda
+        assert x.place == paddle.CUDAPlace(0)
+        seen += y.numpy().tolist()
+        assert (x.numpy()[:, 0, 0, 0] == y.numpy()).all()
+    assert seen == list(range(8))
+    paddle.set_device("cpu")
+    x, _ = next(iter(loader))
+    assert not x._data.is_cuda
+
+
+def test_iterable_loader_workers_forked_after_cuda(surface):
+    """An IterableDataset whose ``__iter__`` calls ``paddle.to_tensor``,
+    read by 2 workers forked after CUDA started in the parent: the
+    workers make CPU tensors, and the parent's batches are CUDA tensors."""
+    from chip_smoke import _iterable_loader_check
+
+    paddle = surface
+    paddle.set_device("gpu")
+    paddle.zeros([1])                       # CUDA started in the parent
+    assert _iterable_loader_check(paddle, workers=2) == "cuda"
+
+
+def test_vision_bfloat16_casts_buffers_and_keeps_parameters(surface):
+    paddle = surface
+    paddle.set_device("gpu")
+    net = paddle.vision.models.resnet18(num_classes=4)
+    params = net.parameters()
+    net.bfloat16()
+    assert net.parameters() == params
+    assert all(q.dtype == paddle.bfloat16 and q._data.is_cuda
+               for q in params)
+    assert all(b.dtype == paddle.bfloat16 for b in net.buffers())
+    step = paddle.jit.TrainStep(
+        net, lambda x, y: paddle.nn.functional.cross_entropy(net(x), y),
+        paddle.optimizer.Momentum(learning_rate=0.01, parameters=params))
+    x = paddle.randn([2, 3, 64, 64]).astype("bfloat16")
+    before = net.bn1._mean.numpy().copy()
+    loss = step(x, paddle.to_tensor(np.array([0, 3])))
+    assert np.isfinite(float(loss))
+    assert not np.array_equal(net.bn1._mean.numpy(), before)

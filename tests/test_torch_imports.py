@@ -54,6 +54,10 @@ def test_scan_covers_the_package():
         "core/tensor", "core/dispatch", "models/bert", "autograd/__init__",
         "nn/layer/layers", "nn/functional/flash_attention", "ops/math",
         "device/__init__")} <= rel
+    assert {f"paddle_tpu_torch/{m}.py" for m in (
+        "io/__init__", "hapi/model", "hapi/callbacks", "vision/models",
+        "vision/ops", "vision/transforms", "nn/functional/conv",
+        "nn/functional/pooling", "framework_io", "metric/__init__")} <= rel
     assert {f"paddle_tpu_torch/inference/fleet/{m}.py" for m in (
         "__init__", "overload", "router", "soak", "wire", "transport",
         "worker", "cluster", "hosts", "disagg", "spec_decode")} <= rel

@@ -30,8 +30,6 @@ from paddle_tpu_torch import device as tdevice
 from test_op_battery import CASES
 
 _COMPAT = "A.13 (b): ops/compat.py"
-_CONV = "A.13 (c): nn/functional/conv.py"
-_POOL = "A.13 (c): nn/functional/pooling.py"
 DEFERRED = {
     **{n: _COMPAT for n in (
         "i0e", "i1e", "polygamma", "sinc", "diagonal", "unstack",
@@ -41,16 +39,12 @@ DEFERRED = {
     "F.pairwise_distance": "A.13 (b): nn/functional/compat.py",
     "matrix_transpose": "A.13 (e): linalg_ns.py",
     "fft_abs": "A.13 (e): fft.py", "rfft_abs": "A.13 (e): fft.py",
-    **{n: _CONV for n in ("F.conv1d", "F.conv2d", "F.conv3d",
-                          "F.conv1d_transpose", "F.conv2d_transpose",
-                          "F.conv3d_transpose")},
-    **{n: _POOL for n in ("F.avg_pool1d", "F.avg_pool2d", "F.avg_pool3d",
-                          "F.max_pool1d", "F.max_pool2d",
-                          "F.adaptive_avg_pool2d", "F.adaptive_max_pool2d")},
 }
 
 RUN = [c for c in CASES if c.name not in DEFERRED]
-HALF = len(RUN) // 2
+# the halves split where they did while the conv and pooling cases were
+# deferred, so that no case moves from one file to the other
+HALF = [c.name for c in RUN].index("as_strided")
 MINE = RUN[:HALF]
 
 
