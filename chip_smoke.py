@@ -318,6 +318,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -332,7 +333,8 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 DEVICE = "cuda"
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12, torch.int8: 1979e12}
 
 
@@ -419,8 +421,8 @@ def phase_device():
 #: (1, 2, 4 or 8 chunks a thread) and bf16 (1, 2 or 4), each with an f32
 #: and a bf16 weight; add_rms_norm_kernel for the same x layouts, each with
 #: every mix of residual and weight types.
-SPILL_CHECKED = {"flash_attention.cu": (("flash",), 16),
-                 "flash_attention_split.cu": (("flash",), 16),
+SPILL_CHECKED = {"flash_attention.cu": (("flash",), 24),
+                 "flash_attention_split.cu": (("flash",), 24),
                  "rms_norm.cu": (("rms_norm_kernel",), 14),
                  "add_rms_norm.cu": (("add_rms_norm_kernel",), 28)}
 
@@ -759,8 +761,11 @@ def _rms_case(n, h, dtype, gen):
 #: error relative to the largest reference value. f32: summation order
 #: (and, in the backward, the run-to-run order of the dq atomics). bf16: p
 #: and ds are rounded from f32 values whose last bits differ between the
-#: routes, and the outputs are rounded to bf16.
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: routes, and the outputs are rounded to bf16. f16: the same rounding
+#: points at 3 more mantissa bits; measured 1.2e-4 to 6.6e-4 on every
+#: shape of phase amp (c) (PERF.md), bf16 9.6e-4 to 2.5e-3, so about 3x
+#: f16's largest and under bf16's largest.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 #: f32: summation order over M; bf16: output rounding (2^-8) and products
 #: rounded from f32 values whose last bits differ
 SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -6397,6 +6402,491 @@ def phase_vision(smi="", batch=VISION_BATCH, image=224, lr=VISION_LR,
     return res
 
 
+# --------------------------------------------------------------- phase amp
+#: (d) the card against the CPU at depth 2 under auto_cast bf16 (O1, O2):
+#: bf16 products rounded after sums taken in other orders on the two
+#: devices; bounds set from the chip runs' measured gaps (PERF.md): loss
+#: 5.7e-5 (O1) and 2.6e-4 (O2), gradients 9.8e-3 and 1.04e-2
+AMP_LOSS_RTOL = 1e-3
+AMP_GRAD_RTOL = 5e-2              # of each leaf's norm
+#: ... or of this share of the largest leaf's norm, where that is more: the
+#: key projections' biases have an exact gradient of 0 (a row's softmax
+#: ignores a shift common to its logits), which both devices compute as
+#: bf16 rounding noise (bf16 keeps 2^-8 = 3.9e-3 of a value)
+AMP_GRAD_FLOOR = 1e-2
+#: (b)'s forced overflow: a loss scale no float16 gradient survives
+AMP_OVERFLOW_SCALE = 2.0 ** 100
+AMP_STEPS = 3
+#: (e) paddle.nn.LSTM: 2 layers, bidirectional, 512 in and hidden, batch 64
+#: x 128 steps; its card-vs-CPU check at 1 layer and a small width
+LSTM_SHAPE = dict(num_layers=2, input_size=512, hidden_size=512, batch=64,
+                  seq=128)
+LSTM_CHECK_SHAPE = dict(num_layers=1, input_size=32, hidden_size=48,
+                        batch=4, seq=16)
+#: (c) the float16 flash kernels: config 4, config 5's GQA 32/8, GQA 32/4
+#: at 4096 (rep * S * d * 4 = 16 MiB: the router takes the split pair),
+#: and flash_widths' widths; BERT's shape comes first
+AMP_FLASH_SHAPES = ((3, 16, 16, 2048, 128), (3, 32, 8, 2048, 128),
+                    (1, 32, 4, 4096, 128)) + tuple(
+    (3, hq, hkv, 2048, d) for d, hq, hkv in FLASH_WIDTHS)
+#: (b2) the split pair's fp16 step through the surface: [B, S, Hq/Hkv, D]
+AMP_SPLIT_STEP = (1, 4096, 32, 4, 128)
+
+
+def _amp_launches(counts, want_nonzero, tag):
+    """``counts`` equal ``want_nonzero`` (name -> launches), the rest 0."""
+    want = {name: 0 for name in counts}
+    want.update(want_nonzero)
+    check(counts == want, f"amp {tag}: launches "
+          f"{ {k: v for k, v in counts.items() if v} }, want {want_nonzero}")
+
+
+def _max_abs_ds(q, k, v, o, lse, do, causal, scale):
+    """The largest |dS| = |P (dO V^T - delta)| that the backward rounds to
+    the operand type, from the plain version on these operands (kernel
+    layout, every q head)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    rep = q.shape[0] // k.shape[0]
+    scale = FA._scale(q, scale)
+    delta = FA._delta(o, do)
+    top = torch.zeros((), device=q.device)
+    for i in range(q.shape[0]):
+        _, ds = FA._p_ds(q[i], k[i // rep], v[i // rep], do[i], lse[i],
+                         delta[i], causal, scale)
+        top = torch.maximum(top, ds.abs().max())
+        del ds
+    return float(top)
+
+
+def _amp_flash_rows(gen, bert_shape):
+    """(c): each float16 flash kernel against its plain version, with its
+    times, bound (fp16's dense peak) and SDPA's time; the largest |dS| on
+    N(0, 1) operands at BERT's and config 4's shapes."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    f16 = torch.float16
+    rows = {"flash_attention_fwd": [], "flash_attention_bwd": [],
+            "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    b, h, s, d = bert_shape
+    fwd, bwd = _bert_flash_case(f16, gen, b, h, s, d)
+    rows["flash_attention_fwd"].append(fwd)
+    rows["flash_attention_bwd"].append(bwd)
+    for bb, hq, hkv, ss, dd in AMP_FLASH_SHAPES:
+        fwd, bwd, (dq, dkv) = _flash_cases(bb, hq, hkv, ss, dd, f16, gen)
+        for name, r in zip(rows, (fwd, bwd, dq, dkv)):
+            rows[name].append(dict(r, d=dd))
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"amp: fp16 {name} {r['shape']}: {r['ms']:.4f} ms (bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA "
+                  f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}) rel "
+                  f"err {r['max_rel_err']:.3g}", flush=True)
+    ds = {}
+    for tag, (bb, hq, hkv, ss, dd, causal) in (
+            ("bert", (b, h, h, s, d, False)),
+            ("config4", (3, 16, 16, 2048, 128, True))):
+        q = torch.randn(bb * hq, ss, dd, generator=gen, device=DEVICE)
+        k, v = (torch.randn(bb * hkv, ss, dd, generator=gen, device=DEVICE)
+                for _ in range(2))
+        do = torch.randn(bb * hq, ss, dd, generator=gen, device=DEVICE)
+        q, k, v, do = (t.to(f16) for t in (q, k, v, do))
+        o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+        ds[tag] = _max_abs_ds(q, k, v, o, lse, do, causal, None)
+    print(f"amp: largest |dS| on N(0, 1) operands: {ds} (fp16 max 65504)",
+          flush=True)
+    return rows, ds
+
+
+def phase_amp(smi="", cfg_kw=None, batch=BERT_BATCH, seq=BERT_SEQ,
+              place="gpu", lstm_shape=None):
+    """BASELINE config 3 through ``paddle.amp``: (a) BERT-base at O2 in bf16
+    (``decorate``, AdamW ``multi_precision``, ``TrainStep``), (b) the same
+    model at O1 in float16 under ``GradScaler``, with a forced overflow,
+    and (b2) the split pair's fp16 step through the surface; (c) the
+    float16 flash kernels; (d) card against CPU at depth 2 under bf16 O1
+    and O2; (e) ``paddle.nn.LSTM`` and ``autograd.jacobian``/``hessian``.
+    ``cfg_kw``, ``batch``, ``seq``, ``place="cpu"`` and ``lstm_shape``
+    rehearse it small (with ``AMP_FLASH_SHAPES`` cut for (c))."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.ops.kernels.flash_attention as FA
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.nn.layer.norm import LayerNorm, _BatchNormBase
+
+    K = paddle.ops.kernels
+    F16 = "_f16"
+    t_phase = time.perf_counter()
+    paddle.set_device(place)
+    res = {"smi": smi}
+    cfg = bert_base(dropout=0.1, **(cfg_kw or {}))
+    L, V = cfg.num_layers, cfg.vocab_size
+    b, s = batch, seq
+    launches = {name: 0 for name in K.launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    # (a) O2 bf16: decorate, AdamW(multi_precision), TrainStep
+    bf16 = dict(enable=True, dtype="bfloat16", level="O2")
+    paddle.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    with paddle.amp.auto_cast(**bf16):
+        model = BertForPretraining(cfg)
+    model = paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+    nparams = sum(p.size for p in model.parameters())
+    norm_ids = {id(p) for layer in model.sublayers(include_self=True)
+                if isinstance(layer, (LayerNorm, _BatchNormBase))
+                for p in layer.parameters(include_sublayers=False)}
+    dtypes = {n: str(p.dtype).split(".")[-1]
+              for n, p in model.named_parameters()}
+    wrong = [n for n, p in model.named_parameters()
+             if (p._data.dtype == torch.float32) != (id(p) in norm_ids)
+             or p._data.dtype not in (torch.float32, torch.bfloat16)]
+    check(not wrong, f"amp (a): O2 parameter dtypes {wrong[:4]}")
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                                 parameters=model.parameters())
+    step = paddle.jit.TrainStep(model, lambda i, y, n: model.loss(i, y, n),
+                                opt)
+
+    def o2_step(*batch_):
+        with paddle.amp.auto_cast(**bf16):
+            return step(*batch_)
+
+    losses = [float(o2_step(*_bert_batch(paddle, V, b, s, 300)))]  # warm-up
+    # every bf16 parameter the loss reaches (without token types, all but
+    # token_type_embeddings) has an f32 master in AdamW's state
+    low = [p._data for p in model.parameters()
+           if p._data.dtype != torch.float32 and p._data in opt.state]
+    masters = [opt.state[p].get("master_weight") for p in low]
+    check(len(low) == len(dtypes) - len(norm_ids) - 1 and all(
+        m is not None and m.dtype == torch.float32 for m in masters),
+          f"amp (a): AdamW keeps an f32 master of every bf16 parameter "
+          f"({sum(m is not None for m in masters)} of {len(low)})")
+    ms = []
+    for i in range(AMP_STEPS):
+        batch_ = _bert_batch(paddle, V, b, s, 301 + i)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = o2_step(*batch_)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        _amp_launches(counts, {"flash_attention_fwd": L,
+                               "flash_attention_bwd": L}, f"O2 step {i}")
+        add(counts)
+        losses.append(float(loss))
+    rep = _bert_batch(paddle, V, b, s, 7)
+    repeated = [float(o2_step(*rep)) for _ in range(3)]
+    check(all(np.isfinite(losses + repeated)), f"amp (a) losses {losses}")
+    check(repeated[2] < repeated[0],
+          f"amp (a): repeated batch not learned: {repeated}")
+    med = statistics.median(ms)
+    tps = b * s / (med / 1e3)
+    prof = _profile_step(o2_step, rep, med)
+    res["o2_bf16"] = {
+        "losses": losses, "repeated_batch_losses": repeated,
+        "param_dtypes": sorted(set(dtypes.values())),
+        "f32_params": sorted(n for n, t in dtypes.items() if t == "float32"),
+        "step_ms": ms, "step_ms_median": med, "tokens_per_s": tps,
+        "model_flops_share": 6.0 * nparams * tps / PEAK_OPS[torch.bfloat16],
+        "host_share": prof["host_share"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "by_group_ms": prof["by_group_ms"],
+        "port_kernels_ms": prof["port_kernels_ms"],
+        "top_kernels_ms": prof["top_kernels_ms"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    r = res["o2_bf16"]
+    print(f"amp: (a) BERT-base O2 bf16 {nparams / 1e6:.1f} M params, batch "
+          f"{b} x {s}: losses {[round(x, 4) for x in losses]}, repeated "
+          f"{[round(x, 4) for x in repeated]}; step median {med:.1f} ms "
+          f"({[round(x, 1) for x in ms]}), {tps:.0f} tokens/s, model-flops "
+          f"share {r['model_flops_share']:.4f}, host share "
+          f"{r['host_share']}, peak {r['peak_memory_gib']:.2f} GiB",
+          flush=True)
+    del step, opt, model
+    torch.cuda.empty_cache()
+
+    # (b) O1 float16 under GradScaler (2^16, dynamic), eager steps
+    f16 = dict(enable=True, dtype="float16", level="O1")
+    paddle.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = BertForPretraining(cfg)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    scaler = paddle.amp.GradScaler()
+    check(scaler.get_init_loss_scaling() == 2.0 ** 16
+          and scaler.is_use_dynamic_loss_scaling(), "GradScaler defaults")
+
+    def o1_step(*batch_):
+        with paddle.amp.auto_cast(**f16):
+            loss_ = model.loss(*batch_)
+        scaler.scale(loss_).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss_
+
+    f_losses = [float(o1_step(*_bert_batch(paddle, V, b, s, 400)))]
+    f_ms = []
+    for i in range(AMP_STEPS):
+        batch_ = _bert_batch(paddle, V, b, s, 401 + i)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = o1_step(*batch_)
+        torch.cuda.synchronize()
+        f_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        _amp_launches(counts, {"flash_attention_fwd" + F16: L,
+                               "flash_attention_bwd" + F16: L},
+                      f"O1 fp16 step {i}")
+        add(counts)
+        f_losses.append(float(loss))
+    check(all(np.isfinite(f_losses)), f"amp (b) losses {f_losses}")
+    f_med = statistics.median(f_ms)
+    fprof = _profile_step(o1_step, batch_, f_med)
+    # the largest |dS| of this step's backwards, from the plain version on
+    # the operands each layer's backward gets
+    seen = []
+    real_bwd = FA.flash_attention_bwd
+
+    def spy(q, k, v, o, lse, do, causal=False, scale=None):
+        seen.append(_max_abs_ds(q, k, v, o, lse, do, causal, scale))
+        return real_bwd(q, k, v, o, lse, do, causal, scale)
+
+    FA.flash_attention_bwd = spy
+    try:
+        o1_step(*rep)
+    finally:
+        FA.flash_attention_bwd = real_bwd
+    check(len(seen) == L, f"amp (b): {len(seen)} backwards seen, want {L}")
+    # one step whose gradients overflow in fp16, through the loss scale
+    params = [p._data for p in model.parameters()]
+    snap = [t.detach().clone() for t in params] + [
+        t.detach().clone() for st in opt.state.values()
+        for t in st.values() if isinstance(t, torch.Tensor)]
+    step_count = opt._step_count
+    scaler.set_init_loss_scaling(AMP_OVERFLOW_SCALE)
+    from paddle_tpu_torch.amp import _found_inf_counter
+
+    paddle.telemetry.enable()
+    inf0 = _found_inf_counter().value()
+    ov_loss = float(o1_step(*rep))
+    inf1 = _found_inf_counter().value()
+    paddle.telemetry.disable()
+    after = params + [t for st in opt.state.values() for t in st.values()
+                      if isinstance(t, torch.Tensor)]
+    same = len(after) == len(snap) and all(
+        a.shape == c.shape and torch.equal(a.reshape(-1).view(torch.uint8),
+                                           c.reshape(-1).view(torch.uint8))
+        for a, c in zip(after, snap))
+    check(scaler._found_inf and opt._step_count == step_count,
+          "amp (b): the overflow step was not skipped")
+    check(scaler.get_init_loss_scaling() == AMP_OVERFLOW_SCALE / 2,
+          f"amp (b): scale {scaler.get_init_loss_scaling()} after overflow")
+    check(same, "amp (b): a byte of a parameter or slot changed")
+    check(inf1 - inf0 == 1, f"amp_found_inf_total went {inf0} -> {inf1}")
+    res["o1_fp16"] = {
+        "losses": f_losses, "step_ms": f_ms, "step_ms_median": f_med,
+        "tokens_per_s": b * s / (f_med / 1e3),
+        "host_share": fprof["host_share"],
+        "device_busy_ms": fprof["device_busy_ms"],
+        "port_kernels_ms": fprof["port_kernels_ms"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "max_abs_ds_by_layer": seen, "loss_scale": 2.0 ** 16,
+        "overflow": {"loss": ov_loss, "scale_before": AMP_OVERFLOW_SCALE,
+                     "scale_after": scaler.get_init_loss_scaling(),
+                     "skipped": True, "bytes_unchanged": same,
+                     "amp_found_inf_total": [inf0, inf1]}}
+    print(f"amp: (b) BERT-base O1 fp16 + GradScaler: losses "
+          f"{[round(x, 4) for x in f_losses]}; step median {f_med:.1f} ms "
+          f"({[round(x, 1) for x in f_ms]}), host share "
+          f"{fprof['host_share']}; largest |dS| a layer "
+          f"{max(seen):.4g} (scale 2^16); overflow at 2^100 skipped, scale "
+          f"-> 2^{math.log2(scaler.get_init_loss_scaling()):.0f}, no byte "
+          f"changed, amp_found_inf_total {inf0} -> {inf1}", flush=True)
+    del model, opt, scaler, snap, params, after
+    torch.cuda.empty_cache()
+
+    # (b2) the split pair in fp16: one long-sequence GQA attention step
+    # through the surface under auto_cast float16
+    sb_, ss_, shq, shk, sd = AMP_SPLIT_STEP
+    rng = np.random.RandomState(5)
+    qkv = [paddle.to_tensor(rng.randn(sb_, ss_, h, sd).astype(np.float32),
+                            stop_gradient=False) for h in (shq, shk, shk)]
+    check(FA.bwd_route(shq // shk, ss_, sd) == "split",
+          "amp (b2): the router keeps the fused backward")
+    K.reset_launch_counts()
+    with paddle.amp.auto_cast(**f16):
+        out = paddle.nn.functional.scaled_dot_product_attention(
+            *qkv, is_causal=True)
+    check(out.dtype == paddle.float16, f"amp (b2): sdpa gave {out.dtype}")
+    (out.astype("float32") ** 2).mean().backward()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    _amp_launches(counts, {"flash_attention_fwd" + F16: 1,
+                           "flash_attention_bwd_dq" + F16: 1,
+                           "flash_attention_bwd_dkv" + F16: 1}, "(b2)")
+    add(counts)
+    check(all(np.isfinite(t.grad.numpy()).all() for t in qkv),
+          "amp (b2): gradients not finite")
+    del qkv, out
+    res["launches"] = launches
+
+    # the wrapper's host cost an op (paddle_surface (d)) with autocast off
+    # and on: the hook's attribute check, and under auto_cast the list
+    # lookups and the casts
+    res["wrapper_us"] = {"amp_off": _wrapper_cost(paddle)}
+    with paddle.amp.auto_cast(**bf16):
+        res["wrapper_us"]["amp_on"] = _wrapper_cost(paddle)
+    print("amp: host us per op (Tensor / torch), amp off and on: " +
+          json.dumps({k: {n: [round(v["tensor_us"], 2),
+                              round(v["torch_us"], 2)] for n, v in w.items()}
+                      for k, w in res["wrapper_us"].items()}), flush=True)
+
+    # (c) the float16 flash kernels against their plain versions
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    res["flash_f16"], res["max_abs_ds_random"] = _amp_flash_rows(
+        gen, (b, cfg.num_heads, s, cfg.hidden_size // cfg.num_heads))
+    torch.cuda.empty_cache()
+
+    # (d) card against CPU at depth 2, bf16 O1 and O2, the same weights
+    small = bert_base(**dict(cfg_kw or {}, num_layers=2, dropout=0.0))
+    sb, ss = SURFACE_CPU_SHAPE
+    res["card_vs_cpu"] = {}
+    for level in ("O1", "O2"):
+        got = {}
+        for where in ("cpu", place):
+            paddle.set_device(where)
+            paddle.seed(1)
+            m = BertForPretraining(small)
+            if got:
+                m.set_state_dict(got["cpu"][2])
+            weights = {k: v.numpy() for k, v in m.state_dict().items()}
+            if level == "O2":
+                paddle.amp.decorate(m, level="O2")
+            with paddle.amp.auto_cast(dtype="bfloat16", level=level):
+                loss = m.loss(*_bert_batch(paddle, V, sb, ss, 3))
+            loss.backward()
+            got["card" if got else "cpu"] = (
+                float(loss), {n: p.grad.numpy() for n, p in
+                              m.named_parameters() if p.grad is not None},
+                weights)
+        paddle.set_device(place)
+        g_cpu, g_gpu = got["cpu"][1], got["card"][1]
+        check(set(g_cpu) == set(g_gpu), "card vs cpu: other leaves have grads")
+        top = max(np.linalg.norm(g) for g in g_cpu.values())
+        grad_rel = {n: float(np.linalg.norm(g_gpu[n] - g)
+                             / max(np.linalg.norm(g), AMP_GRAD_FLOOR * top))
+                    for n, g in g_cpu.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        res["card_vs_cpu"][level] = {
+            "losses": [got["cpu"][0], got["card"][0]], "loss_rel": loss_rel,
+            "grad_rel_max": grad_rel[worst], "grad_rel_worst": worst,
+            "tols": [AMP_LOSS_RTOL, AMP_GRAD_RTOL]}
+        print(f"amp: (d) bf16 {level} depth 2 card vs cpu loss rel "
+              f"{loss_rel:.2e} (tol {AMP_LOSS_RTOL}), grads max rel "
+              f"{grad_rel[worst]:.2e} ({worst}, tol {AMP_GRAD_RTOL})",
+              flush=True)
+        check(loss_rel <= AMP_LOSS_RTOL, f"{level} card vs cpu loss rel "
+              f"{loss_rel}")
+        check(grad_rel[worst] <= AMP_GRAD_RTOL,
+              f"{level} card vs cpu grad {worst} rel {grad_rel[worst]}")
+        del got
+
+    # (e) paddle.nn.LSTM: a training step, and the card against the CPU
+    sh = dict(lstm_shape or LSTM_SHAPE)
+    paddle.seed(0)
+    lstm = paddle.nn.LSTM(sh["input_size"], sh["hidden_size"],
+                          sh["num_layers"], direction="bidirect")
+    lopt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                 parameters=lstm.parameters())
+    rng = np.random.RandomState(6)
+    xb = paddle.to_tensor(rng.randn(sh["batch"], sh["seq"],
+                                    sh["input_size"]).astype(np.float32))
+    yb = paddle.to_tensor(rng.randn(sh["batch"], sh["seq"],
+                                    2 * sh["hidden_size"]).astype(np.float32))
+
+    def lstm_step(x, y):
+        out, _ = lstm(x)
+        loss_ = paddle.nn.functional.mse_loss(out, y)
+        loss_.backward()
+        lopt.step()
+        lopt.clear_grad()
+        return loss_
+
+    l_losses = [float(lstm_step(xb, yb))]
+    l_ms = []
+    for _ in range(AMP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l_losses.append(float(lstm_step(xb, yb)))
+        l_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(l_losses)) and l_losses[-1] < l_losses[0],
+          f"amp (e): LSTM losses {l_losses}")
+    l_med = statistics.median(l_ms)
+    lprof = _profile_step(lstm_step, (xb, yb), l_med)
+    cs = LSTM_CHECK_SHAPE
+    rng = np.random.RandomState(8)
+    xs = rng.randn(cs["batch"], cs["seq"], cs["input_size"]).astype(
+        np.float32)
+    got = {}
+    for where in ("cpu", place):
+        paddle.set_device(where)
+        paddle.seed(2)
+        m = paddle.nn.LSTM(cs["input_size"], cs["hidden_size"],
+                           cs["num_layers"])
+        if got:
+            m.set_state_dict(got["cpu"][2])
+        out, (h, c) = m(paddle.to_tensor(xs))
+        loss = (out ** 2).mean() + (c ** 2).mean()
+        loss.backward()
+        got["card" if got else "cpu"] = (
+            float(loss), {n: p.grad.numpy()
+                          for n, p in m.named_parameters()},
+            {k: v.numpy() for k, v in m.state_dict().items()})
+    paddle.set_device(place)
+    l_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    lg = max(float(np.linalg.norm(got["card"][1][n] - g)
+                   / np.linalg.norm(g)) for n, g in got["cpu"][1].items())
+    check(l_rel <= TRAIN_LOSS_RTOL and lg <= TRAIN_GRAD_RTOL,
+          f"amp (e): LSTM card vs cpu loss rel {l_rel}, grad rel {lg}")
+    # autograd.jacobian / hessian of a small function, card against CPU
+    wj = np.random.RandomState(9).randn(6, 5).astype(np.float32)
+    xj = np.random.RandomState(10).randn(4, 6).astype(np.float32)
+    jac = {}
+    for where in ("cpu", place):
+        paddle.set_device(where)
+        w_t = paddle.to_tensor(wj)
+        f = (lambda x: paddle.tanh(paddle.matmul(x, w_t)))
+        jac[where] = (paddle.autograd.jacobian(f, paddle.to_tensor(xj))
+                      .numpy(),
+                      paddle.autograd.hessian(lambda x: f(x).sum(),
+                                              paddle.to_tensor(xj)).numpy())
+    paddle.set_device(place)
+    j_rel = [float(np.linalg.norm(jac[place][i] - jac["cpu"][i])
+                   / np.linalg.norm(jac["cpu"][i])) for i in range(2)]
+    check(max(j_rel) <= TRAIN_GRAD_RTOL, f"amp (e): jacobian/hessian card "
+          f"vs cpu rel {j_rel}")
+    res["lstm"] = {
+        "shape": sh, "losses": l_losses, "step_ms": l_ms,
+        "step_ms_median": l_med, "host_share": lprof["host_share"],
+        "device_busy_ms": lprof["device_busy_ms"],
+        "top_kernels_ms": lprof["top_kernels_ms"],
+        "card_vs_cpu": {"shape": cs, "loss_rel": l_rel, "grad_rel_max": lg},
+        "jacobian_hessian_rel": j_rel}
+    print(f"amp: (e) LSTM {sh}: losses {[round(x, 4) for x in l_losses]}, "
+          f"step median {l_med:.1f} ms ({[round(x, 1) for x in l_ms]}), "
+          f"host share {lprof['host_share']}; card vs cpu {cs}: loss rel "
+          f"{l_rel:.2e}, grads max rel {lg:.2e}; jacobian/hessian rel "
+          f"{[f'{x:.2e}' for x in j_rel]}", flush=True)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -6485,6 +6975,7 @@ def main():
                                        report["device"]["smi"])
         report["vision"] = run("vision", phase_vision,
                                report["device"]["smi"])
+        report["amp"] = run("amp", phase_amp, report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -6517,12 +7008,23 @@ def main():
                                     src + "csrc/flash_attention_split.cu",
                                     pallas + "flash_attention.py:539"),
     }
+    # the float16 instantiations of the flash kernels, at the amp path's
+    # shapes: BERT's for the forward and the fused backward, GQA 32/4 at
+    # 4096 (where the router takes it) for the split pair
+    f16_case = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+    for name, i in f16_case.items():
+        meta[name + "_f16"] = meta[name]
     line = []
     for name, (route, source, replaces) in meta.items():
         # bf16 at the main path's shape: serving for the decode kernels,
         # the incubate decoder for add_rms_norm, long-context training for
         # the split backward, config 4 training for the others
-        main_case = report["kernels"][name][0]
+        if name.endswith("_f16"):
+            base = name[:-len("_f16")]
+            main_case = report["amp"]["flash_f16"][base][f16_case[base]]
+        else:
+            main_case = report["kernels"][name][0]
         by_path = {path: report[path]["launches"][name]
                    for path in ("serving", "serving_int8", "serving_spec",
                                 "serving_int8w", "serving_disagg",
@@ -6530,7 +7032,7 @@ def main():
                                 "incubate_surface", "training",
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
-                                "paddle_surface", "vision")}
+                                "paddle_surface", "vision", "amp")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -10,7 +10,8 @@ that the CPU runs.
 ``import paddle_tpu_torch as paddle`` gives the Paddle surface: ``Tensor``
 (over one ``torch.Tensor``, with torch's autograd), ``to_tensor``, the
 dtypes, the ops, ``nn`` and ``nn.functional``, ``optimizer`` and
-``jit.TrainStep``, and the vision user's path: ``io`` (``DataLoader``
+``jit.TrainStep``, ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
+and the vision user's path: ``io`` (``DataLoader``
 with worker processes), ``metric``, ``Model`` with ``callbacks``,
 ``save``/``load`` and ``vision``. A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
@@ -45,6 +46,7 @@ from .ops import linalg  # noqa: F401,E402
 
 from . import autograd  # noqa: F401,E402
 from .autograd import grad, PyLayer  # noqa: F401,E402
+from . import amp  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
 from . import regularizer  # noqa: F401,E402

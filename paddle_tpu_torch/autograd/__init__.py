@@ -15,8 +15,9 @@ Torch autograd throughout; the reference's tape engine
   with the hooks' tensors wrapped as Tensors (the reference's is a stub
   that never calls them).
 
-``autograd/functional.py`` (``jacobian``, ``hessian``, ``jvp``, ``vjp``)
-is not ported yet (``ROADMAP.md`` A.13 (b)).
+``jacobian``, ``hessian``, ``jvp`` and ``vjp`` (with the lazy
+``Jacobian`` and ``Hessian``) are ``autograd/functional.py``'s, over
+``torch.func``.
 """
 from __future__ import annotations
 
@@ -175,6 +176,10 @@ class saved_tensors_hooks:
         return self._ctx.__exit__(*exc)
 
 
+from .functional import (  # noqa: E402
+    Hessian, Jacobian, hessian, jacobian, jvp, vjp)
+
 __all__ = ["backward", "grad", "PyLayer", "PyLayerContext",
            "saved_tensors_hooks", "no_grad", "enable_grad",
-           "set_grad_enabled", "is_grad_enabled"]
+           "set_grad_enabled", "is_grad_enabled", "Jacobian", "Hessian",
+           "jacobian", "hessian", "jvp", "vjp"]

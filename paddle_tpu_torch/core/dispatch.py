@@ -10,17 +10,22 @@ no counterpart.
 
 This is the hot path of every op, and paths of many small ops are
 host-bound on the card: there is no pytree flatten and no registry lookup
-per op, and the ``op_dispatch_total{op}`` counter costs one attribute
-check while telemetry is off.
+per op, and the ``op_dispatch_total{op}`` counter and the amp autocast
+hook (the reference's ``_maybe_autocast``, :97-116) each cost one
+attribute check while they are off. Under ``paddle.amp.auto_cast`` the
+op's torch inputs go through ``amp.autocast`` (the white list's ops take
+the low type, the black list's f32) before ``fn`` runs; torch's autograd
+carries each gradient back to its input's own type through the cast.
 
-Not ported, each with its own item: the amp autocast hook
-(``_maybe_autocast``, A.13 (d)), the checkify hook (``_check_nan_inf``,
-A.6 item 3) and static-program recording (``_record_static``, A.13 (e)).
+Not ported, each with its own item: the checkify hook
+(``_check_nan_inf``, A.6 item 3) and static-program recording
+(``_record_static``, A.13 (e)).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import amp as _amp
 from .. import telemetry as _telemetry
 from .tensor import Parameter, Tensor
 
@@ -31,6 +36,7 @@ _OP_DISPATCH = _telemetry.counter(
     labelnames=("op",), max_series=2048)
 
 _TENSOR_TYPES = (Tensor, Parameter)
+_AMP_STATE = _amp.amp_state()
 
 
 def unwrap(a):
@@ -69,4 +75,8 @@ def apply_op(fn, *args, _op_name=None, **kwargs):
     args = [unwrap(a) for a in args]
     if kwargs:
         kwargs = {k: unwrap(v) for k, v in kwargs.items()}
+    if _AMP_STATE.enabled:
+        name = _op_name or getattr(fn, "__name__", "op")
+        args = _amp.autocast(name, args)
+        kwargs = _amp.autocast(name, kwargs)
     return wrap(fn(*args, **kwargs))

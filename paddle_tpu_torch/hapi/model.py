@@ -8,9 +8,11 @@ update in one call, eagerly: the port has no compiled step);
 the jit branch computes the metrics of a batch with a second, eval-mode
 forward after the step.
 
-Not ported, each raising ``NotImplementedError``: ``prepare(amp_configs=
-...)`` (``ROADMAP.md`` A.13 (d), AMP) and ``save(path, training=False)``,
-the inference export through ``jit.save`` (A.6 item 2). The reference's
+Raising ``NotImplementedError``: ``prepare(amp_configs=...)``, which
+the reference accepts and never reads (``paddle.amp.decorate`` and
+``auto_cast`` do the work), and ``save(path, training=False)``, the
+inference export through ``jit.save`` (not ported yet, ``ROADMAP.md``
+A.6 item 2). The reference's
 mesh branch (``ShardedTrainStep`` under an active fleet mesh, A.10) has
 no counterpart: the port's ``Model`` trains on one card.
 """
@@ -42,8 +44,10 @@ class Model:
                 amp_configs=None, use_jit=True):
         if amp_configs is not None:
             raise NotImplementedError(
-                "Model.prepare(amp_configs=...): AMP is not ported yet "
-                "(ROADMAP.md A.13 (d))")
+                "Model.prepare(amp_configs=...): the reference accepts the "
+                "argument and never reads it; wrap the model in "
+                "paddle.amp.decorate and the steps in paddle.amp.auto_cast "
+                "instead")
         self._optimizer = optimizer
         self._loss = loss
         if metrics is not None:

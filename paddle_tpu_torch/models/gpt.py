@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..amp import autocast, is_auto_cast_enabled
 from ..device import resolve_device
 from .. import quant as _quant
 from ..memory.int8_ckpt import int8_checkpoint, quantize_rows_int8
@@ -165,8 +166,16 @@ def _block_only_options(config):
     return opts
 
 
+class _Linear(nn.Linear):
+    """``nn.Linear`` whose input and weights take ``linear``'s type under
+    ``paddle.amp.auto_cast`` (the low type: a white-list op)."""
+
+    def forward(self, x):
+        return F.linear(*autocast("linear", (x, self.weight, self.bias)))
+
+
 def _linear(i, o, device, dtype, bias=False):
-    return nn.Linear(i, o, bias=bias, device=device, dtype=dtype)
+    return _Linear(i, o, bias=bias, device=device, dtype=dtype)
 
 
 class RMSNorm(nn.Module):
@@ -177,7 +186,7 @@ class RMSNorm(nn.Module):
             torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
-        return _rms_pure(x, self.weight, self.eps)
+        return _rms_pure(*autocast("rms_norm", (x, self.weight)), self.eps)
 
 
 def _norm(config, device, dtype):
@@ -238,6 +247,7 @@ class Attention(nn.Module):
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         if self.rope:
             q, k = _rope_pure(q), _rope_pure(k)
+        q, k, v = autocast("sdpa", (q, k, v))
         if attn_mask is None:
             out = flash_attention(q, k, v, causal=True)
         else:
@@ -417,9 +427,9 @@ class GPTModel(_SharedBlockRunner, nn.Module):
     def _shared_block_refusal(self, attn_mask):
         """None when the stack can run through the shared block, else the
         condition that failed (the reference's ``_shared_block_eligible``,
-        ``models/gpt.py:271-301``). Not checked yet, as the port has
-        neither: the reference's amp autocast condition (A.13 (d) adds
-        it back with ``amp``) and its per-layer placement and pp-mesh
+        ``models/gpt.py:271-301``). Under ``paddle.amp.auto_cast`` the
+        module loop runs, so that each op takes its list's type. Not
+        checked yet: the reference's per-layer placement and pp-mesh
         conditions (A.10 adds them back with the placements)."""
         cfg = self.config
         if attn_mask is not None:
@@ -432,6 +442,8 @@ class GPTModel(_SharedBlockRunner, nn.Module):
             return f"norm_type={cfg.norm_type!r} (the block is rmsnorm)"
         if cfg.act != "swiglu":
             return f"act={cfg.act!r} (the block is swiglu)"
+        if is_auto_cast_enabled():
+            return "auto_cast is enabled"
         for layer in self.layers:
             if type(layer) is not DecoderLayer:
                 return (f"a layer is a {type(layer).__name__}, not a plain "
@@ -519,7 +531,10 @@ class GPTForCausalLM(nn.Module):
                 else self.lm_head.weight)
 
     def forward(self, input_ids, attn_mask=None):
-        return F.linear(self.model(input_ids, attn_mask), self._head())
+        # the reference's head is a "matmul" (tied) or a "linear"; both
+        # white-list ops
+        return F.linear(*autocast("linear", (self.model(input_ids, attn_mask),
+                                             self._head())))
 
     def loss(self, input_ids, labels, int8=None):
         """LM loss through the chunked-CE head (``models/gpt.py:405-415``):

@@ -1,11 +1,10 @@
 """``paddle.nn`` of the surface (counterpart of ``paddle_tpu/nn``): ``Layer``,
 the common, container, conv, pooling, norm, activation, loss and
 transformer layers, the initializers and the functionals, beside the
-gradient clips the optimizers take (``nn/clip.py``). The torch-level
-modules the port's models build on stay at their paths: ``nn/norm.py``
-and ``nn/functional/fused_cross_entropy.py``.
-
-Not ported yet: ``nn/layer/{rnn,compat}.py`` (``ROADMAP.md`` A.13 (b)).
+gradient clips the optimizers take (``nn/clip.py``), the recurrent
+layers (``nn/layer/rnn.py``) and the long tail (``nn/layer/compat.py``).
+The torch-level modules the port's models build on stay at their paths:
+``nn/norm.py`` and ``nn/functional/fused_cross_entropy.py``.
 """
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -44,4 +43,14 @@ from .layer.norm import (  # noqa: F401
 from .layer.transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)
+from .layer.rnn import (  # noqa: F401
+    GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
+    SimpleRNNCell)
+from .layer.compat import (  # noqa: F401
+    AdaptiveLogSoftmaxWithLoss, BeamSearchDecoder, FeatureAlphaDropout,
+    FractionalMaxPool2D, FractionalMaxPool3D, HSigmoidLoss, LPPool1D,
+    MaxUnPool1D, MaxUnPool2D, MaxUnPool3D, MultiMarginLoss, PairwiseDistance,
+    ParameterDict, RNNTLoss, Softmax2D, SpectralNorm,
+    TripletMarginWithDistanceLoss, Unflatten, ZeroPad1D, ZeroPad3D,
+    dynamic_decode)
 from ..param_attr import ParamAttr  # noqa: F401

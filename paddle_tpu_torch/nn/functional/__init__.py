@@ -1,8 +1,7 @@
 """``paddle.nn.functional`` of the surface (counterpart of
 ``paddle_tpu/nn/functional``), beside the torch-level functionals the
-port's models use (``fused_cross_entropy``'s and ``norm.rms_norm_arrays``).
-
-Not ported yet: ``compat`` (``ROADMAP.md`` A.13 (b)).
+port's models use (``fused_cross_entropy``'s and ``norm.rms_norm_arrays``),
+and the long tail (``compat``).
 """
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
@@ -10,6 +9,7 @@ from .conv import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
+from .compat import *  # noqa: F401,F403
 from .flash_attention import (  # noqa: F401
     flash_attention,
     flash_attn_unpadded,

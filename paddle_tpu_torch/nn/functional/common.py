@@ -3,8 +3,8 @@
 
 ``linear`` keeps Paddle's weight layout, ``[in, out]``: ``x @ W + b``. It
 hands torch's ``F.linear`` (which wants ``[out, in]``) the transposed
-view, so the bias add fuses into the GEMM. The fp8 route of ``linear``
-under ``amp.fp8_autocast`` is not ported yet (``ROADMAP.md`` A.13 (d)).
+view, so the bias add fuses into the GEMM. Under ``amp.fp8_autocast``
+it takes the incubate ``fp8_linear``.
 
 Dropout draws its mask from the default generator of the input's device.
 """
@@ -13,12 +13,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...amp import amp_state
 from ...core.dispatch import apply_op
 from ...core.tensor import Tensor
 
+_amp_state = amp_state()
+
 
 def linear(x, weight, bias=None, name=None):
-    """``x @ weight (+ bias)``, ``weight`` ``[in, out]``."""
+    """``x @ weight (+ bias)``, ``weight`` ``[in, out]``. Under
+    ``paddle.amp.fp8_autocast()`` the product is the incubate
+    ``fp8_linear``'s (e4m3 operands with per-tensor scales, a wide
+    backward), as in the reference."""
+    if _amp_state.fp8:
+        from ...incubate.nn.functional import fp8_linear
+
+        return apply_op(fp8_linear, x, weight, bias, _op_name="fp8_linear")
     return apply_op(lambda a, w, b: F.linear(a, w.t(), b), x, weight, bias,
                     _op_name="linear")
 

@@ -1,13 +1,16 @@
 """Torch-level ``RMSNorm`` and ``LayerNorm`` modules (counterparts of
 ``paddle_tpu/nn/layer/norm.py:82, 109``) that the port's models build on.
 The Paddle surface's ``nn.RMSNorm`` and ``nn.LayerNorm`` are the
-``Layer``s of ``nn/layer/norm.py``."""
+``Layer``s of ``nn/layer/norm.py``. Under ``paddle.amp.auto_cast`` both
+take their input and gain in f32, as the black-listed ``rms_norm`` and
+``layer_norm`` ops do in the reference."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import autocast
 from .functional.norm import rms_norm_arrays
 
 
@@ -21,7 +24,8 @@ class RMSNorm(nn.Module):
             torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
-        return rms_norm_arrays(x, self.weight, self.epsilon)
+        x, w = autocast("rms_norm", (x, self.weight))
+        return rms_norm_arrays(x, w, self.epsilon)
 
 
 class LayerNorm(nn.Module):
@@ -38,5 +42,5 @@ class LayerNorm(nn.Module):
             torch.zeros(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
-        return F.layer_norm(x, self.weight.shape, self.weight, self.bias,
-                            self.epsilon)
+        x, w, b = autocast("layer_norm", (x, self.weight, self.bias))
+        return F.layer_norm(x, w.shape, w, b, self.epsilon)

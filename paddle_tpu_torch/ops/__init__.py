@@ -7,8 +7,9 @@ live in ``ops.kernels``, which imports nothing of this surface.
 
 In-place methods (``add_``, ``__setitem__``, the trailing-underscore
 variants) compute out of place and rebind the handle (``Tensor``'s
-docstring); their result keeps the tensor's dtype. ``ops/compat.py`` and
-``ops/registry.py`` are not ported yet (``ROADMAP.md`` A.13 (b)).
+docstring); their result keeps the tensor's dtype. ``ops/compat.py``
+holds the long tail of the API; ``ops/registry.py`` the ops' metadata,
+which no op reads on its way through ``apply_op``.
 """
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ from .manipulation import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .random import *  # noqa: F401,F403
+from .compat import *  # noqa: F401,F403
 
-from . import creation, math, manipulation, logic, linalg, random  # noqa: F401
+from . import (creation, math, manipulation, logic, linalg, random,  # noqa: F401
+               compat, registry)
 from .math import operand
 
 
@@ -101,9 +104,11 @@ _BINARY_DUNDERS = {
     "__floordiv__": math.floor_divide,
     "__rfloordiv__": _reflected(operator.floordiv, "floor_divide"),
     "__mod__": math.mod, "__rmod__": _reflected(operator.mod, "mod"),
-    "__pow__": math.pow, "__rpow__": _reflected(operator.pow, "pow"),
+    # the reflected pow and matmul dispatch under names outside amp's lists,
+    # as the reference's lambdas do: auto_cast leaves them alone
+    "__pow__": math.pow, "__rpow__": _reflected(operator.pow, "rpow"),
     "__matmul__": linalg.matmul,
-    "__rmatmul__": _reflected(operator.matmul, "matmul"),
+    "__rmatmul__": _reflected(operator.matmul, "rmatmul"),
     "__eq__": logic.equal, "__ne__": logic.not_equal,
     "__lt__": logic.less_than, "__le__": logic.less_equal,
     "__gt__": logic.greater_than, "__ge__": logic.greater_equal,
@@ -221,6 +226,9 @@ _INPLACE_BASES = [
     "gcd", "lcm", "hypot", "copysign", "nan_to_num", "logit", "i0",
     "index_add", "index_put", "tril", "triu", "lerp", "t", "less",
     "bitwise_left_shift", "bitwise_right_shift", "where",
+    # ops/compat.py
+    "index_fill", "gammaln", "gammainc", "gammaincc", "multigammaln",
+    "polygamma", "sinc", "renorm", "bitwise_invert",
 ]
 
 

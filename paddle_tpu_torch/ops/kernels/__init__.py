@@ -48,7 +48,11 @@ LAUNCHES = {"paged_attention": 0, "rms_norm": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd": 0, "swiglu_down": 0,
             "paged_attention_int8": 0, "decode_attention": 0,
             "add_rms_norm": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dkv": 0,
+            # the float16 instantiations of the four flash kernels
+            "flash_attention_fwd_f16": 0, "flash_attention_bwd_f16": 0,
+            "flash_attention_bwd_dq_f16": 0,
+            "flash_attention_bwd_dkv_f16": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -23,6 +23,12 @@
 // of v and do give zero columns of o, dq, dk and dv: the results are exact.
 // The scale is the caller's (1/sqrt(d) of the real d).
 //
+// float16 (dtype 2) runs the bf16 kernels below instantiated with H = true:
+// the same tiles, the wgmma forms .f32.f16.f16, p and ds rounded by
+// cvt.rn.f16x2.f32 and tensor maps of FLOAT16 (sm90.cuh). fp16's range
+// holds p in [0, 1]; its smallest normal, 6e-5, and subnormals down to
+// 6e-8 keep what bf16 keeps of p to within the product's rounding.
+//
 // Forward, bf16: an FA3-style kernel (building blocks in sm90.cuh).
 // - One block per (bh, 128-row q tile), the longest causal q tiles first.
 //   The TPU's sequential grid dimension over k tiles becomes a loop; tiles
@@ -118,7 +124,7 @@ struct Fa3 {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-template <int DP>
+template <int DP, bool H>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -218,9 +224,9 @@ __global__ void __launch_bounds__(384, 1)
         const uint64_t kd =
             sm90::desc_b128(ks + (kk / 4) * L::kKBox + col, 16, 1024);
         if constexpr (BK == 128)
-          sm90::wgmma_ss_n128<0>(s, qd, kd, kk > 0);
+          sm90::wgmma_ss_n128<0, H>(s, qd, kd, kk > 0);
         else
-          sm90::wgmma_ss_n64<0>(s, qd, kd, kk > 0);
+          sm90::wgmma_ss_n64<0, 0, H>(s, qd, kd, kk > 0);
       }
       sm90::wgmma_commit();
     };
@@ -231,7 +237,7 @@ __global__ void __launch_bounds__(384, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        sm90::rs_step<DP>(o, pa[kk], vs + kk * 16 * 128, L::kKBox);
+        sm90::rs_step<DP, H>(o, pa[kk], vs + kk * 16 * 128, L::kKBox);
       sm90::wgmma_commit();
     };
     // the online softmax of tile j on s: p (f32) into s, the new row max
@@ -275,7 +281,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           pa[kk][r] =
-              sm90::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+              sm90::pack_x2<H>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
     };
 
     sm90::mbar_wait(q_bar, 0);
@@ -333,7 +339,7 @@ __global__ void __launch_bounds__(384, 1)
       for (int i = 0; i < DP / 2; ++i)
         if (((i >> 1) & 1) == h) o[i] *= inv;
     }
-    sm90::stage_rows<DP>(smem, L::kQBox, o, 1.f, c, warp, g, t4);
+    sm90::stage_rows<DP, H>(smem, L::kQBox, o, 1.f, c, warp, g, t4);
     sm90::fence_proxy_async();
     sm90::named_bar_sync(1 + c, 128);
     if (tid == 0) {
@@ -347,24 +353,24 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-template <int DP>
-cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
+template <int DP, bool H>
+cudaError_t launch_fwd_16bit(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bhq, int rep, int sq,
                             int sk, int d, float scale, int causal,
                             cudaStream_t stream) {
   using L = Fa3<DP>;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 128) ||
-      !sm90_host::map_rows(&k_map, k, bhq / rep, sk, d, L::kBK) ||
-      !sm90_host::map_rows(&v_map, v, bhq / rep, sk, d, L::kBK) ||
-      !sm90_host::map_rows(&o_map, o, bhq, sq, d, 64))
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 128, H) ||
+      !sm90_host::map_rows(&k_map, k, bhq / rep, sk, d, L::kBK, H) ||
+      !sm90_host::map_rows(&v_map, v, bhq / rep, sk, d, L::kBK, H) ||
+      !sm90_host::map_rows(&o_map, o, bhq, sq, d, 64, H))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<DP, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhq, (sq + 127) / 128);
-  flash_fwd_wgmma<DP><<<grid, 384, L::kSmem, stream>>>(
+  flash_fwd_wgmma<DP, H><<<grid, 384, L::kSmem, stream>>>(
       q_map, k_map, v_map, o_map, (float*)lse, rep, sq, sk, scale, causal);
   return cudaGetLastError();
 }
@@ -393,7 +399,7 @@ struct BwdWg {
   static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
 };
 
-template <int D>
+template <int D, bool H>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -516,9 +522,9 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;  // not carried
         sm90::wgmma_fence();
-        sm90::ss_n64<D>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
+        sm90::ss_n64<D, H>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
         sm90::wgmma_commit();
-        sm90::ss_n64<D>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
+        sm90::ss_n64<D, H>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
         sm90::fence_regs(s);
@@ -553,11 +559,11 @@ __global__ void __launch_bounds__(384, 1)
         }
         // P^T rounded to do's type (:415), dS^T to q's type (:422) and so
         // to k's type for dQ (:428; the two types are the same here)
-        sm90::pack_frags(pa, s);
-        sm90::pack_frags(dsa, dp);
+        sm90::pack_frags<H>(pa, s);
+        sm90::pack_frags<H>(dsa, dp);
         sm90::wgmma_fence();
-        sm90::rs_k64<D>(dv, pa, dos, L::kQBox);  // dV += P^T dO, dO MN-major
-        sm90::rs_k64<D>(dk, dsa, qs, L::kQBox);  // dK += dS^T Q, Q MN-major
+        sm90::rs_k64<D, H>(dv, pa, dos, L::kQBox);  // dV += P^T dO, dO MN-major
+        sm90::rs_k64<D, H>(dk, dsa, qs, L::kQBox);  // dK += dS^T Q, Q MN-major
         sm90::wgmma_commit();
       }
       // this consumer's 64 rows of the item's dS^T tile (zero where none of
@@ -586,7 +592,7 @@ __global__ void __launch_bounds__(384, 1)
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDqSteps; ++kk)  // dS read MN-major (q rows)
-          sm90::wgmma_ss_n64<1, 1>(
+          sm90::wgmma_ss_n64<1, 1, H>(
               dq, sm90::desc_b128(ds_a + kk * 16 * 128, L::kDsTile, 1024),
               sm90::desc_b128(dq_b + kk * 16 * 128, L::kKBox, 1024), 1);
         sm90::wgmma_commit();
@@ -630,8 +636,8 @@ __global__ void __launch_bounds__(384, 1)
     // tiles, then TMA (clipped at Sk). At D = 128 the other consumer's last
     // dQ product reads every K row: wait for it.
     if (D == 128) sm90::named_bar_sync(3, 256);
-    sm90::stage_rows<D>(smem, L::kKBox, dk, scale, c, warp, g, t4);
-    sm90::stage_rows<D>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
+    sm90::stage_rows<D, H>(smem, L::kKBox, dk, scale, c, warp, g, t4);
+    sm90::stage_rows<D, H>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
     sm90::fence_proxy_async();
     sm90::named_bar_sync(1 + c, 128);
     if (tid == 0) {
@@ -650,8 +656,8 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-template <int D>
-cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
+template <int D, bool H>
+cudaError_t launch_bwd_16bit(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq_acc, void* dk,
                             void* dv, int bhk, int rep, int sq, int sk, int d,
@@ -659,20 +665,20 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   using L = BwdWg<D>;
   const int bhq = bhk * rep;
   CUtensorMap q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map;
-  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 128) ||
-      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 128) ||
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 64, H) ||
+      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 64, H) ||
+      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 128, H) ||
+      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 128, H) ||
       !sm90_host::map_rows_f32(&dq_map, dq_acc, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&dk_map, dk, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&dv_map, dv, bhk, sk, d, 64))
+      !sm90_host::map_rows(&dk_map, dk, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&dv_map, dv, bhk, sk, d, 64, H))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_wgmma<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhk, (sk + 127) / 128);
-  flash_bwd_wgmma<D><<<grid, 384, L::kSmem, stream>>>(
+  flash_bwd_wgmma<D, H><<<grid, 384, L::kSmem, stream>>>(
       q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map,
       (const float*)lse, (const float*)delta, rep, sq, sk, scale, causal);
   return cudaGetLastError();
@@ -680,8 +686,9 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/o [bhq, sq, d], k/v [bhq/rep, sk, d],
-// lse [bhq, sq] f32, d <= 256 a multiple of 4 (f32) or 8 (bf16). Returns
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. q/o [bhq, sq, d], k/v
+// [bhq/rep, sk, d], lse [bhq, sq] f32, d <= 256 a multiple of 4 (f32) or 8
+// (bf16, f16). Returns
 // the CUDA error of the launch (0 on success; cudaErrorInvalidValue for
 // shapes the kernel does not take).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
@@ -695,11 +702,14 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   return (int)by_width(head_dim, [&](auto w) {
     constexpr int DP = decltype(w)::value;
-    return dtype == 0
-               ? flash_f32::launch_fwd<DP>(q, k, v, o, lse, bhq, rep, sq, sk,
-                                           head_dim, scale, causal, s)
-               : launch_fwd_bf16<DP>(q, k, v, o, lse, bhq, rep, sq, sk,
-                                     head_dim, scale, causal, s);
+    if (dtype == 0)
+      return flash_f32::launch_fwd<DP>(q, k, v, o, lse, bhq, rep, sq, sk,
+                                       head_dim, scale, causal, s);
+    return dtype == 2
+               ? launch_fwd_16bit<DP, true>(q, k, v, o, lse, bhq, rep, sq,
+                                            sk, head_dim, scale, causal, s)
+               : launch_fwd_16bit<DP, false>(q, k, v, o, lse, bhq, rep, sq,
+                                             sk, head_dim, scale, causal, s);
   });
 }
 
@@ -718,13 +728,17 @@ extern "C" int flash_attention_bwd_launch(
       return flash_f32::launch_bwd_kv<DP, true>(
           q, k, v, dout, lse, delta, dq_acc, dk, dv, bhk, rep, sq, sk,
           head_dim, scale, causal, s);
-    if constexpr (DP <= 128)
-      return launch_bwd_bf16<DP>(q, k, v, dout, lse, delta, dq_acc, dk, dv,
-                                 bhk, rep, sq, sk, head_dim, scale, causal,
-                                 s);
-    else
-      return flash_wide::launch<DP, true>(q, k, v, dout, lse, delta, dq_acc,
-                                          dk, dv, bhk, rep, sq, sk, head_dim,
-                                          scale, causal, s);
+    auto run = [&](auto h) {
+      constexpr bool H = decltype(h)::value;
+      if constexpr (DP <= 128)
+        return launch_bwd_16bit<DP, H>(q, k, v, dout, lse, delta, dq_acc, dk,
+                                       dv, bhk, rep, sq, sk, head_dim, scale,
+                                       causal, s);
+      else
+        return flash_wide::launch<DP, true, H>(
+            q, k, v, dout, lse, delta, dq_acc, dk, dv, bhk, rep, sq, sk,
+            head_dim, scale, causal, s);
+    };
+    return dtype == 2 ? run(std::true_type{}) : run(std::false_type{});
   });
 }

@@ -33,7 +33,9 @@
 // the real d (TMA loads the columns past d as zeros and clips them on
 // store), as in csrc/flash_attention.cu.
 //
-// bf16: FA3-style kernels on sm90.cuh, three warpgroups a block.
+// bf16 (and float16, the same kernels with H = true, as in
+// csrc/flash_attention.cu): FA3-style kernels on sm90.cuh, three
+// warpgroups a block.
 // Warpgroup 0 is the producer (registers cut to 24 by setmaxnreg); warpgroups
 // 1 and 2 are consumers (240 registers) that own 64 rows each of the
 // block's 128-row tile. Tiles arrive by TMA (128-byte swizzle) on mbarriers;
@@ -105,7 +107,7 @@ struct DqWg {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-template <int D>
+template <int D, bool H>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -216,10 +218,10 @@ __global__ void __launch_bounds__(384, 1)
       const uint32_t vs = base + L::kVOff + (j % SV) * L::kKTile;
       sm90::mbar_wait(k_full + 8 * (j % SK), (j / SK) & 1);
       sm90::wgmma_fence();
-      sm90::ss_n64<D>(s, q_rows, L::kQBox, ks, L::kKBox);
+      sm90::ss_n64<D, H>(s, q_rows, L::kQBox, ks, L::kKBox);
       sm90::wgmma_commit();
       sm90::mbar_wait(v_full + 8 * (j % SV), (j / SV) & 1);
-      sm90::ss_n64<D>(dp, do_rows, L::kQBox, vs, L::kKBox);
+      sm90::ss_n64<D, H>(dp, do_rows, L::kQBox, vs, L::kKBox);
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // dq of tile j - 1 and S of tile j are done
       sm90::fence_regs(s);
@@ -246,9 +248,9 @@ __global__ void __launch_bounds__(384, 1)
       // dS = P (dP - delta), rounded to k's type (:306-310)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - del[(i >> 1) & 1]);
-      sm90::pack_frags(dsa, dp);
+      sm90::pack_frags<H>(dsa, dp);
       sm90::wgmma_fence();
-      sm90::rs_k64<D>(dq, dsa, ks, L::kKBox);  // dq += dS K, K MN-major
+      sm90::rs_k64<D, H>(dq, dsa, ks, L::kKBox);  // dq += dS K, K MN-major
       sm90::wgmma_commit();
       if constexpr (!L::kOverlap) {
         sm90::wgmma_wait<0>();
@@ -270,7 +272,7 @@ __global__ void __launch_bounds__(384, 1)
     }
 
     // epilogue: scale * dq into this consumer's rows of the Q tile, then TMA
-    sm90::stage_rows<D>(smem, L::kQBox, dq, scale, c, warp, g, t4);
+    sm90::stage_rows<D, H>(smem, L::kQBox, dq, scale, c, warp, g, t4);
     sm90::fence_proxy_async();
     sm90::named_bar_sync(1 + c, 128);
     if (tid == 0 && wq0 < sq) {
@@ -302,7 +304,7 @@ struct DkvWg {
   static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
 };
 
-template <int D>
+template <int D, bool H>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
@@ -410,9 +412,9 @@ __global__ void __launch_bounds__(384, 1)
         const float* rows =
             reinterpret_cast<const float*>(smem + L::kRowOff + st * 512);
         sm90::wgmma_fence();
-        sm90::ss_n64<D>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
+        sm90::ss_n64<D, H>(s, k_rows, L::kKBox, qs, L::kQBox);  // S^T = K Q^T
         sm90::wgmma_commit();
-        sm90::ss_n64<D>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
+        sm90::ss_n64<D, H>(dp, v_rows, L::kKBox, dos, L::kQBox);  // dP^T = V dO^T
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
         sm90::fence_regs(s);
@@ -446,11 +448,11 @@ __global__ void __launch_bounds__(384, 1)
           }
         }
         // P^T rounded to do's type (:347-350), dS^T to q's type (:354-358)
-        sm90::pack_frags(pa, s);
-        sm90::pack_frags(dsa, dp);
+        sm90::pack_frags<H>(pa, s);
+        sm90::pack_frags<H>(dsa, dp);
         sm90::wgmma_fence();
-        sm90::rs_k64<D>(dv, pa, dos, L::kQBox);   // dV += P^T dO, dO MN-major
-        sm90::rs_k64<D>(dk, dsa, qs, L::kQBox);   // dK += dS^T Q, Q MN-major
+        sm90::rs_k64<D, H>(dv, pa, dos, L::kQBox);   // dV += P^T dO, dO MN-major
+        sm90::rs_k64<D, H>(dk, dsa, qs, L::kQBox);   // dK += dS^T Q, Q MN-major
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(dv);
@@ -463,8 +465,8 @@ __global__ void __launch_bounds__(384, 1)
 
     // epilogue: scale * dK and dV into this consumer's rows of the K and V
     // tiles, then TMA (clipped at Sk)
-    sm90::stage_rows<D>(smem, L::kKBox, dk, scale, c, warp, g, t4);
-    sm90::stage_rows<D>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
+    sm90::stage_rows<D, H>(smem, L::kKBox, dk, scale, c, warp, g, t4);
+    sm90::stage_rows<D, H>(smem + L::kVOff, L::kKBox, dv, 1.f, c, warp, g, t4);
     sm90::fence_proxy_async();
     sm90::named_bar_sync(1 + c, 128);
     if (tid == 0 && kc0 < sk) {
@@ -479,8 +481,8 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-template <int D>
-cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+template <int D, bool H>
+cudaError_t launch_dq_16bit(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int bhq, int rep,
                            int sq, int sk, int d, float scale, int causal,
@@ -488,25 +490,25 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
   using L = DqWg<D>;
   const int bhk = bhq / rep;
   CUtensorMap q_map, k_map, v_map, do_map, dq_map;
-  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 128) ||
-      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 128) ||
-      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&dq_map, dq, bhq, sq, d, 64))
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 128, H) ||
+      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 128, H) ||
+      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&dq_map, dq, bhq, sq, d, 64, H))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_wgmma<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhq, (sq + 127) / 128);
-  flash_bwd_dq_wgmma<D><<<grid, 384, L::kSmem, stream>>>(
+  flash_bwd_dq_wgmma<D, H><<<grid, 384, L::kSmem, stream>>>(
       q_map, k_map, v_map, do_map, dq_map, (const float*)lse,
       (const float*)delta, rep, sq, sk, scale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+template <int D, bool H>
+cudaError_t launch_dkv_16bit(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int bhk,
                             int rep, int sq, int sk, int d, float scale,
@@ -514,19 +516,19 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
   using L = DkvWg<D>;
   const int bhq = bhk * rep;
   CUtensorMap q_map, k_map, v_map, do_map, dk_map, dv_map;
-  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 128) ||
-      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 128) ||
-      !sm90_host::map_rows(&dk_map, dk, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&dv_map, dv, bhk, sk, d, 64))
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 64, H) ||
+      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 64, H) ||
+      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 128, H) ||
+      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 128, H) ||
+      !sm90_host::map_rows(&dk_map, dk, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&dv_map, dv, bhk, sk, d, 64, H))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_wgmma<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhk, (sk + 127) / 128);
-  flash_bwd_dkv_wgmma<D><<<grid, 384, L::kSmem, stream>>>(
+  flash_bwd_dkv_wgmma<D, H><<<grid, 384, L::kSmem, stream>>>(
       q_map, k_map, v_map, do_map, dk_map, dv_map, (const float*)lse,
       (const float*)delta, rep, sq, sk, scale, causal);
   return cudaGetLastError();
@@ -534,9 +536,9 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/do/dq [bhq, sq, d], k/v
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. q/do/dq [bhq, sq, d], k/v
 // [bhq/rep, sk, d], lse/delta [bhq, sq] f32, d <= 256 a multiple of 4 (f32)
-// or 8 (bf16). Returns the CUDA error of the launch (0 on success;
+// or 8 (bf16, f16). Returns the CUDA error of the launch (0 on success;
 // cudaErrorInvalidValue for shapes it does not take).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
@@ -547,12 +549,17 @@ extern "C" int flash_attention_bwd_dq_launch(
   cudaStream_t s = (cudaStream_t)stream;
   return (int)by_width(head_dim, [&](auto w) {
     constexpr int DP = decltype(w)::value;
-    return dtype == 0
-               ? flash_f32::launch_dq<DP>(q, k, v, dout, lse, delta, dq, bhq,
-                                          rep, sq, sk, head_dim, scale,
-                                          causal, s)
-               : launch_dq_bf16<DP>(q, k, v, dout, lse, delta, dq, bhq, rep,
-                                    sq, sk, head_dim, scale, causal, s);
+    if (dtype == 0)
+      return flash_f32::launch_dq<DP>(q, k, v, dout, lse, delta, dq, bhq,
+                                      rep, sq, sk, head_dim, scale, causal,
+                                      s);
+    return dtype == 2
+               ? launch_dq_16bit<DP, true>(q, k, v, dout, lse, delta, dq, bhq,
+                                           rep, sq, sk, head_dim, scale,
+                                           causal, s)
+               : launch_dq_16bit<DP, false>(q, k, v, dout, lse, delta, dq,
+                                            bhq, rep, sq, sk, head_dim, scale,
+                                            causal, s);
   });
 }
 
@@ -571,12 +578,17 @@ extern "C" int flash_attention_bwd_dkv_launch(
       return flash_f32::launch_bwd_kv<DP, false>(
           q, k, v, dout, lse, delta, nullptr, dk, dv, bhk, rep, sq, sk,
           head_dim, scale, causal, s);
-    if constexpr (DP <= 128)
-      return launch_dkv_bf16<DP>(q, k, v, dout, lse, delta, dk, dv, bhk, rep,
-                                 sq, sk, head_dim, scale, causal, s);
-    else
-      return flash_wide::launch<DP, false>(q, k, v, dout, lse, delta,
-                                           nullptr, dk, dv, bhk, rep, sq, sk,
-                                           head_dim, scale, causal, s);
+    auto run = [&](auto h) {
+      constexpr bool H = decltype(h)::value;
+      if constexpr (DP <= 128)
+        return launch_dkv_16bit<DP, H>(q, k, v, dout, lse, delta, dk, dv, bhk,
+                                       rep, sq, sk, head_dim, scale, causal,
+                                       s);
+      else
+        return flash_wide::launch<DP, false, H>(
+            q, k, v, dout, lse, delta, nullptr, dk, dv, bhk, rep, sq, sk,
+            head_dim, scale, causal, s);
+    };
+    return dtype == 2 ? run(std::true_type{}) : run(std::false_type{});
   });
 }

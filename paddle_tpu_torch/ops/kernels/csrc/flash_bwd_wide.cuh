@@ -1,7 +1,7 @@
-// The bf16 flash backward's dk/dv kernel at padded widths DP of 192 and 256
-// columns, with the fused backward's dq when KDQ (csrc/flash_attention.cu)
-// and without it as the split pair's dk/dv pass (csrc/flash_attention_split
-// .cu). Narrower widths keep their own kernels, whose two consumers own 64
+// The bf16 (and, with H, float16) flash backward's dk/dv kernel at padded
+// widths DP of 192 and 256 columns, with the fused backward's dq when KDQ
+// (csrc/flash_attention.cu) and without it as the split pair's dk/dv pass
+// (csrc/flash_attention_split.cu). Narrower widths keep their own kernels, whose two consumers own 64
 // keys each at every column.
 //
 // Why another layout: a consumer that owns dK and dV of 64 keys at DP = 256
@@ -57,7 +57,7 @@ struct Smem {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-template <int DP, bool KDQ>
+template <int DP, bool KDQ, bool H>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_wide_wgmma(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
@@ -167,14 +167,14 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = 0.f;  // not carried
         sm90::wgmma_fence();
-        sm90::ss_n64<DP>(s, base, L::kBox, qs, L::kBox);  // S^T = K Q^T
+        sm90::ss_n64<DP, H>(s, base, L::kBox, qs, L::kBox);  // S^T = K Q^T
         sm90::wgmma_commit();
         float dp[32];
         if constexpr (R == 1) {
 #pragma unroll
           for (int i = 0; i < 32; ++i) dp[i] = 0.f;
           // dP^T = V dO^T
-          sm90::ss_n64<DP>(dp, base + L::kVOff, L::kBox, dos, L::kBox);
+          sm90::ss_n64<DP, H>(dp, base + L::kVOff, L::kBox, dos, L::kBox);
           sm90::wgmma_commit();
           sm90::wgmma_wait<1>();
         } else {
@@ -200,9 +200,9 @@ __global__ void __launch_bounds__(384, 1)
         }
         if constexpr (R == 0) {
           // P^T rounded to do's type (:415): dV += P^T dO, dO MN-major
-          sm90::pack_frags(frag, s);
+          sm90::pack_frags<H>(frag, s);
           sm90::wgmma_fence();
-          sm90::rs_k64<DP>(acc, frag, dos, L::kBox);
+          sm90::rs_k64<DP, H>(acc, frag, dos, L::kBox);
           sm90::wgmma_commit();
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
@@ -223,7 +223,7 @@ __global__ void __launch_bounds__(384, 1)
               sm90::wgmma_fence();
 #pragma unroll
               for (int kk = 0; kk < 4; ++kk)  // dS read MN-major (q rows)
-                sm90::wgmma_ss_n64<1, 1>(
+                sm90::wgmma_ss_n64<1, 1, H>(
                     dq, sm90::desc_b128(ds_a + kk * 16 * 128, L::kBox, 1024),
                     sm90::desc_b128(base + ch * L::kBox + kk * 16 * 128,
                                     L::kBox, 1024),
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(384, 1)
           }
           // dS^T rounded to q's type (:422), and so to k's type for dQ
           // (:428)
-          sm90::pack_frags(frag, dp);
+          sm90::pack_frags<H>(frag, dp);
           if constexpr (KDQ) {
             uint8_t* ds_tile = smem + L::kDsOff + (it & 1) * L::kBox;
 #pragma unroll
@@ -291,7 +291,7 @@ __global__ void __launch_bounds__(384, 1)
             sm90::named_bar_sync(3, 256);
           }
           sm90::wgmma_fence();
-          sm90::rs_k64<DP>(acc, frag, qs, L::kBox);  // dK += dS^T Q
+          sm90::rs_k64<DP, H>(acc, frag, qs, L::kBox);  // dK += dS^T Q
           sm90::wgmma_commit();
           sm90::wgmma_wait<0>();
           sm90::fence_regs(acc);
@@ -304,7 +304,7 @@ __global__ void __launch_bounds__(384, 1)
       // into the K tile, then TMA (clipped at Sk and d). Each consumer
       // read the other's tile (S^T reads K; dP^T reads V): wait for both.
       sm90::named_bar_sync(3, 256);
-      sm90::stage_rows<DP>(smem + (R == 0 ? L::kVOff : 0), L::kBox, acc,
+      sm90::stage_rows<DP, H>(smem + (R == 0 ? L::kVOff : 0), L::kBox, acc,
                            R == 0 ? 1.f : scale, 0, warp, g, t4);
       sm90::fence_proxy_async();
       sm90::named_bar_sync(1 + R, 128);
@@ -329,7 +329,7 @@ __global__ void __launch_bounds__(384, 1)
 
 // dq_acc [bhk * rep, sq, d] f32 zeroed (read only with KDQ); dk/dv [bhk,
 // sk, d]; d <= DP a multiple of 8.
-template <int DP, bool KDQ>
+template <int DP, bool KDQ, bool H>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq_acc, void* dk, void* dv, int bhk, int rep, int sq,
@@ -338,22 +338,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   using L = Smem<DP, KDQ>;
   const int bhq = bhk * rep;
   CUtensorMap q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map;
-  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 64) ||
-      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&dk_map, dk, bhk, sk, d, 64) ||
-      !sm90_host::map_rows(&dv_map, dv, bhk, sk, d, 64))
+  if (!sm90_host::map_rows(&q_map, q, bhq, sq, d, 64, H) ||
+      !sm90_host::map_rows(&do_map, dout, bhq, sq, d, 64, H) ||
+      !sm90_host::map_rows(&k_map, k, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&v_map, v, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&dk_map, dk, bhk, sk, d, 64, H) ||
+      !sm90_host::map_rows(&dv_map, dv, bhk, sk, d, 64, H))
     return cudaErrorInvalidValue;
   if (KDQ && !sm90_host::map_rows_f32(&dq_map, dq_acc, bhq, sq, d, 64))
     return cudaErrorInvalidValue;
   if (!KDQ) dq_map = q_map;  // unused
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_wide_wgmma<DP, KDQ>,
+      flash_bwd_wide_wgmma<DP, KDQ, H>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bhk, (sk + 63) / 64);
-  flash_bwd_wide_wgmma<DP, KDQ><<<grid, 384, L::kSmem, stream>>>(
+  flash_bwd_wide_wgmma<DP, KDQ, H><<<grid, 384, L::kSmem, stream>>>(
       q_map, k_map, v_map, do_map, dq_map, dk_map, dv_map, (const float*)lse,
       (const float*)delta, rep, sq, sk, scale, causal);
   return cudaGetLastError();

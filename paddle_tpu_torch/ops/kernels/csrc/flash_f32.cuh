@@ -520,10 +520,10 @@ cudaError_t by_width(int d, F fn) {
 }
 
 // Shapes the four flash entry points take: d <= 256 with rows of whole
-// 16-byte vectors (dtype 0 = float32, 1 = bfloat16).
+// 16-byte vectors (dtype 0 = float32, 1 = bfloat16, 2 = float16).
 inline bool flash_shape_ok(int bh, int rep, int sq, int sk, int d,
                            int dtype) {
   const int align = dtype == 0 ? 4 : 8;
   return bh >= 1 && bh <= 65535 && rep >= 1 && sq >= 1 && sk >= 1 &&
-         d >= 1 && d <= 256 && d % align == 0 && (dtype == 0 || dtype == 1);
+         d >= 1 && d <= 256 && d % align == 0 && dtype >= 0 && dtype <= 2;
 }

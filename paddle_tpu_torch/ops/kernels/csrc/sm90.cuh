@@ -2,13 +2,13 @@
 // (swiglu_down, the flash-attention forward, the fused and split flash
 // backward): mbarriers, TMA tensor loads, stores and reduce-adds, the
 // shared-memory matrix descriptor of 128-byte-swizzled bf16 tiles, wgmma
-// (SS and RS forms, bf16 in, f32 accumulate) with its fence/commit/wait,
+// (SS and RS forms, bf16 or f16 in, f32 accumulate) with its fence/commit/wait,
 // setmaxnreg, the attention backward's tile helpers, and the host-side
 // tensor-map encoder.
 //
 // Conventions:
 // - Every tile in shared memory is 1024-byte aligned and was written by
-//   TMA with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), the
+//   TMA with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 or f16 (128 bytes), the
 //   16-byte chunk c of row r stored at chunk c ^ (r % 8). A tile wider than
 //   64 columns is several such boxes, one after another.
 // - K-major operand (k contiguous): descriptor SBO = 1024 (the next 8
@@ -188,6 +188,18 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return r;
 }
 
+// Two floats rounded to the wgmma operand type of H (bf16, or f16 when H).
+template <bool H>
+__device__ __forceinline__ uint32_t pack_x2(float lo, float hi) {
+  if constexpr (H) {
+    uint32_t r;
+    asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+    return r;
+  } else {
+    return pack_bf16x2(lo, hi);
+  }
+}
+
 __device__ __forceinline__ float bf16_lo(uint32_t x) {
   return __uint_as_float(x << 16);
 }
@@ -242,108 +254,106 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // In the forms below scale_d = 0 overwrites d, 1 accumulates into it, and
-// TransB = 1 reads an MN-major B.
+// TransB = 1 reads an MN-major B. H picks the operand type: bf16 (false)
+// or f16 (true); both accumulate in f32, and the tiles, descriptors and
+// fragments are laid out alike (two bytes an element).
+
+#define SM90_ACC32 \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+      "+f"(d[30]), "+f"(d[31])
+#define SM90_ACC64 \
+      SM90_ACC32, \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+      "+f"(d[62]), "+f"(d[63])
+#define SM90_REGS32 \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+#define SM90_REGS64 \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+
+#define SM90_SS_N128(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               SM90_REGS64 "%64, %65, p, 1, 1, 0, %67;\n}\n"                \
+               : SM90_ACC64                                                 \
+               : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB))
+
+#define SM90_SS_N64(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               SM90_REGS32 "%32, %33, p, 1, 1, %36, %35;\n}\n"              \
+               : SM90_ACC32                                                 \
+               : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB),       \
+                 "n"(TransA))
+
+#define SM90_RS_N64(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               SM90_REGS32 "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"  \
+               : SM90_ACC32                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),   \
+                 "r"(scale_d), "n"(TransB))
+
+#define SM90_RS_N128(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               SM90_REGS64 "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"  \
+               : SM90_ACC64                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),   \
+                 "r"(scale_d), "n"(TransB))
 
 // d[64] (+)= A . B for m64n128k16, A and B from shared memory.
-template <int TransB>
+template <int TransB, bool H = false>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a_desc,
                                              uint64_t b_desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB));
+  if constexpr (H) SM90_SS_N128("f16"); else SM90_SS_N128("bf16");
 }
 
 // d[32] (+)= A . B for m64n64k16, A and B from shared memory; TransA = 1
 // reads an MN-major A (m contiguous), described as an MN-major B is.
-template <int TransB, int TransA = 0>
+template <int TransB, int TransA = 0, bool H = false>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a_desc,
                                             uint64_t b_desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %36, %35;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(TransB), "n"(TransA));
+  if constexpr (H) SM90_SS_N64("f16"); else SM90_SS_N64("bf16");
 }
 
 // d[32] (+)= A . B for m64n64k16, A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B from shared memory.
-template <int TransB>
+template <int TransB, bool H = false>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t b_desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
-          "r"(scale_d), "n"(TransB));
+  if constexpr (H) SM90_RS_N64("f16"); else SM90_RS_N64("bf16");
 }
 
 // d[64] (+)= A . B for m64n128k16, A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B from shared memory.
-template <int TransB>
+template <int TransB, bool H = false>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                              uint64_t b_desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
-          "r"(scale_d), "n"(TransB));
+  if constexpr (H) SM90_RS_N128("f16"); else SM90_RS_N128("bf16");
 }
+
+#undef SM90_SS_N128
+#undef SM90_SS_N64
+#undef SM90_RS_N64
+#undef SM90_RS_N128
+#undef SM90_REGS32
+#undef SM90_REGS64
+#undef SM90_ACC64
+#undef SM90_ACC32
 
 // ------------------------------------------ attention backward tiles
 // A consumer warpgroup of the flash backward kernels owns 64 rows of a
@@ -356,9 +366,9 @@ __device__ __forceinline__ float f32_inf() {
 }
 
 // A consumer's accumulator (rows 16 * warp + g + 8h of its 64, columns
-// 8j + 2t + {0, 1}) into rows 64c.. of a swizzled bf16 tile made of D / 64
-// column boxes `box` bytes apart, each value times `mul`.
-template <int D>
+// 8j + 2t + {0, 1}) into rows 64c.. of a swizzled bf16 (f16 when H) tile
+// made of D / 64 column boxes `box` bytes apart, each value times `mul`.
+template <int D, bool H = false>
 __device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
                                            const float (&acc)[D / 2],
                                            float mul, int c, int warp, int g,
@@ -371,7 +381,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
       const int chunk = (j & 7) ^ (row & 7);
       *reinterpret_cast<uint32_t*>(tile + (j >> 3) * box + row * 128 +
                                    chunk * 16 + 4 * t4) =
-          pack_bf16x2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+          pack_x2<H>(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
     }
   }
 }
@@ -381,54 +391,57 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, uint32_t box,
 // 64-column boxes lie `box` bytes apart. An m64nN accumulator is its n64
 // pieces one after another (column 8j + 2t + (e & 1) sits at 4j + e), so
 // D = 192 is one n128 and one n64 product, D = 256 two n128.
-template <int D>
+template <int D, bool H = false>
 __device__ __forceinline__ void rs_step(float (&acc)[D / 2],
                                         const uint32_t (&a)[4], uint32_t b,
                                         uint32_t box) {
   static_assert(D % 64 == 0 && D <= 256, "D is 64, 128, 192 or 256");
 #pragma unroll
   for (int p = 0; p < D / 128; ++p)
-    wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(acc + 64 * p), a,
+    wgmma_rs_n128<1, H>(*reinterpret_cast<float(*)[64]>(acc + 64 * p), a,
                      desc_b128(b + 2 * p * box, box, 1024), 1);
   if constexpr (D % 128 != 0)
-    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(acc + D / 2 - 32), a,
+    wgmma_rs_n64<1, H>(*reinterpret_cast<float(*)[32]>(acc + D / 2 - 32), a,
                     desc_b128(b + (D / 64 - 1) * box, box, 1024), 1);
 }
 
 // acc[D/2] += A . B over k = 64 (four k16 steps): A the bf16 fragments
 // `a`, B an MN-major [64][D] tile at `b` whose 64-column boxes lie `box`
 // bytes apart.
-template <int D>
+template <int D, bool H = false>
 __device__ __forceinline__ void rs_k64(float (&acc)[D / 2],
                                        const uint32_t (&a)[4][4], uint32_t b,
                                        uint32_t box) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) rs_step<D>(acc, a[kk], b + kk * 16 * 128, box);
+  for (int kk = 0; kk < 4; ++kk)
+    rs_step<D, H>(acc, a[kk], b + kk * 16 * 128, box);
 }
 
 // d[32] = A . B^T over k = D: A the 64 rows at `a` of a K-major tile whose
 // 64-column boxes lie `a_box` bytes apart, B a K-major [64][D] tile at `b`
 // with boxes `b_box` apart.
-template <int D>
+template <int D, bool H = false>
 __device__ __forceinline__ void ss_n64(float (&d)[32], uint32_t a,
                                        uint32_t a_box, uint32_t b,
                                        uint32_t b_box) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    wgmma_ss_n64<0>(d, desc_b128(a + (kk / 4) * a_box + col, 16, 1024),
+    wgmma_ss_n64<0, 0, H>(d, desc_b128(a + (kk / 4) * a_box + col, 16, 1024),
                     desc_b128(b + (kk / 4) * b_box + col, 16, 1024), kk > 0);
   }
 }
 
-// The 16 bf16 A fragments of a 64 x 64 accumulator, rounded in registers.
+// The 16 bf16 (f16 when H) A fragments of a 64 x 64 accumulator, rounded
+// in registers.
+template <bool H = false>
 __device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
                                            const float (&x)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16x2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack_x2<H>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
 }  // namespace sm90
@@ -472,16 +485,18 @@ inline bool make_map(
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A map over a row-major [bh, s, d] bf16 tensor (attention's kernel
-// layout) with boxes of 64 columns x `rows` rows. d is the tensor's own
-// width (a multiple of 8: TMA takes row strides of 16-byte multiples); a
-// box column at or past d loads as zero and is not stored.
+// A map over a row-major [bh, s, d] bf16 (f16 when `f16`) tensor
+// (attention's kernel layout) with boxes of 64 columns x `rows` rows. d is
+// the tensor's own width (a multiple of 8: TMA takes row strides of 16-byte
+// multiples); a box column at or past d loads as zero and is not stored.
 inline bool map_rows(CUtensorMap* map, const void* p, int bh, int s, int d,
-                     int rows) {
+                     int rows, bool f16 = false) {
   const uint64_t dims[3] = {(uint64_t)d, (uint64_t)s, (uint64_t)bh};
   const uint64_t strides[2] = {(uint64_t)d * 2, (uint64_t)s * d * 2};
   const uint32_t box[3] = {64, (uint32_t)rows, 1};
-  return make_map(map, p, 3, dims, strides, box);
+  return make_map(map, p, 3, dims, strides, box,
+                  f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // A map over a row-major [bh, s, d] f32 tensor (d a multiple of 4) with

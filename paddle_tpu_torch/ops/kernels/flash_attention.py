@@ -11,7 +11,8 @@ flash_attention.py``:
   at :539), both in ``csrc/flash_attention_split.cu``.
 
 See the sources for what bounds them and how they are laid out. In bf16
-all four are FA3-style kernels: TMA loads into a ring completing on
+and in float16 (one template over the operand type, launched under the
+``<name>_f16`` counts) all four are FA3-style kernels: TMA loads into a ring completing on
 mbarriers, ``wgmma`` with ``P`` (and ``dS``) kept in registers as the A
 operand of the second product, and a producer warpgroup beside two
 consumer warpgroups (``csrc/sm90.cuh`` holds the shared building blocks).
@@ -50,7 +51,7 @@ Semantics kept from the JAX package:
   flash_attention.py:47-57``). They run on a padded width of 64, 128, 192
   or 256 columns whose extra columns TMA fills with zeros, which is exact.
   TMA takes rows of whole 16-byte vectors, so the wrappers pad q, k, v and
-  do of any other width with zero columns (to a multiple of 8 in bf16, 4 in
+  do of any other width with zero columns (to a multiple of 8 in bf16 and f16, 4 in
   f32) and slice the results back; the scale stays ``1/sqrt(d)`` of the
   real ``d``. Above 256 the reference takes XLA's plain attention, and
   :func:`flash_attention` takes the plain version by the same rule
@@ -67,11 +68,17 @@ import torch.nn.functional as F
 from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the fused backward's dq scratch limit (``_bwd_impl`` :499-501)
 FUSED_DQ_SCRATCH_BYTES = 8 << 20
 #: the widest head the kernels take (``_use_pallas``'s ``d <= 256``)
 MAX_KERNEL_HEAD_DIM = 256
+
+
+def launch_key(name, q):
+    """The launch count a kernel call adds to: the float16 instantiations
+    count apart from the float32 and bfloat16 ones, under ``<name>_f16``."""
+    return name + "_f16" if q.dtype == torch.float16 else name
 
 
 def to_bh(x):
@@ -243,7 +250,8 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
 
 def _check(name, tensors, q, k):
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16, got "
+                        f"{q.dtype}")
     for t in tensors:
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: operands must share q's dtype, got "
@@ -284,9 +292,9 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     if v.shape != k.shape:
         raise ValueError("flash_attention_fwd: k and v must share a shape")
     scale = _scale(q, scale)
-    if scale < 0 and q.dtype == torch.bfloat16:
-        # the bf16 kernel takes the row max before scaling: (-q) k^T * -scale
-        # is the same product, exactly
+    if scale < 0 and q.dtype != torch.float32:
+        # the bf16 and f16 kernels take the row max before scaling:
+        # (-q) k^T * -scale is the same product, exactly
         q, scale = -q, -scale
     q, k, v = _pad_width(q, k, v)
     o = torch.empty_like(q)
@@ -296,7 +304,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         q.shape[-1], float(scale), int(bool(causal)), _DTYPES[q.dtype],
         stream_handle(q))
     check_launch(rc, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+    LAUNCHES[launch_key("flash_attention_fwd", q)] += 1
     return _unpad(o, d), lse
 
 
@@ -320,7 +328,7 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
         ptr(dk), ptr(dv), bhk, bhq // bhk, sq, sk, q.shape[-1], float(scale),
         int(bool(causal)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "flash_attention_bwd")
-    LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES[launch_key("flash_attention_bwd", q)] += 1
     return (_unpad(dq_acc, d).to(q.dtype), _unpad(dk, d), _unpad(dv, d))
 
 
@@ -342,7 +350,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
         bhq // bhk, sq, sk, q.shape[-1], float(scale), int(bool(causal)),
         _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "flash_attention_bwd_dq")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    LAUNCHES[launch_key("flash_attention_bwd_dq", q)] += 1
     return _unpad(dq, d)
 
 
@@ -366,7 +374,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
         ptr(dv), bhk, bhq // bhk, sq, sk, q.shape[-1], float(scale),
         int(bool(causal)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "flash_attention_bwd_dkv")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    LAUNCHES[launch_key("flash_attention_bwd_dkv", q)] += 1
     return _unpad(dk, d), _unpad(dv, d)
 
 

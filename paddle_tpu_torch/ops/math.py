@@ -133,7 +133,14 @@ floor_divide = _binary(torch.floor_divide, "floor_divide")
 floor_mod = _binary(torch.remainder, "floor_mod")
 mod = _binary(torch.remainder, "mod")
 remainder = mod
-pow = _binary(torch.pow, "pow")
+def _power(a, b):
+    return torch.pow(a, b)
+
+
+# the reference's ``pow`` dispatches as its jnp function's name, "power",
+# which amp's lists do not hold: under auto_cast it runs in its inputs' type
+_power.__name__ = "power"
+pow = _binary(_power, "pow")
 maximum = _binary(torch.maximum, "maximum", tensors=True)
 minimum = _binary(torch.minimum, "minimum", tensors=True)
 fmax = _binary(torch.fmax, "fmax", tensors=True)

@@ -1112,7 +1112,8 @@ def test_swiglu_down_kernel_matches_plain(cuda_device, dtype, tol, rows, m,
 
 
 def test_training_kernels_reject_what_they_do_not_take(cuda_device):
-    q, k, v, do = _flash_inputs(2, 2, 64, 64, 64, torch.float16,
+    # the flash kernels take f32, bf16 and (since the float16 route) f16
+    q, k, v, do = _flash_inputs(2, 2, 64, 64, 64, torch.float64,
                                 cuda_device)
     with pytest.raises(TypeError):
         flash_attention_fwd(q, k, v, True)
@@ -1180,7 +1181,9 @@ def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device):
                               "paged_attention_int8": 0,
                               "decode_attention": 0, "add_rms_norm": 0,
                               "flash_attention_bwd_dq": 0,
-                              "flash_attention_bwd_dkv": 0}
+                              "flash_attention_bwd_dkv": 0,
+                              **{k: 0 for k in kernels.LAUNCHES
+                                 if k.endswith("_f16")}}
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for n, g in out["cpu"][1].items():
         err = (out["cuda"][1][n] - g).norm() / g.norm()
@@ -1930,3 +1933,221 @@ def test_vision_bfloat16_casts_buffers_and_keeps_parameters(surface):
     loss = step(x, paddle.to_tensor(np.array([0, 3])))
     assert np.isfinite(float(loss))
     assert not np.array_equal(net.bn1._mean.numpy(), before)
+
+
+# ------------------------------------------------- float16 and paddle.amp
+#: the float16 flash routes: the bf16 shapes' edges and every padded width
+F16_SHAPES = FLASH_SHAPES + WIDTH_SHAPES + [(32, 8, 128, 1000, 1000)]
+#: bf16's rounding points at 3 more mantissa bits: chip_smoke.py's
+#: FLASH_TOL for float16 (measured 1.2e-4 to 6.6e-4 there, bf16 to 2.5e-3)
+F16_TOL = 2e-3
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hq,hkv,d,sq,sk", F16_SHAPES)
+def test_flash_f16_kernels_match_plain(cuda_device, causal, hq, hkv, d, sq,
+                                       sk):
+    """The four flash kernels' float16 instantiations against their plain
+    versions, each counted under its ``_f16`` launch count."""
+    q, k, v, do = _flash_inputs(hq, hkv, d, sq, sk, torch.float16,
+                                cuda_device)
+    kernels.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, causal)
+    delta = (do.float() * ro.float()).sum(-1)
+    args = (q, k, v, do, rlse, delta, causal)
+    fused = flash_attention_bwd_fused(*args)
+    dq = flash_attention_bwd_dq(*args)
+    dk, dv = flash_attention_bwd_dkv(*args)
+    want = flash_attention_bwd_plain(q, k, v, ro, rlse, do, causal)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "flash_attention_fwd_f16": 1, "flash_attention_bwd_f16": 1,
+        "flash_attention_bwd_dq_f16": 1, "flash_attention_bwd_dkv_f16": 1}
+    assert o.dtype == torch.float16 and _rel_err(o, ro) <= F16_TOL
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    for name, a, b in zip(("dq", "dk", "dv"), fused, want):
+        assert a.dtype == torch.float16 and _rel_err(a, b) <= F16_TOL, name
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _rel_err(a, b) <= F16_TOL, name
+
+
+def test_flash_f16_negative_scale_and_repeats(cuda_device):
+    q, k, v, _ = _flash_inputs(4, 2, 64, 130, 257, torch.float16,
+                               cuda_device)
+    o, lse = flash_attention_fwd(q, k, v, True, -0.2)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, True, -0.2)
+    again = flash_attention_fwd(q, k, v, True, -0.2)
+    torch.cuda.synchronize()
+    assert _rel_err(o, ro) <= F16_TOL
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+def test_kernels_without_f16_raise_type_error(cuda_device):
+    """rms_norm, add_rms_norm, swiglu_down and the three decode kernels
+    take f32 and bf16 only: a float16 CUDA tensor raises."""
+    h = torch.float16
+    x = torch.randn(8, 256, device=cuda_device, dtype=h)
+    w = torch.ones(256, device=cuda_device, dtype=h)
+    with pytest.raises(TypeError):
+        rms_norm_fwd(x, w, 1e-6)
+    with pytest.raises(TypeError):
+        add_rms_norm_fwd(x, x, w, 1e-6)
+    g = torch.randn(64, 128, device=cuda_device, dtype=h)
+    wd = torch.randn(128, 64, device=cuda_device, dtype=h)
+    with pytest.raises(TypeError):
+        swiglu_down_fwd(g, g, wd)
+    q, kp, vp, tables, lens = _paged_inputs(2, 4, 4, 64, 16, 2, [20, 31],
+                                            h, cuda_device)
+    with pytest.raises(TypeError):
+        paged_attention(q, kp, vp, tables, lens)
+    codes = torch.zeros(kp.shape, dtype=torch.int8, device=cuda_device)
+    scales = torch.ones(*kp.shape[:-1], 1, device=cuda_device)
+    with pytest.raises(TypeError):
+        paged_attention_int8(q, codes, scales, codes, scales, tables, lens)
+    cache = torch.randn(2, 4, 64, 64, device=cuda_device, dtype=h)
+    with pytest.raises(TypeError):
+        decode_attention(q, cache, cache, lens)
+
+
+def _amp_bert(paddle, where):
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    paddle.set_device(where)
+    paddle.seed(4)
+    return BertForPretraining(BertConfig(
+        vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+        intermediate_size=128, max_seq_len=64, dropout=0.0))
+
+
+def _amp_batch(paddle, seed=1):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 128, (4, 32))
+    labels = np.where(rng.rand(4, 32) < 0.3, rng.randint(0, 128, (4, 32)),
+                      -100)
+    return paddle.to_tensor(ids), paddle.to_tensor(labels)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_amp_bert_launches_its_flash_kernels(surface, dtype):
+    """BERT at depth 2 under auto_cast: each layer's attention launches
+    the forward and the fused backward in the autocast type, and the card's
+    loss and gradients follow the CPU's (bf16: AMP_GRAD_RTOL of chip_smoke
+    with its floor; fp16 the same bounds)."""
+    import chip_smoke as cs
+
+    got = {}
+    for where in ("cpu", "gpu"):
+        m = _amp_bert(surface, where)
+        if got:
+            m.set_state_dict(got["cpu"][2])
+        weights = {k: v.numpy() for k, v in m.state_dict().items()}
+        kernels.reset_launch_counts()
+        with surface.amp.auto_cast(dtype=dtype):
+            loss = m.loss(*_amp_batch(surface))
+        loss.backward()
+        counts = kernels.launch_counts()
+        got["card" if got else "cpu"] = (
+            float(loss), {n: p.grad.numpy() for n, p in m.named_parameters()
+                          if p.grad is not None}, weights, counts)
+    suffix = "_f16" if dtype == "float16" else ""
+    assert {n: c for n, c in got["card"][3].items() if c} == {
+        "flash_attention_fwd" + suffix: 2, "flash_attention_bwd" + suffix: 2}
+    assert not any(got["cpu"][3].values())
+    assert abs(got["card"][0] - got["cpu"][0]) <= cs.AMP_LOSS_RTOL * abs(
+        got["cpu"][0])
+    top = max(np.linalg.norm(g) for g in got["cpu"][1].values())
+    for n, g in got["cpu"][1].items():
+        err = np.linalg.norm(got["card"][1][n] - g)
+        assert err <= cs.AMP_GRAD_RTOL * max(np.linalg.norm(g),
+                                             cs.AMP_GRAD_FLOOR * top), n
+
+
+def test_amp_grad_scaler_skips_an_overflow_on_the_card(surface):
+    """An fp16 O1 step whose gradients overflow through the loss scale:
+    skipped, the scale halved, no byte of a parameter or slot changed."""
+    m = _amp_bert(surface, "gpu")
+    opt = surface.optimizer.AdamW(learning_rate=1e-3,
+                                  parameters=m.parameters())
+    scaler = surface.amp.GradScaler()
+
+    def step(scale=None):
+        if scale is not None:
+            scaler.set_init_loss_scaling(scale)
+        with surface.amp.auto_cast(dtype="float16"):
+            loss = m.loss(*_amp_batch(surface))
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return float(loss)
+
+    assert np.isfinite(step())
+    assert not scaler._found_inf
+    tensors = [p._data for p in m.parameters()] + [
+        t for st in opt.state.values() for t in st.values()]
+    snap = [t.detach().clone() for t in tensors]
+    step(2.0 ** 100)
+    assert scaler._found_inf and scaler.get_init_loss_scaling() == 2.0 ** 99
+    for a, b in zip(tensors, snap):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def test_lstm_weights_stay_one_cudnn_buffer(surface):
+    """On the card the LSTM's weights are views of one cuDNN buffer, so
+    cuDNN reads them in place; optimizer steps keep them so, and a
+    rebound weight is flattened again at the next call."""
+    surface.set_device("gpu")
+    m = surface.nn.LSTM(12, 16, 2, direction="bidirect")
+    opt = surface.optimizer.Adam(learning_rate=1e-3,
+                                 parameters=m.parameters())
+    x = surface.to_tensor(
+        np.random.RandomState(4).randn(3, 7, 12).astype(np.float32))
+
+    def storages():
+        return {p._data.untyped_storage().data_ptr()
+                for p in m.parameters()}
+
+    for _ in range(2):
+        out, _ = m(x)
+        (out ** 2).mean().backward()
+        opt.step()
+        opt.clear_grad()
+        assert len(storages()) == 1
+    w = m.layer_list[0].rnn_fw.cell.weight_hh
+    w._data.data = w._data.data.clone()
+    assert len(storages()) == 2
+    m(x)
+    assert len(storages()) == 1
+
+
+def test_lstm_and_jacobian_on_the_card_match_cpu(surface):
+    """``nn.LSTM`` (cuDNN) and ``autograd.jacobian``/``hessian`` on the
+    card against the CPU, f32."""
+    rng = np.random.RandomState(3)
+    xs = rng.randn(3, 7, 12).astype(np.float32)
+    got = {}
+    for where in ("cpu", "gpu"):
+        surface.set_device(where)
+        surface.seed(5)
+        m = surface.nn.LSTM(12, 16, 2, direction="bidirect")
+        if got:
+            m.set_state_dict(got["cpu"][2])
+        out, (h, c) = m(surface.to_tensor(xs))
+        loss = (out ** 2).mean() + (h ** 2).mean()
+        loss.backward()
+        w = surface.to_tensor(xs[0, :4, :5])
+        jac = surface.autograd.jacobian(
+            lambda x: surface.tanh(surface.matmul(x, w)),
+            surface.to_tensor(xs[1, :3, :4])).numpy()
+        got["card" if got else "cpu"] = (
+            float(loss), {n: p.grad.numpy() for n, p in m.named_parameters()},
+            {k: v.numpy() for k, v in m.state_dict().items()}, jac)
+    assert abs(got["card"][0] - got["cpu"][0]) <= 1e-4 * abs(got["cpu"][0])
+    for n, g in got["cpu"][1].items():
+        assert np.linalg.norm(got["card"][1][n] - g) <= 5e-4 * np.linalg.norm(
+            g), n
+    np.testing.assert_allclose(got["card"][3], got["cpu"][3], rtol=1e-5,
+                               atol=1e-6)

@@ -58,6 +58,9 @@ def test_scan_covers_the_package():
         "io/__init__", "hapi/model", "hapi/callbacks", "vision/models",
         "vision/ops", "vision/transforms", "nn/functional/conv",
         "nn/functional/pooling", "framework_io", "metric/__init__")} <= rel
+    assert {f"paddle_tpu_torch/{m}.py" for m in (
+        "amp/__init__", "ops/compat", "ops/registry", "autograd/functional",
+        "nn/layer/rnn", "nn/layer/compat", "nn/functional/compat")} <= rel
     assert {f"paddle_tpu_torch/inference/fleet/{m}.py" for m in (
         "__init__", "overload", "router", "soak", "wire", "transport",
         "worker", "cluster", "hosts", "disagg", "spec_decode")} <= rel

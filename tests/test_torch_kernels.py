@@ -137,13 +137,16 @@ def test_cpu_route_never_counts_launches():
     decode_attention(torch.ones(1, 4, 64), cache, cache,
                      torch.tensor([3], dtype=torch.int32))
     add_rms_norm(torch.ones(2, 8), torch.ones(2, 8), torch.ones(8))
+    xh = x.half()
+    o, lse = flash_attention_fwd(xh, xh, xh, True)
+    flash_attention_bwd(xh, xh, xh, o, lse, xh, True)
     counts = kernels.launch_counts()
-    assert set(counts) == {"paged_attention", "rms_norm",
-                           "flash_attention_fwd", "flash_attention_bwd",
-                           "swiglu_down", "paged_attention_int8",
-                           "decode_attention", "add_rms_norm",
-                           "flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkv"}
+    flash = ("flash_attention_fwd", "flash_attention_bwd",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    assert set(counts) == {"paged_attention", "rms_norm", "swiglu_down",
+                           "paged_attention_int8", "decode_attention",
+                           "add_rms_norm", *flash,
+                           *(name + "_f16" for name in flash)}
     assert all(n == 0 for n in counts.values()), counts
 
 

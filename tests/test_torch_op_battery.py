@@ -29,14 +29,7 @@ import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from test_op_battery import CASES
 
-_COMPAT = "A.13 (b): ops/compat.py"
 DEFERRED = {
-    **{n: _COMPAT for n in (
-        "i0e", "i1e", "polygamma", "sinc", "diagonal", "unstack",
-        "index_fill", "trapezoid", "column_stack", "row_stack", "hsplit",
-        "vsplit", "dsplit", "unflatten", "vander", "renorm", "pdist",
-        "signbit", "nanquantile", "nanmedian", "frexp")},
-    "F.pairwise_distance": "A.13 (b): nn/functional/compat.py",
     "matrix_transpose": "A.13 (e): linalg_ns.py",
     "fft_abs": "A.13 (e): fft.py", "rfft_abs": "A.13 (e): fft.py",
 }
@@ -167,7 +160,6 @@ def test_op(c):
 
 def test_zz_coverage():
     assert set(DEFERRED) <= {c.name for c in CASES}
-    assert all(item.split(":")[0] in ("A.13 (b)", "A.13 (c)", "A.13 (e)")
-               for item in DEFERRED.values())
+    assert all(item.split(":")[0] == "A.13 (e)" for item in DEFERRED.values())
     check_coverage(MINE, _RESULTS,
                    [c for c in CASES if c.name in DEFERRED])
