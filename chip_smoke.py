@@ -5,7 +5,10 @@
 
 Phases, each of which fails the run on error:
 
-1. device  - the card's name and power limit; fails without CUDA.
+1. device  - the card's name and power limit; fails without CUDA. The
+             seconds of ``import paddle_tpu_torch`` in a fresh interpreter,
+             with and without the top level's incubate, distributed and
+             inference imports (``-X importtime``).
 2. build   - nvcc builds ops/kernels/csrc/*.cu for sm_90a (one nvcc per
              source, in parallel), with ptxas's registers and spills per
              source, per instance of every flash kernel (each padded
@@ -127,6 +130,26 @@ Phases, each of which fails the run on error:
              4's head against the Pipe's head (1e-4), with ms; (e) the
              non-causal flash forward and backward alone with bound and
              SDPA's ms.
+   float16 - the same model cast to float16 in place: (a) the float16
+             instances of rms_norm, add_rms_norm, swiglu_down,
+             decode_attention, paged_attention and paged_attention_int8
+             against their plain versions at their bf16 rows' main shapes,
+             with ms (and from a CUDA graph for the norms and the int8
+             kernel), bound, plain and library ms; (b) phase 4's requests
+             through the engine with exact and int8 KV:
+             paged_attention_f16 (paged_attention_int8_f16) L and
+             rms_norm_f16 2L + 1 a tick, the graphed tick equal to the
+             eager one bit for bit, the share of tokens equal to phase 4's;
+             (c) the incubate decoder on paddle.Tensor inputs through the
+             public names: decode_attention_f16 L, add_rms_norm_f16 2L and
+             rms_norm_f16 1 a token, ms per token beside phase incubate's,
+             and block_multihead_attention over float16 page-major caches
+             (paged_attention_f16 L a step); (d) the config-4 Pipe (all 24
+             layers) in float16, one loss and backward: swiglu_down_f16 2L,
+             rms_norm_f16 4L, flash fwd f16 2L, flash bwd f16 L, the loss
+             within [ln V - 0.1, ln V + 1.5]; (e) card against CPU at depth
+             2: the engine's first-tick logits, the incubate decoder's, the
+             Pipe's loss and gradients (F16_* bounds).
 5. consistency - f32, full width, depth 2: the engine's greedy streams
              equal the dense-cache generate token for token; the int8
              engine on the card equals the same engine on the CPU under
@@ -306,7 +329,7 @@ Phases, each of which fails the run on error:
 
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
-serving, incubate, incubate_surface, training, quant_train (run b),
+serving, incubate, incubate_surface, float16, training, quant_train (run b),
 long-context, model_rest, shared_block, paddle_surface and vision runs;
 the last
 line is {"ok": true, "device": {...}}.
@@ -396,6 +419,34 @@ def bound_ms(nbytes, ops, dtype):
 
 
 # ---------------------------------------------------------------- phase 1
+#: the packages the top level imports since the incubate, distributed and
+#: inference imports were added to it (its last three subpackage imports)
+TOP_LEVEL_ADDED = ("incubate", "distributed", "inference")
+
+
+def import_seconds():
+    """``import paddle_tpu_torch`` in a fresh interpreter: (its seconds,
+    the seconds of the three imports in TOP_LEVEL_ADDED within them, from
+    ``-X importtime``'s cumulative column). Each of the three is first
+    imported by its own top-level line, so the difference is the import
+    without them."""
+    code = ("import time; t = time.perf_counter(); import paddle_tpu_torch; "
+            "print(time.perf_counter() - t)")
+    r = subprocess.run([sys.executable, "-X", "importtime", "-c", code],
+                       capture_output=True, text=True, timeout=300,
+                       check=True, cwd=Path(__file__).resolve().parent)
+    total = float(r.stdout.strip().splitlines()[-1])
+    added = {}
+    for ln in r.stderr.splitlines():
+        parts = ln.split("|")
+        for name in TOP_LEVEL_ADDED:
+            if len(parts) == 3 and parts[2] == f"   paddle_tpu_torch.{name}":
+                added[name] = int(parts[1]) / 1e6
+    check(sorted(added) == sorted(TOP_LEVEL_ADDED),
+          f"importtime lines of {TOP_LEVEL_ADDED}: {added}")
+    return total, added
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -406,7 +457,14 @@ def phase_device():
     print(f"device: {name} | nvidia-smi: {smi_line} | count "
           f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    return {"name": name, "smi": smi_line}
+    total, added = import_seconds()
+    print(f"device: import paddle_tpu_torch {total:.3f} s in a fresh "
+          f"interpreter, {total - sum(added.values()):.3f} s without the "
+          f"top level's incubate, distributed and inference imports ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in added.items())
+          + f"); {smi_line}", flush=True)
+    return {"name": name, "smi": smi_line, "import_s": total,
+            "import_added_s": added}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -419,12 +477,14 @@ def phase_device():
 #: pass at 64 and 128 and the 192/256-column kernel without dq at 192 and
 #: 256, the f32 dq and dk/dv passes at all four. rms_norm_kernel for x f32
 #: (1, 2, 4 or 8 chunks a thread) and bf16 (1, 2 or 4), each with an f32
-#: and a bf16 weight; add_rms_norm_kernel for the same x layouts, each with
-#: every mix of residual and weight types.
+#: and a bf16 weight, and x f16 (1, 2 or 4) with an f32 and an f16 weight;
+#: add_rms_norm_kernel for the same x layouts, each with every mix of
+#: residual and weight types (f32 or bf16 beside f32 and bf16 x, f32 or f16
+#: beside f16 x).
 SPILL_CHECKED = {"flash_attention.cu": (("flash",), 24),
                  "flash_attention_split.cu": (("flash",), 24),
-                 "rms_norm.cu": (("rms_norm_kernel",), 14),
-                 "add_rms_norm.cu": (("add_rms_norm_kernel",), 28)}
+                 "rms_norm.cu": (("rms_norm_kernel",), 20),
+                 "add_rms_norm.cu": (("add_rms_norm_kernel",), 40)}
 
 
 def ptxas_by_kernel(log, names=("",)):
@@ -446,21 +506,21 @@ def ptxas_by_kernel(log, names=("",)):
     return out
 
 
-#: the decode kernels by source, each built for f32 and bf16 q, every head
-#: width of EXACT_HEAD_DIMS and q-row groups of 1, 2, 4 and 8
+#: the decode kernels by source, each built for f32, bf16 and f16 q, every
+#: head width of EXACT_HEAD_DIMS and q-row groups of 1, 2, 4 and 8
 DECODE_KERNELS = {"paged_attention.cu": "paged_attention_kernel",
                   "decode_attention.cu": "decode_attention_kernel",
                   "paged_attention_int8.cu": "paged_attention_int8_kernel"}
 DECODE_ROW_GROUPS = (1, 2, 4, 8)
+DECODE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def decode_instance(mangled):
     """``"bf16 D=128 R=8"`` from a decode kernel's mangled name."""
-    m = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", mangled)
+    m = re.search(r"I(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E", mangled)
     if m is None:
         return mangled
-    return (f"{'f32' if m.group(1) == 'f' else 'bf16'} D={m.group(2)} "
-            f"R={m.group(3)}")
+    return f"{DECODE_TYPES[m.group(1)]} D={m.group(2)} R={m.group(3)}"
 
 
 def phase_build():
@@ -484,7 +544,7 @@ def phase_build():
               f"ptxas lines of {names} in {src}: {len(found)} != {want}")
         check(all(spill == 0 for _, spill in found.values()),
               f"a kernel of {src} spills: {found}")
-    want = 2 * len(EXACT_HEAD_DIMS) * len(DECODE_ROW_GROUPS)
+    want = len(DECODE_TYPES) * len(EXACT_HEAD_DIMS) * len(DECODE_ROW_GROUPS)
     for src, kname in DECODE_KERNELS.items():
         found = {decode_instance(k): v for k, v in
                  ptxas_by_kernel(logs[src], (kname,)).items()}
@@ -499,8 +559,13 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 3
-PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+#: f16: about 3x the largest of float16's own readings (PERF.md), one
+#: rounding of the output at 3 more mantissa bits than bf16: decode
+#: kernels 4.9e-4 to 9.8e-4 absolute, the norms one f16 ulp (2^-11
+#: relative)
+PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 3e-3}
+RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2),
+           torch.float16: (1.5e-3, 1.5e-3)}
 
 
 def _paged_inputs(b, hq, hkv, d, page, max_len, dtype, gen):
@@ -767,8 +832,9 @@ def _rms_case(n, h, dtype, gen):
 #: f16's largest and under bf16's largest.
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 #: f32: summation order over M; bf16: output rounding (2^-8) and products
-#: rounded from f32 values whose last bits differ
-SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: rounded from f32 values whose last bits differ; f16 the same at 2^-11
+#: (3.7e-4 measured at config 4's seam, so about 3x that)
+SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
 
 
 def _rel_err(got, want):
@@ -1475,12 +1541,14 @@ ATTENTION_SYMBOLS = {"paged_attention": "paged_attention_kernel",
                      "paged_attention_int8": "paged_attention_int8_kernel"}
 
 
-def _serve(eng, cfg, new, tag):
+def _serve(eng, cfg, new, tag, window=True):
     """The serving run of one engine: a warm-up request, then 8 greedy
-    requests (five up front, three after two steps), a decode window
-    under the profiler on a second batch. Checks every request's tokens
-    and the launch counts per decode tick; returns the measurements and
-    the streams in prompt order."""
+    requests (five up front, three after two steps), then on a second
+    batch a decode window under the profiler (unless ``window`` is False)
+    and the graphed tick against the eager one. Checks every request's
+    tokens and the launch counts per decode tick (under ``<name>_f16`` for
+    a float16 model); returns the measurements and the streams in prompt
+    order."""
     from paddle_tpu_torch.inference.serving import _kv_nbytes
     from paddle_tpu_torch.ops import kernels
 
@@ -1538,12 +1606,12 @@ def _serve(eng, cfg, new, tag):
     L = cfg.num_layers
     attn, other = (("paged_attention_int8", "paged_attention") if eng.int8_kv
                    else ("paged_attention", "paged_attention_int8"))
-    check(counts[attn] == L * ticks and counts[other] == 0,
-          f"{attn} launches {counts[attn]} != {L} x {ticks} decode ticks, "
-          f"or {other} launches {counts[other]} != 0")
-    check(counts["rms_norm"] == (2 * L + 1) * (ticks + chunks),
-          f"rms_norm launches {counts['rms_norm']} != {2 * L + 1} x "
-          f"({ticks} decode ticks + {chunks} prefill passes)")
+    sfx = "_f16" if eng._kv_dtype == torch.float16 else ""
+    for name, want in ((attn, L * ticks), (other, 0),
+                       ("rms_norm", (2 * L + 1) * (ticks + chunks))):
+        check(counts[name + sfx] == want,
+              f"{name + sfx} launches {counts[name + sfx]} != {want} ({L} "
+              f"layers, {ticks} decode ticks, {chunks} prefill passes)")
     gen_tokens = new * len(prompts)
     res = {"build_seconds": build_s, "wall_s": wall, "decode_ticks": ticks,
            "prefill_passes": chunks,
@@ -1568,8 +1636,19 @@ def _serve(eng, cfg, new, tag):
     while any(s is None for s in eng._slots) or any(
             s.prefill_pos < len(s.seq_tokens) for s in eng._slots):
         eng.step()
-    res["decode_window"] = _decode_window(eng, 10)
+    if window:
+        res["decode_window"] = _decode_window(eng, 10)
     res["graph_vs_eager"] = gve = _graph_vs_eager(eng)
+    if not window:
+        eng.run_until_complete()
+        print(f"{tag}: graphed tick against the eager _decode_step on the "
+              f"same state: tokens equal {gve['tokens_equal']}, KV cells "
+              f"equal {gve['kv_equal']}, logits' largest difference "
+              f"{gve['logits_max_abs_diff']}", flush=True)
+        check(gve["tokens_equal"] and gve["kv_equal"]
+              and gve["logits_max_abs_diff"] == 0.0,
+              f"{tag}: graphed tick != eager tick: {gve}")
+        return res, [done[r] for r in rids]
     res["own_rows_tick"] = own = _own_rows_tick(eng)
     eng.run_until_complete()
     dw = res["decode_window"]
@@ -2915,7 +2994,9 @@ def incubate_step(params, cfg, tokens, seq_lens, caches):
     fused_rms_norm(residual=), swiglu and the down projection; then a
     final fused_rms_norm(residual=) and the head. Returns the logits."""
     from paddle_tpu_torch.incubate.nn.functional import (
-        fused_rms_norm, masked_multihead_attention, swiglu)
+        fused_rms_norm_arrays as fused_rms_norm,
+        masked_multihead_attention_arrays as masked_multihead_attention,
+        swiglu_arrays as swiglu)
     from paddle_tpu_torch.models.gpt import _rope_at_positions
 
     b, nh = tokens.shape[0], cfg.num_heads
@@ -2941,12 +3022,66 @@ def incubate_step(params, cfg, tokens, seq_lens, caches):
     return F.linear(xn, params["head"])
 
 
-def incubate_generate(model, prompts, starts, new, max_len, step_ms=None):
+def incubate_step_surface(params, cfg, tokens, seq_lens, caches):
+    """:func:`incubate_step` as a user writes it on the Paddle surface:
+    every operand a ``paddle.Tensor`` (``params`` as
+    :func:`incubate_params` makes them, wrapped), every op a public name
+    (``incubate.nn.functional``'s fused_rms_norm, fused_linear with the
+    model's ``[out, in]`` weights, fused_rotary_position_embedding over a
+    ``[1, B, H, D]`` view whose rows take the table rows at their own
+    positions, masked_multihead_attention and swiglu; ``paddle.concat``,
+    ``nn.functional.embedding``). Returns the logits as a Tensor."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_linear, fused_rms_norm, fused_rotary_position_embedding,
+        masked_multihead_attention, swiglu)
+
+    b, nh = tokens.shape[0], cfg.num_heads
+    hd = cfg.hidden_size // nh
+    pos = seq_lens._data.float()[:, None]
+    inv = 10000.0 ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                    device=pos.device) / hd)
+    sin, cos = paddle.Tensor(torch.sin(pos * inv)), paddle.Tensor(
+        torch.cos(pos * inv))
+
+    def lin(h, w):
+        return fused_linear(h, w, transpose_weight=True)
+
+    def rope(t):
+        out, _, _ = fused_rotary_position_embedding(
+            t.reshape([1, b, nh, hd]), sin=sin, cos=cos)
+        return out.reshape([b, nh * hd])
+
+    x = paddle.nn.functional.embedding(tokens, params["embed"])
+    resid = delta = None
+    for lp, cache in zip(params["layers"], caches):
+        if resid is None:
+            h, resid = fused_rms_norm(x, lp["ln1"]), x
+        else:
+            h, resid = fused_rms_norm(delta, lp["ln1"], residual=resid)
+        qkv = paddle.concat([rope(lin(h, lp["wq"])), rope(lin(h, lp["wk"])),
+                             lin(h, lp["wv"])], -1)
+        out, _ = masked_multihead_attention(qkv, cache,
+                                            sequence_lengths=seq_lens)
+        h2, resid = fused_rms_norm(lin(out, lp["wo"]), lp["ln2"],
+                                   residual=resid)
+        delta = lin(swiglu(lin(h2, lp["wg"]), lin(h2, lp["wu"])), lp["wd"])
+    xn, _ = fused_rms_norm(delta, params["fnorm"], residual=resid)
+    return lin(xn, params["head"])
+
+
+def incubate_generate(model, prompts, starts, new, max_len, step_ms=None,
+                      surface=False):
     """Greedy streams of the incubate decoder. Row i joins at step
     ``starts[i]``, feeds its prompt one token per step, then its own
     argmax, until it holds ``new`` new tokens. Before it joins (and after
     it ends) a row writes a dummy token at position 0, which its first
-    real step overwrites. Returns prompt + new tokens per row."""
+    real step overwrites. ``surface``: every step through
+    :func:`incubate_step_surface` on ``paddle.Tensor`` s (over the same
+    weights and caches). Returns prompt + new tokens per row."""
+    from paddle_tpu_torch import Tensor
+    from paddle_tpu_torch.core.dispatch import unwrap
+
     cfg = model.config
     check(cfg.num_kv_heads == cfg.num_heads,
           "masked_multihead_attention packs H heads for k and v (MHA)")
@@ -2956,6 +3091,14 @@ def incubate_generate(model, prompts, starts, new, max_len, step_ms=None):
     caches = [torch.zeros(2, len(prompts), cfg.num_heads, max_len, hd,
                           dtype=params["embed"].dtype, device=dev)
               for _ in params["layers"]]
+    step, wrap = incubate_step, (lambda t: t)
+    if surface:
+        step, wrap = incubate_step_surface, Tensor
+        params = {"layers": [{k: Tensor(v) for k, v in lp.items()}
+                             for lp in params["layers"]],
+                  **{k: Tensor(params[k]) for k in ("embed", "fnorm",
+                                                    "head")}}
+        caches = [Tensor(c) for c in caches]
     outs = [list(p) for p in prompts]
     steps = max(s + len(p) + new - 1 for s, p in zip(starts, prompts))
     with torch.inference_mode():
@@ -2965,10 +3108,11 @@ def incubate_generate(model, prompts, starts, new, max_len, step_ms=None):
             pos = [t - s if on else 0 for s, on in zip(starts, live)]
             toks = [o[i] if on else 0 for o, i, on in zip(outs, pos, live)]
             t0 = time.perf_counter()
-            logits = incubate_step(
-                params, cfg, torch.as_tensor(toks, device=dev),
-                torch.as_tensor(pos, dtype=torch.int32, device=dev), caches)
-            nxt = logits.float().argmax(-1).tolist()
+            logits = step(
+                params, cfg, wrap(torch.as_tensor(toks, device=dev)),
+                wrap(torch.as_tensor(pos, dtype=torch.int32, device=dev)),
+                caches)
+            nxt = unwrap(logits).float().argmax(-1).tolist()
             if step_ms is not None:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             for o, p, i, on, tok in zip(outs, prompts, pos, live, nxt):
@@ -4890,7 +5034,9 @@ def blha_generate(model, prompts, new, page=BLHA_PAGE, step_ms=None,
     clock, synchronised); ``counts`` the kernel launches of each decode
     step. Returns prompt + ``new`` tokens per row."""
     from paddle_tpu_torch.incubate.nn.functional import (
-        block_multihead_attention, fused_linear, fused_rms_norm, swiglu)
+        block_multihead_attention_arrays as block_multihead_attention,
+        fused_linear_arrays as fused_linear,
+        fused_rms_norm_arrays as fused_rms_norm, swiglu_arrays as swiglu)
     from paddle_tpu_torch.ops import kernels
 
     cfg = model.config
@@ -4957,20 +5103,22 @@ def blha_generate(model, prompts, new, page=BLHA_PAGE, step_ms=None,
     return outs
 
 
-def _fused_init(module, seed, std=0.02):
-    """Seeded weights for a Fused* module: matrices N(0, std^2), biases 0,
-    LayerNorm scales 1."""
-    gen = torch.Generator(device=next(module.parameters()).device)
+def _fused_init(layer, seed, std=0.02):
+    """Seeded weights for a Fused* layer (an ``nn.Layer``), in place in
+    its parameters' type: matrices N(0, std^2), biases 0, LayerNorm scales
+    1."""
+    params = [(n, p._data) for n, p in layer.named_parameters()]
+    gen = torch.Generator(device=params[0][1].device)
     gen.manual_seed(seed)
     with torch.no_grad():
-        for name, p in module.named_parameters():
+        for name, p in params:
             if name.endswith("_scale"):
                 p.fill_(1.0)
             elif p.dim() == 1:
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=gen)
-    return module
+    return layer
 
 
 def _leaf_errs(got, want):
@@ -5014,10 +5162,12 @@ def phase_incubate_surface(model, smi=""):
     (e) the non-causal flash forward and fused backward alone at (b)'s
         shape [3, 2048, 16/16, 128]: ms, bound (B*H*S^2 pairs) and SDPA's
         (is_causal=False) ms."""
+    from paddle_tpu_torch import Tensor
     from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
                                               FusedTransformerEncoderLayer)
+    from paddle_tpu_torch.nn import LayerList
     from paddle_tpu_torch.incubate.nn.functional import \
-        fused_linear_cross_entropy
+        fused_linear_cross_entropy_arrays as fused_linear_cross_entropy
     from paddle_tpu_torch.nn.functional import (chunked_lm_loss_arrays,
                                                 int8_head_enabled)
     from paddle_tpu_torch.ops import kernels
@@ -5083,17 +5233,17 @@ def phase_incubate_surface(model, smi=""):
         return res
 
     def part_b():
-        fmt = _fused_init(FusedMultiTransformer(
-            **FMT_KW, device=DEVICE, dtype=torch.bfloat16), seed=5).eval()
-        x = torch.randn(bsz, seq, e, device=DEVICE,
-                        generator=torch.Generator(DEVICE).manual_seed(6)
-                        ).to(torch.bfloat16)
-        every = torch.ones(seq, seq, dtype=torch.bool, device=DEVICE)
+        fmt = FusedMultiTransformer(**FMT_KW).to(dtype="bfloat16")
+        _fused_init(fmt, seed=5).eval()
+        x = Tensor(torch.randn(bsz, seq, e, device=DEVICE,
+                               generator=torch.Generator(DEVICE).manual_seed(
+                                   6)).to(torch.bfloat16))
+        every = Tensor(torch.ones(seq, seq, dtype=torch.bool, device=DEVICE))
         with torch.no_grad():
             fmt(x)                                          # warm-up
             _sync(DEVICE)
             kernels.reset_launch_counts()
-            got = fmt(x)
+            got = fmt(x)._data
             _sync(DEVICE)
             counts = kernels.launch_counts()
             # each layer through the flash op and through the plain route
@@ -5102,10 +5252,10 @@ def phase_incubate_surface(model, smi=""):
             layer_rel, h = [], x
             for layer in fmt.layers:
                 flash = layer(h)
-                layer_rel.append(_rel_err(flash, layer(
-                    h, src_mask=every))[1])
+                layer_rel.append(_rel_err(flash._data, layer(
+                    h, src_mask=every)._data)[1])
                 h = flash
-            err, rel = _rel_err(got, fmt(x, attn_mask=every))
+            err, rel = _rel_err(got, fmt(x, attn_mask=every)._data)
             ms = time_ms(lambda: fmt(x), reps=5, inner=1)
             plain_ms = time_ms(lambda: fmt(x, attn_mask=every), reps=3,
                                inner=1)
@@ -5131,26 +5281,26 @@ def phase_incubate_surface(model, smi=""):
         return res
 
     def part_c():
-        stack = torch.nn.Sequential(*(
+        stack = LayerList([
             FusedTransformerEncoderLayer(
                 e, nh, FMT_KW["dim_feedforward"], dropout_rate=0.0,
-                activation="gelu", normalize_before=True, device=DEVICE,
-                dtype=torch.bfloat16) for _ in range(2)))
+                activation="gelu", normalize_before=True)
+            for _ in range(2)]).to(dtype="bfloat16")
         _fused_init(stack, seed=7)
-        x = torch.randn(bsz, seq, e, device=DEVICE,
-                        generator=torch.Generator(DEVICE).manual_seed(8)
-                        ).to(torch.bfloat16)
-        every = torch.ones(seq, seq, dtype=torch.bool, device=DEVICE)
+        x = Tensor(torch.randn(bsz, seq, e, device=DEVICE,
+                               generator=torch.Generator(DEVICE).manual_seed(
+                                   8)).to(torch.bfloat16))
+        every = Tensor(torch.ones(seq, seq, dtype=torch.bool, device=DEVICE))
 
         def grads(mask):
-            stack.zero_grad()
+            stack.clear_gradients()
             h = x
             for layer in stack:
                 h = layer(h, src_mask=mask)
-            loss = h.float().square().mean()
+            loss = h.astype("float32").square().mean()
             loss.backward()
             # pre-LayerNorm layers leave their post-LayerNorm unused
-            return loss.item(), {n: p.grad.detach().clone()
+            return float(loss), {n: p.grad._data.detach().clone()
                                  for n, p in stack.named_parameters()
                                  if p.grad is not None}
 
@@ -5284,6 +5434,373 @@ def phase_incubate_surface(model, smi=""):
     torch.cuda.empty_cache()
     out["launches"] = launches
     print(f"incubate_surface: {smi}: parts s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["part_seconds"].items())
+          + f"; launches {launches}", flush=True)
+    return out
+
+
+# ------------------------------------------------------------- float16
+#: (d)'s depth: config 4 (bench.py:259-262) at all of its 24 layers (one
+#: loss and backward take under a second; no cut)
+F16_PIPE_LAYERS = 24
+#: (e) card against CPU at depth 2 in float16, the same weights and inputs:
+#: sums taken in other orders on the two devices, each product rounded to
+#: f16 (2^-11) after them. Bounds about 3x the largest of float16's own
+#: readings (PERF.md; two chip runs) and tighter than the bf16 bounds
+#: (FLASH_TOL, AMP_LOSS_RTOL, AMP_GRAD_RTOL): the engine's first-tick
+#: logits and the incubate decoder's, of the largest |logit| (read
+#: 1.28e-3 to 1.51e-3); the Pipe's loss (3.9e-6 at seq 128, 2.2e-5 at 32),
+#: and each gradient of its leaf's norm or of AMP_GRAD_FLOOR of the largest
+#: leaf's norm, where that is more (1.5e-3 to 1.7e-3)
+F16_LOGITS_RTOL = 4.5e-3
+F16_LOSS_RTOL = 7e-5
+F16_GRAD_RTOL = 5e-3
+#: (e)'s shapes, cut for the CPU's float16 GEMMs (about 5.6 GFLOP/s on
+#: the card's host, PERF.md): two prompts for the engine and the incubate
+#: decoder (whose steps are the shorter prompt's tokens), the Pipe at
+#: batch 1 x seq 32
+F16_CPU_PROMPTS = (9, 16)
+F16_CPU_SEQ = 32
+
+
+def _surface_params(model):
+    """:func:`incubate_params` as ``paddle.Tensor`` s over the same
+    tensors."""
+    from paddle_tpu_torch import Tensor
+
+    params = incubate_params(model)
+    return {"layers": [{k: Tensor(v) for k, v in lp.items()}
+                       for lp in params["layers"]],
+            **{k: Tensor(params[k]) for k in ("embed", "fnorm", "head")}}
+
+
+@torch.inference_mode()
+def _incubate_logits(model, prompts, dev):
+    """The surface incubate decoder (:func:`incubate_step_surface`) fed the
+    rows' prompts one token a step: every step's logits, f32 on the CPU."""
+    from paddle_tpu_torch import Tensor
+
+    cfg = model.config
+    params = _surface_params(model)
+    hd = cfg.hidden_size // cfg.num_heads
+    n = min(len(p) for p in prompts)
+    caches = [Tensor(torch.zeros(2, len(prompts), cfg.num_heads, n, hd,
+                                 dtype=model.model.embed_tokens.weight.dtype,
+                                 device=dev))
+              for _ in params["layers"]]
+    out = []
+    for t in range(n):
+        logits = incubate_step_surface(
+            params, cfg, Tensor(torch.as_tensor([p[t] for p in prompts],
+                                                device=dev)),
+            Tensor(torch.full((len(prompts),), t, dtype=torch.int32,
+                              device=dev)), caches)
+        out.append(logits._data.float().cpu())
+    return torch.stack(out)
+
+
+def _logits_rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+#: (d) and (e)'s Pipe: config 4's widths (bench.py:259-262)
+CONFIG4_WIDTHS = dict(vocab_size=32000, hidden_size=2048, num_heads=16,
+                      max_seq_len=2048, dropout=0.0, dtype="float16",
+                      recompute=True)
+
+
+def phase_float16(model, smi="", streams=None, incubate_bf16=None,
+                  pipe_kw=CONFIG4_WIDTHS, pipe_layers=F16_PIPE_LAYERS,
+                  batch=3, seq=2048, device=DEVICE):
+    """float16 on phase 4's LLaMA-7B model, cast in place:
+    (a) the six kernels that gained a float16 instance (rms_norm,
+        add_rms_norm, swiglu_down, decode_attention, paged_attention,
+        paged_attention_int8) against their plain versions at their bf16
+        rows' main shapes, with ms, bound, plain and library ms;
+    (b) phase 4's 8 staggered requests through the engine, exact and int8
+        KV: paged_attention_f16 L and rms_norm_f16 2L + 1 a tick
+        (paged_attention_int8_f16 L an int8 tick), the graphed tick equal
+        to the eager _decode_step bit for bit; tokens/s, TTFT, the median
+        tick and the share of tokens equal to phase 4's bf16 streams;
+    (c) the incubate decoder on paddle.Tensor inputs through the public
+        names (incubate_step_surface) over dense caches:
+        decode_attention_f16 L, add_rms_norm_f16 2L and rms_norm_f16 1 a
+        token, ms per token beside phase incubate's bf16 torch-tensor run;
+        block_multihead_attention over float16 page-major caches:
+        paged_attention_f16 L a decode step;
+    (d) the config-4 Pipe (GPT-3 1.3B) in float16 at ``pipe_layers``
+        layers (all 24), batch x seq tokens: one forward loss and
+        one backward, swiglu_down_f16 2L, rms_norm_f16 4L,
+        flash_attention_fwd_f16 2L and flash_attention_bwd_f16 L, the loss
+        within [ln V - 0.1, ln V + 1.5];
+    (e) card against CPU at depth 2: the engine's first-tick logits, the
+        incubate decoder's logits, the Pipe's loss and gradients."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMPipe
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops import kernels
+
+    f16 = torch.float16
+    cfg = model.config
+    L = cfg.num_layers
+    out = {"smi": smi, "part_seconds": {}}
+    launches = {k: 0 for k in kernels.launch_counts()}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(device)
+        out["part_seconds"][name] = time.perf_counter() - t0
+        for k, v in res.get("launches", {}).items():
+            launches[k] += v
+        out[name] = res
+        return res
+
+    def add(*counts):
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    def part_a():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(21)
+        rows = {
+            # the engine tick's rows first (its main shape), then config
+            # 4's block norms
+            "rms_norm": [_rms_case(8, 4096, f16, gen),
+                         _rms_case(6144, 2048, f16, gen)],
+            # the incubate decoder's rows, then a prefill-sized block
+            "add_rms_norm": [_add_rms_case(8, 4096, f16, gen),
+                             _add_rms_case(4096, 4096, f16, gen)],
+            "swiglu_down": [_swiglu_case(6144, 5504, 2048, f16, gen)],
+            "decode_attention": [_decode_case(8, 32, 2048, 128, f16, gen)],
+            "paged_attention": [_paged_case(8, 32, 32, 128, 64, 2048, f16,
+                                            gen)],
+            "paged_attention_int8": [_paged_int8_case(
+                8, 32, 32, 128, 64, 2048, f16, gen)]}
+        for name, cases in rows.items():
+            for r in cases:
+                graphed = (f"; from a CUDA graph {r['device_ms']:.4f} ms, "
+                           f"library {r['library_device_ms']:.4f}"
+                           if "device_ms" in r else "")
+                print(f"float16 (a) {name}_f16 {r['shape']}: {r['ms']:.4f} "
+                      f"ms (plain {r['plain_ms']:.4f}, library "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                      f"{r['bound_by']}{graphed}) max_abs_err "
+                      f"{r['max_abs_err']:.3g}; {smi}", flush=True)
+        return {"rows": rows}
+
+    def part_b():
+        model.to(f16)                                  # in place
+        check({p.dtype for p in model.parameters()} == {f16},
+              "the model is not float16")
+        new = 32
+        res = {}
+        for tag, int8 in (("exact", False), ("int8", True)):
+            eng = ContinuousBatchingEngine(model, max_new_tokens=new,
+                                           int8_kv=int8, **SERVE_ENGINE)
+            check(eng.int8_kv == int8 and eng._kv_dtype == f16,
+                  f"(b) {tag}: int8_kv {eng.int8_kv}, KV type "
+                  f"{eng._kv_dtype}")
+            r, st = _serve(eng, cfg, new, f"float16 (b) {tag}",
+                           window=False)
+            if streams is not None:
+                same = sum(a == b for s, e in zip(st, streams)
+                           for a, b in zip(s[-new:], e[-new:]))
+                r["tokens_equal_to_bf16_share"] = same / (new * len(st))
+            res[tag] = r
+            print(f"float16 (b) {tag}: {r['tokens_per_s']:.1f} tok/s, "
+                  f"median tick {r['decode_tick_ms_median']:.2f} ms, TTFT "
+                  f"median {statistics.median(r['ttft_ms'].values()):.1f} "
+                  f"ms; share of tokens equal to phase 4's bf16 streams "
+                  f"{r.get('tokens_equal_to_bf16_share')}; {smi}",
+                  flush=True)
+            del eng
+            torch.cuda.empty_cache()
+        check(res["int8"]["kv_bytes"] * 256 == res["exact"]["kv_bytes"] * 132,
+              "(b) int8 KV bytes are not 132/256 of the float16 bytes")
+        res["launches"] = add(res["exact"]["launches"],
+                              res["int8"]["launches"])
+        return res
+
+    def part_c():
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, cfg.vocab_size, 16).tolist()
+                   for _ in range(8)]
+        starts = [4 * i for i in range(8)]
+        new, step_ms = 32, []
+        incubate_generate(model, prompts[:1], [0], 2, 64, surface=True)
+        _sync(device)
+        kernels.reset_launch_counts()
+        outs, steps = incubate_generate(model, prompts, starts, new, 2048,
+                                        step_ms, surface=True)
+        _sync(device)
+        counts = kernels.launch_counts()
+        for name, per_token in (("decode_attention_f16", L),
+                                ("add_rms_norm_f16", 2 * L),
+                                ("rms_norm_f16", 1)):
+            check(counts[name] == per_token * steps,
+                  f"(c) {name} launches {counts[name]} != {per_token} x "
+                  f"{steps} tokens")
+        check(all(len(o) == len(p) + new for o, p in zip(outs, prompts)),
+              "(c) streams")
+        med = statistics.median(step_ms)
+        bf16 = (incubate_bf16 or {}).get("ms_per_token_median")
+        # block_multihead_attention over float16 page-major caches
+        _, sp = _serve_prompts(cfg)
+        blha_counts = []
+        blha_generate(model, [p[:128] for p in sp[:4]], 4,
+                      counts=blha_counts)
+        for c in blha_counts:
+            check(c["paged_attention_f16"] == L and c["paged_attention"] == 0,
+                  f"(c) block_multihead_attention step launches {c}")
+        res = {"steps": steps, "ms_per_token_median": med,
+               "ms_per_token_all": step_ms,
+               "bf16_torch_ms_per_token_median": bf16,
+               "blha_steps": len(blha_counts),
+               "launches": add(counts, *blha_counts)}
+        print(f"float16 (c): the incubate decoder on paddle.Tensor inputs "
+              f"through the public names, 8 rows, {steps} tokens: median "
+              f"{med:.2f} ms per token (phase incubate's bf16 on torch "
+              f"tensors {bf16} ms); launches per token decode_attention_f16 "
+              f"{counts['decode_attention_f16'] // steps}, add_rms_norm_f16 "
+              f"{counts['add_rms_norm_f16'] // steps}, rms_norm_f16 "
+              f"{counts['rms_norm_f16'] // steps} (L = {L}); "
+              f"block_multihead_attention {len(blha_counts)} decode steps, "
+              f"paged_attention_f16 {L} each; {smi}", flush=True)
+        return res
+
+    def part_d():
+        cfg4 = GPTConfig(**dict(pipe_kw, num_layers=pipe_layers))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(22)
+        pipe = GPTForCausalLMPipe(cfg4, device=device).init_weights(
+            gen, std=0.02)
+        check({p.dtype for p in pipe.parameters()} == {f16},
+              "(d) the Pipe is not float16")
+        ids, labels = _train_batch(cfg4.vocab_size, batch, seq, 0, device)
+        _sync(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = pipe.loss(ids, labels, int8=False)
+        loss.backward()
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        n = pipe_layers
+        for name, want in (("swiglu_down_f16", 2 * n), ("rms_norm_f16", 4 * n),
+                           ("flash_attention_fwd_f16", 2 * n),
+                           ("flash_attention_bwd_f16", n)):
+            check(counts[name] == want,
+                  f"(d) {name} launches {counts[name]} != {want}")
+        ln_v = float(np.log(cfg4.vocab_size))
+        val = loss.item()
+        check(math.isfinite(val) and ln_v - 0.1 <= val <= ln_v + 1.5,
+              f"(d) loss {val} outside [ln V - 0.1, ln V + 1.5]")
+        check(all(torch.isfinite(p.grad).all().item()
+                  for p in pipe.parameters()), "(d) a gradient is not finite")
+        res = {"layers": n, "batch": batch, "seq": seq, "loss": val,
+               "step_ms": ms, "launches": counts}
+        print(f"float16 (d): config-4 Pipe, {n} of 24 layers, [{batch}, "
+              f"{seq}] float16, one forward loss and backward in {ms:.1f} ms "
+              f"(the first at this shape): loss {val:.4f} (ln V "
+              f"{ln_v:.4f}); launches swiglu_down_f16 "
+              f"{counts['swiglu_down_f16']}, rms_norm_f16 "
+              f"{counts['rms_norm_f16']}, flash fwd/bwd f16 "
+              f"{counts['flash_attention_fwd_f16']}/"
+              f"{counts['flash_attention_bwd_f16']}; {smi}", flush=True)
+        del pipe, loss
+        return res
+
+    def part_e():
+        res = {}
+        # the engine's first decode tick, eager, on each device's own
+        # prefilled state, fed the card engine's first tokens; the model
+        # runs on the card, then moves to the CPU
+        m = _random_model(LlamaConfig(**dict(vars(cfg), num_layers=2)), f16,
+                          seed=23)
+        rng = np.random.default_rng(24)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in F16_CPU_PROMPTS]
+        logits, inc, toks, secs = {}, {}, None, {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            m.to(dev)
+            eng = ContinuousBatchingEngine(
+                m, max_new_tokens=4, device=dev, max_slots=2, page_size=64,
+                max_seq_len=256, seed=0)
+            if dev == "cpu":
+                # the CPU's tick at its own 2 rows, not the card's 64: a
+                # GEMM row does not depend on the others on the CPU
+                eng._rows = eng.max_slots
+            for p in prompts:
+                eng.submit(p)
+            eng.step()                                  # the prefill
+            tokens, lens, tables = _tick_inputs(eng)
+            toks = tokens if toks is None else toks
+            with torch.inference_mode():
+                logits[dev] = eng._decode_step(*(
+                    torch.as_tensor(a, device=dev)
+                    for a in (toks, lens, tables)))[:len(prompts)].float(
+                    ).cpu()
+            del eng
+            inc[dev] = _incubate_logits(m, prompts, dev)
+            secs[f"engine_incubate_{dev}"] = time.perf_counter() - t0
+        del m
+        res["engine_logits_rel"] = _logits_rel(logits[device], logits["cpu"])
+        res["incubate_logits_rel"] = _logits_rel(inc[device], inc["cpu"])
+        # the Pipe: one loss and backward on each device, the same weights
+        cfg4 = GPTConfig(**dict(pipe_kw, num_layers=2))
+        pipe = GPTForCausalLMPipe(cfg4, device=device).init_weights(
+            torch.Generator(device=device).manual_seed(25), std=0.02)
+        got = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            pipe.to(dev)
+            pipe.zero_grad(set_to_none=True)
+            ids, labels = _train_batch(cfg4.vocab_size, 1, F16_CPU_SEQ, 3,
+                                       dev)
+            loss = pipe.loss(ids, labels, int8=False)
+            loss.backward()
+            got[dev] = (loss.item(), {n: p.grad.float().cpu() for n, p in
+                                      pipe.named_parameters()})
+            secs[f"pipe_{dev}"] = time.perf_counter() - t0
+        del pipe
+        g_cpu, g_card = got["cpu"][1], got[device][1]
+        top = max(g.norm().item() for g in g_cpu.values())
+        grad_rel = {n: ((g_card[n] - g).norm().item()
+                        / max(g.norm().item(), AMP_GRAD_FLOOR * top))
+                    for n, g in g_cpu.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        res.update(pipe_losses=[got["cpu"][0], got[device][0]],
+                   pipe_loss_rel=abs(got[device][0] - got["cpu"][0])
+                   / abs(got["cpu"][0]),
+                   pipe_grad_rel_max=grad_rel[worst],
+                   pipe_grad_rel_worst=worst, seconds=secs,
+                   tols=[F16_LOGITS_RTOL, F16_LOSS_RTOL, F16_GRAD_RTOL])
+        print(f"float16 (e) card vs cpu at depth 2: engine first-tick logits "
+              f"rel {res['engine_logits_rel']:.3e}, incubate decoder logits "
+              f"rel {res['incubate_logits_rel']:.3e} (tol "
+              f"{F16_LOGITS_RTOL}); Pipe loss rel {res['pipe_loss_rel']:.2e} "
+              f"(tol {F16_LOSS_RTOL}), grads max rel {grad_rel[worst]:.2e} "
+              f"({worst}, tol {F16_GRAD_RTOL}); seconds "
+              + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+              + f"; {smi}", flush=True)
+        check(res["engine_logits_rel"] <= F16_LOGITS_RTOL
+              and res["incubate_logits_rel"] <= F16_LOGITS_RTOL,
+              f"(e) logits {res}")
+        check(res["pipe_loss_rel"] <= F16_LOSS_RTOL, f"(e) loss {res}")
+        check(grad_rel[worst] <= F16_GRAD_RTOL, f"(e) grads {res}")
+        return res
+
+    part("a", part_a)
+    part("b", part_b)
+    part("c", part_c)
+    torch.cuda.empty_cache()
+    part("d", part_d)
+    torch.cuda.empty_cache()
+    part("e", part_e)
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    print(f"float16: {smi}: parts s "
           + ", ".join(f"{k} {v:.1f}" for k, v in out["part_seconds"].items())
           + f"; launches {launches}", flush=True)
     return out
@@ -6936,6 +7453,9 @@ def main():
         report["incubate_surface"] = run(
             "incubate_surface", phase_incubate_surface, model,
             report["device"]["smi"])
+        report["float16"] = run("float16", phase_float16, model,
+                                report["device"]["smi"], streams,
+                                report["incubate"])
         del model
         torch.cuda.empty_cache()
         report["consistency"], model, prompts, want = run(
@@ -7015,6 +7535,11 @@ def main():
                 "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
     for name, i in f16_case.items():
         meta[name + "_f16"] = meta[name]
+    # the six kernels that took a float16 instance in phase float16, at
+    # their bf16 rows' main shapes
+    f16_rows = report["float16"]["a"]["rows"]
+    for name in f16_rows:
+        meta[name + "_f16"] = meta[name]
     line = []
     for name, (route, source, replaces) in meta.items():
         # bf16 at the main path's shape: serving for the decode kernels,
@@ -7022,14 +7547,15 @@ def main():
         # the split backward, config 4 training for the others
         if name.endswith("_f16"):
             base = name[:-len("_f16")]
-            main_case = report["amp"]["flash_f16"][base][f16_case[base]]
+            main_case = (f16_rows[base][0] if base in f16_rows else
+                         report["amp"]["flash_f16"][base][f16_case[base]])
         else:
             main_case = report["kernels"][name][0]
         by_path = {path: report[path]["launches"][name]
                    for path in ("serving", "serving_int8", "serving_spec",
                                 "serving_int8w", "serving_disagg",
                                 "serving_fleet", "incubate",
-                                "incubate_surface", "training",
+                                "incubate_surface", "float16", "training",
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
                                 "paddle_surface", "vision", "amp")}

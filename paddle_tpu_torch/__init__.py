@@ -13,7 +13,8 @@ dtypes, the ops, ``nn`` and ``nn.functional``, ``optimizer`` and
 ``jit.TrainStep``, ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
 and the vision user's path: ``io`` (``DataLoader``
 with worker processes), ``metric``, ``Model`` with ``callbacks``,
-``save``/``load`` and ``vision``. A tensor made with no place lands on the CUDA card
+``save``/``load`` and ``vision``, and, as in the reference, ``incubate``
+(the fused ops and ``Fused*`` layers), ``distributed`` and ``inference``. A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
 making it raises. Imports run one way: the surface imports the torch-level
 port (``ops.kernels``, ``optimizer``, ``jit``, ``telemetry``), which imports
@@ -28,6 +29,7 @@ from .dtypes import (  # noqa: F401
     iinfo, finfo, promote_types)
 
 dtype = DType  # paddle.dtype is the dtype class
+bool = bool_  # paddle.bool (shadows the builtin in this module only)
 
 from .device import (  # noqa: F401,E402
     Place, CPUPlace, CUDAPlace, CUDAPinnedPlace, TPUPlace, XPUPlace,
@@ -58,6 +60,9 @@ from . import metric  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
 from . import hapi  # noqa: F401,E402
+from . import incubate  # noqa: F401,E402
+from . import distributed  # noqa: F401,E402
+from . import inference  # noqa: F401,E402
 from .hapi.model import Model, summary  # noqa: F401,E402
 from .framework_io import (  # noqa: F401,E402
     async_save, clear_async_save_task_queue, load, save)

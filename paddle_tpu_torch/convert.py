@@ -156,26 +156,31 @@ def training_state_from_jax(flat: dict, model) -> dict[str, torch.Tensor]:
     return out
 
 
-def fused_state_dict_from_jax(params: dict, module) -> dict[str, torch.Tensor]:
-    """A JAX ``incubate.nn`` ``Fused*`` layer's ``state_dict()``, taken as
-    numpy arrays, -> a state dict for the port's layer of the same class
-    (CPU tensors; ``load_state_dict`` moves them). Both keep the same
-    names and ``[in, out]`` shapes, so nothing is transposed; a missing,
-    unexpected or differently shaped entry raises."""
-    want = {k: tuple(t.shape) for k, t in module.state_dict().items()}
+def load_fused_from_jax(params: dict, layer) -> None:
+    """Load a JAX ``incubate.nn`` ``Fused*`` layer's ``state_dict()``,
+    taken as numpy arrays by structured name, into the port's layer of the
+    same class, in place (each value in the parameter's own place and
+    type). Both packages make these layers' parameters by
+    ``create_parameter`` under the same names and shapes, the weights
+    ``[in, out]`` (``qkv_weight [E, 3E]``, ``linear_weight [E, E]``,
+    ``linear1_weight [E, F]``, ``linear2_weight [F, E]``; ``FusedLinear``'s
+    ``[out, in]`` under ``transpose_weight`` on both sides), so nothing is
+    transposed. A missing, unexpected or differently shaped entry
+    raises."""
+    want = {k: tuple(t.shape) for k, t in layer.state_dict().items()}
     missing = [k for k in want if k not in params]
     extra = [k for k in params if k not in want]
     if missing or extra:
-        raise KeyError(f"fused_state_dict_from_jax: missing {missing}, "
+        raise KeyError(f"load_fused_from_jax: missing {missing}, "
                        f"unexpected {extra}")
     out = {}
     for name, shape in want.items():
         a = np.asarray(params[name])
         if a.shape != shape:
-            raise ValueError(f"fused_state_dict_from_jax: {name} is "
-                             f"{a.shape}, the layer's {shape}")
+            raise ValueError(f"load_fused_from_jax: {name} is {a.shape}, "
+                             f"the layer's {shape}")
         out[name] = _to_torch(a)
-    return out
+    layer.set_state_dict(out)
 
 
 def layer_state_from_numpy(state: dict, layer) -> None:

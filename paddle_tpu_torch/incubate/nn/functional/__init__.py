@@ -1,10 +1,18 @@
-"""The incubate fused ops on torch tensors.
+"""The incubate fused ops.
 
 Counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``, all 22 of
 its public names: the ops PaddlePaddle users build inference decoders and
-fused transformer layers from. They take and return torch tensors (the
-port has no ``Tensor`` class). The JAX package leaves all but the
-attention cores and the norms to XLA; here they are plain PyTorch.
+fused transformer layers from. Each public name takes and returns the
+port's ``Tensor`` s: it runs its body, kept under ``<name>_arrays`` for
+callers that hold torch tensors, through ``core.dispatch.apply_op`` under
+the reference's op name (``fused_rope``, ``varlen_attention``,
+``fused_bias_dropout_residual_ln``, ``blha_decode``/``blha_prefill``, the
+others their own), so ``op_dispatch_total`` and amp's lists see them as
+the reference's. Ops that return several values return tuples of
+``Tensor`` s. ``swiglu`` is ``nn.functional.swiglu`` and
+``fused_multi_transformer`` composes the public attention and FFN ops, as
+in the reference. The JAX package leaves all but the attention cores and
+the norms to XLA; here they are plain PyTorch.
 
 Routes. The JAX package gates its kernels on "running on the TPU"; here a
 CUDA tensor takes the hand-written kernel and everything else the JAX
@@ -53,12 +61,16 @@ ignores raise ``NotImplementedError`` here, as for the decode ops above.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ....core.dispatch import apply_op, unwrap
+from ....nn.functional.activation import swiglu as _swiglu
 from ....ops.kernels.add_rms_norm import add_rms_norm
 from ....ops.kernels.decode_attention import decode_attention
 from ....ops.kernels.decode_attention import \
@@ -128,9 +140,9 @@ def _layer_norm_f32(a, scale, bias, eps):
     return out
 
 
-def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
-                   begin_norm_axis=-1, bias=None, residual=None,
-                   quant_scale=-1):
+def fused_rms_norm_arrays(x, norm_weight, norm_bias=None, epsilon=1e-6,
+                          begin_norm_axis=-1, bias=None, residual=None,
+                          quant_scale=-1):
     """RMS norm over the axes from ``begin_norm_axis`` on, with an optional
     pre-norm ``bias`` and residual add. With ``residual`` returns
     ``(out, residual_out)``, ``residual_out = x (+ bias) + residual`` being
@@ -159,7 +171,7 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
     return (out, a) if residual is not None else out
 
 
-def fp8_gemm(x, y, transpose_x=False, transpose_y=False, name=None):
+def fp8_gemm_arrays(x, y, transpose_x=False, transpose_y=False, name=None):
     """``x @ y`` on the fp8 path: x [..., M, K] (2-D or more), y [K, N];
     the transpose flags are ``paddle.matmul``'s."""
     if transpose_x:
@@ -169,27 +181,31 @@ def fp8_gemm(x, y, transpose_x=False, transpose_y=False, name=None):
     return inline_scaled_gemm(x, y, dtype="fp8")
 
 
-def fp8_linear(x, weight, bias=None, name=None):
+def fp8_linear_arrays(x, weight, bias=None, name=None):
     """``x @ weight (+ bias)`` on the fp8 path, weight ``[in, out]``."""
     out = inline_scaled_gemm(x, weight, dtype="fp8")
     return out if bias is None else out + bias
 
 
-def swiglu(x, y=None, name=None):
+def swiglu_arrays(x, y=None, name=None):
     """``silu(x) * y``; with ``y`` None, x's last axis is split in halves."""
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return F.silu(x) * y
 
 
-def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
-                               sequence_lengths=None, rotary_tensor=None,
-                               beam_cache_offset=None, qkv_out_scale=None,
-                               out_shift=None, out_smooth=None, seq_len=1,
-                               rotary_emb_dims=0, use_neox_rotary_style=False,
-                               compute_dtype="default", out_scale=-1,
-                               quant_round_type=1, quant_max_bound=127.0,
-                               quant_min_bound=-127.0, name=None):
+def masked_multihead_attention_arrays(x, cache_kv=None, bias=None,
+                                      src_mask=None, sequence_lengths=None,
+                                      rotary_tensor=None,
+                                      beam_cache_offset=None,
+                                      qkv_out_scale=None, out_shift=None,
+                                      out_smooth=None, seq_len=1,
+                                      rotary_emb_dims=0,
+                                      use_neox_rotary_style=False,
+                                      compute_dtype="default", out_scale=-1,
+                                      quant_round_type=1,
+                                      quant_max_bound=127.0,
+                                      quant_min_bound=-127.0, name=None):
     """One-token decode attention over a dense ``cache_kv [2, B, H, MaxLen,
     D]``: ``x [B, 3 * H * D]`` packs q, k and v (plus ``bias``). Row b's k
     and v are written IN PLACE at position ``cur[b] = sequence_lengths[b]``
@@ -254,9 +270,9 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
 
 # ---------------------------------------------------------------------------
 # norms, rope, activations, GEMMs (plain PyTorch; XLA's in the JAX package)
-def fused_layer_norm(x, norm_weight, norm_bias=None, epsilon=1e-5,
-                     begin_norm_axis=-1, bias=None, residual=None,
-                     quant_scale=-1):
+def fused_layer_norm_arrays(x, norm_weight, norm_bias=None, epsilon=1e-5,
+                            begin_norm_axis=-1, bias=None, residual=None,
+                            quant_scale=-1):
     """LayerNorm over the axes from ``begin_norm_axis`` on (mean and
     variance in f32), after an optional ``bias`` and residual add; with
     ``residual`` returns ``(out, residual_out)`` (:58-77)."""
@@ -301,11 +317,11 @@ def _rotary_sin_cos(pos, d, theta):
     return torch.sin(freqs), torch.cos(freqs)
 
 
-def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
-                                    position_ids=None,
-                                    use_neox_rotary_style=True,
-                                    time_major=False,
-                                    rotary_emb_base=10000.0):
+def fused_rotary_position_embedding_arrays(q, k=None, v=None, sin=None,
+                                           cos=None, position_ids=None,
+                                           use_neox_rotary_style=True,
+                                           time_major=False,
+                                           rotary_emb_base=10000.0):
     """Rope on each given tensor of ``q``, ``k``, ``v`` ``[B, S, H, D]``
     (:102-128): at positions 0..S-1 from ``rotary_emb_base``, or from the
     caller's ``sin``/``cos`` (read as ``[rows, -1]`` over their last two
@@ -330,8 +346,8 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     return tuple(None if t is None else one(t) for t in (q, k, v))
 
 
-def fused_bias_act(x, bias=None, dequant_scales=None, shift=None,
-                   smooth=None, act_method="gelu"):
+def fused_bias_act_arrays(x, bias=None, dequant_scales=None, shift=None,
+                          smooth=None, act_method="gelu"):
     """``act(x + bias)`` (:137-148): ``gelu`` and ``geglu`` the tanh gelu of
     the whole input, ``swiglu`` ``silu(first half) * second half``, any
     other method relu. The quantization arguments raise."""
@@ -346,15 +362,16 @@ def fused_bias_act(x, bias=None, dequant_scales=None, shift=None,
     return F.relu(a)
 
 
-def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+def fused_linear_arrays(x, weight, bias=None, transpose_weight=False,
+                        name=None):
     """``x @ weight (+ bias)``, weight ``[in, out]`` (``[out, in]`` with
     ``transpose_weight``) (:151-160)."""
     out = x @ (weight.t() if transpose_weight else weight)
     return out if bias is None else out + bias
 
 
-def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
-                      name=None):
+def fused_matmul_bias_arrays(x, y, bias=None, transpose_x=False,
+                             transpose_y=False, name=None):
     """``x @ y (+ bias)``, each operand's last two axes swapped where its
     flag asks (:296-308)."""
     if transpose_x:
@@ -369,26 +386,29 @@ _ACTIVATIONS = {"gelu": _gelu_tanh, "relu": F.relu, "none": lambda a: a,
                 "": lambda a: a}
 
 
-def fused_linear_activation(x, y, bias=None, trans_x=False, trans_y=False,
-                            activation="gelu", name=None):
+def fused_linear_activation_arrays(x, y, bias=None, trans_x=False,
+                                   trans_y=False, activation="gelu",
+                                   name=None):
     """``act(fused_matmul_bias(...))`` with ``gelu`` (tanh), ``relu`` or
     ``none`` (:311-316)."""
     return _ACTIVATIONS[activation](
-        fused_matmul_bias(x, y, bias, trans_x, trans_y))
+        fused_matmul_bias_arrays(x, y, bias, trans_x, trans_y))
 
 
-def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
-                      name=None, generator=None):
+def fused_dropout_add_arrays(x, y, p=0.5, training=True,
+                             mode="upscale_in_train", name=None,
+                             generator=None):
     """``dropout(x) + y`` (:290-293)."""
     return _dropout(x, p, training, mode, generator) + y
 
 
-def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
-                                           ln_scale=None, ln_bias=None,
-                                           dropout_rate=0.5, ln_epsilon=1e-5,
-                                           training=True,
-                                           mode="upscale_in_train",
-                                           name=None, generator=None):
+def fused_bias_dropout_residual_layer_norm_arrays(x, residual, bias=None,
+                                                  ln_scale=None, ln_bias=None,
+                                                  dropout_rate=0.5,
+                                                  ln_epsilon=1e-5,
+                                                  training=True,
+                                                  mode="upscale_in_train",
+                                                  name=None, generator=None):
     """``layer_norm(dropout(x + bias) + residual)`` (:493-520), the dropout
     upscaled whatever ``mode`` says, as the JAX package's."""
     h = x if bias is None else x + bias
@@ -396,15 +416,16 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
     return _layer_norm_f32(h + residual, ln_scale, ln_bias, ln_epsilon)
 
 
-def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size):
+def blha_get_max_len_arrays(seq_lens_encoder, seq_lens_decoder, batch_size):
     """``(max(seq_lens_encoder), max(seq_lens_decoder))`` (:644-649)."""
     return seq_lens_encoder.max(), seq_lens_decoder.max()
 
 
 # ---------------------------------------------------------------------------
 # the LM head's loss
-def fused_linear_cross_entropy(x, weight, labels, transpose_y=True,
-                               chunk_size=512, ignore_index=-100, name=None):
+def fused_linear_cross_entropy_arrays(x, weight, labels, transpose_y=True,
+                                      chunk_size=512, ignore_index=-100,
+                                      name=None):
     """Mean cross entropy of ``x @ weight^T`` (``transpose_y``, weight
     ``[V, H]``; else ``[H, V]``) against ``labels`` over the rows whose
     label is not ``ignore_index``, without the ``[N, V]`` logits
@@ -467,17 +488,18 @@ def _attention(q, k, v, mask, dropout_p, training, generator):
                        generator)
 
 
-def fused_multi_head_attention(x, qkv_weight, linear_weight,
-                               pre_layer_norm=False, pre_ln_scale=None,
-                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
-                               pre_ln_epsilon=1e-5, qkv_bias=None,
-                               linear_bias=None, cache_kv=None,
-                               attn_mask=None, dropout_rate=0.5,
-                               attn_dropout_rate=0.5, ln_epsilon=1e-5,
-                               training=True, mode="upscale_in_train",
-                               ring_id=-1, add_residual=True, num_heads=None,
-                               transpose_qkv_wb=False, name=None,
-                               generator=None):
+def fused_multi_head_attention_arrays(x, qkv_weight, linear_weight,
+                                      pre_layer_norm=False, pre_ln_scale=None,
+                                      pre_ln_bias=None, ln_scale=None,
+                                      ln_bias=None, pre_ln_epsilon=1e-5,
+                                      qkv_bias=None, linear_bias=None,
+                                      cache_kv=None, attn_mask=None,
+                                      dropout_rate=0.5, attn_dropout_rate=0.5,
+                                      ln_epsilon=1e-5, training=True,
+                                      mode="upscale_in_train", ring_id=-1,
+                                      add_residual=True, num_heads=None,
+                                      transpose_qkv_wb=False, name=None,
+                                      generator=None):
     """Fused self-attention block on ``x [B, S, E]`` (:319-404): optional
     pre-LayerNorm, the qkv projection (``qkv_weight [3, H, D, E]`` with
     ``qkv_bias [3, H, D]``, or ``[E, 3E]`` and ``[3E]`` under
@@ -528,14 +550,15 @@ def fused_multi_head_attention(x, qkv_weight, linear_weight,
     return out
 
 
-def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
-                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
-                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
-                      dropout2_rate=0.5, activation="relu",
-                      ln1_epsilon=1e-5, ln2_epsilon=1e-5,
-                      pre_layer_norm=False, training=True,
-                      mode="upscale_in_train", ring_id=-1, name=None,
-                      generator=None):
+def fused_feedforward_arrays(x, linear1_weight, linear2_weight,
+                             linear1_bias=None, linear2_bias=None,
+                             ln1_scale=None, ln1_bias=None, ln2_scale=None,
+                             ln2_bias=None, dropout1_rate=0.5,
+                             dropout2_rate=0.5, activation="relu",
+                             ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+                             pre_layer_norm=False, training=True,
+                             mode="upscale_in_train", ring_id=-1, name=None,
+                             generator=None):
     """Fused FFN block (:407-451): optional pre-LayerNorm (``ln1_*``),
     ``act(x @ w1 + b1)`` with ``relu`` or the tanh ``gelu``, dropout, ``@ w2
     + b2``, dropout, the residual, the post-LayerNorm (``ln2_*``) without
@@ -559,23 +582,23 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
     return out
 
 
-def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
-                            linear_weights, linear_biases, ffn_ln_scales,
-                            ffn_ln_biases, ffn1_weights, ffn1_biases,
-                            ffn2_weights, ffn2_biases, pre_layer_norm=True,
-                            epsilon=1e-05, cache_kvs=None, pre_caches=None,
-                            seq_lens=None, rotary_embs=None, time_step=None,
-                            attn_mask=None, dropout_rate=0.0,
-                            activation="gelu", training=False, mode=None,
-                            trans_qkvw=True, ring_id=-1, name=None,
-                            generator=None):
+def _multi_transformer(mha, ffn, x, ln_scales, ln_biases, qkv_weights,
+                       qkv_biases, linear_weights, linear_biases,
+                       ffn_ln_scales, ffn_ln_biases, ffn1_weights,
+                       ffn1_biases, ffn2_weights, ffn2_biases,
+                       pre_layer_norm=True, epsilon=1e-05, cache_kvs=None,
+                       pre_caches=None, seq_lens=None, rotary_embs=None,
+                       time_step=None, attn_mask=None, dropout_rate=0.0,
+                       activation="gelu", training=False, mode=None,
+                       trans_qkvw=True, ring_id=-1, name=None,
+                       generator=None):
     """Stacked fused layers, context (prefill) form (:454-490): per layer
-    :func:`fused_multi_head_attention` (``qkv_weights[i]`` ``[3, H, D,
-    E]``) then :func:`fused_feedforward`, each with its default epsilon,
-    the post-LayerNorms without affine. ``cache_kvs``, ``pre_caches`` and
-    ``time_step`` raise, as the JAX package's do; the arguments it ignores
-    (``epsilon``, ``seq_lens``, ``rotary_embs``, ``mode``,
-    ``trans_qkvw=False``, ``ring_id``) raise."""
+    ``mha`` (:func:`fused_multi_head_attention`, ``qkv_weights[i]`` ``[3,
+    H, D, E]``) then ``ffn`` (:func:`fused_feedforward`), each with its
+    default epsilon, the post-LayerNorms without affine. ``cache_kvs``,
+    ``pre_caches`` and ``time_step`` raise, as the JAX package's do; the
+    arguments it ignores (``epsilon``, ``seq_lens``, ``rotary_embs``,
+    ``mode``, ``trans_qkvw=False``, ``ring_id``) raise."""
     if cache_kvs is not None or time_step is not None \
             or pre_caches is not None:
         raise NotImplementedError(
@@ -588,7 +611,7 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
             ring_id=(ring_id, -1))
     out = x
     for i in range(len(qkv_weights)):
-        out = fused_multi_head_attention(
+        out = mha(
             out, qkv_weights[i], linear_weights[i],
             pre_layer_norm=pre_layer_norm,
             pre_ln_scale=ln_scales[i] if ln_scales else None,
@@ -598,7 +621,7 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
             attn_mask=attn_mask, dropout_rate=dropout_rate,
             attn_dropout_rate=dropout_rate, training=training,
             generator=generator)
-        out = fused_feedforward(
+        out = ffn(
             out, ffn1_weights[i], ffn2_weights[i],
             linear1_bias=ffn1_biases[i] if ffn1_biases else None,
             linear2_bias=ffn2_biases[i] if ffn2_biases else None,
@@ -610,9 +633,9 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
     return out
 
 
-def fused_moe(x, gate_weight, expert_weights1, expert_biases1,
-              expert_weights2, expert_biases2, moe_topk=2,
-              norm_topk_prob=True, group_moe=False, name=None):
+def fused_moe_arrays(x, gate_weight, expert_weights1, expert_biases1,
+                     expert_weights2, expert_biases2, moe_topk=2,
+                     norm_topk_prob=True, group_moe=False, name=None):
     """MoE FFN (:523-560): top-k of ``x @ gate_weight``, the GShard dense
     dispatch at the full token count as the capacity (nothing dropped),
     stacked expert FFNs ``[E, M, H]`` / ``[E, H, M]`` around the tanh gelu,
@@ -641,11 +664,12 @@ def fused_moe(x, gate_weight, expert_weights1, expert_biases1,
     return out.reshape(shape)
 
 
-def variable_length_memory_efficient_attention(query, key, value, seq_lens,
-                                               kv_seq_lens, mask=None,
-                                               scale=None, causal=False,
-                                               pre_cache_length=0,
-                                               name=None):
+def variable_length_memory_efficient_attention_arrays(query, key, value,
+                                                      seq_lens, kv_seq_lens,
+                                                      mask=None, scale=None,
+                                                      causal=False,
+                                                      pre_cache_length=0,
+                                                      name=None):
     """Attention over padded batches ``[B, H, S, D]`` (:563-588): key rows
     at or past ``kv_seq_lens[b]`` masked (and, with ``causal``, keys past
     the query's position plus ``pre_cache_length``), an additive ``mask``;
@@ -669,7 +693,8 @@ def variable_length_memory_efficient_attention(query, key, value, seq_lens,
 
 # ---------------------------------------------------------------------------
 # paged-KV attention
-def paged_attention(q, k_pages, v_pages, block_tables, lengths, scale=None):
+def paged_attention_arrays(q, k_pages, v_pages, block_tables, lengths,
+                           scale=None):
     """Paged-KV decode attention (:652-662): q ``[B, Hq, D]``, pages
     ``[Hkv, NumPages, PageSize, D]`` (or a view with those sizes), tables
     ``[B, PagesPerSeq]``, lengths ``[B]`` counting the current row. The
@@ -685,20 +710,32 @@ def _host_ints(t):
     return np.asarray(t.detach().reshape(-1).cpu().numpy()).astype(np.int64)
 
 
-def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
-                              seq_lens_decoder, seq_lens_this_time,
-                              padding_offsets, cum_offsets, cu_seqlens_q,
-                              cu_seqlens_k, block_tables, pre_key_cache=None,
-                              pre_value_cache=None, cache_k_quant_scales=None,
-                              cache_v_quant_scales=None,
-                              cache_k_dequant_scales=None,
-                              cache_v_dequant_scales=None, qkv_out_scale=None,
-                              qkv_bias=None, out_shift=None, out_smooth=None,
-                              max_enc_len_this_time=None,
-                              max_dec_len_this_time=None, rope_emb=None,
-                              mask=None, tgt_mask=None, max_seq_len=-1,
-                              block_size=64, use_neox_style=False,
-                              rope_theta=10000.0):
+def _blha_lengths(seq_lens_encoder, seq_lens_decoder, seq_lens_this_time):
+    """The three length vectors on the host, and whether the step is a
+    decode step (every live slot one token, no encoder tokens)."""
+    enc, dec = _host_ints(seq_lens_encoder), _host_ints(seq_lens_decoder)
+    this = _host_ints(seq_lens_this_time)
+    live = this > 0
+    return enc, dec, this, bool((this[live] == 1).all() and (enc == 0).all())
+
+
+def block_multihead_attention_arrays(qkv, key_cache, value_cache,
+                                     seq_lens_encoder, seq_lens_decoder,
+                                     seq_lens_this_time, padding_offsets,
+                                     cum_offsets, cu_seqlens_q, cu_seqlens_k,
+                                     block_tables, pre_key_cache=None,
+                                     pre_value_cache=None,
+                                     cache_k_quant_scales=None,
+                                     cache_v_quant_scales=None,
+                                     cache_k_dequant_scales=None,
+                                     cache_v_dequant_scales=None,
+                                     qkv_out_scale=None, qkv_bias=None,
+                                     out_shift=None, out_smooth=None,
+                                     max_enc_len_this_time=None,
+                                     max_dec_len_this_time=None, rope_emb=None,
+                                     mask=None, tgt_mask=None, max_seq_len=-1,
+                                     block_size=64, use_neox_style=False,
+                                     rope_theta=10000.0, _lengths=None):
     """Paged-KV attention over PaddlePaddle's block cache (:665-842).
 
     ``qkv [T, (Hq + 2 Hkv) * D]`` holds the step's tokens, sequence by
@@ -724,7 +761,8 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
     ``block_size`` are derived metadata the JAX package does not read
     either (the cache's shape gives the block size). Returns ``(out [T,
     Hq * D], qkv, key_cache, value_cache)``, the caches the tensors given,
-    updated."""
+    updated. ``_lengths`` is :func:`_blha_lengths` of the three length
+    vectors where the caller has read them already."""
     if any(t is not None for t in (cache_k_quant_scales,
                                    cache_v_quant_scales,
                                    cache_k_dequant_scales,
@@ -742,8 +780,8 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
     hq = qkv.shape[-1] // d - 2 * h
     rows = qkv if qkv_bias is None else qkv + qkv_bias.reshape(1, -1)
     tables = block_tables.to(dev, torch.int32)
-    enc, dec = _host_ints(seq_lens_encoder), _host_ints(seq_lens_decoder)
-    this = _host_ints(seq_lens_this_time)
+    enc, dec, this, decode = _lengths or _blha_lengths(
+        seq_lens_encoder, seq_lens_decoder, seq_lens_this_time)
     b = this.shape[0]
 
     def split(r):
@@ -758,9 +796,8 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
         sin_t = rope_emb[1, seq, pos].reshape(n, 1, -1)
         return _apply_rotary(x, sin_t, cos_t, use_neox_style)
 
-    live = this > 0
-    if (this[live] == 1).all() and (enc == 0).all():
-        active = np.nonzero(live)[0]
+    if decode:
+        active = np.nonzero(this > 0)[0]
         ba = len(active)
         act = torch.as_tensor(active, device=dev)
         cur = torch.as_tensor(dec[active], device=dev)
@@ -772,7 +809,7 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
         kc[pages, :, offs] = k.to(kc.dtype)
         vc[pages, :, offs] = v.to(vc.dtype)
         if tgt_mask is None:
-            out = paged_attention(q.contiguous(), kc.transpose(0, 1),
+            out = paged_attention_arrays(q.contiguous(), kc.transpose(0, 1),
                                   vc.transpose(0, 1), tab, cur + 1)
         else:
             kd = kc[tab.long()].transpose(1, 2).reshape(ba, h, -1, d)
@@ -820,3 +857,86 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
                          vseq.float())
         outs.append(o.reshape(t, hq * d).to(qkv.dtype))
     return torch.cat(outs), qkv, kc, vc
+
+
+fused_multi_transformer_arrays = functools.partial(
+    _multi_transformer, fused_multi_head_attention_arrays,
+    fused_feedforward_arrays)
+
+
+# ---------------------------------------------------------------------------
+# the public names, on Tensors
+def _on_tensors(body, op_name):
+    """The public op over ``body``: ``apply_op`` unwraps its Tensors (in
+    lists and tuples too), runs ``body`` on the torch tensors and wraps
+    what it returns (tuples of Tensors, None kept), under the reference's
+    op name (``op_dispatch_total``, amp's lists)."""
+    def op(*args, **kwargs):
+        return apply_op(body, *args, _op_name=op_name, **kwargs)
+
+    op.__name__ = op.__qualname__ = body.__name__.removesuffix("_arrays")
+    op.__doc__ = body.__doc__
+    op.__signature__ = inspect.signature(body)
+    op.__wrapped__ = body
+    return op
+
+
+fused_rms_norm = _on_tensors(fused_rms_norm_arrays, "fused_rms_norm")
+fused_layer_norm = _on_tensors(fused_layer_norm_arrays, "fused_layer_norm")
+fused_rotary_position_embedding = _on_tensors(
+    fused_rotary_position_embedding_arrays, "fused_rope")
+fused_bias_act = _on_tensors(fused_bias_act_arrays, "fused_bias_act")
+fused_linear = _on_tensors(fused_linear_arrays, "fused_linear")
+fused_matmul_bias = _on_tensors(fused_matmul_bias_arrays, "fused_matmul_bias")
+fused_linear_activation = _on_tensors(fused_linear_activation_arrays,
+                                      "fused_linear_activation")
+fused_linear_cross_entropy = _on_tensors(fused_linear_cross_entropy_arrays,
+                                         "fused_linear_cross_entropy")
+fused_dropout_add = _on_tensors(fused_dropout_add_arrays, "fused_dropout_add")
+fused_bias_dropout_residual_layer_norm = _on_tensors(
+    fused_bias_dropout_residual_layer_norm_arrays,
+    "fused_bias_dropout_residual_ln")
+fused_multi_head_attention = _on_tensors(fused_multi_head_attention_arrays,
+                                         "fused_multi_head_attention")
+fused_feedforward = _on_tensors(fused_feedforward_arrays, "fused_feedforward")
+fused_moe = _on_tensors(fused_moe_arrays, "fused_moe")
+variable_length_memory_efficient_attention = _on_tensors(
+    variable_length_memory_efficient_attention_arrays, "varlen_attention")
+masked_multihead_attention = _on_tensors(masked_multihead_attention_arrays,
+                                         "masked_multihead_attention")
+blha_get_max_len = _on_tensors(blha_get_max_len_arrays, "blha_get_max_len")
+paged_attention = _on_tensors(paged_attention_arrays, "paged_attention")
+fp8_gemm = _on_tensors(fp8_gemm_arrays, "fp8_gemm")
+fp8_linear = _on_tensors(fp8_linear_arrays, "fp8_linear")
+
+
+def swiglu(x, y=None, name=None):
+    """``silu(x) * y``; with ``y`` None, x's last axis is split in halves:
+    ``nn.functional.swiglu``, as the reference's (:131-134)."""
+    return _swiglu(x, y)
+
+
+def fused_multi_transformer(x, *args, **kwargs):
+    """Stacked fused layers on Tensors: the public
+    :func:`fused_multi_head_attention` and :func:`fused_feedforward` per
+    layer, as the reference composes them (:454-490)."""
+    return _multi_transformer(fused_multi_head_attention, fused_feedforward,
+                              x, *args, **kwargs)
+
+
+def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
+                              seq_lens_decoder, seq_lens_this_time, *args,
+                              **kwargs):
+    """:func:`block_multihead_attention_arrays` on Tensors under the
+    reference's op name of its route (``blha_decode`` or
+    ``blha_prefill``), the length vectors read once. Returns ``(out, qkv,
+    key_cache, value_cache)``: ``qkv`` the Tensor given, the caches
+    Tensors over the tensors updated in place."""
+    lengths = _blha_lengths(*(unwrap(t) for t in (
+        seq_lens_encoder, seq_lens_decoder, seq_lens_this_time)))
+    out, _, kc, vc = apply_op(
+        block_multihead_attention_arrays, qkv, key_cache, value_cache,
+        seq_lens_encoder, seq_lens_decoder, seq_lens_this_time, *args,
+        _lengths=lengths, **kwargs,
+        _op_name="blha_decode" if lengths[3] else "blha_prefill")
+    return out, qkv, kc, vc

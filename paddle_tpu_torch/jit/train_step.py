@@ -161,9 +161,9 @@ class TrainStep:
                         g.fill_(ginj)
                 if linj != 0.0:
                     loss = torch.full_like(loss, linj)
-                reg = opt.regularization
-                if reg is not None:
-                    for p, g in pgs:
+                for p, g in pgs:
+                    reg = opt.regularizer_of(p)
+                    if reg is not None:
                         g.copy_(reg(p, g))
                 gsumsq = global_grad_sumsq(grads).to(loss.device)
                 gnorm = gsumsq.sqrt()

@@ -46,7 +46,8 @@ from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.rms_norm import rms_norm
 from ..ops.kernels.swiglu_down import swiglu_down, swiglu_down_supported
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 class GPTConfig:

@@ -28,7 +28,7 @@ def linear(x, weight, bias=None, name=None):
     if _amp_state.fp8:
         from ...incubate.nn.functional import fp8_linear
 
-        return apply_op(fp8_linear, x, weight, bias, _op_name="fp8_linear")
+        return fp8_linear(x, weight, bias)
     return apply_op(lambda a, w, b: F.linear(a, w.t(), b), x, weight, bias,
                     _op_name="linear")
 

@@ -20,8 +20,8 @@ returns ``cudaGetLastError()``, which the wrapper checks.
 Each build reports to the recompile watchdog of ``paddle_tpu_torch.
 telemetry`` (``nvcc:<source>``, with its seconds).
 
-Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches the
-kernel and nowhere else, so a run can show that its main path went through
+Each kernel wrapper adds one to ``LAUNCHES[name]`` (``<name>_f16`` for
+its float16 instantiations) where it launches the kernel and nowhere else, so a run can show that its main path went through
 the kernels. A launch captured into a ``CountedGraph`` counts once for
 each replay of the graph, not at the capture, which runs nothing.
 """
@@ -49,10 +49,13 @@ LAUNCHES = {"paged_attention": 0, "rms_norm": 0, "flash_attention_fwd": 0,
             "paged_attention_int8": 0, "decode_attention": 0,
             "add_rms_norm": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0,
-            # the float16 instantiations of the four flash kernels
+            # the float16 instantiations, counted apart
             "flash_attention_fwd_f16": 0, "flash_attention_bwd_f16": 0,
             "flash_attention_bwd_dq_f16": 0,
-            "flash_attention_bwd_dkv_f16": 0}
+            "flash_attention_bwd_dkv_f16": 0, "rms_norm_f16": 0,
+            "add_rms_norm_f16": 0, "swiglu_down_f16": 0,
+            "decode_attention_f16": 0, "paged_attention_f16": 0,
+            "paged_attention_int8_f16": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -103,6 +106,13 @@ class CountedGraph:
         self.graph.replay()
         for k, n in self.launches.items():
             LAUNCHES[k] += n
+
+
+def launch_key(name: str, t: torch.Tensor) -> str:
+    """The launch count a kernel call adds to: the float16 instantiations
+    count apart from the float32 and bfloat16 ones, under ``<name>_f16``
+    (``t`` is the operand whose type picks the instantiation)."""
+    return name + "_f16" if t.dtype == torch.float16 else name
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -29,10 +29,9 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, check_launch, load, stream_handle, use_kernel
-from .rms_norm import MAX_H
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from . import (LAUNCHES, check_launch, launch_key, load, stream_handle,
+               use_kernel)
+from .rms_norm import _DTYPES, MAX_H, kernel_operand
 _fn = None
 
 
@@ -59,16 +58,21 @@ def _launcher():
 
 def add_rms_norm_fwd(x2, r2, weight, eps=1e-6):
     """[N, H] rows x and r -> (y, o in x's type, rstd [N] f32). x, r and
-    the weight are each f32 or bf16, in any mix. CUDA tensors launch the
-    kernel; CPU tensors run :func:`add_rms_norm_plain`. The checks are few
-    and cheap, as for ``rms_norm_fwd``."""
+    the weight are each f32, bf16 or f16, in any mix (r or a weight the
+    kernel has no instance for beside x is widened to f32,
+    ``rms_norm.kernel_operand``). CUDA tensors launch the kernel (counted
+    under ``add_rms_norm_f16`` for a float16 x); CPU tensors run
+    :func:`add_rms_norm_plain`. The checks are few and cheap, as for
+    ``rms_norm_fwd``."""
     if not (x2.is_cuda and r2.is_cuda and weight.is_cuda):
         use_kernel(x2, r2, weight)       # raises unless all lie on the CPU
         return add_rms_norm_plain(x2, r2, weight, eps)
-    xt, rt, wt = (_DTYPES.get(t.dtype) for t in (x2, r2, weight))
-    if xt is None or rt is None or wt is None:
-        raise TypeError(f"add_rms_norm takes float32 or bfloat16, got "
-                        f"{x2.dtype}, {r2.dtype} and {weight.dtype}")
+    xt = _DTYPES.get(x2.dtype)
+    if xt is None or r2.dtype not in _DTYPES or weight.dtype not in _DTYPES:
+        raise TypeError(f"add_rms_norm takes float32, bfloat16 or float16, "
+                        f"got {x2.dtype}, {r2.dtype} and {weight.dtype}")
+    r2, rt = kernel_operand(r2, xt)
+    weight, wt = kernel_operand(weight, xt)
     n, h = x2.shape
     if r2.shape != x2.shape or weight.shape != (h,) or not 1 <= h <= MAX_H:
         raise ValueError(f"add_rms_norm: x and residual [N, H] and weight "
@@ -87,7 +91,7 @@ def add_rms_norm_fwd(x2, r2, weight, eps=1e-6):
                              y.data_ptr(), o.data_ptr(), rstd.data_ptr(), n,
                              h, eps, xt, rt, wt, stream_handle(x2)),
                  "add_rms_norm")
-    LAUNCHES["add_rms_norm"] += 1
+    LAUNCHES[launch_key("add_rms_norm", x2)] += 1
     return y, o, rstd
 
 

@@ -5,7 +5,8 @@
 // y = x + r, added in f32 and rounded to x's type (the new residual
 // stream), then o = y * rsqrt(mean(y^2) + eps) * w from the ROUNDED y, the
 // weight applied in f32 and the result rounded once, plus the f32 rstd.
-// x, r and w are each f32 or bf16, in any mix; y and o take x's type.
+// x, r and w are each f32 or bf16, in any mix, or x f16 with r and w each
+// f16 or f32; y and o take x's type.
 //
 // Bound: x and r are read once and y and o written once, a few operations
 // per element, so the bytes over the card's memory rate bound it. The
@@ -50,22 +51,25 @@ cudaError_t dispatch(const Args& a) {
   });
 }
 
-template <typename Tx, typename Tr>
+// T16: the 16-bit type r and w may take beside f32 (x's own where x is
+// 16-bit; bf16 where x is f32)
+template <typename Tx, typename Tr, typename T16>
 cudaError_t by_weight(const Args& a, int w_dtype) {
-  return w_dtype == 0 ? dispatch<Tx, Tr, float>(a)
-                      : dispatch<Tx, Tr, __nv_bfloat16>(a);
+  return w_dtype == 0 ? dispatch<Tx, Tr, float>(a) : dispatch<Tx, Tr, T16>(a);
 }
 
-template <typename Tx>
+template <typename Tx, typename T16>
 cudaError_t by_residual(const Args& a, int r_dtype, int w_dtype) {
-  return r_dtype == 0 ? by_weight<Tx, float>(a, w_dtype)
-                      : by_weight<Tx, __nv_bfloat16>(a, w_dtype);
+  return r_dtype == 0 ? by_weight<Tx, float, T16>(a, w_dtype)
+                      : by_weight<Tx, T16, T16>(a, w_dtype);
 }
 
 }  // namespace
 
 // x, r, y, o [n, h] row-major, w [h], rstd [n] f32; x_dtype, r_dtype and
-// w_dtype: 0 = float32, 1 = bfloat16 (y and o take x's). 1 <= h <= 8192.
+// w_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (y and o take x's), r
+// and w each float32 or of x's 16-bit type where x is float16, and float32
+// or bfloat16 otherwise. 1 <= h <= 8192.
 // Returns the CUDA error of the launch (0 on success, and for n = 0;
 // cudaErrorInvalidValue for what it does not take).
 extern "C" int add_rms_norm_launch(const void* x, const void* r,
@@ -73,12 +77,16 @@ extern "C" int add_rms_norm_launch(const void* x, const void* r,
                                    void* rstd, int n, int h, float eps,
                                    int x_dtype, int r_dtype, int w_dtype,
                                    void* stream) {
-  if (n < 0 || h < 1 || h > norm_rows::kMaxH || x_dtype < 0 || x_dtype > 1 ||
-      r_dtype < 0 || r_dtype > 1 || w_dtype < 0 || w_dtype > 1)
+  const int t16 = x_dtype == 2 ? 2 : 1;  // the 16-bit type r and w may take
+  if (n < 0 || h < 1 || h > norm_rows::kMaxH || x_dtype < 0 || x_dtype > 2 ||
+      !(r_dtype == 0 || r_dtype == t16) || !(w_dtype == 0 || w_dtype == t16))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Args a = {x, r, w, y, o, rstd, n, h, eps, (cudaStream_t)stream};
+  if (x_dtype == 2)
+    return (int)by_residual<__half, __half>(a, r_dtype, w_dtype);
   return (int)(x_dtype == 0
-                   ? by_residual<float>(a, r_dtype, w_dtype)
-                   : by_residual<__nv_bfloat16>(a, r_dtype, w_dtype));
+                   ? by_residual<float, __nv_bfloat16>(a, r_dtype, w_dtype)
+                   : by_residual<__nv_bfloat16, __nv_bfloat16>(a, r_dtype,
+                                                               w_dtype));
 }

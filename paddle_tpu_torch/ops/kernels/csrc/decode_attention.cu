@@ -16,7 +16,7 @@
 // shared with paged_attention.cu: a cluster of CTAs splits each sequence's
 // live rows into shares of multiples of 16 rows, each warp streams its rows
 // through a cp.async ring, and the CTAs merge their partial softmaxes
-// through distributed shared memory. f32 and bf16; D in
+// through distributed shared memory. f32, bf16 and f16; D in
 // {64, 80, 96, 128, 256}; any rep.
 #include "decode_split.cuh"
 
@@ -41,7 +41,8 @@ struct Dense {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; split: CTAs per cluster (1..8).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; split: CTAs per cluster
+// (1..8).
 // Returns the launch's CUDA error (cudaErrorInvalidValue for shapes the
 // kernel does not take).
 extern "C" int decode_attention_launch(

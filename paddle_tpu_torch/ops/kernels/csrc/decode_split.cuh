@@ -52,9 +52,9 @@
 //   workspace, no atomics, and a call repeats bit for bit. A CTA with no
 //   rows contributes (m, l) = (-1e30, 0) and still reaches both cluster
 //   barriers.
-// - bf16 q takes its exponentials on the SFU (ex2.approx of the score times
-//   scale * log2 e); f32 q takes expf.
-// - q f32 or bf16; K/V rows of q's type or int8; D in {64, 80, 96, 128,
+// - bf16 and f16 q take their exponentials on the SFU (ex2.approx of the
+//   score times scale * log2 e); f32 q takes expf.
+// - q f32, bf16 or f16; K/V rows of q's type or int8; D in {64, 80, 96, 128,
 //   256}; any rep >= 1; any page.
 // - Page layout. A paged route finds row `pos` of kv head h at row
 //   h * head_stride + tables[pos / page] * page_stride + pos % page of its
@@ -66,8 +66,11 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -104,7 +107,7 @@ __host__ __device__ constexpr int next_pow2(int x) {
   return x <= 1 ? 1 : 2 * next_pow2((x + 1) / 2);
 }
 
-// How a D-wide row of KV (f32, bf16 or int8 codes) maps onto a warp.
+// How a D-wide row of KV (f32, bf16, f16 or int8 codes) maps onto a warp.
 template <typename KV, int D, int R>
 struct Shape {
   static constexpr bool kCodes = sizeof(KV) == 1;        // int8 rows
@@ -142,6 +145,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -150,6 +154,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // p rounded to V's type (the identity for f32 and for int8 rows, whose p
@@ -162,7 +170,7 @@ __device__ __forceinline__ float round_p(float x) {
     return to_f32(from_f32<KV>(x));
 }
 
-// e^x for f32; for bf16 2^x, the scores being scaled by log2 e
+// e^x for f32; for bf16 and f16 2^x, the scores being scaled by log2 e
 template <typename T>
 __device__ __forceinline__ float ex(float x) {
   if constexpr (sizeof(T) == 4)
@@ -182,8 +190,8 @@ __device__ __forceinline__ void codes_to_f32(uint32_t w, float* dst) {
              8388736.f;
 }
 
-// One chunk of shared memory (16 bytes of f32 or bf16, 8 of int8 codes) as
-// f32 values.
+// One chunk of shared memory (16 bytes of f32, bf16 or f16, 8 of int8
+// codes) as f32 values.
 template <typename KV>
 __device__ __forceinline__ void unpack(const unsigned char* src, float* dst) {
   if constexpr (sizeof(KV) == 1) {
@@ -197,12 +205,13 @@ __device__ __forceinline__ void unpack(const unsigned char* src, float* dst) {
     dst[2] = f.z;
     dst[3] = f.w;
   } else {
+    constexpr bool kHalf = std::is_same_v<KV, __half>;
     const uint4 u = *reinterpret_cast<const uint4*>(src);
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      dst[2 * i] = sm90::bf16_lo(w[i]);
-      dst[2 * i + 1] = sm90::bf16_hi(w[i]);
+      dst[2 * i] = sm90::lo_x2<kHalf>(w[i]);
+      dst[2 * i + 1] = sm90::hi_x2<kHalf>(w[i]);
     }
   }
 }
@@ -602,19 +611,20 @@ cudaError_t launch_width(const Params& p, int batch, int head_dim, int rmax,
 // K::get<T, D, R>() names the __global__ kernel of one route and
 // K::Rows<T> its K/V row type for q of type T. The q rows of a kv head run
 // in groups of R = the power of two >= min(rep, 8). dtype (of q): 0
-// float32, 1 bfloat16. Returns the launch's error (cudaErrorInvalidValue
+// float32, 1 bfloat16, 2 float16. Returns the launch's error (cudaErrorInvalidValue
 // for shapes the kernels do not take).
 template <typename K>
 int launch(Params p, int batch, int head_dim, int dtype, cudaStream_t stream) {
   if (batch < 1 || p.hkv < 1 || p.rep < 1 || p.split < 1 ||
-      p.split > kMaxSplit || (dtype != 0 && dtype != 1))
+      p.split > kMaxSplit || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const int rmax = p.rep >= 8 ? 8 : next_pow2(p.rep);
   p.groups = (p.rep + rmax - 1) / rmax;
   const cudaError_t err =
-      dtype == 0
-          ? launch_width<float, K>(p, batch, head_dim, rmax, stream)
-          : launch_width<__nv_bfloat16, K>(p, batch, head_dim, rmax, stream);
+      dtype == 0   ? launch_width<float, K>(p, batch, head_dim, rmax, stream)
+      : dtype == 1 ? launch_width<__nv_bfloat16, K>(p, batch, head_dim, rmax,
+                                                    stream)
+                   : launch_width<__half, K>(p, batch, head_dim, rmax, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -5,7 +5,7 @@
 // Per row: o = y * rsqrt(mean(y^2) + eps) * w, with y = x (no residual) or
 // the rounded x + r; the weight applied in f32 and the result rounded once
 // to x's type, plus the f32 rstd. x, r and w are each f32 or bf16, in any
-// mix; y and o take x's type.
+// mix, or x f16 with r and w each f16 or f32; y and o take x's type.
 //
 // Bound: each row is read once and written once (x, and r, in; y and o
 // out) with a few operations per element, so the bytes over the card's
@@ -16,7 +16,7 @@
 //   values a thread), so it crosses device memory once. A block of 256
 //   threads holds 256 / tpr rows at a time.
 // - Each thread loads 16-byte vectors: chunk j of thread t starts at column
-//   (j * tpr + t) * E, with E = 8 bf16 or 4 f32 values of x, so neighbouring
+//   (j * tpr + t) * E, with E = 8 bf16 or f16 or 4 f32 values of x, so neighbouring
 //   threads read neighbouring 16 bytes; the weight and the residual at the
 //   same columns come in 16- or 8-byte loads. A row whose width is not a
 //   multiple of E, or a pointer that is not 16-byte aligned, takes the same
@@ -35,6 +35,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,7 +47,7 @@ namespace norm_rows {
 constexpr int kThreads = 256;
 constexpr int kMaxH = 8192;
 
-// One value of T: f32 or bf16. kVec values of x fill a 16-byte chunk.
+// One value of T: f32, bf16 or f16. kVec values of x fill a 16-byte chunk.
 template <typename T>
 struct Elem;
 
@@ -82,6 +83,35 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Elem<__half> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ float get(__half v) {
+    return __half2float(v);
+  }
+  static __device__ __forceinline__ void put(__half* p, float v) {
+    *p = __float2half_rn(v);
+  }
+  // 8 values rounded to nearest even, low half first
+  static __device__ __forceinline__ uint4 pack(const float* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm("cvt.rn.f16x2.f32 %0, %1, %2;\n"
+          : "=r"(w[i])
+          : "f"(v[2 * i + 1]), "f"(v[2 * i]));
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// The bits of a bf16 or f16 value.
+__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ uint32_t bits16(__half v) {
+  return __half_as_ushort(v);
+}
+
 // E values of T (a chunk of x, of the residual or of the weight, at x's
 // columns) are kept as they were loaded, E * sizeof(T) bytes in 32-bit
 // words, and widened to f32 where they are used: a prefetched chunk of x
@@ -112,10 +142,8 @@ struct Vals {
     } else {
 #pragma unroll
       for (int i = 0; i < kWords; ++i) {
-        const uint32_t lo =
-            2 * i < n ? __bfloat16_as_ushort(p[2 * i]) : 0u;
-        const uint32_t hi =
-            2 * i + 1 < n ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+        const uint32_t lo = 2 * i < n ? bits16(p[2 * i]) : 0u;
+        const uint32_t hi = 2 * i + 1 < n ? bits16(p[2 * i + 1]) : 0u;
         w[i] = lo | hi << 16;
       }
     }
@@ -125,6 +153,9 @@ struct Vals {
     for (int e = 0; e < E; ++e) {
       if constexpr (sizeof(T) == 4)
         v[e] = __uint_as_float(w[e]);
+      else if constexpr (std::is_same_v<T, __half>)
+        v[e] = __half2float(__ushort_as_half(
+            (unsigned short)(e % 2 ? w[e / 2] >> 16 : w[e / 2] & 0xffffu)));
       else
         v[e] = __uint_as_float(e % 2 ? w[e / 2] & 0xffff0000u
                                      : w[e / 2] << 16);

@@ -17,8 +17,8 @@
 // shared with the dense decode_attention.cu: a cluster of CTAs splits each
 // sequence into whole-page shares, each warp streams its rows through a
 // cp.async ring, and the CTAs merge their partial softmaxes through
-// distributed shared memory. f32 and bf16; D in {64, 80, 96, 128, 256};
-// any page size; any rep.
+// distributed shared memory. f32, bf16 and f16; D in {64, 80, 96, 128,
+// 256}; any page size; any rep.
 #include "decode_split.cuh"
 
 // A minimum of one block per SM: without it ptxas spills a few bytes in
@@ -42,7 +42,8 @@ struct Paged {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; split: CTAs per cluster (1..8);
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; split: CTAs per cluster
+// (1..8);
 // head_stride, page_stride: rows of D values between two kv heads and
 // between two pages (num_pages * page and page for [Hkv, num_pages, page,
 // D]). Returns the launch's CUDA error (cudaErrorInvalidValue for shapes the

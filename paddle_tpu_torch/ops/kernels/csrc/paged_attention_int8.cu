@@ -25,7 +25,7 @@
 // scales beside them; a lane turns 8 codes at a time into f32 by byte
 // permutes (no I2F) and keeps the scales out of the inner products; the
 // CTAs merge their partial softmaxes through distributed shared memory in a
-// fixed order. f32 or bf16 q/out; D in {64, 80, 96, 128, 256}; any page
+// fixed order. f32, bf16 or f16 q/out; D in {64, 80, 96, 128, 256}; any page
 // size; any rep.
 #include "decode_split.cuh"
 
@@ -50,9 +50,9 @@ struct PagedInt8 {
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16; split: CTAs per cluster
-// (1..8). The code pointers must be 16-byte aligned. Returns the launch's
-// CUDA error (cudaErrorInvalidValue for shapes the kernel does not take).
+// dtype (of q and out): 0 = float32, 1 = bfloat16, 2 = float16; split:
+// CTAs per cluster (1..8). The code pointers must be 16-byte aligned.
+// Returns the launch's CUDA error (cudaErrorInvalidValue for shapes the kernel does not take).
 extern "C" int paged_attention_int8_launch(
     const void* q, const void* k_codes, const void* k_scales,
     const void* v_codes, const void* v_scales, const void* tables,

@@ -4,7 +4,8 @@
 // (paddle_tpu/ops/pallas/rms_norm.py:25, pallas_call in `_fwd_call` at :43):
 // per row o = x * rsqrt(mean(x^2) + eps) * w, the weight applied in f32 and
 // the result rounded once to x's type, plus the f32 rstd. x and w are each
-// f32 or bf16, in any mix; o takes x's type.
+// f32 or bf16, in any mix, or x f16 with an f16 or f32 w (the weights of a
+// float16 model and of amp O2's f32 norms); o takes x's type.
 //
 // Bound: each row is read once and written once with a few operations per
 // element, so the bytes over the card's memory rate bound it. The design
@@ -42,17 +43,23 @@ cudaError_t dispatch(const void* x, const void* w, void* o, void* rstd,
 }  // namespace
 
 // x/o [n, h] row-major, w [h], rstd [n] f32; x_dtype and w_dtype: 0 =
-// float32, 1 = bfloat16. 1 <= h <= 8192. Returns the CUDA error of the
+// float32, 1 = bfloat16, 2 = float16, with w float32 or of x's 16-bit type
+// where x is float16, and float32 or bfloat16 otherwise. 1 <= h <= 8192. Returns the CUDA error of the
 // launch (0 on success, and for n = 0; cudaErrorInvalidValue for what it
 // does not take).
 extern "C" int rms_norm_launch(const void* x, const void* w, void* o,
                                void* rstd, int n, int h, float eps,
                                int x_dtype, int w_dtype, void* stream) {
-  if (n < 0 || h < 1 || h > norm_rows::kMaxH || x_dtype < 0 || x_dtype > 1 ||
-      w_dtype < 0 || w_dtype > 1)
+  const bool f16 = x_dtype == 2;
+  if (n < 0 || h < 1 || h > norm_rows::kMaxH || x_dtype < 0 || x_dtype > 2 ||
+      !(w_dtype == 0 || w_dtype == (f16 ? 2 : 1)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (f16)
+    return (int)(w_dtype == 0
+                     ? dispatch<__half, float>(x, w, o, rstd, n, h, eps, s)
+                     : dispatch<__half, __half>(x, w, o, rstd, n, h, eps, s));
   if (x_dtype == 0)
     return (int)(w_dtype == 0
                      ? dispatch<float, float>(x, w, o, rstd, n, h, eps, s)

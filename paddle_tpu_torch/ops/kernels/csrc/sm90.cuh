@@ -24,6 +24,7 @@
 
 #include <cuda.h>  // CUtensorMap and CUresult types only: no -lcuda
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
@@ -206,6 +207,23 @@ __device__ __forceinline__ float bf16_lo(uint32_t x) {
 
 __device__ __forceinline__ float bf16_hi(uint32_t x) {
   return __uint_as_float(x & 0xffff0000u);
+}
+
+// The low and high halves of a word of two bf16 (f16 when H) as f32.
+template <bool H>
+__device__ __forceinline__ float lo_x2(uint32_t x) {
+  if constexpr (H)
+    return __half2float(__ushort_as_half((unsigned short)(x & 0xffffu)));
+  else
+    return bf16_lo(x);
+}
+
+template <bool H>
+__device__ __forceinline__ float hi_x2(uint32_t x) {
+  if constexpr (H)
+    return __half2float(__ushort_as_half((unsigned short)(x >> 16)));
+  else
+    return bf16_hi(x);
 }
 
 // Keeps the compiler from moving register reads or writes of `d` across

@@ -40,6 +40,10 @@
 //   shared tile (64 x 128 a consumer, twice) and stored by TMA, which
 //   clips ragged rows and columns. TMA's zero fill covers a ragged last k
 //   step (silu(0) * 0 = 0) and a last column tile past H.
+// f16 operands run the same kernel instantiated with H = true: the
+// wgmma form .f32.f16.f16, silu(g) * u rounded by cvt.rn.f16x2.f32 and
+// tensor maps of FLOAT16 (sm90.cuh); the sums stay f32 and the output is
+// rounded once.
 // f32 operands keep the first port's body (mma.sync-shaped fragments run
 // as FMAs, no TMA): it exists for the f32 checks, not for speed.
 #include "sm90.cuh"
@@ -50,7 +54,7 @@ namespace {
 using ptk::from_f32;
 using ptk::to_f32;
 
-// ------------------------------------------------------------ bf16 route
+// ----------------------------------------------- bf16 and f16 route
 constexpr int kTM = 128;                       // output rows per tile
 constexpr int kTN = 256;                       // output columns per tile
 constexpr int kTK = 64;                        // k step over M
@@ -70,7 +74,8 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
 
 // The A fragments of one 64-wide k stage for this warp's 16 rows: rows
 // `r0..r0+15` of the swizzled [128][64] gate tile at `g_tile` (up at
-// g_tile + kAB), silu(g) * u rounded to bf16.
+// g_tile + kAB), silu(g) * u rounded to bf16 (f16 when H).
+template <bool H>
 __device__ __forceinline__ void ffn_frags(uint32_t (&fa)[4][4], uint32_t g_tile,
                                           int r0, int lane) {
   const int row = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -84,12 +89,13 @@ __device__ __forceinline__ void ffn_frags(uint32_t (&fa)[4][4], uint32_t g_tile,
     sm90::ldmatrix_x4(u, at + kAB);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      fa[kk][i] = sm90::pack_bf16x2(
-          silu_mul(sm90::bf16_lo(g[i]), sm90::bf16_lo(u[i])),
-          silu_mul(sm90::bf16_hi(g[i]), sm90::bf16_hi(u[i])));
+      fa[kk][i] = sm90::pack_x2<H>(
+          silu_mul(sm90::lo_x2<H>(g[i]), sm90::lo_x2<H>(u[i])),
+          silu_mul(sm90::hi_x2<H>(g[i]), sm90::hi_x2<H>(u[i])));
   }
 }
 
+template <bool H>
 __global__ void __launch_bounds__(384, 1)
     swiglu_down_wgmma(const __grid_constant__ CUtensorMap g_map,
                       const __grid_constant__ CUtensorMap u_map,
@@ -155,7 +161,7 @@ __global__ void __launch_bounds__(384, 1)
     auto step = [&](uint32_t(&fa)[4][4]) {
       sm90::mbar_wait(full + 8 * stage, phase);
       const uint32_t st = base + stage * kStageBytes;
-      ffn_frags(fa, st, r_frag, lane);
+      ffn_frags<H>(fa, st, r_frag, lane);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc0);
       sm90::fence_regs(acc1);
@@ -166,11 +172,10 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint32_t b = st + 2 * kAB + kk * 16 * 128;
-        sm90::wgmma_rs_n128<1>(acc0, fa[kk],
-                               sm90::desc_b128(b, kWdBox, 1024), 1);
-        sm90::wgmma_rs_n128<1>(acc1, fa[kk],
-                               sm90::desc_b128(b + 2 * kWdBox, kWdBox, 1024),
-                               1);
+        sm90::wgmma_rs_n128<1, H>(acc0, fa[kk],
+                                  sm90::desc_b128(b, kWdBox, 1024), 1);
+        sm90::wgmma_rs_n128<1, H>(
+            acc1, fa[kk], sm90::desc_b128(b + 2 * kWdBox, kWdBox, 1024), 1);
       }
       sm90::wgmma_commit();
       prev = stage;
@@ -182,8 +187,9 @@ __global__ void __launch_bounds__(384, 1)
 
     const uint32_t out_buf = base + kOutOff + c * 2 * kOutBox;
     uint8_t* out_ptr = smem + kOutOff + c * 2 * kOutBox;
-    // Round 64 rows x 128 columns of accumulators to bf16, stage them in
-    // this consumer's two swizzled boxes and store them by TMA.
+    // Round 64 rows x 128 columns of accumulators to bf16 (f16 when H),
+    // stage them in this consumer's two swizzled boxes and store them by
+    // TMA.
     auto store_half = [&](float(&acc)[64], int r0, int col) {
       if (tid == 0) sm90::tma_store_wait_read();  // the boxes are free
       sm90::named_bar_sync(1 + c, 128);
@@ -195,7 +201,7 @@ __global__ void __launch_bounds__(384, 1)
           const int chunk = (j & 7) ^ (row & 7);
           *reinterpret_cast<uint32_t*>(out_ptr + (j >> 3) * kOutBox +
                                        row * 128 + chunk * 16 + 4 * t4) =
-              sm90::pack_bf16x2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+              sm90::pack_x2<H>(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
         }
       sm90::fence_proxy_async();
       sm90::named_bar_sync(1 + c, 128);
@@ -230,9 +236,12 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-cudaError_t launch_bf16(const void* gate, const void* up, const void* wd,
-                        void* out, int rows, int m, int h,
-                        cudaStream_t stream) {
+template <bool H>
+cudaError_t launch_16bit(const void* gate, const void* up, const void* wd,
+                         void* out, int rows, int m, int h,
+                         cudaStream_t stream) {
+  constexpr CUtensorMapDataType kType =
+      H ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap g_map, u_map, wd_map, out_map;
   const uint64_t a_dims[2] = {(uint64_t)m, (uint64_t)rows};
   const uint64_t a_strides[1] = {(uint64_t)m * 2};
@@ -242,20 +251,21 @@ cudaError_t launch_bf16(const void* gate, const void* up, const void* wd,
   const uint64_t h_strides[1] = {(uint64_t)h * 2};
   const uint32_t w_box[2] = {64, kTK};
   const uint32_t o_box[2] = {64, 64};
-  if (!sm90_host::make_map(&g_map, gate, 2, a_dims, a_strides, a_box) ||
-      !sm90_host::make_map(&u_map, up, 2, a_dims, a_strides, a_box) ||
-      !sm90_host::make_map(&wd_map, wd, 2, w_dims, h_strides, w_box) ||
-      !sm90_host::make_map(&out_map, out, 2, o_dims, h_strides, o_box))
+  if (!sm90_host::make_map(&g_map, gate, 2, a_dims, a_strides, a_box,
+                           kType) ||
+      !sm90_host::make_map(&u_map, up, 2, a_dims, a_strides, a_box, kType) ||
+      !sm90_host::make_map(&wd_map, wd, 2, w_dims, h_strides, w_box, kType) ||
+      !sm90_host::make_map(&out_map, out, 2, o_dims, h_strides, o_box, kType))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      swiglu_down_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swiglu_down_wgmma<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (err != cudaSuccess) return err;
   const int tiles = (rows + kTM - 1) / kTM * ((h + kTN - 1) / kTN);
   const int grid = tiles < sm90_host::sm_count() ? tiles
                                                  : sm90_host::sm_count();
-  swiglu_down_wgmma<<<grid, 384, kSmem, stream>>>(g_map, u_map, wd_map,
-                                                  out_map, rows, m, h);
+  swiglu_down_wgmma<H><<<grid, 384, kSmem, stream>>>(g_map, u_map, wd_map,
+                                                     out_map, rows, m, h);
   return cudaGetLastError();
 }
 
@@ -349,16 +359,18 @@ cudaError_t launch_f32(const void* gate, const void* up, const void* wd,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. gate/up [rows, m], wd [m, h], out
-// [rows, h]. Returns the CUDA error of the launch (cudaErrorInvalidValue
-// for shapes the kernel does not take: m % 32, h % 128).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. gate/up [rows, m], wd
+// [m, h], out [rows, h]. Returns the CUDA error of the launch
+// (cudaErrorInvalidValue for shapes the kernel does not take: m % 32, h % 128).
 extern "C" int swiglu_down_launch(const void* gate, const void* up,
                                   const void* wd, void* out, int rows, int m,
                                   int h, int dtype, void* stream) {
   if (rows < 1 || m < kBKm || m % kBKm || h < kBN || h % kBN ||
-      (rows + kBM - 1) / kBM > 65535 || (dtype != 0 && dtype != 1))
+      (rows + kBM - 1) / kBM > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return (int)launch_f32(gate, up, wd, out, rows, m, h, s);
-  return (int)launch_bf16(gate, up, wd, out, rows, m, h, s);
+  if (dtype == 2)
+    return (int)launch_16bit<true>(gate, up, wd, out, rows, m, h, s);
+  return (int)launch_16bit<false>(gate, up, wd, out, rows, m, h, s);
 }

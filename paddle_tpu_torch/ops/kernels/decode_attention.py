@@ -35,7 +35,8 @@ page-major ``[NumPages, Hkv, PageSize, D]`` cache (the layout of
 as launch arguments, so no copy is made.
 q head ``h * rep + r`` reads kv head ``h`` (``rep = Hq // Hkv``). Each
 kernel takes D in ``EXACT_HEAD_DIMS`` and any rep, and raises on other
-shapes.
+shapes. q may be float32, bfloat16 or float16 (the exact caches in q's
+type); a float16 q's launches count under ``<name>_f16``.
 """
 from __future__ import annotations
 
@@ -44,9 +45,10 @@ import math
 
 import torch
 
-from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
+from . import (LAUNCHES, check_launch, launch_key, load, ptr, stream_handle,
+               use_kernel)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: C launcher -> (pointer arguments, int arguments) before (scale, dtype,
 #: stream)
 _SIGNATURES = {"paged_attention": (6, 10), "paged_attention_int8": (8, 8),
@@ -145,12 +147,13 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale=None):
 
 
 def _check_common(name, q, hkv, d_kv, lengths, tensors):
-    """What every decode kernel takes: q f32/bf16 [B, Hq, D], D in
+    """What every decode kernel takes: q f32/bf16/f16 [B, Hq, D], D in
     ``EXACT_HEAD_DIMS`` matching the cache, rep = Hq/Hkv an integer >= 1,
     lengths [B] int32, every operand contiguous."""
     b, hq, d = q.shape
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{name} takes float32 or bfloat16 q, got {q.dtype}")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 q, got "
+                        f"{q.dtype}")
     if d not in EXACT_HEAD_DIMS or d_kv != d:
         raise ValueError(f"{name}: head_dim must be one of "
                          f"{EXACT_HEAD_DIMS} and match the cache, got q "
@@ -226,7 +229,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         split_count(pps * page), head_stride, page_stride,
         float(_scale(scale, d)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "paged_attention")
-    LAUNCHES["paged_attention"] += 1
+    LAUNCHES[launch_key("paged_attention", q)] += 1
     return out
 
 
@@ -264,7 +267,7 @@ def paged_attention_int8(q, k_codes, k_scales, v_codes, v_scales,
         num_pages, page, pps, split_count(pps * page),
         float(_scale(scale, d)), _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "paged_attention_int8")
-    LAUNCHES["paged_attention_int8"] += 1
+    LAUNCHES[launch_key("paged_attention_int8", q)] += 1
     return out
 
 
@@ -293,5 +296,5 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None):
         hq // hkv, d, seq, split_count(seq), float(_scale(scale, d)),
         _DTYPES[q.dtype], stream_handle(q))
     check_launch(rc, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
+    LAUNCHES[launch_key("decode_attention", q)] += 1
     return out

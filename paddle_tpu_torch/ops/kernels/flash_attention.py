@@ -65,7 +65,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
+from . import (LAUNCHES, check_launch, launch_key, load, ptr, stream_handle,
+               use_kernel)
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -73,12 +74,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 FUSED_DQ_SCRATCH_BYTES = 8 << 20
 #: the widest head the kernels take (``_use_pallas``'s ``d <= 256``)
 MAX_KERNEL_HEAD_DIM = 256
-
-
-def launch_key(name, q):
-    """The launch count a kernel call adds to: the float16 instantiations
-    count apart from the float32 and bfloat16 ones, under ``<name>_f16``."""
-    return name + "_f16" if q.dtype == torch.float16 else name
 
 
 def to_bh(x):

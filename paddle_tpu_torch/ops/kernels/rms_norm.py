@@ -23,9 +23,10 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, check_launch, load, stream_handle, use_kernel
+from . import (LAUNCHES, check_launch, launch_key, load, stream_handle,
+               use_kernel)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the widest row the kernel holds in registers
 MAX_H = 8192
 _fn = None
@@ -37,6 +38,19 @@ def rms_norm_plain(x2, weight, eps=1e-6):
     rstd = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     o = (xf * rstd * weight.float()).to(x2.dtype)
     return o, rstd[:, 0]
+
+
+def kernel_operand(t, x_code):
+    """``t`` (a weight or residual, of code ``_DTYPES[t.dtype]``) as the
+    kernel takes it beside an x of code ``x_code``: f32, or x's 16-bit type
+    for a float16 x, and f32 or bf16 otherwise. A bf16 operand beside a
+    float16 x, or a float16 one beside an f32 or bf16 x, is widened to f32:
+    exact, since the kernel does its arithmetic in f32. Returns (tensor,
+    code)."""
+    code = _DTYPES[t.dtype]
+    if code != 0 and (code == 2) != (x_code == 2):
+        return t.float(), 0
+    return t, code
 
 
 def _launcher():
@@ -52,16 +66,19 @@ def _launcher():
 
 def rms_norm_fwd(x2, weight, eps=1e-6):
     """[N, H] rows -> (o [N, H] in x's type, rstd [N] f32). x and the
-    weight are each f32 or bf16, in any mix. CUDA tensors launch the
-    kernel; CPU tensors run :func:`rms_norm_plain`. The checks are few and
-    cheap: the serving tick makes 2L + 1 of these calls."""
+    weight are each f32, bf16 or f16, in any mix (a weight the kernel has
+    no instance for beside x is widened to f32, :func:`kernel_operand`).
+    CUDA tensors launch the kernel (counted under ``rms_norm_f16`` for a
+    float16 x); CPU tensors run :func:`rms_norm_plain`. The checks are few
+    and cheap: the serving tick makes 2L + 1 of these calls."""
     if not (x2.is_cuda and weight.is_cuda):
         use_kernel(x2, weight)           # raises unless both lie on the CPU
         return rms_norm_plain(x2, weight, eps)
-    xt, wt = _DTYPES.get(x2.dtype), _DTYPES.get(weight.dtype)
-    if xt is None or wt is None:
-        raise TypeError(f"rms_norm takes float32 or bfloat16, got "
+    xt = _DTYPES.get(x2.dtype)
+    if xt is None or weight.dtype not in _DTYPES:
+        raise TypeError(f"rms_norm takes float32, bfloat16 or float16, got "
                         f"{x2.dtype} and {weight.dtype}")
+    weight, wt = kernel_operand(weight, xt)
     n, h = x2.shape
     if weight.shape != (h,) or not 1 <= h <= MAX_H:
         raise ValueError(f"rms_norm: weight must be [H] with 1 <= H <= "
@@ -76,7 +93,7 @@ def rms_norm_fwd(x2, weight, eps=1e-6):
     check_launch(_launcher()(x2.data_ptr(), weight.data_ptr(), o.data_ptr(),
                              rstd.data_ptr(), n, h, eps, xt, wt,
                              stream_handle(x2)), "rms_norm")
-    LAUNCHES["rms_norm"] += 1
+    LAUNCHES[launch_key("rms_norm", x2)] += 1
     return o, rstd
 
 

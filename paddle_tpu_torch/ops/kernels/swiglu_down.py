@@ -7,9 +7,10 @@ accumulation, so the ``[rows, M]`` product never reaches device memory.
 The kernel is ``csrc/swiglu_down.cu``: for bf16 a persistent,
 warp-specialised GEMM fed by TMA that forms ``silu(g) * u`` in registers as
 the A operand of ``wgmma`` (see the source for its bound and layout); for
-f32 the first port's body, kept for the checks. The backward is the JAX
-package's jnp rule (``:119-132``) in plain PyTorch, with ``torch.matmul``
-for its products.
+f32 the first port's body, kept for the checks; for float16 the bf16
+kernel's design instantiated over f16 operands, counted under
+``swiglu_down_f16``. The backward is the JAX package's jnp rule
+(``:119-132``) in plain PyTorch, with ``torch.matmul`` for its products.
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, check_launch, load, ptr, stream_handle, use_kernel
+from . import (LAUNCHES, check_launch, launch_key, load, ptr, stream_handle,
+               use_kernel)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _rows_block(n):
@@ -71,8 +73,8 @@ def swiglu_down_fwd(g2, u2, wd):
         return swiglu_down_plain(g2, u2, wd)
     if g2.dtype not in _DTYPES or u2.dtype != g2.dtype \
             or wd.dtype != g2.dtype:
-        raise TypeError(f"swiglu_down takes one dtype, float32 or bfloat16, "
-                        f"got {g2.dtype}, {u2.dtype}, {wd.dtype}")
+        raise TypeError(f"swiglu_down takes one dtype, float32, bfloat16 or "
+                        f"float16, got {g2.dtype}, {u2.dtype}, {wd.dtype}")
     rows, m = g2.shape
     h = wd.shape[1]
     if (u2.shape != g2.shape or wd.shape[0] != m or m % 32 or h % 128
@@ -89,7 +91,7 @@ def swiglu_down_fwd(g2, u2, wd):
     rc = _launcher()(ptr(g2), ptr(u2), ptr(wd), ptr(out), rows, m, h,
                      _DTYPES[g2.dtype], stream_handle(g2))
     check_launch(rc, "swiglu_down")
-    LAUNCHES["swiglu_down"] += 1
+    LAUNCHES[launch_key("swiglu_down", g2)] += 1
     return out
 
 

@@ -56,6 +56,13 @@ the surface's ``nn.Layer``) are accepted anywhere parameters are: each
 travels as its ``torch.nn.Parameter`` under its Paddle name, which
 ``apply_decay_param_fun`` then sees. ``clear_grad(set_to_zero=False)`` and
 ``minimize(loss)`` are the reference's (:133, :147).
+
+A Paddle ``Parameter``'s ``ParamAttr`` counts in every update, as in the
+reference's eager step (:119-131): its lr is the group's times
+``optimize_attr["learning_rate"]``, and its ``regularizer``, when set,
+takes the place of the optimizer's (:126-131). ``step()`` and
+``TrainStep`` read both per parameter (:meth:`Optimizer.lr_scale_of`,
+:meth:`Optimizer.regularizer_of`).
 """
 from __future__ import annotations
 
@@ -76,12 +83,18 @@ _OPT_STEP_SECONDS = _telemetry.histogram(
 _CLIPS = (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue)
 
 
-def _torch_params(params):
+def _torch_params(params, found):
     """Paddle ``Parameter``s (bare or in param-group dicts) as
-    ``(name, torch.nn.Parameter)`` pairs; anything else as given."""
+    ``(name, torch.nn.Parameter)`` pairs; anything else as given. Each
+    Paddle ``Parameter`` goes into ``found`` by its torch tensor's id."""
     def conv(seq):
-        return [(p.name, p._data) if isinstance(p, Tensor) else p
-                for p in seq]
+        out = []
+        for p in seq:
+            if isinstance(p, Tensor):
+                found[id(p._data)] = p
+                p = (p.name, p._data)
+            out.append(p)
+        return out
 
     params = list(params)
     if params and isinstance(params[0], dict):
@@ -97,11 +110,14 @@ def _paddle_keywords(init):
                  name=None, **kwargs):
         if parameters is not None:
             args = (parameters,) + args
+        found = {}
         if args:
-            args = (_torch_params(args[0]),) + args[1:]
+            args = (_torch_params(args[0], found),) + args[1:]
         if learning_rate is not None:
             kwargs["lr"] = learning_rate
         init(self, *args, **kwargs)
+        if found:      # a subclass's __init__ wraps its base's: keep these
+            self._paddle_params = found
 
     return __init__
 
@@ -111,6 +127,9 @@ class Optimizer(torch.optim.Optimizer):
     (or kept) writes, ``state_dict`` and ``slot_nbytes``. A subclass
     defines ``_init_state(p, st)`` and ``_update(p, g, st, group, name)``.
     """
+
+    #: id of a torch parameter -> the Paddle ``Parameter`` it came from
+    _paddle_params: dict = {}
 
     def __init__(self, params, lr=1e-3, weight_decay=None, grad_clip=None,
                  **defaults):
@@ -177,6 +196,20 @@ class Optimizer(torch.optim.Optimizer):
         return [(p, p.grad) for group in self.param_groups
                 for p in group["params"] if p.grad is not None]
 
+    def lr_scale_of(self, p):
+        """``p``'s ``ParamAttr(learning_rate=)``: 1.0 for a parameter that
+        came as a torch tensor."""
+        pp = self._paddle_params.get(id(p))
+        return 1.0 if pp is None else pp.optimize_attr.get("learning_rate",
+                                                          1.0)
+
+    def regularizer_of(self, p):
+        """The regularizer of ``p``'s gradient: its ``ParamAttr``'s when
+        set, else the optimizer's (None: none)."""
+        pp = self._paddle_params.get(id(p))
+        reg = None if pp is None else pp.regularizer
+        return self.regularization if reg is None else reg
+
     def state_of(self, p):
         """``p``'s slots, made on first use."""
         st = self.state[p]
@@ -195,13 +228,14 @@ class Optimizer(torch.optim.Optimizer):
                               labels=(type(self).__name__,)):
             if self.grad_clip is not None:
                 self.grad_clip([g for _, g in self.params_with_grads()])
-            self.apply_updates(self.regularization)
+            self.apply_updates(regularize=True)
         return loss
 
     @torch.no_grad()
-    def apply_updates(self, regularizer=None):
-        """The update of every parameter with a gradient, in place (on
-        ``regularizer(p, grad)`` when one is given), at ``get_lr()``."""
+    def apply_updates(self, regularize=False):
+        """The update of every parameter with a gradient, in place, at
+        ``get_lr()`` times its :meth:`lr_scale_of`; with ``regularize``,
+        on its gradient regularized by :meth:`regularizer_of`."""
         if self._lr_scheduler is not None:
             lr = self._lr_scheduler()
             for group in self.param_groups:
@@ -212,9 +246,13 @@ class Optimizer(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g = p.grad
-                if regularizer is not None:
-                    g = regularizer(p, g)
-                self._update(p, g.to(p.dtype), self.state_of(p), group,
+                reg = self.regularizer_of(p) if regularize else None
+                if reg is not None:
+                    g = reg(p, g)
+                scale = self.lr_scale_of(p)
+                grp = group if scale == 1.0 else dict(
+                    group, lr=group["lr"] * scale)
+                self._update(p, g.to(p.dtype), self.state_of(p), grp,
                              names[id(p)])
         self._step_count += 1
 

@@ -168,7 +168,8 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, atol, hq,
 
 
 def test_paged_attention_rejects_what_it_does_not_take(cuda_device):
-    args = _paged_inputs(1, 4, 4, 64, 16, 1, [3], torch.float16, cuda_device)
+    # f32, bf16 and f16 are taken; f64 is not
+    args = _paged_inputs(1, 4, 4, 64, 16, 1, [3], torch.float64, cuda_device)
     with pytest.raises(TypeError):
         paged_attention(*args)
     for d in (32, 72, 320):
@@ -310,7 +311,7 @@ def test_decode_kernels_reject_what_they_do_not_take(cuda_device):
                                             torch.float32, cuda_device)
     (kc, ks), (vc, vs) = quantize_rows_int8(kp), quantize_rows_int8(vp)
     with pytest.raises(TypeError):
-        paged_attention_int8(q.half(), kc, ks, vc, vs, tables, lens)
+        paged_attention_int8(q.double(), kc, ks, vc, vs, tables, lens)
     with pytest.raises(TypeError):
         paged_attention_int8(q, kp, ks, vp, vs, tables, lens)
     with pytest.raises(ValueError):
@@ -325,8 +326,8 @@ def test_decode_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         add_rms_norm_fwd(x, x[:1], torch.ones(16, device=cuda_device))
     with pytest.raises(TypeError):
-        add_rms_norm_fwd(x.half(), x.half(),
-                         torch.ones(16, device=cuda_device).half())
+        add_rms_norm_fwd(x.double(), x.double(),
+                         torch.ones(16, device=cuda_device).double())
 
 
 #: head_dim 64 under GQA 4/2, and Phi-3-mini's head_dim 96 under MQA (16
@@ -369,15 +370,19 @@ def test_engine_on_card_matches_cpu_and_counts_launches(
             eng.decode_ticks + eng.prefill_chunk_steps + eng.prefill_batches)
 
 
-def _engine_pair(cuda_device, int8_kv=False, seed=0, **kw):
-    """A tiny f32 LlamaForCausalLM on the CPU and its copy on the card,
-    and an engine on each with the same settings."""
+def _engine_pair(cuda_device, int8_kv=False, seed=0, dtype=None, **kw):
+    """A tiny f32 LlamaForCausalLM on the CPU and its copy on the card
+    (both cast to ``dtype`` where one is given), and an engine on each
+    with the same settings."""
     cfg = LlamaConfig(vocab_size=96, hidden_size=256, num_layers=2,
                       num_heads=4, num_kv_heads=2, max_seq_len=128)
     cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
         torch.Generator().manual_seed(seed), std=0.2)
     gpu = LlamaForCausalLM(cfg, device=cuda_device)
     gpu.load_state_dict(cpu.state_dict())
+    if dtype is not None:
+        cpu.to(dtype)
+        gpu.to(dtype)
     kw = dict(dict(max_slots=2, page_size=16, max_seq_len=64,
                    max_new_tokens=6, int8_kv=int8_kv), **kw)
     return (ContinuousBatchingEngine(cpu, device="cpu", **kw),
@@ -549,21 +554,21 @@ def test_incubate_ops_on_card_match_cpu(cuda_device, d):
                                                              generator=g)
     w = torch.rand(128, generator=g) + 0.5
     kernels.reset_launch_counts()
-    out, y = TF.fused_rms_norm(*(t.to(cuda_device) for t in (x, w)),
+    out, y = TF.fused_rms_norm_arrays(*(t.to(cuda_device) for t in (x, w)),
                                residual=r.to(cuda_device))
-    plain = TF.fused_rms_norm(x.to(cuda_device), w.to(cuda_device))
-    cout, cy = TF.fused_rms_norm(x, w, residual=r)
+    plain = TF.fused_rms_norm_arrays(x.to(cuda_device), w.to(cuda_device))
+    cout, cy = TF.fused_rms_norm_arrays(x, w, residual=r)
     torch.testing.assert_close(out.cpu(), cout, atol=1e-5, rtol=1e-5)
     assert torch.equal(y.cpu(), cy)
-    torch.testing.assert_close(plain.cpu(), TF.fused_rms_norm(x, w),
+    torch.testing.assert_close(plain.cpu(), TF.fused_rms_norm_arrays(x, w),
                                atol=1e-5, rtol=1e-5)
     qkv = torch.randn(3, 3 * 4 * d, generator=g)
     cache = torch.randn(2, 3, 4, 40, d, generator=g)
     lens = torch.tensor([0, 7, 39], dtype=torch.int32)
     gcache = cache.to(cuda_device)
-    gout, _ = TF.masked_multihead_attention(
+    gout, _ = TF.masked_multihead_attention_arrays(
         qkv.to(cuda_device), gcache, sequence_lengths=lens.to(cuda_device))
-    cout, _ = TF.masked_multihead_attention(qkv, cache, sequence_lengths=lens)
+    cout, _ = TF.masked_multihead_attention_arrays(qkv, cache, sequence_lengths=lens)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         **{k: 0 for k in kernels.LAUNCHES}, "add_rms_norm": 1,
@@ -1135,14 +1140,14 @@ def test_training_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         rms_norm_fwd(x, torch.ones(8193, device=cuda_device))
     with pytest.raises(TypeError):
-        rms_norm_fwd(x[:, :16].half(), torch.ones(16, device=cuda_device))
+        rms_norm_fwd(x[:, :16].double(), torch.ones(16, device=cuda_device))
     gate = torch.randn(64, 48, device=cuda_device)
     with pytest.raises(ValueError):
         swiglu_down_fwd(gate, gate, torch.randn(48, 128,
                                                 device=cuda_device))
     with pytest.raises(TypeError):
-        swiglu_down_fwd(gate.half(), gate.half(),
-                        torch.randn(48, 128, device=cuda_device).half())
+        swiglu_down_fwd(gate.double(), gate.double(),
+                        torch.randn(48, 128, device=cuda_device).double())
 
 
 def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device):
@@ -1669,7 +1674,7 @@ def test_block_multihead_attention_decode_on_card_matches_cpu(cuda_device,
         for name, (kc, vc) in dev.items():
             at = cuda_device if name == "cuda" else "cpu"
             kernels.reset_launch_counts()
-            out, _, kc2, vc2 = TF.block_multihead_attention(
+            out, _, kc2, vc2 = TF.block_multihead_attention_arrays(
                 qkv.to(at), kc, vc,
                 *(torch.as_tensor(a, dtype=torch.int32)[:, None]
                   for a in (enc, dec, this)),
@@ -1688,40 +1693,43 @@ def test_block_multihead_attention_decode_on_card_matches_cpu(cuda_device,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_fused_multi_head_attention_on_card_matches_the_plain_route(
-        cuda_device, dtype, tol):
-    """FusedMultiHeadAttention (E 512, 4 heads of 128, seq 256) in
-    training at dropout 0: the non-causal flash forward and backward
-    launch once each, and the output and every gradient agree with the
-    same module through the plain attention (an all-True mask), and in f32
-    with the CPU's (a bf16 CPU run rounds its LayerNorm and GEMMs in other
-    places)."""
+        surface, dtype, tol):
+    """FusedMultiHeadAttention (E 512, 4 heads of 128, seq 256), an
+    ``nn.Layer`` on ``Tensor`` s, in training at dropout 0: the non-causal
+    flash forward and backward launch once each, and the output and every
+    gradient agree with the same layer through the plain attention (an
+    all-True mask), and in f32 with the CPU's (a bf16 CPU run rounds its
+    LayerNorm and GEMMs in other places)."""
     from paddle_tpu_torch.incubate.nn import FusedMultiHeadAttention
 
-    cpu = FusedMultiHeadAttention(512, 4, dropout_rate=0.0,
-                                  attn_dropout_rate=0.0,
-                                  normalize_before=True, device="cpu")
-    with torch.no_grad():
-        for p in cpu.parameters():
-            p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
-    gpu = FusedMultiHeadAttention(512, 4, dropout_rate=0.0,
-                                  attn_dropout_rate=0.0,
-                                  normalize_before=True, device=cuda_device,
-                                  dtype=dtype)
-    gpu.load_state_dict(cpu.state_dict())
-    cpu.to(dtype)
+    paddle = surface
+    mods = {}
+    for where in ("cpu", "gpu"):
+        paddle.set_device(where)
+        mods[where] = FusedMultiHeadAttention(
+            512, 4, dropout_rate=0.0, attn_dropout_rate=0.0,
+            normalize_before=True)
+    for _, p in mods["cpu"].named_parameters():
+        p.set_value(0.05 * torch.randn(
+            p.shape, generator=torch.Generator().manual_seed(1)))
+    mods["gpu"].set_state_dict(mods["cpu"].state_dict())
+    tname = str(dtype).replace("torch.", "")
+    for m in mods.values():
+        m.to(dtype=tname)
     x = torch.randn(2, 256, 512, generator=torch.Generator().manual_seed(2))
     every = torch.ones(256, 256, dtype=torch.bool)
     runs = {}
-    for tag, mod, mask in (("flash", gpu, None),
-                           ("plain", gpu, every.to(cuda_device)),
-                           ("cpu", cpu, None)):
-        mod.zero_grad()
-        xi = x.to(mod.qkv_weight.device, dtype)
+    for tag, where, mask in (("flash", "gpu", None), ("plain", "gpu", every),
+                             ("cpu", "cpu", None)):
+        mod = mods[where]
+        dev = "cuda" if where == "gpu" else "cpu"
+        mod.clear_gradients()
         kernels.reset_launch_counts()
-        y = mod(xi, attn_mask=mask)
-        y.float().square().mean().backward()
-        runs[tag] = (y.float().cpu(),
-                     {n: p.grad.float().cpu()
+        y = mod(paddle.Tensor(x.to(dev, dtype)), attn_mask=None if mask is
+                None else paddle.Tensor(mask.to(dev)))
+        y.astype("float32").square().mean().backward()
+        runs[tag] = (y._data.float().cpu(),
+                     {n: p.grad._data.float().cpu()
                       for n, p in mod.named_parameters()
                       if p.grad is not None}, kernels.launch_counts())
     counts = runs["flash"][2]
@@ -1985,31 +1993,180 @@ def test_flash_f16_negative_scale_and_repeats(cuda_device):
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
-def test_kernels_without_f16_raise_type_error(cuda_device):
-    """rms_norm, add_rms_norm, swiglu_down and the three decode kernels
-    take f32 and bf16 only: a float16 CUDA tensor raises."""
+#: float16 kernels against their plain versions on the same CUDA tensors:
+#: one rounding of the output at 2^-11 (chip_smoke.py's PAGED_TOL,
+#: RMS_TOL and SWIGLU_TOL for float16)
+F16_DECODE_TOL, F16_RMS_TOL, F16_SWIGLU_TOL = 3e-3, 1.5e-3, 1e-3
+
+
+def _f16_case(name, device):
+    """(kernel call, plain call) on float16 CUDA inputs for ``name``."""
     h = torch.float16
-    x = torch.randn(8, 256, device=cuda_device, dtype=h)
-    w = torch.ones(256, device=cuda_device, dtype=h)
-    with pytest.raises(TypeError):
-        rms_norm_fwd(x, w, 1e-6)
-    with pytest.raises(TypeError):
-        add_rms_norm_fwd(x, x, w, 1e-6)
-    g = torch.randn(64, 128, device=cuda_device, dtype=h)
-    wd = torch.randn(128, 64, device=cuda_device, dtype=h)
-    with pytest.raises(TypeError):
-        swiglu_down_fwd(g, g, wd)
-    q, kp, vp, tables, lens = _paged_inputs(2, 4, 4, 64, 16, 2, [20, 31],
-                                            h, cuda_device)
-    with pytest.raises(TypeError):
-        paged_attention(q, kp, vp, tables, lens)
-    codes = torch.zeros(kp.shape, dtype=torch.int8, device=cuda_device)
-    scales = torch.ones(*kp.shape[:-1], 1, device=cuda_device)
-    with pytest.raises(TypeError):
-        paged_attention_int8(q, codes, scales, codes, scales, tables, lens)
-    cache = torch.randn(2, 4, 64, 64, device=cuda_device, dtype=h)
-    with pytest.raises(TypeError):
-        decode_attention(q, cache, cache, lens)
+    g = torch.Generator().manual_seed(5)
+    if name in ("rms_norm", "add_rms_norm"):
+        x, r = (torch.randn(37, 1000, generator=g).to(device, h)
+                for _ in range(2))
+        w = (1 + 0.1 * torch.randn(1000, generator=g)).to(device, h)
+        if name == "rms_norm":
+            return (lambda: rms_norm_fwd(x, w), lambda: rms_norm_plain(x, w))
+        return (lambda: add_rms_norm_fwd(x, r, w),
+                lambda: add_rms_norm_plain(x, r, w))
+    if name == "swiglu_down":
+        gt, u = (torch.randn(256, 512, generator=g).to(device, h)
+                 for _ in range(2))
+        wd = (0.02 * torch.randn(512, 384, generator=g)).to(device, h)
+        return (lambda: swiglu_down_fwd(gt, u, wd),
+                lambda: swiglu_down_plain(gt, u, wd))
+    q, kp, vp, tables, lens = _paged_inputs(3, 8, 2, 128, 16, 4,
+                                            [1, 17, 64], h, device)
+    if name == "paged_attention":
+        return (lambda: paged_attention(q, kp, vp, tables, lens),
+                lambda: paged_attention_plain(q, kp, vp, tables, lens))
+    if name == "paged_attention_int8":
+        (kc, ks), (vc, vs) = quantize_rows_int8(kp), quantize_rows_int8(vp)
+        args = (q, kc, ks, vc, vs, tables, lens)
+        return (lambda: paged_attention_int8(*args),
+                lambda: paged_attention_int8_plain(*args))
+    cache = torch.randn(2, 3, 2, 64, 128, generator=g).to(device, h)
+    return (lambda: decode_attention(q, cache[0], cache[1], lens),
+            lambda: decode_attention_plain(q, cache[0], cache[1], lens))
+
+
+@pytest.mark.parametrize("name", ["rms_norm", "add_rms_norm", "swiglu_down",
+                                  "decode_attention", "paged_attention",
+                                  "paged_attention_int8"])
+def test_f16_kernel_matches_plain(cuda_device, name):
+    """Each of the six kernels that gained a float16 instance launches it
+    on float16 CUDA tensors (counted under ``<name>_f16``, never under
+    ``<name>``) and agrees with its plain version."""
+    kernel, plain = _f16_case(name, cuda_device)
+    kernels.reset_launch_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts[name + "_f16"] == 1 and counts[name] == 0
+    want = plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert got[0].dtype == torch.float16
+    if name == "add_rms_norm":
+        assert torch.equal(got[0], want[0])          # y = x + r, rounded
+        got, want = got[1:], want[1:]
+    if name in ("rms_norm", "add_rms_norm"):
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=F16_RMS_TOL, atol=F16_RMS_TOL)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    elif name == "swiglu_down":
+        assert _rel_err(got[0], want[0]) <= F16_SWIGLU_TOL
+    else:
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        assert err <= F16_DECODE_TOL
+
+
+@pytest.mark.parametrize("odd", [torch.bfloat16, torch.float32])
+def test_f16_norms_widen_an_odd_weight_or_residual(cuda_device, odd):
+    """A float16 x beside a bf16 (or f32) weight and residual launches the
+    float16 kernel, the odd operand widened to f32 (exact), and agrees
+    with the plain version on the operands as given."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(9, 320, generator=g).to(cuda_device, torch.float16)
+    r = torch.randn(9, 320, generator=g).to(cuda_device, odd)
+    w = (1 + 0.1 * torch.randn(320, generator=g)).to(cuda_device, odd)
+    kernels.reset_launch_counts()
+    o, _ = rms_norm_fwd(x, w)
+    y, o2, _ = add_rms_norm_fwd(x, r, w)
+    counts = kernels.launch_counts()
+    assert counts["rms_norm_f16"] == counts["add_rms_norm_f16"] == 1
+    torch.testing.assert_close(o.float(), rms_norm_plain(x, w)[0].float(),
+                               rtol=F16_RMS_TOL, atol=F16_RMS_TOL)
+    ry, ro, _ = add_rms_norm_plain(x, r, w)
+    assert torch.equal(y, ry)
+    torch.testing.assert_close(o2.float(), ro.float(), rtol=F16_RMS_TOL,
+                               atol=F16_RMS_TOL)
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["exact", "int8"])
+@torch.inference_mode()
+def test_f16_graphed_tick_equals_eager_decode_step(cuda_device, int8_kv):
+    """A float16 model's engine: one replay of the captured tick against
+    the eager _decode_step on the same state (logits, tokens and KV bytes
+    equal), the tick's launches under the ``_f16`` keys, and greedy
+    streams equal to the CPU engine's."""
+    cpu, eng = _engine_pair(cuda_device, int8_kv, max_new_tokens=12,
+                            prefill_chunk=8, dtype=torch.float16)
+    assert eng._kv_dtype == torch.float16
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 96, n).tolist() for n in (5, 19)]
+    for p in prompts:
+        eng.submit(p)
+    for _ in range(4):
+        eng.step()
+    assert eng._graph is not None
+    tokens, lens, tables = _tick_inputs(eng)
+    saved = [x.clone() for x in _cache_leaves(eng)]
+    eager = eng._decode_step(*(torch.from_numpy(a).to(cuda_device)
+                               for a in (tokens, lens, tables))).clone()
+    eager_kv = [x.clone() for x in _cache_leaves(eng)]
+    for x, s in zip(_cache_leaves(eng), saved):
+        x.copy_(s)
+    kernels.reset_launch_counts()
+    graphed = eng._decode_logits(tokens, lens, tables).clone()
+    counts = kernels.launch_counts()
+    assert torch.equal(graphed, eager)
+    for x, want in zip(_cache_leaves(eng), eager_kv):
+        assert torch.equal(x, want)
+    L = eng._model.config.num_layers
+    attn = "paged_attention_int8_f16" if int8_kv else "paged_attention_f16"
+    assert counts[attn] == L and counts["rms_norm_f16"] == 2 * L + 1
+    assert counts["paged_attention"] == counts["rms_norm"] == 0
+    eng.run_until_complete()
+    cpu2, eng2 = _engine_pair(cuda_device, int8_kv, max_new_tokens=6,
+                              dtype=torch.float16)
+    assert _serve(cpu2, prompts) == _serve(eng2, prompts)
+
+
+def test_incubate_tensors_on_card_launch_kernels(cuda_device):
+    """The public incubate names on float16 CUDA ``paddle.Tensor`` s:
+    Tensors out, each launching its float16 kernel, equal to the same
+    names on CPU Tensors within the float16 bounds."""
+    import paddle_tpu_torch as paddle
+
+    h = torch.float16
+    g = torch.Generator().manual_seed(7)
+    x, r = (torch.randn(4, 256, generator=g).to(h) for _ in range(2))
+    w = (1 + 0.1 * torch.randn(256, generator=g)).to(h)
+    qkv = torch.randn(3, 3 * 2 * 128, generator=g).to(h)
+    cache = torch.randn(2, 3, 2, 40, 128, generator=g).to(h)
+    lens = torch.tensor([0, 7, 39], dtype=torch.int32)
+    q, kp, vp, tables, plens = _paged_inputs(3, 8, 2, 128, 16, 4,
+                                             [1, 17, 64], h, "cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        def T(t, dev=dev):
+            return paddle.Tensor(t.to(dev).clone())
+
+        kernels.reset_launch_counts()
+        o1 = TF.fused_rms_norm(T(x), T(w))
+        o2, y = TF.fused_rms_norm(T(x), T(w), residual=T(r))
+        o3, c = TF.masked_multihead_attention(T(qkv), T(cache),
+                                              sequence_lengths=T(lens))
+        o4 = TF.paged_attention(T(q), T(kp), T(vp), T(tables), T(plens))
+        o5 = TF.swiglu(T(x), T(r))
+        torch.cuda.synchronize()
+        for t in (o1, o2, y, o3, c, o4, o5):
+            assert isinstance(t, paddle.Tensor)
+        outs[str(dev)] = ([t._data.float().cpu() for t in
+                           (o1, o2, y, o3, c, o4, o5)],
+                          kernels.launch_counts())
+    want, cpu_counts = outs["cpu"]
+    got, counts = outs[str(cuda_device)]
+    assert not any(cpu_counts.values())
+    assert {k: v for k, v in counts.items() if v} == {
+        "rms_norm_f16": 1, "add_rms_norm_f16": 1, "decode_attention_f16": 1,
+        "paged_attention_f16": 1}
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=F16_DECODE_TOL,
+                                   atol=F16_DECODE_TOL)
 
 
 def _amp_bert(paddle, where):

@@ -3,9 +3,13 @@
 A static scan of every module of ``paddle_tpu_torch``, of
 ``chip_smoke.py`` and of ``chip_ab.py``: an ``import`` or ``from ...
 import`` of ``jax``, ``jaxlib`` or ``paddle_tpu`` (other than
-``paddle_tpu_torch``) fails.
+``paddle_tpu_torch``) fails. And ``import paddle_tpu_torch`` in a fresh
+interpreter, whose top level imports ``incubate``, ``distributed`` and
+``inference`` as the reference's does, loads none of them.
 """
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -79,3 +83,13 @@ def test_the_rule_itself():
                      "import paddle_tpu_torch\nfrom . import x\n")
     assert [n for n in _imported(tree) if _forbidden(n)] == [
         "jax.numpy", "paddle_tpu.models"]
+
+
+def test_top_level_import_loads_no_jax():
+    code = ("import sys, paddle_tpu_torch as p; print(sorted({m.split('.')[0]"
+            " for m in sys.modules} & {'jax', 'jaxlib', 'paddle_tpu'})); "
+            "print(all(hasattr(p, n) for n in ('incubate', 'distributed', "
+            "'inference', 'bool')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    assert out.split() == ["[]", "True"], out

@@ -48,7 +48,7 @@ def test_fused_rms_norm_matches_jax(case):
         kw = dict(begin_norm_axis=1)
     want = JF.fused_rms_norm(_pt(x), _pt(w), **{k: _pt(v) if isinstance(
         v, np.ndarray) else v for k, v in kw.items()})
-    got = TF.fused_rms_norm(torch.from_numpy(x), torch.from_numpy(w),
+    got = TF.fused_rms_norm_arrays(torch.from_numpy(x), torch.from_numpy(w),
                             **{k: torch.from_numpy(v) if isinstance(
                                 v, np.ndarray) else v for k, v in kw.items()})
     if "residual" in kw:
@@ -61,7 +61,7 @@ def test_fused_rms_norm_matches_jax(case):
 
 def test_fused_rms_norm_refuses_quantized_output():
     with pytest.raises(NotImplementedError, match="quant_scale"):
-        TF.fused_rms_norm(torch.ones(2, 8), torch.ones(8), quant_scale=0.5)
+        TF.fused_rms_norm_arrays(torch.ones(2, 8), torch.ones(8), quant_scale=0.5)
 
 
 @pytest.mark.parametrize("halves", [False, True])
@@ -70,10 +70,10 @@ def test_swiglu_matches_jax(halves):
     x = rng.standard_normal((4, 16)).astype(np.float32)
     y = rng.standard_normal((4, 16)).astype(np.float32)
     if halves:
-        want, got = JF.swiglu(_pt(x)), TF.swiglu(torch.from_numpy(x))
+        want, got = JF.swiglu(_pt(x)), TF.swiglu_arrays(torch.from_numpy(x))
     else:
         want = JF.swiglu(_pt(x), _pt(y))
-        got = TF.swiglu(torch.from_numpy(x), torch.from_numpy(y))
+        got = TF.swiglu_arrays(torch.from_numpy(x), torch.from_numpy(y))
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-6, rtol=0)
 
 
@@ -121,7 +121,7 @@ def test_masked_multihead_attention_matches_jax(case):
             tkw["src_mask"] = tkw["src_mask"].to(torch.bfloat16)
     jout, jcache = JF.masked_multihead_attention(_pt(x), cache_kv=jcache_in,
                                                  **jkw)
-    out, ret = TF.masked_multihead_attention(torch.from_numpy(x),
+    out, ret = TF.masked_multihead_attention_arrays(torch.from_numpy(x),
                                              cache_kv=tcache, **tkw)
     assert ret is tcache
     assert out.dtype == torch.float32 and _np(jout).dtype == np.float32
@@ -136,9 +136,9 @@ def test_masked_multihead_attention_matches_jax(case):
 def test_masked_multihead_attention_kernel_route_counts_no_launch_on_cpu():
     x, cache, _, _ = _mmha_inputs(4)
     kernels.reset_launch_counts()
-    TF.masked_multihead_attention(torch.from_numpy(x),
+    TF.masked_multihead_attention_arrays(torch.from_numpy(x),
                                   cache_kv=torch.from_numpy(cache))
-    TF.fused_rms_norm(torch.ones(2, 8), torch.ones(8),
+    TF.fused_rms_norm_arrays(torch.ones(2, 8), torch.ones(8),
                       residual=torch.ones(2, 8))
     assert all(n == 0 for n in kernels.launch_counts().values())
 
@@ -151,7 +151,7 @@ def test_masked_multihead_attention_refuses_what_it_ignores(arg):
     x, cache, _, _ = _mmha_inputs(5)
     val = 0.5 if arg == "out_scale" else torch.ones(1)
     with pytest.raises(NotImplementedError, match=arg):
-        TF.masked_multihead_attention(torch.from_numpy(x),
+        TF.masked_multihead_attention_arrays(torch.from_numpy(x),
                                       cache_kv=torch.from_numpy(cache),
                                       **{arg: val})
 

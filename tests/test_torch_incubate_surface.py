@@ -1,17 +1,18 @@
 """The rest of the incubate surface against the JAX package on the CPU:
-every op of ``incubate.nn.functional``, the seven ``Fused*`` layers and
-``incubate``'s top level.
+every op of ``incubate.nn.functional`` (through its torch-level
+``<name>_arrays`` bodies; ``tests/test_torch_incubate_tensor.py`` holds the
+public names on ``Tensor`` s), the seven ``Fused*`` layers (``nn.Layer`` s
+on ``Tensor`` s, on the CPU place) and ``incubate``'s top level.
 
 Inputs and weights are made with numpy from a seed and fed to both
 packages in f32; the layers' parameters cross by name
-(``convert.fused_state_dict_from_jax``). The port's kernels run their
+(``convert.load_fused_from_jax``). The port's kernels run their
 plain versions here (the non-causal flash op, ``paged_attention``); the
 JAX side runs its XLA routes and its Pallas paged kernel in interpret
 mode. Dropout draws differ by design (a ``torch.Generator`` against the
 JAX key chain), so parity is held at rate 0 or ``training=False``, and
 dropout itself by its keep rate and scaling.
 """
-import functools
 
 import numpy as np
 import pytest
@@ -21,9 +22,11 @@ import paddle_tpu as paddle
 import paddle_tpu.incubate as JI
 import paddle_tpu.incubate.nn as JN
 import paddle_tpu.incubate.nn.functional as JF
+import paddle_tpu_torch as tp
 import paddle_tpu_torch.incubate as TI
 import paddle_tpu_torch.incubate.nn as TN
-from paddle_tpu_torch.convert import fused_state_dict_from_jax
+from paddle_tpu_torch import device as tdevice
+from paddle_tpu_torch.convert import load_fused_from_jax
 from paddle_tpu_torch.incubate.nn import functional as TF
 from paddle_tpu_torch.optimizer import SGD
 
@@ -100,7 +103,7 @@ def test_fused_layer_norm_matches_jax(case):
         w = 1 + _f32(rng, 5, 16, scale=0.2)
     want = JF.fused_layer_norm(_j(x), _j(w), **{k: _j(v) if isinstance(
         v, np.ndarray) else v for k, v in kw.items()})
-    got = TF.fused_layer_norm(_t(x), _t(w), **{k: _t(v) if isinstance(
+    got = TF.fused_layer_norm_arrays(_t(x), _t(w), **{k: _t(v) if isinstance(
         v, np.ndarray) else v for k, v in kw.items()})
     if "residual" in kw:
         _close(got[1], want[1], 0)
@@ -121,18 +124,18 @@ def test_fused_rotary_position_embedding_matches_jax(neox, table):
         kw.update(rotary_emb_base=500.0)
     want = JF.fused_rotary_position_embedding(_j(q), _j(k), None, **{
         n: _j(a) if isinstance(a, np.ndarray) else a for n, a in kw.items()})
-    got = TF.fused_rotary_position_embedding(_t(q), _t(k), None, **{
+    got = TF.fused_rotary_position_embedding_arrays(_t(q), _t(k), None, **{
         n: _t(a) if isinstance(a, np.ndarray) else a for n, a in kw.items()})
     assert got[2] is None and want[2] is None
     for g, w in zip(got[:2], want[:2]):
         _close(g, w)
-    got_v = TF.fused_rotary_position_embedding(_t(q), v=_t(v), **{
+    got_v = TF.fused_rotary_position_embedding_arrays(_t(q), v=_t(v), **{
         n: _t(a) if isinstance(a, np.ndarray) else a for n, a in kw.items()})
     _close(got_v[2], JF.fused_rotary_position_embedding(_j(q), v=_j(v), **{
         n: _j(a) if isinstance(a, np.ndarray) else a
         for n, a in kw.items()})[2])
     with pytest.raises(NotImplementedError, match="position_ids"):
-        TF.fused_rotary_position_embedding(_t(q), position_ids=_t(q))
+        TF.fused_rotary_position_embedding_arrays(_t(q), position_ids=_t(q))
 
 
 # ------------------------------------------------------ activations, GEMMs
@@ -140,10 +143,10 @@ def test_fused_rotary_position_embedding_matches_jax(neox, table):
 def test_fused_bias_act_matches_jax_with_the_tanh_gelu(act):
     rng = _rng(3)
     x, b = _f32(rng, 4, 16, scale=2.0), _f32(rng, 16)
-    _close(TF.fused_bias_act(_t(x), _t(b), act_method=act),
+    _close(TF.fused_bias_act_arrays(_t(x), _t(b), act_method=act),
            JF.fused_bias_act(_j(x), _j(b), act_method=act))
     if act == "gelu":
-        tanh = TF.fused_bias_act(_t(x), act_method=act)
+        tanh = TF.fused_bias_act_arrays(_t(x), act_method=act)
         exact = torch.nn.functional.gelu(_t(x))
         assert not torch.allclose(tanh, exact, atol=1e-4, rtol=0)
 
@@ -153,13 +156,13 @@ def test_fused_linear_and_matmul_bias_match_jax(tw):
     rng = _rng(4)
     x, b = _f32(rng, 2, 3, 8), _f32(rng, 6)
     w = _f32(rng, 6, 8) if tw else _f32(rng, 8, 6)
-    _close(TF.fused_linear(_t(x), _t(w), _t(b), tw),
+    _close(TF.fused_linear_arrays(_t(x), _t(w), _t(b), tw),
            JF.fused_linear(_j(x), _j(w), _j(b), tw))
     xt = np.ascontiguousarray(np.swapaxes(x, -1, -2)) if tw else x
-    _close(TF.fused_matmul_bias(_t(xt), _t(w), _t(b), tw, tw),
+    _close(TF.fused_matmul_bias_arrays(_t(xt), _t(w), _t(b), tw, tw),
            JF.fused_matmul_bias(_j(xt), _j(w), _j(b), tw, tw))
     for act in ("gelu", "relu", "none"):
-        _close(TF.fused_linear_activation(_t(x), _t(w), _t(b), False, tw,
+        _close(TF.fused_linear_activation_arrays(_t(x), _t(w), _t(b), False, tw,
                                           act),
                JF.fused_linear_activation(_j(x), _j(w), _j(b), False, tw,
                                           act))
@@ -172,24 +175,24 @@ def test_dropout_ops_keep_their_rate_and_scale():
     rng = _rng(5)
     x, y, r = _f32(rng, 4, 16), _f32(rng, 4, 16), _f32(rng, 4, 16)
     b, s, lb = _f32(rng, 16), 1 + _f32(rng, 16, scale=0.2), _f32(rng, 16)
-    _close(TF.fused_dropout_add(_t(x), _t(y), 0.5, training=False),
+    _close(TF.fused_dropout_add_arrays(_t(x), _t(y), 0.5, training=False),
            JF.fused_dropout_add(_j(x), _j(y), 0.5, training=False))
-    _close(TF.fused_bias_dropout_residual_layer_norm(
+    _close(TF.fused_bias_dropout_residual_layer_norm_arrays(
                _t(x), _t(r), _t(b), _t(s), _t(lb), dropout_rate=0.0),
            JF.fused_bias_dropout_residual_layer_norm(
                _j(x), _j(r), _j(b), _j(s), _j(lb), dropout_rate=0.0))
     big = torch.ones(200_000)
     gen = torch.Generator().manual_seed(0)
-    out = TF.fused_dropout_add(big, torch.zeros_like(big), 0.3,
+    out = TF.fused_dropout_add_arrays(big, torch.zeros_like(big), 0.3,
                                generator=gen)
     kept = out != 0
     assert abs(kept.float().mean().item() - 0.7) < 0.005
     torch.testing.assert_close(out[kept], torch.full_like(out[kept],
                                                           1 / 0.7))
-    again = TF.fused_dropout_add(big, torch.zeros_like(big), 0.3,
+    again = TF.fused_dropout_add_arrays(big, torch.zeros_like(big), 0.3,
                                  generator=torch.Generator().manual_seed(0))
     assert torch.equal(out, again)
-    down = TF.fused_dropout_add(big, torch.zeros_like(big), 0.3,
+    down = TF.fused_dropout_add_arrays(big, torch.zeros_like(big), 0.3,
                                 mode="downscale_in_infer", generator=gen)
     assert set(down.unique().tolist()) == {0.0, 1.0}
 
@@ -197,7 +200,7 @@ def test_dropout_ops_keep_their_rate_and_scale():
 def test_blha_get_max_len_matches_jax():
     enc, dec = np.array([[3], [0], [7]], np.int32), np.array([[1], [9], [2]],
                                                              np.int32)
-    got = TF.blha_get_max_len(_t(enc), _t(dec), 3)
+    got = TF.blha_get_max_len_arrays(_t(enc), _t(dec), 3)
     want = JF.blha_get_max_len(_j(enc), _j(dec), 3)
     assert [int(g) for g in got] == [int(_np(w)) for w in want] == [7, 9]
 
@@ -222,7 +225,7 @@ def test_fused_linear_cross_entropy_matches_jax(transpose_y):
                                        transpose_y=transpose_y, chunk_size=8)
     jl.backward()
     tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
-    tl = TF.fused_linear_cross_entropy(tx, tw, _t(labels),
+    tl = TF.fused_linear_cross_entropy_arrays(tx, tw, _t(labels),
                                        transpose_y=transpose_y, chunk_size=8)
     tl.backward()
     np.testing.assert_allclose(tl.item(), float(_np(jl)), rtol=1e-6)
@@ -274,7 +277,7 @@ def test_fused_multi_head_attention_matches_jax(layout, pre, mask):
     want = JF.fused_multi_head_attention(
         jx, attn_mask=_j(m), **{k: _j(v) for k, v in wts.items()}, **kw)
     tx = _t(x).requires_grad_()
-    got = TF.fused_multi_head_attention(
+    got = TF.fused_multi_head_attention_arrays(
         tx, attn_mask=_t(m), **{k: _t(v) for k, v in wts.items()}, **kw)
     _close(got, want)
     if mask == "none":
@@ -296,13 +299,13 @@ def test_fused_multi_head_attention_defaults_take_the_plain_route(
     rng = _rng(8)
     x = _t(_f32(rng, 2, 6, E))
     wts = {k: _t(v) for k, v in _mha_weights(rng, "3HDE").items()}
-    TF.fused_multi_head_attention(x, **wts,
+    TF.fused_multi_head_attention_arrays(x, **wts,
                                   generator=torch.Generator().manual_seed(0))
     assert calls == []
-    TF.fused_multi_head_attention(x, **wts, training=False)
+    TF.fused_multi_head_attention_arrays(x, **wts, training=False)
     assert calls == [{"causal": False}]
     with pytest.raises(NotImplementedError, match="cache_kv"):
-        TF.fused_multi_head_attention(x, **wts, cache_kv=x)
+        TF.fused_multi_head_attention_arrays(x, **wts, cache_kv=x)
 
 
 @pytest.mark.parametrize("pre", [True, False], ids=["pre-ln", "post-ln"])
@@ -316,7 +319,7 @@ def test_fused_feedforward_matches_jax(act, pre):
              ln1_scale=1 + _f32(rng, E, scale=0.1), ln1_bias=_f32(rng, E),
              ln2_scale=1 + _f32(rng, E, scale=0.1), ln2_bias=_f32(rng, E))
     kw = dict(activation=act, pre_layer_norm=pre, training=False)
-    _close(TF.fused_feedforward(_t(x), **{k: _t(v) for k, v in w.items()},
+    _close(TF.fused_feedforward_arrays(_t(x), **{k: _t(v) for k, v in w.items()},
                                 **kw),
            JF.fused_feedforward(_j(x), **{k: _j(v) for k, v in w.items()},
                                 **kw))
@@ -339,7 +342,7 @@ def test_fused_multi_transformer_matches_jax(mask):
         lists[name] = [_f32(rng, *shape, scale=0.2) + (
             1.0 if "scales" in name else 0.0) for _ in range(L)]
     m = _masks(rng, mask)
-    got = TF.fused_multi_transformer(
+    got = TF.fused_multi_transformer_arrays(
         _t(x), attn_mask=_t(m), **{k: [_t(a) for a in v]
                                    for k, v in lists.items()})
     want = JF.fused_multi_transformer(
@@ -347,7 +350,7 @@ def test_fused_multi_transformer_matches_jax(mask):
                                    for k, v in lists.items()})
     _close(got, want)
     with pytest.raises(NotImplementedError, match="time_step"):
-        TF.fused_multi_transformer(_t(x), time_step=1,
+        TF.fused_multi_transformer_arrays(_t(x), time_step=1,
                                    **{k: [_t(a) for a in v]
                                       for k, v in lists.items()})
 
@@ -361,12 +364,12 @@ def test_fused_moe_matches_jax(topk, norm):
     w = [_f32(rng, 16, e), _f32(rng, e, 16, hid, scale=0.3),
          _f32(rng, e, hid), _f32(rng, e, hid, 16, scale=0.3),
          _f32(rng, e, 16)]
-    _close(TF.fused_moe(*map(_t, [x] + w), moe_topk=topk,
+    _close(TF.fused_moe_arrays(*map(_t, [x] + w), moe_topk=topk,
                         norm_topk_prob=norm),
            JF.fused_moe(*map(_j, [x] + w), moe_topk=topk,
                         norm_topk_prob=norm))
     with pytest.raises(NotImplementedError, match="group_moe"):
-        TF.fused_moe(*map(_t, [x] + w), group_moe=True)
+        TF.fused_moe_arrays(*map(_t, [x] + w), group_moe=True)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -376,7 +379,7 @@ def test_variable_length_attention_matches_jax(causal):
     kvl = np.array([6, 3, 1], np.int32)
     m = _f32(rng, 3, 1, 6, 6, scale=0.5)
     kw = dict(causal=causal, pre_cache_length=1 if causal else 0)
-    _close(TF.variable_length_memory_efficient_attention(
+    _close(TF.variable_length_memory_efficient_attention_arrays(
                _t(q), _t(k), _t(v), _t(kvl), _t(kvl), _t(m), **kw),
            JF.variable_length_memory_efficient_attention(
                _j(q), _j(k), _j(v), _j(kvl), _j(kvl), _j(m), **kw))
@@ -389,7 +392,7 @@ def test_paged_attention_matches_the_jax_kernel():
     kp, vp = _f32(rng, 2, 6, 16, 64), _f32(rng, 2, 6, 16, 64)
     tables = np.array([[4, 1, 5], [0, 3, 2]], np.int32)
     lens = np.array([37, 20], np.int32)
-    _close(TF.paged_attention(*map(_t, (q, kp, vp, tables, lens))),
+    _close(TF.paged_attention_arrays(*map(_t, (q, kp, vp, tables, lens))),
            JF.paged_attention(*map(_j, (q, kp, vp, tables, lens))))
 
 
@@ -413,7 +416,7 @@ def _blha_args(qkv, this, dec, tables):
 
 
 def _blha_port(tk, tv, args, **kw):
-    return TF.block_multihead_attention(
+    return TF.block_multihead_attention_arrays(
         *[tk if j == 1 else tv if j == 2 else _t(a)
           for j, a in enumerate(args)],
         **{k: _t(a) if isinstance(a, np.ndarray) else a
@@ -449,7 +452,7 @@ def test_block_multihead_attention_matches_jax():
         _close(tk, jk, 1e-6)
         _close(tv, jv, 1e-6)
     with pytest.raises(NotImplementedError, match="quantization"):
-        TF.block_multihead_attention(
+        TF.block_multihead_attention_arrays(
             _t(qkv), tk, tv, *[_t(a) for a in args[3:]],
             cache_k_quant_scales=torch.ones(2))
 
@@ -502,7 +505,20 @@ def _carry(jm, tm, seed):
         1.0 if "ln_scale" in k else 0.0)).astype(np.float32)
         for k, v in jm.state_dict().items()}
     jm.set_state_dict({k: paddle.to_tensor(a) for k, a in sd.items()})
-    tm.load_state_dict(fused_state_dict_from_jax(sd, tm))
+    load_fused_from_jax(sd, tm)
+
+
+@pytest.fixture
+def _cpu_place():
+    prev = (getattr(tdevice._state, "device", None),
+            getattr(tdevice._state, "place", None))
+    tp.set_device("cpu")
+    yield
+    tdevice._state.device, tdevice._state.place = prev
+
+
+def _tt(a):
+    return None if a is None else tp.to_tensor(a)
 
 
 LAYERS = {
@@ -531,11 +547,11 @@ LAYERS = {
 
 
 @pytest.mark.parametrize("name", list(LAYERS))
-def test_fused_layers_match_jax(name):
+def test_fused_layers_match_jax(name, _cpu_place):
     """Each layer in eval mode (no dropout) on parameters carried by name,
     ``[in, out]`` on both sides; the layers' gelu is the exact erf form."""
     make, shapes = LAYERS[name]
-    jm, tm = make(JN), make(_CPU)
+    jm, tm = make(JN), make(TN)
     jm.eval()
     tm.eval()
     if list(tm.state_dict()):
@@ -544,24 +560,24 @@ def test_fused_layers_match_jax(name):
         assert tuple(v.shape) == tuple(jm.state_dict()[k].shape), k
     rng = _rng(16)
     xs = [_f32(rng, *s) for s in shapes]
-    _close(tm(*map(_t, xs)), jm(*map(_j, xs)))
+    _close(tm(*map(_tt, xs)), jm(*map(_j, xs)))
 
 
 @pytest.mark.parametrize("mask", [False, True], ids=["flash", "masked"])
-def test_fused_encoder_layer_trains_like_jax(mask):
+def test_fused_encoder_layer_trains_like_jax(mask, _cpu_place):
     """A ``FusedTransformerEncoderLayer`` in training at dropout 0: output
     and every parameter's gradient against the JAX layer (the non-causal
     flash op's backward without a mask, the plain attention's with one)."""
     jm = JN.FusedTransformerEncoderLayer(E, H, 48, dropout_rate=0.0,
                                          activation="gelu")
-    tm = _CPU.FusedTransformerEncoderLayer(E, H, 48, dropout_rate=0.0,
-                                           activation="gelu")
+    tm = TN.FusedTransformerEncoderLayer(E, H, 48, dropout_rate=0.0,
+                                         activation="gelu")
     _carry(jm, tm, seed=17)
     rng = _rng(18)
     x = _f32(rng, 2, 6, E)
     m = _masks(rng, "bool") if mask else None
     want = jm(_j(x), src_mask=_j(m))
-    got = tm(_t(x), src_mask=_t(m))
+    got = tm(_tt(x), src_mask=_tt(m))
     _close(got, want)
     want.square().mean().backward()
     got.square().mean().backward()
@@ -573,23 +589,15 @@ def test_fused_encoder_layer_trains_like_jax(mask):
             _close(p.grad, jgrads[n], 1e-6)
 
 
-class _OnCPU:
-    """The port's layer classes, built on the CPU."""
-
-    def __getattr__(self, name):
-        return functools.partial(getattr(TN, name), device="cpu")
-
-
-_CPU = _OnCPU()
-
-
-def test_layers_refuse_what_they_ignore():
+def test_layers_refuse_what_they_ignore(_cpu_place):
     with pytest.raises(NotImplementedError, match="need_weights"):
-        _CPU.FusedMultiHeadAttention(E, H, need_weights=True)
+        TN.FusedMultiHeadAttention(E, H, need_weights=True)
+    with pytest.raises(NotImplementedError, match="ring_id"):
+        TN.FusedFeedForward(E, 48, ring_id=0)
     with pytest.raises(NotImplementedError, match="cache"):
-        _CPU.FusedMultiHeadAttention(E, H)(torch.ones(1, 2, E), cache=1)
-    lin = _CPU.FusedLinear(E, 8, bias_attr=False)
-    assert lin.bias is None and lin(torch.ones(1, E)).shape == (1, 8)
+        TN.FusedMultiHeadAttention(E, H)(tp.ones([1, 2, E]), cache=1)
+    lin = TN.FusedLinear(E, 8, bias_attr=False)
+    assert lin.bias is None and lin(tp.ones([1, E])).shape == [1, 8]
 
 
 # ------------------------------------------------------------ top level

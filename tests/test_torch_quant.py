@@ -205,16 +205,16 @@ def test_inline_and_incubate_fp8_match_the_reference():
                              (False, True, (x, wt)), (True, True, (xt, wt))):
         want = jfp8_gemm(paddle.to_tensor(a), paddle.to_tensor(c),
                          transpose_x=tx_, transpose_y=ty_).numpy()
-        got = TF.fp8_gemm(torch.from_numpy(a), torch.from_numpy(c),
+        got = TF.fp8_gemm_arrays(torch.from_numpy(a), torch.from_numpy(c),
                           transpose_x=tx_, transpose_y=ty_)
         _close(got, want, 1e-6)
     want = jfp8_linear(paddle.to_tensor(x), paddle.to_tensor(w),
                        paddle.to_tensor(b)).numpy()
-    got = TF.fp8_linear(torch.from_numpy(x), torch.from_numpy(w),
+    got = TF.fp8_linear_arrays(torch.from_numpy(x), torch.from_numpy(w),
                         torch.from_numpy(b))
     _close(got, want, 1e-6)
     tx = torch.from_numpy(x).requires_grad_()
-    (gx,) = torch.autograd.grad(TF.fp8_linear(tx, torch.from_numpy(w)).sum(),
+    (gx,) = torch.autograd.grad(TF.fp8_linear_arrays(tx, torch.from_numpy(w)).sum(),
                                 tx)
     assert torch.equal(gx, torch.ones(2, 8, 12) @ torch.from_numpy(w).t())
 
