@@ -188,7 +188,8 @@ Phases, each of which fails the run on error:
 7. training consistency - f32, full width, depth 2: three TrainSteps on
              the card equal the same three on the CPU (plain versions),
              the CE head pinned to f32 logits on both.
-   resilience - config 4 in bf16 at full width and depth, batch 3 x seq
+   resilience - config 4 in bf16 at full width (12 of its 24 layers in
+             the whole script, RESILIENCE_CONFIG4), batch 3 x seq
              2048, with LinearWarmup(CosineAnnealingDecay), a global-norm
              clip and AdamW(factored) leaving the norms undecayed: four
              clean unguarded runs of 8 steps (their largest loss
@@ -257,6 +258,8 @@ Phases, each of which fails the run on error:
              memory; (f) f32 depth 2, card against CPU for (b)'s variant
              and (d)'s MoE, phase 7's bounds. One more step of (a), (b)
              and (d) runs under the profiler (busy, host share, groups).
+             The script runs (b)-(e) at 12 of config 4's 24 layers
+             (MODEL_REST_CONFIG4), at its width.
 11. shared_block - config 4's widths and depth as a per-layer
              GPTForCausalLM whose layers run through the shared block, bf16,
              a warm-up and 3 timed AdamW(factored) steps of batch 3 x seq
@@ -327,10 +330,32 @@ Phases, each of which fails the run on error:
              idle gap of one profiled fed step; (c) ``model.bfloat16()``
              (buffers too), the same step, a warm-up and 3 timed steps.
 
+   deploy  - how a Paddle user ships a model: (a) BERT-base (config 3's
+             model, 110.1 M, f32, 32 x 512) through ``jit.to_static`` in
+             eval, ``jit.save`` with a dynamic batch and
+             ``inference.create_predictor`` on the card (a CUDA graph per
+             feed shape): flash_attention_fwd L a run and nothing else,
+             outputs within FLASH_TOL of eager, batch 8 from the same
+             artifact, the graphed run equal to the eager run; save and
+             load seconds, bytes, the run's ms against the eager and
+             to_static forwards; (b) ``convert_to_mixed_precision``: the
+             floating weights' bytes exactly halved, outputs within 2e-2
+             of (a)'s, the graphed run equal to its eager run, and the
+             device bytes the bf16 Predictor holds and peaks at below
+             the f32 one's; (c) config 4's Pipe forward to logits (its width,
+             bf16, 3 x 2048; 2 of its 24 layers, DEPLOY_PIPE_LAYERS)
+             through ``jit.save`` and a Predictor:
+             flash_attention_fwd L, rms_norm 2L, swiglu_down L a run,
+             logits against eager; (d) ``FLAGS_check_nan_inf`` on a
+             2-layer config-4-width TrainStep whose loss turns NaN: it
+             raises naming aten.log and no byte of a parameter or slot
+             changes; off, one step launches phase 6's per-layer counts.
+
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, float16, training, quant_train (run b),
-long-context, model_rest, shared_block, paddle_surface and vision runs;
+long-context, model_rest, shared_block, paddle_surface, vision, amp and
+deploy runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -4597,6 +4622,15 @@ GPT3_ARCH = dict(norm_type="layernorm", act="gelu", rope=False)
 #: the MoE decoder of (d): 8 experts of config 4's FFN width, top 2
 MOE_KW = dict(num_experts=8, top_k=2, gate="gshard", capacity_factor=2.0)
 REST_STEPS = 3
+#: model_rest's config-4 parts (b)-(e) at 12 of config 4's 24 layers in
+#: the whole script (the width is config 4's): at 24, (b)-(e) took 96.2
+#: of the phase's 152.2 s ((e)'s two 5 GB saves and restores 61.2 s), and
+#: phase deploy's 60 s had to fit under the script's 1000
+MODEL_REST_CONFIG4 = dict(CONFIG4, num_layers=12)
+#: phase resilience's depth in the whole script, for the same reason (at
+#: 24 layers its two saves and restores of 5.12 GB took about 36 of its
+#: 62-64 s): config 4's width and training setup at 12 of its 24 layers
+RESILIENCE_CONFIG4 = dict(CONFIG4, num_layers=12)
 #: (c): a seam's losses against the unfused run's, the reference's bound
 #: for int8 saves (tests/test_memory.py:113-122)
 REST_SEAM_RTOL = 0.02
@@ -7404,6 +7438,380 @@ def phase_amp(smi="", cfg_kw=None, batch=BERT_BATCH, seq=BERT_SEQ,
     return res
 
 
+# ---------------------------------------------------------------- deploy
+DEPLOY_DIR = Path(__file__).resolve().parent / "build" / "deploy"
+#: the second batch the BERT artifact serves (its batch dim is dynamic)
+DEPLOY_SMALL_BATCH = 8
+#: the config-4 Pipe's depth in (c); the width is config 4's. At all 24
+#: layers the phase took 94.2 s, (c) about 36 s of it: its save (22.9 s)
+#: and load (11.0 s) go mostly to exporting and (de)serialising the
+#: program, which grow with depth (at 4 layers 4.7 and 3.3 s, the phase
+#: 66.2 s); 2 layers keep the phase under its 60 s
+DEPLOY_PIPE_LAYERS = 2
+#: the NaN check's config-4-width Pipe depth in (d)
+DEPLOY_NAN_LAYERS = 2
+#: (b): the bf16 weights' outputs against f32's, of the largest value
+DEPLOY_BF16_TOL = 2e-2
+
+
+def _wall_ms(fn, reps=3):
+    """Median host-clock ms of ``fn()`` ending in a synchronise, after one
+    warm-up call (the card's queue drained both sides)."""
+    fn()
+    _sync(DEVICE)
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(DEVICE)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def _artifact_bytes(prefix):
+    return {ext: Path(prefix + ext).stat().st_size
+            for ext in (".pdmodel", ".pdiparams", ".pdmeta.json")}
+
+
+def _float_weight_bytes(prefix):
+    """The bytes of the floating weights in a ``.pdiparams``."""
+    with np.load(prefix + ".pdiparams", allow_pickle=False) as z:
+        n = sum(1 for k in z.files if k.endswith("_dtype"))
+        return sum(z[f"w{i}"].size for i in range(n)
+                   if str(z[f"w{i}_dtype"]).startswith(("float", "bfloat")))
+
+
+def _leaf_rel(got, want):
+    """Largest |got - want| over the largest |want|, over matching
+    leaves."""
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    top = max(float(w.float().abs().max()) for w in want)
+    return err / top
+
+
+def phase_deploy(smi="", bert_kw=None, batch=BERT_BATCH, seq=BERT_SEQ,
+                 pipe_kw=None, pipe_batch=3, pipe_seq=2048):
+    """How a Paddle user ships a model: (a) BERT-base (config 3's model,
+    f32) through ``jit.to_static`` in eval, ``jit.save`` with a dynamic
+    batch, ``inference.create_predictor`` on the card and ``run`` (a CUDA
+    graph per feed shape): flash launches, outputs against eager, a second
+    batch from the same artifact, save/load seconds, bytes and the run's
+    ms against the eager and ``to_static`` forwards; (b) the same artifact
+    after ``convert_to_mixed_precision``: floating weight bytes halved,
+    outputs within the bf16 bound, and the device bytes each Predictor
+    holds and peaks at; (c) config 4's Pipe forward to logits
+    through ``jit.save`` and a ``Predictor``: exact launches a run, logits
+    against eager; (d) ``FLAGS_check_nan_inf`` on a config-4-width
+    ``TrainStep`` whose loss turns NaN: it raises naming the op and no
+    byte of a parameter or slot changes; off, the step's launches are
+    phase 6's per layer. ``bert_kw``/``pipe_kw`` (config overrides) and
+    the shapes, with ``DEVICE = "cpu"``, rehearse it small (no launch or
+    memory checks)."""
+    import functools
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMPipe
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.utils.flags import set_flags
+
+    K = paddle.ops.kernels
+    card = DEVICE != "cpu"
+    paddle.set_device("gpu" if card else "cpu")
+    root = DEPLOY_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    res = {"smi": smi}
+    launches = {name: 0 for name in K.launch_counts()}
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        _sync(DEVICE if card else "cpu")
+        counts = K.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        return out, counts
+
+    def want_only(counts, want, tag):
+        if not card:
+            return
+        full = {name: 0 for name in counts}
+        full.update(want)
+        check(counts == full, f"deploy {tag}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, want {want}")
+
+    def predictor(prefix):
+        cfg = inference.Config(prefix + ".pdmodel", prefix + ".pdiparams")
+        if not card:
+            cfg.disable_gpu()
+        check(cfg.use_gpu() == card, "Config.use_gpu()")
+        return inference.create_predictor(cfg)
+
+    def device_bytes(fn):
+        """fn() on the card -> (its result, the bytes it left allocated,
+        the most it had allocated at once), both above the start's."""
+        if not card:
+            return fn(), None, None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, torch.cuda.memory_allocated() - base,
+                torch.cuda.max_memory_allocated() - base)
+
+    def serve(prefix):
+        """Load ``prefix``, then its eager first run and its capture ->
+        (predictor, load seconds, first outputs, the capture's counts)."""
+        t0 = time.perf_counter()
+        pred = predictor(prefix)
+        _sync(DEVICE)
+        load_s = time.perf_counter() - t0
+        first = pred.run([ids])
+        return pred, load_s, first, counted(lambda: pred.run([ids]))[1]
+
+    # (a) BERT-base: to_static in eval -> jit.save -> Predictor -> run
+    cfg = bert_base(dropout=0.0, **(bert_kw or {}))
+    paddle.seed(0)
+    model = BertForPretraining(cfg)      # outputs (MLM logits, NSP logits)
+    model.eval()
+    nparams = sum(p.size for p in model.parameters())
+    if bert_kw is None:
+        check(round(nparams / 1e6, 1) == 110.1,
+              f"BERT-base has {nparams} parameters")
+    L = cfg.num_layers
+    rng = np.random.RandomState(5)
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (batch, seq))
+                           .astype(np.int64))
+    with paddle.no_grad():
+        ref = [t._data for t in model(ids)]
+        eager_ms = _wall_ms(lambda: model(ids))
+    static = paddle.jit.to_static(model)
+    t0 = time.perf_counter()
+    with paddle.no_grad():
+        got = [t._data for t in static(ids)]
+    _sync(DEVICE if card else "cpu")
+    capture_s = time.perf_counter() - t0
+    tol = FLASH_TOL[torch.float32]
+    rel = _leaf_rel(got, ref)
+    check(rel <= tol, f"deploy (a): to_static vs eager rel {rel}")
+    with paddle.no_grad():
+        static_ms = _wall_ms(lambda: static(ids))
+    prefix = str(root / "bert")
+    t0 = time.perf_counter()
+    paddle.jit.save(static, prefix, input_spec=[
+        InputSpec([None, seq], "int64", name="input_ids")])
+    save_s = time.perf_counter() - t0
+    (pred, load_s, first, counts), held32, peak32 = device_bytes(
+        lambda: serve(prefix))
+    check(pred.get_input_names() == ["input_ids"], "deploy (a): feed names")
+    want_only(counts, {"flash_attention_fwd": L}, "(a) capture run")
+    outs, counts = counted(lambda: pred.run([ids]))
+    want_only(counts, {"flash_attention_fwd": L}, "(a) graphed run")
+    rel_pred = _leaf_rel(outs, ref)
+    check(rel_pred <= tol, f"deploy (a): predictor vs eager rel {rel_pred}")
+    check(all(torch.equal(a, b) for a, b in zip(outs, first)),
+          "deploy (a): the graphed run differs from the eager run")
+    pred_ms = _wall_ms(lambda: pred.run([ids]))
+    graph_device_ms = (time_ms(next(iter(pred._prepared.values()))
+                               .graph.replay, reps=5, inner=2)
+                       if card else None)
+    small = ids[:DEPLOY_SMALL_BATCH]
+    outs8, _ = counted(lambda: pred.run([small]))
+    with paddle.no_grad():
+        ref8 = [t._data for t in model(small)]
+    rel8 = _leaf_rel(outs8, ref8)
+    check(rel8 <= tol and tuple(outs8[0].shape)
+          == (DEPLOY_SMALL_BATCH, seq, cfg.vocab_size),
+          f"deploy (a): batch {DEPLOY_SMALL_BATCH} rel {rel8}")
+    res["a"] = {
+        "model": "bert-base (config 3)", "params": nparams,
+        "batch": batch, "seq": seq, "capture_s": capture_s,
+        "save_s": save_s, "load_s": load_s,
+        "artifact_bytes": _artifact_bytes(prefix),
+        "eager_ms": eager_ms, "to_static_ms": static_ms,
+        "predictor_ms": pred_ms, "graph_device_ms": graph_device_ms,
+        "host_share_eager": (None if graph_device_ms is None
+                             else 1.0 - graph_device_ms / eager_ms),
+        "rel_to_static": rel, "rel_predictor": rel_pred,
+        "rel_small_batch": rel8,
+        "segments": static._segment_stats}
+    print(f"deploy (a): BERT-base {nparams / 1e6:.1f} M params f32, "
+          f"[{batch}, {seq}]: to_static capture {capture_s:.2f} s "
+          f"({static._segment_stats}), save {save_s:.2f} s, load "
+          f"{load_s:.2f} s, bytes {res['a']['artifact_bytes']}; eager "
+          f"{eager_ms:.2f} ms, to_static {static_ms:.2f} ms, predictor "
+          f"(graphed) {pred_ms:.2f} ms, its replay on the card "
+          f"{graph_device_ms} ms, host share of eager "
+          f"{res['a']['host_share_eager']}; rel err to_static {rel:.2e}, "
+          f"predictor {rel_pred:.2e}, batch {DEPLOY_SMALL_BATCH} "
+          f"{rel8:.2e} (tol {tol})", flush=True)
+
+    # (b) convert_to_mixed_precision: bf16 weights upcast at the boundary
+    mixed = str(root / "bert_bf16")
+    t0 = time.perf_counter()
+    inference.convert_to_mixed_precision(
+        prefix + ".pdmodel", prefix + ".pdiparams", mixed + ".pdmodel",
+        mixed + ".pdiparams")
+    convert_s = time.perf_counter() - t0
+    f32_bytes, bf16_bytes = (_float_weight_bytes(prefix),
+                             _float_weight_bytes(mixed))
+    check(2 * bf16_bytes == f32_bytes,
+          f"deploy (b): floating weights {bf16_bytes} B against f32's "
+          f"{f32_bytes} B")
+    del first
+    (pred16, _, first16, _), held16, peak16 = device_bytes(
+        lambda: serve(mixed))
+    outs16, counts = counted(lambda: pred16.run([ids]))
+    want_only(counts, {"flash_attention_fwd": L}, "(b) graphed run")
+    check(all(torch.equal(a, b) for a, b in zip(outs16, first16)),
+          "deploy (b): the graphed run differs from the eager run")
+    rel16 = _leaf_rel(outs16, outs)
+    check(rel16 <= DEPLOY_BF16_TOL, f"deploy (b): bf16 weights rel {rel16}")
+    if card:
+        # each weight's f32 copy lives from its first use to its last, so
+        # the bf16 artifact holds and peaks below the f32 one on the card
+        check(held16 < held32 and peak16 < peak32,
+              f"deploy (b): device bytes held {held16} and peak {peak16} "
+              f"against f32's {held32} and {peak32}")
+    res["b"] = {"convert_s": convert_s, "float_bytes_f32": f32_bytes,
+                "float_bytes_bf16": bf16_bytes, "rel_to_f32": rel16,
+                "device_bytes_held_f32": held32,
+                "device_bytes_held_bf16": held16,
+                "device_bytes_peak_f32": peak32,
+                "device_bytes_peak_bf16": peak16,
+                "predictor_ms": _wall_ms(lambda: pred16.run([ids]))}
+    print(f"deploy (b): convert {convert_s:.2f} s, floating weights "
+          f"{f32_bytes} -> {bf16_bytes} B, rel err to (a) {rel16:.2e} "
+          f"(tol {DEPLOY_BF16_TOL}), predictor {res['b']['predictor_ms']:.2f}"
+          f" ms; device bytes a Predictor holds after its capture, f32 "
+          f"{held32}, bf16 {held16}; its peak while loading, running and "
+          f"capturing, f32 {peak32}, bf16 {peak16}", flush=True)
+    del pred, pred16, first16, static, model
+    _free(card)
+
+    # (c) config 4's Pipe forward to logits through jit.save -> Predictor
+    pcfg = GPTConfig(**dict(dict(vocab_size=32000, hidden_size=2048,
+                                 num_heads=16, max_seq_len=2048,
+                                 dropout=0.0, dtype="bfloat16"),
+                            **(pipe_kw or {}),
+                            num_layers=DEPLOY_PIPE_LAYERS))
+    gen = torch.Generator(device=DEVICE if card else "cpu").manual_seed(4)
+    pipe = GPTForCausalLMPipe(pcfg, device=DEVICE if card else "cpu",
+                              dtype=torch.bfloat16).init_weights(gen)
+    pids = torch.as_tensor(np.random.default_rng(6).integers(
+        0, pcfg.vocab_size, (pipe_batch, pipe_seq)),
+        device=DEVICE if card else "cpu")
+    with torch.no_grad():
+        (plogits,), _ = counted(lambda: (pipe(pids),))
+    pprefix = str(root / "pipe")
+    t0 = time.perf_counter()
+    paddle.jit.save(pipe, pprefix, input_spec=[
+        InputSpec([pipe_batch, pipe_seq], "int64", name="input_ids")])
+    psave_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppred = predictor(pprefix)
+    pload_s = time.perf_counter() - t0
+    ppred.run([pids])
+    (lg,), counts = counted(lambda: ppred.run([pids]))
+    PL = DEPLOY_PIPE_LAYERS
+    want_only(counts, {"flash_attention_fwd": PL, "rms_norm": 2 * PL,
+                       "swiglu_down": PL}, "(c) graphed run")
+    prel = _leaf_rel([lg], [plogits])
+    check(prel <= FLASH_TOL[torch.bfloat16],
+          f"deploy (c): predictor logits vs eager rel {prel}")
+    res["c"] = {"model": "gpt3-1.3b Pipe (config 4) forward",
+                "layers": PL, "batch": pipe_batch, "seq": pipe_seq,
+                "params": sum(p.numel() for p in pipe.parameters()),
+                "save_s": psave_s, "load_s": pload_s,
+                "artifact_bytes": _artifact_bytes(pprefix),
+                "launches_per_run": {k: v for k, v in counts.items() if v},
+                "launch_formula": "per run: flash_attention_fwd L, rms_norm "
+                                  f"2L, swiglu_down L; L = {PL}",
+                "rel_logits": prel, "bitwise": bool(torch.equal(lg,
+                                                                plogits)),
+                "predictor_ms": _wall_ms(lambda: ppred.run([pids]))}
+    print(f"deploy (c): Pipe at {PL} layers, width {pcfg.hidden_size}, "
+          f"[{pipe_batch}, {pipe_seq}] bf16: save {psave_s:.2f} s, load "
+          f"{pload_s:.2f} s, bytes {res['c']['artifact_bytes']}; launches "
+          f"a run {res['c']['launches_per_run']} "
+          f"({res['c']['launch_formula']}); logits rel {prel:.2e}, bitwise "
+          f"{res['c']['bitwise']}; predictor {res['c']['predictor_ms']:.2f}"
+          f" ms", flush=True)
+    del ppred, pipe, plogits, lg
+    _free(card)
+
+    # (d) FLAGS_check_nan_inf on a config-4-width TrainStep
+    ncfg = GPTConfig(**dict(dict(vocab_size=32000, hidden_size=2048,
+                                 num_heads=16, max_seq_len=2048,
+                                 dropout=0.0, dtype="bfloat16"),
+                            **(pipe_kw or {}),
+                            num_layers=DEPLOY_NAN_LAYERS, recompute=True))
+    dev = DEVICE if card else "cpu"
+    nmodel, step = _train_setup(ncfg, torch.bfloat16, dev, seed=3,
+                                int8=False)
+    nids, nlabels = _train_batch(ncfg.vocab_size, pipe_batch, pipe_seq, 3,
+                                 dev)
+    step(nids, nlabels)                       # the slots exist after this
+    _, counts = counted(lambda: step(nids, nlabels))
+    NL = DEPLOY_NAN_LAYERS
+    want_only(counts, {"flash_attention_fwd": 2 * NL,
+                       "flash_attention_bwd": NL, "swiglu_down": 2 * NL,
+                       "rms_norm": 4 * NL}, "(d) the step with the flag off")
+    opt = step.optimizer
+
+    def state_bytes():
+        ts = [p for p in nmodel.parameters()]
+        ts += [t for p in ts for t in opt.state.get(p, {}).values()
+               if isinstance(t, torch.Tensor)]
+        return [t.detach().reshape(-1).view(torch.uint8).to("cpu",
+                                                             copy=True)
+                for t in ts], opt._step_count
+
+    def nan_loss(i, lab):
+        # log(loss - loss - 1) = log(-1): the first non-finite op is aten.log
+        loss = nmodel.loss(i, lab, int8=False)
+        return torch.log(loss - loss.detach() - 1.0)
+
+    before, count_before = state_bytes()
+    nan_step = TrainStep(nmodel, nan_loss, opt)
+    set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        nan_step(nids, nlabels)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        set_flags({"FLAGS_check_nan_inf": False})
+    check(raised is not None and "aten.log" in raised,
+          f"deploy (d): the NaN step raised {raised!r}")
+    after, count_after = state_bytes()
+    same = (count_after == count_before and len(after) == len(before)
+            and all(torch.equal(a, b) for a, b in zip(after, before)))
+    check(same, "deploy (d): the refused step changed a parameter or slot")
+    res["d"] = {"layers": NL, "raised": raised, "unchanged_tensors":
+                len(before), "launches_flag_off": {k: v for k, v in
+                                                   counts.items() if v}}
+    print(f"deploy (d): {raised}; {len(before)} parameter and slot tensors "
+          f"unchanged byte for byte; flag off, one step's launches "
+          f"{res['d']['launches_flag_off']} (phase 6's per layer at L = "
+          f"{NL})", flush=True)
+    del step, nan_step, nmodel, opt
+    _free(card)
+    res["launches"] = launches
+    return res
+
+
+def _free(card):
+    gc.collect()
+    if card:
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every measurement here as JSON")
@@ -7414,6 +7822,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from paddle_tpu_torch.models.gpt import GPTConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7478,15 +7887,17 @@ def main():
         report["training"] = run("training", phase_training)
         report["train_consistency"] = run("train_consistency",
                                           phase_train_consistency)
-        report["resilience"] = run("resilience", phase_resilience,
-                                   report["device"]["smi"])
+        report["resilience"] = run(
+            "resilience", phase_resilience, report["device"]["smi"],
+            GPTConfig(**RESILIENCE_CONFIG4))
         report["quant_train"] = run("quant_train", phase_quant_train,
                                     report["device"]["smi"])
         report["long_context"] = run("long_context", phase_long_context)
         report["long_context_remat"] = run("long_context_remat",
                                            phase_long_context_remat)
         report["model_rest"] = run("model_rest", phase_model_rest,
-                                   report["device"]["smi"])
+                                   report["device"]["smi"], None,
+                                   MODEL_REST_CONFIG4)
         report["shared_block"] = run(
             "shared_block", phase_shared_block, report["device"]["smi"],
             None, 3, 2048, DEVICE, REST_STEPS, report["training"])
@@ -7496,6 +7907,8 @@ def main():
         report["vision"] = run("vision", phase_vision,
                                report["device"]["smi"])
         report["amp"] = run("amp", phase_amp, report["device"]["smi"])
+        report["deploy"] = run("deploy", phase_deploy,
+                               report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -7558,7 +7971,8 @@ def main():
                                 "incubate_surface", "float16", "training",
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
-                                "paddle_surface", "vision", "amp")}
+                                "paddle_surface", "vision", "amp",
+                                "deploy")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -14,7 +14,10 @@ dtypes, the ops, ``nn`` and ``nn.functional``, ``optimizer`` and
 and the vision user's path: ``io`` (``DataLoader``
 with worker processes), ``metric``, ``Model`` with ``callbacks``,
 ``save``/``load`` and ``vision``, and, as in the reference, ``incubate``
-(the fused ops and ``Fused*`` layers), ``distributed`` and ``inference``. A tensor made with no place lands on the CUDA card
+(the fused ops and ``Fused*`` layers), ``distributed`` and ``inference``
+(the ``Predictor`` over ``jit.save`` artifacts), ``jit.to_static``,
+``static.InputSpec``, ``utils`` (``flags``, ``unique_name``), ``version``,
+``sysconfig``, ``get_flags``/``set_flags`` and ``flops``. A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
 making it raises. Imports run one way: the surface imports the torch-level
 port (``ops.kernels``, ``optimizer``, ``jit``, ``telemetry``), which imports
@@ -30,6 +33,8 @@ from .dtypes import (  # noqa: F401
 
 dtype = DType  # paddle.dtype is the dtype class
 bool = bool_  # paddle.bool (shadows the builtin in this module only)
+pstring = "pstring"   # the reference's string-tensor dtype tag
+raw = "raw"           # the reference's raw dtype tag
 
 from .device import (  # noqa: F401,E402
     Place, CPUPlace, CUDAPlace, CUDAPinnedPlace, TPUPlace, XPUPlace,
@@ -63,6 +68,10 @@ from . import hapi  # noqa: F401,E402
 from . import incubate  # noqa: F401,E402
 from . import distributed  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from . import utils  # noqa: F401,E402
+from . import version  # noqa: F401,E402
+from . import sysconfig  # noqa: F401,E402
 from .hapi.model import Model, summary  # noqa: F401,E402
 from .framework_io import (  # noqa: F401,E402
     async_save, clear_async_save_task_queue, load, save)
@@ -88,3 +97,80 @@ def create_parameter(shape, dtype="float32", name=None, attr=None,
 
 def check_shape(tensor):
     return list(tensor.shape)
+
+
+__version__ = version.full_version
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """Tensor printing options, as torch's ``set_printoptions`` takes
+    them (the reference sets numpy's, which its repr prints through)."""
+    kw = {k: v for k, v in dict(precision=precision, threshold=threshold,
+                                edgeitems=edgeitems, linewidth=linewidth,
+                                sci_mode=sci_mode).items() if v is not None}
+    import numpy as _np
+    import torch as _torch
+
+    _torch.set_printoptions(**kw)
+    np_kw = {k: v for k, v in kw.items() if k != "sci_mode"}
+    if sci_mode is not None:
+        np_kw["suppress"] = not sci_mode
+    _np.set_printoptions(**np_kw)
+
+
+def disable_signal_handler():
+    """Paddle's C++ signal handlers have no counterpart: nothing to undo."""
+
+
+def get_cuda_rng_state():
+    """The generators' states, as ``get_rng_state`` returns them."""
+    return get_rng_state()
+
+
+def set_cuda_rng_state(state):
+    set_rng_state(state)
+
+
+class LazyGuard:
+    """Paddle's lazy-initialisation scope; parameters are made at once
+    here, so the scope changes nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def batch(reader, batch_size, drop_last=False):
+    """Group a sample reader's items into lists of ``batch_size``."""
+    def batched():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+
+    return batched
+
+
+def is_grad_enabled_():
+    return is_grad_enabled()
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    from .hapi.dynamic_flops import flops as _flops
+
+    return _flops(net, input_size, custom_ops, print_detail)
+
+
+def get_flags(flags):
+    return utils.flags.get_flags(flags)
+
+
+def set_flags(flags):
+    return utils.flags.set_flags(flags)

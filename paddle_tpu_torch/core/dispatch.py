@@ -17,9 +17,11 @@ op's torch inputs go through ``amp.autocast`` (the white list's ops take
 the low type, the black list's f32) before ``fn`` runs; torch's autograd
 carries each gradient back to its input's own type through the cast.
 
-Not ported, each with its own item: the checkify hook
-(``_check_nan_inf``, A.6 item 3) and static-program recording
-(``_record_static``, A.13 (e)).
+Under ``FLAGS_check_nan_inf`` every floating output is checked after the
+op runs (``_check_nan_inf``, the reference's ``:145-161``): a NaN or Inf
+raises ``FloatingPointError`` naming the op. Off, the flag's read is the
+only cost. Not ported: static-program recording (``_record_static``,
+A.13 (e)).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from .. import amp as _amp
 from .. import telemetry as _telemetry
+from ..utils.flags import CHECK_NAN_INF as _CHECK_NAN_INF
 from .tensor import Parameter, Tensor
 
 # module-level handles: the disabled path costs one attribute check
@@ -68,6 +71,21 @@ def wrap(o):
     return o
 
 
+def _check_nan_inf(op_name, out):
+    """Raise ``FloatingPointError`` naming ``op_name`` if a floating
+    output of ``out`` (torch tensors, through lists and tuples) holds a
+    NaN or an Inf. One host read per output."""
+    leaves = out if isinstance(out, (list, tuple)) else (out,)
+    for t in leaves:
+        if isinstance(t, (list, tuple)):
+            _check_nan_inf(op_name, t)
+        elif (isinstance(t, torch.Tensor) and t.is_floating_point()
+              and not bool(torch.isfinite(t).all())):
+            raise FloatingPointError(
+                f"FLAGS_check_nan_inf: op '{op_name}' produced nan/inf "
+                f"(shape {tuple(t.shape)}, dtype {t.dtype})")
+
+
 def apply_op(fn, *args, _op_name=None, **kwargs):
     """``fn(*args, **kwargs)`` on the torch payloads; outputs as Tensors."""
     if _TELEMETRY_REG.enabled:
@@ -79,4 +97,7 @@ def apply_op(fn, *args, _op_name=None, **kwargs):
         name = _op_name or getattr(fn, "__name__", "op")
         args = _amp.autocast(name, args)
         kwargs = _amp.autocast(name, kwargs)
-    return wrap(fn(*args, **kwargs))
+    out = fn(*args, **kwargs)
+    if _CHECK_NAN_INF.value:
+        _check_nan_inf(_op_name or getattr(fn, "__name__", "op"), out)
+    return wrap(out)

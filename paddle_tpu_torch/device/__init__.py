@@ -268,3 +268,6 @@ def set_stream(stream):
 def stream_guard(stream):
     with torch.cuda.stream(stream._stream):
         yield
+
+
+from . import cuda  # noqa: E402,F401

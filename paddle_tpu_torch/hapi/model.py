@@ -279,13 +279,16 @@ class Model:
     def save(self, path, training=True):
         """``training=True``: the network's ``state_dict`` to
         ``path.pdparams`` and the optimizer's to ``path.pdopt``, through
-        ``paddle.save``."""
+        ``paddle.save``. ``training=False``: the inference artifact of
+        ``jit.save`` at ``path``, over the Model's declared inputs (or
+        the network's last call), which a ``Predictor`` serves."""
         from .. import framework_io
 
         if not training:
-            raise NotImplementedError(
-                "Model.save(training=False) exports through jit.save, which "
-                "is not ported yet (ROADMAP.md A.6 item 2)")
+            from .. import jit
+
+            jit.save(self.network, path, input_spec=self._inputs or None)
+            return
         framework_io.save(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
             framework_io.save(self._optimizer.state_dict(), path + ".pdopt")

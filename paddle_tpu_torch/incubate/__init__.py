@@ -3,7 +3,7 @@ fused ops and layers under ``incubate.nn``, the MoE layer under
 ``incubate.distributed``, and the top level of
 ``paddle_tpu/incubate/__init__.py``: the masked softmaxes,
 ``identity_loss``, the ``LookAhead`` and ``ModelAverage`` wrappers,
-``autotune`` and ``inference``.
+``autotune`` and ``inference``, and ``incubate.optimizer.functional``.
 
 ``graph_*`` and ``segment_*`` wait for ``geometric/`` (ROADMAP A.13 (e)).
 """
@@ -15,6 +15,7 @@ import torch
 
 from . import distributed  # noqa: F401
 from . import nn  # noqa: F401
+from . import optimizer  # noqa: F401
 from .nn import functional  # noqa: F401
 
 __all__ = ["LookAhead", "ModelAverage", "autotune", "identity_loss",

@@ -38,8 +38,18 @@ loss_inject, armed]``, held on the host (``_guard_operand``); the
 injection's "select" is a host branch, so a clean step runs exactly what
 it ran without a hook. ``_call_index`` counts calls (1-based) for the
 chaos seam. ``last_health`` is a :class:`resilience.StepHealth`, one
-device fetch, as in the JAX package. checkify (``FLAGS_check_nan_inf``)
-is not ported (ROADMAP §C).
+device fetch, as in the JAX package.
+
+Under ``FLAGS_check_nan_inf`` (the counterpart of the reference's
+checkify-instrumented step, ``:815-836``) the step runs under
+:class:`NanInfMode`, a ``TorchDispatchMode`` that checks every floating
+output of every aten op and custom op, forward, backward and update, and
+raises ``FloatingPointError`` naming the first op that made a NaN (as
+checkify's ``nan_checks``: an Inf is a legitimate value inside a step, a
+mask or a running maximum's start). The parameters, the optimizer's slots and step count and the amax
+histories are copied before such a step and written back when it raises,
+so a refused step changes no byte of them, as the reference discards the
+step's outputs. Off, the flag's read is the only cost.
 
 Telemetry, as the reference's ``TrainStep.__call__`` (:912-922):
 ``train_steps_total{model}`` and ``train_step_seconds{model}`` (the host's
@@ -57,9 +67,13 @@ import math
 
 import torch
 
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
 from .. import resilience as _resilience
 from .. import telemetry as _telemetry
 from ..core.tensor import Tensor
+from ..utils.flags import CHECK_NAN_INF as _CHECK_NAN_INF
 from ..quant import note_step_tokens
 from ..nn.clip import ClipGradByGlobalNorm, global_grad_sumsq
 from ..resilience.guard import StepHealth
@@ -71,6 +85,22 @@ _TRAIN_STEP_SECONDS = _telemetry.histogram(
     labelnames=("model",))
 _TRAIN_STEPS = _telemetry.counter(
     "train_steps_total", "TrainStep invocations", labelnames=("model",))
+
+
+class NanInfMode(TorchDispatchMode):
+    """Check every floating output of every op that dispatches under it;
+    raise ``FloatingPointError`` naming the first op whose output holds a
+    NaN. One host read per output: a debugging mode."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and bool(torch.isnan(t).any())):
+                raise FloatingPointError(
+                    f"FLAGS_check_nan_inf: op '{func}' produced nan "
+                    f"(shape {tuple(t.shape)}, dtype {t.dtype})")
+        return out
 
 
 class TrainStep:
@@ -137,6 +167,30 @@ class TrainStep:
         return thr, ginj, linj, armed
 
     def _call_impl(self, *batch):
+        if not _CHECK_NAN_INF.value:
+            return self._step(*batch)
+        opt = self.optimizer
+        params = [p for g in opt.param_groups for p in g["params"]]
+        live = params + [t for p in params for t in opt.state.get(p, {})
+                         .values() if isinstance(t, torch.Tensor)]
+        live += [m.quant_amax for m in self._amax_owners]
+        saved = [t.detach().clone() for t in live]
+        had_state = {p for p in params if opt.state.get(p)}
+        step_count = opt._step_count
+        try:
+            with NanInfMode():
+                return self._step(*batch)
+        except FloatingPointError:
+            with torch.no_grad():
+                for t, s in zip(live, saved):
+                    t.copy_(s)
+            for p in params:
+                if p not in had_state:
+                    opt.state.pop(p, None)
+            opt._step_count = step_count
+            raise
+
+    def _step(self, *batch):
         opt = self.optimizer
         thr, ginj, linj, armed = self._guard_operand()
         opt.zero_grad(set_to_none=True)

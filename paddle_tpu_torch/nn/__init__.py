@@ -8,6 +8,7 @@ The torch-level modules the port's models build on stay at their paths:
 """
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
+from . import utils  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue, clip_grad_norm_, clip_grad_value_,
                    global_grad_norm, global_grad_sumsq)

@@ -12,13 +12,22 @@ structured names, hooks, train/eval and ``state_dict`` round trips.
 of the new dtype (or device) into each same Paddle ``Parameter`` object,
 so a ``parameters()`` list taken before still names the live tensors; an
 optimizer made before the change holds the old torch tensors, so make it
-after. The reference's functional parameter swap (``_swap_state``, the
-seam of its jit tracing) has no counterpart: ``TrainStep`` runs the Layer
-eagerly.
+after. ``_swap_state`` swaps the payloads of named entries for the length
+of a call, as the reference's does: ``jit.functional_call`` and
+``jit.save``'s export run the Layer over given tensors through it.
+
+The outermost eager call records its Tensor inputs' ``(shape, dtype)``
+as ``_last_call_spec``, as the reference's does, so ``jit.save`` without
+``input_spec`` works after one call; a sublayer call pays one flag test.
+Nothing is recorded while dynamo or ``torch.export`` traces a call
+(``to_static`` records it itself): the ``try`` that clears the flag lives
+in ``_outermost_forward``, which tracing never enters, since a ``try``
+around ``forward`` would keep dynamo from splitting a graph break there.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import numpy as np
 import torch
@@ -28,6 +37,9 @@ from ... import framework
 from ...core.tensor import Parameter, Tensor
 
 _layer_name_counters = collections.defaultdict(int)
+#: true while an eager Layer call runs its forward (the calls inside it
+#: are sublayer calls)
+_IN_CALL = [False]
 
 
 def _unique_layer_name(prefix):
@@ -250,12 +262,30 @@ class Layer:
             out = hook(self, inputs)
             if out is not None:
                 inputs = out if isinstance(out, tuple) else (out,)
-        outputs = self.forward(*inputs, **kwargs)
+        if not torch.compiler.is_compiling() and not _IN_CALL[0]:
+            outputs = self._outermost_forward(inputs, kwargs)
+        else:
+            outputs = self.forward(*inputs, **kwargs)
         for hook in self._forward_post_hooks.values():
             o = hook(self, inputs, outputs)
             if o is not None:
                 outputs = o
         return outputs
+
+    def _outermost_forward(self, inputs, kwargs):
+        """``forward`` of an eager call that no other Layer call encloses:
+        record its Tensor inputs' ``(shape, dtype)`` as
+        ``_last_call_spec`` and mark the calls inside it as sublayer
+        calls, which record nothing."""
+        spec = tuple((tuple(t._data.shape), t.dtype.name)
+                     for t in inputs if isinstance(t, Tensor))
+        if spec and len(spec) == len(inputs):
+            object.__setattr__(self, "_last_call_spec", spec)
+        _IN_CALL[0] = True
+        try:
+            return self.forward(*inputs, **kwargs)
+        finally:
+            _IN_CALL[0] = False
 
     def register_forward_pre_hook(self, hook):
         self._hook_id += 1
@@ -298,6 +328,25 @@ class Layer:
                 missing.append(name)
         unexpected = [k for k in state_dict if k not in own]
         return missing, unexpected
+
+    @contextlib.contextmanager
+    def _swap_state(self, flat_state):
+        """Put the tensors of ``flat_state`` (name -> torch tensor) in
+        place of the named entries' payloads until exit. Yields a dict
+        that exit fills with every named entry's payload after the call
+        (a buffer the forward rebound shows its new value)."""
+        entries = dict(self.state_dict())
+        saved = {}
+        for name, t in flat_state.items():
+            saved[name] = entries[name]._data
+            entries[name]._data = t
+        mutated = {}
+        try:
+            yield mutated
+        finally:
+            for name, old in saved.items():
+                mutated[name] = entries[name]._data
+                entries[name]._data = old
 
     load_dict = set_state_dict
     set_dict = set_state_dict

@@ -229,6 +229,8 @@ _INPLACE_BASES = [
     # ops/compat.py
     "index_fill", "gammaln", "gammainc", "gammaincc", "multigammaln",
     "polygamma", "sinc", "renorm", "bitwise_invert",
+    # the reference's last three (``paddle_tpu/ops/__init__.py:291-292``)
+    "ldexp", "masked_scatter", "addmm",
 ]
 
 

@@ -127,6 +127,28 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
                      f"got {sorted(types)}")
 
 
+#: the dispatcher library of the row kernels' ops (``paddle_tpu_torch::``)
+_OPS = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+
+
+def define_op(schema: str, fn, fake):
+    """Register ``fn`` as the dispatcher op ``paddle_tpu_torch::<name>``
+    (``schema`` starts with the name) for CPU and CUDA tensors, with
+    ``fake`` giving its outputs' shapes to tracing, and return the op.
+
+    No autograd kernel is registered: the caller's
+    ``torch.autograd.Function`` calls the op in its forward, so an eager
+    call adds only the dispatcher's boxing to the ``Function``'s cost (a
+    ``torch.library.custom_op`` adds a Python autograd wrapper), while
+    ``torch.export`` and dynamo still see the op as one node."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    for key in ("CPU", "CUDA"):
+        _OPS.impl(name, fn, key)
+    torch.library.register_fake(f"paddle_tpu_torch::{name}", fake)
+    return getattr(torch.ops.paddle_tpu_torch, name).default
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 

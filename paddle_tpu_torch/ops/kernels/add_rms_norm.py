@@ -19,9 +19,12 @@ the card and walk the rows, reading the weight once each. It is launched
 through ``ctypes``, so a call costs the host little: the incubate decoder
 makes 2L of them a token.
 
-The backward is the JAX package's closed form (``add_rms_norm.py:89-102``)
-in plain PyTorch inside a ``torch.autograd.Function`` that saves
-``(y, w, rstd)``; it returns one shared cotangent for x and r.
+The forward is the dispatcher op ``paddle_tpu_torch::add_rms_norm`` (with
+a fake, ``ops.kernels.define_op``), so that ``torch.export`` and
+``torch.compile`` capture it as one node. The backward is the JAX
+package's closed form (``add_rms_norm.py:89-102``) in plain PyTorch,
+inside a ``torch.autograd.Function`` that calls the op; it saves ``(y, w,
+rstd)`` and returns one shared cotangent for x and r.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ import ctypes
 
 import torch
 
-from . import (LAUNCHES, check_launch, launch_key, load, stream_handle,
-               use_kernel)
+from . import (LAUNCHES, check_launch, define_op, launch_key, load,
+               stream_handle, use_kernel)
 from .rms_norm import _DTYPES, MAX_H, kernel_operand
 _fn = None
 
@@ -95,10 +98,21 @@ def add_rms_norm_fwd(x2, r2, weight, eps=1e-6):
     return y, o, rstd
 
 
+def _add_rms_norm_fake(x2, r2, weight, eps):
+    return (torch.empty_like(x2), torch.empty_like(x2),
+            x2.new_empty(x2.shape[:1], dtype=torch.float32))
+
+
+#: :func:`add_rms_norm_fwd` as a dispatcher op -> (y, o, rstd)
+add_rms_norm_op = define_op(
+    "add_rms_norm(Tensor x2, Tensor r2, Tensor weight, float eps) "
+    "-> (Tensor, Tensor, Tensor)", add_rms_norm_fwd, _add_rms_norm_fake)
+
+
 class _AddRMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, r2, weight, eps):
-        y, o, rstd = add_rms_norm_fwd(x2, r2, weight, eps)
+        y, o, rstd = add_rms_norm_op(x2, r2, weight, eps)
         ctx.save_for_backward(y, weight, rstd)
         return y, o
 

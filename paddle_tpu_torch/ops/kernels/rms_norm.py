@@ -13,9 +13,13 @@ card and walk the rows, reading the weight once each. It is launched
 through ``ctypes`` like the other CUDA kernels, so a call costs the host
 little: the serving tick makes 2L + 1 of them.
 
-The backward is the JAX package's closed form (``rms_norm.py:78-90``, jnp
-there) in plain PyTorch, inside a ``torch.autograd.Function`` that saves
-``(x2, w, rstd)``: the forward's rstd is reused, never recomputed.
+The forward is the dispatcher op ``paddle_tpu_torch::rms_norm`` (with a
+fake that gives the output shapes, :func:`define_op`), so that
+``torch.export`` and ``torch.compile`` capture it as one node. The
+backward is the JAX package's closed form (``rms_norm.py:78-90``, jnp
+there) in plain PyTorch, inside a ``torch.autograd.Function`` that calls
+the op and saves ``(x2, w, rstd)``: the forward's rstd is reused, never
+recomputed.
 """
 from __future__ import annotations
 
@@ -23,8 +27,8 @@ import ctypes
 
 import torch
 
-from . import (LAUNCHES, check_launch, launch_key, load, stream_handle,
-               use_kernel)
+from . import (LAUNCHES, check_launch, define_op, launch_key, load,
+               stream_handle, use_kernel)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the widest row the kernel holds in registers
@@ -97,10 +101,23 @@ def rms_norm_fwd(x2, weight, eps=1e-6):
     return o, rstd
 
 
+def _rms_norm_fake(x2, weight, eps):
+    return torch.empty_like(x2), x2.new_empty(x2.shape[:1],
+                                              dtype=torch.float32)
+
+
+#: :func:`rms_norm_fwd` as a dispatcher op -> (o, rstd), so that
+#: ``torch.export`` and ``torch.compile`` keep it as one node (the kernel
+#: or the plain version, picked by the device at run time)
+rms_norm_op = define_op(
+    "rms_norm(Tensor x2, Tensor weight, float eps) -> (Tensor, Tensor)",
+    rms_norm_fwd, _rms_norm_fake)
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, weight, eps):
-        o, rstd = rms_norm_fwd(x2, weight, eps)
+        o, rstd = rms_norm_op(x2, weight, eps)
         ctx.save_for_backward(x2, weight, rstd)
         return o
 
@@ -121,5 +138,6 @@ def rms_norm(x, weight, eps=1e-6):
     """RMS-normalise the last axis of ``x`` and scale by ``weight``;
     differentiable in ``x`` and ``weight``."""
     shape = x.shape
-    o = _RMSNorm.apply(x.reshape(-1, shape[-1]).contiguous(), weight, eps)
+    o = _RMSNorm.apply(x.reshape(-1, shape[-1]).contiguous(), weight,
+                       float(eps))
     return o.reshape(shape)

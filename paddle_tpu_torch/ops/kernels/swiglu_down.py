@@ -9,8 +9,12 @@ warp-specialised GEMM fed by TMA that forms ``silu(g) * u`` in registers as
 the A operand of ``wgmma`` (see the source for its bound and layout); for
 f32 the first port's body, kept for the checks; for float16 the bf16
 kernel's design instantiated over f16 operands, counted under
-``swiglu_down_f16``. The backward is the JAX package's jnp rule
-(``:119-132``) in plain PyTorch, with ``torch.matmul`` for its products.
+``swiglu_down_f16``. The forward is the dispatcher op
+``paddle_tpu_torch::swiglu_down`` (with a fake, ``ops.kernels.define_op``),
+so that ``torch.export`` and ``torch.compile`` capture it as one node. Its
+backward is the JAX package's jnp rule (``:119-132``) in plain PyTorch,
+with ``torch.matmul`` for its products, inside a
+``torch.autograd.Function`` that calls the op.
 """
 from __future__ import annotations
 
@@ -18,17 +22,10 @@ import ctypes
 
 import torch
 
-from . import (LAUNCHES, check_launch, launch_key, load, ptr, stream_handle,
-               use_kernel)
+from . import (LAUNCHES, check_launch, define_op, launch_key, load, ptr,
+               stream_handle, use_kernel)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-def _rows_block(n):
-    for b in (256, 128, 64, 32, 16, 8):
-        if n % b == 0:
-            return b
-    return None
 
 
 def _k_block(m):
@@ -41,12 +38,15 @@ def _k_block(m):
 def swiglu_down_supported(gate_shape, wd_shape):
     """The JAX package's route at the block (``swiglu_down.py:48``): rows
     divisible by a sublane block, the intermediate dim by a K block, and
-    lane-aligned trailing dims. Shapes it refuses take the unfused seam."""
+    lane-aligned trailing dims. Shapes it refuses take the unfused seam.
+    Some sublane block divides the rows exactly when 8, the smallest,
+    does: that test keeps a symbolic row count (a dynamic batch under
+    ``torch.export``) unspecialised wherever the sequence fixes it."""
     rows = 1
     for s in gate_shape[:-1]:
-        rows *= int(s)
+        rows = rows * s
     m, h = int(wd_shape[0]), int(wd_shape[1])
-    return (int(gate_shape[-1]) == m and _rows_block(rows) is not None
+    return (int(gate_shape[-1]) == m and rows % 8 == 0
             and _k_block(m) is not None and h % 128 == 0 and m % 128 == 0)
 
 
@@ -95,11 +95,21 @@ def swiglu_down_fwd(g2, u2, wd):
     return out
 
 
+def _swiglu_down_fake(g2, u2, wd):
+    return g2.new_empty((g2.shape[0], wd.shape[1]))
+
+
+#: :func:`swiglu_down_fwd` as a dispatcher op
+swiglu_down_op = define_op(
+    "swiglu_down(Tensor g2, Tensor u2, Tensor wd) -> Tensor",
+    swiglu_down_fwd, _swiglu_down_fake)
+
+
 class _SwigluDown(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g2, u2, wd):
         ctx.save_for_backward(g2, u2, wd)
-        return swiglu_down_fwd(g2, u2, wd)
+        return swiglu_down_op(g2, u2, wd)
 
     @staticmethod
     def backward(ctx, g):

@@ -13,6 +13,14 @@ from ..core.dispatch import apply_op
 from ..core.tensor import Tensor
 
 
+def _one_int(i):
+    """An int; a ``torch.SymInt`` (a dynamic dim under ``torch.export``)
+    stays symbolic, so a traced shape is not specialised."""
+    if isinstance(i, Tensor):
+        return int(i.item())
+    return i if isinstance(i, torch.SymInt) else int(i)
+
+
 def _static_ints(v):
     """A shape-like argument (may hold Tensors) as Python ints."""
     if isinstance(v, Tensor):
@@ -22,8 +30,8 @@ def _static_ints(v):
     if isinstance(v, np.ndarray):
         return v.tolist() if v.ndim else int(v)
     if isinstance(v, (list, tuple)):
-        return [int(i.item()) if isinstance(i, Tensor) else int(i) for i in v]
-    return int(v)
+        return [_one_int(i) for i in v]
+    return _one_int(v)
 
 
 def _int(v):

@@ -35,7 +35,11 @@ card against the CPU, and ``bfloat16()`` keeping ``parameters()`` live;
 the vision path: LeNet and resnet18 one step and the conv and pooling
 functionals on the card against the CPU, the DataLoader's batches on the
 card from its prefetch thread and from worker processes forked after
-CUDA started, and a ResNet's ``bfloat16()`` casting its buffers.
+CUDA started, and a ResNet's ``bfloat16()`` casting its buffers; the
+deployment path: ``rms_norm``, ``add_rms_norm`` and ``swiglu_down`` as
+custom ops against their ``*_fwd`` launchers bit for bit, eagerly and
+from a CUDA graph, a program exported from CPU tensors run on the card,
+and a ``Predictor``'s graphed runs against its eager run.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -2308,3 +2312,115 @@ def test_lstm_and_jacobian_on_the_card_match_cpu(surface):
             g), n
     np.testing.assert_allclose(got["card"][3], got["cpu"][3], rtol=1e-5,
                                atol=1e-6)
+
+
+# -- the deployment path: the kernels as custom ops, export, Predictor ----
+def _op_cases(device):
+    from paddle_tpu_torch.ops.kernels import add_rms_norm as AR
+    from paddle_tpu_torch.ops.kernels import rms_norm as RN
+    from paddle_tpu_torch.ops.kernels import swiglu_down as SD
+
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(device=device,
+                                                   dtype=dtype)
+
+    x, r, w = rnd(64, 512), rnd(64, 512), rnd(512, dtype=torch.float32)
+    gt, up, wd = rnd(256, 512), rnd(256, 512), rnd(512, 256) * 0.05
+    return {
+        "rms_norm": (lambda: RN.rms_norm_op(x, w, 1e-6),
+                     lambda: RN.rms_norm_fwd(x, w, 1e-6)),
+        "add_rms_norm": (lambda: AR.add_rms_norm_op(x, r, w, 1e-6),
+                         lambda: AR.add_rms_norm_fwd(x, r, w, 1e-6)),
+        "swiglu_down": (lambda: (SD.swiglu_down_op(gt, up, wd),),
+                        lambda: (SD.swiglu_down_fwd(gt, up, wd),)),
+    }
+
+
+@pytest.mark.parametrize("name", ["rms_norm", "add_rms_norm",
+                                  "swiglu_down"])
+def test_custom_op_equals_its_fwd_eager_and_graphed(cuda_device, name):
+    """Each kernel as a ``paddle_tpu_torch::`` custom op gives the bytes
+    of its ``*_fwd`` launcher and one launch a call, eagerly and replayed
+    from a CUDA graph."""
+    op, fwd = _op_cases(cuda_device)[name]
+    want = fwd()
+    kernels.reset_launch_counts()
+    got = op()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    graph = kernels.CountedGraph()
+    out = graph.capture(op)
+    kernels.reset_launch_counts()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == 2
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_exported_custom_ops_run_on_the_card(cuda_device):
+    """A module calling the three ops, exported from CPU tensors, moved to
+    the card: equal to the eager calls there, bit for bit, with one launch
+    of each."""
+    from torch.export.passes import move_to_device_pass
+
+    from paddle_tpu_torch.ops.kernels.add_rms_norm import add_rms_norm
+    from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.ops.kernels.swiglu_down import swiglu_down
+
+    class Block(torch.nn.Module):
+        def forward(self, x, r, w, wd):
+            y, o = add_rms_norm(x, r, w)
+            return swiglu_down(rms_norm(o, w), y, wd)
+
+    g = torch.Generator().manual_seed(12)
+    args = [torch.randn(64, 256, generator=g).bfloat16(),
+            torch.randn(64, 256, generator=g).bfloat16(),
+            torch.randn(256, generator=g), torch.randn(
+                256, 128, generator=g).bfloat16() * 0.05]
+    ep = torch.export.export(Block(), tuple(args), strict=False)
+    prog = move_to_device_pass(ep, cuda_device).module()
+    dev = [a.to(cuda_device) for a in args]
+    want = Block()(*dev)
+    kernels.reset_launch_counts()
+    got = prog(*dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["rms_norm"], counts["add_rms_norm"],
+            counts["swiglu_down"]) == (1, 1, 1)
+    assert torch.equal(got, want)
+
+
+def test_predictor_graphed_run_equals_its_eager_run(cuda_device, tmp_path):
+    """A two-layer Pipe saved from the CPU and served by a ``Predictor``
+    on the card: the first run (eager) and the graphed runs give the same
+    bytes, each run launches flash L, rms_norm 2L and swiglu_down L, and
+    the logits equal the eager model's on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, intermediate_size=512, max_seq_len=128,
+                    dropout=0.0, dtype="bfloat16")
+    gen = torch.Generator().manual_seed(13)
+    model = GPTForCausalLMPipe(cfg, device="cpu").init_weights(gen)
+    ids = torch.randint(0, 512, (2, 128), generator=gen)
+    prefix = str(tmp_path / "pipe")
+    paddle.jit.save(model, prefix, input_spec=[ids])
+    pred = create_predictor(Config(prefix))
+    assert pred._device.type == "cuda"
+    kernels.reset_launch_counts()
+    first = [t.clone() for t in pred.run([ids])]
+    graphed = [pred.run([ids]) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention_fwd"], counts["rms_norm"],
+            counts["swiglu_down"]) == (6, 12, 6)
+    for outs in graphed:
+        assert all(torch.equal(a, b) for a, b in zip(outs, first))
+    with torch.no_grad():
+        want = model.to(cuda_device)(ids.to(cuda_device))
+    assert torch.equal(first[0], want)

@@ -245,7 +245,15 @@ def test_save_load_summary_and_missing_branches(tmp_path, capsys):
     assert counts == jp.summary(jp.vision.models.LeNet()) == {
         "total_params": 61610, "trainable_params": 61610}
     assert "Total params: 61,610" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.6 item 2"):
-        model.save(str(tmp_path / "infer"), training=False)
+    # training=False writes the jit.save artifact over the network's last
+    # call ([4, 1, 28, 28]); a CPU Predictor serves it as Model.predict
+    model.save(str(tmp_path / "infer"), training=False)
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    cfg = Config(str(tmp_path / "infer"))
+    cfg.disable_gpu()
+    got = create_predictor(cfg).run([x])[0]
+    want = model.predict(tp.io.TensorDataset([x]), batch_size=4)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
     with pytest.raises(NotImplementedError, match="never reads it"):
         model.prepare(amp_configs={"level": "O1"})
