@@ -2,7 +2,7 @@
 """Compare a phase of two checkouts on one CUDA card.
 
     python3 chip_ab.py --parent DIR [--phase training|incubate|norm_call|
-                                           layer_call]
+                                           layer_call|flash_call]
                        [--rounds 2] [--out results.json]
 
 ``DIR`` holds another checkout of the repository (for example the parent
@@ -22,6 +22,11 @@ card, power limit and neighbours:
   ending in a synchronise, five times: µs a call under
   ``torch.inference_mode`` (the decoders), and with an input that
   requires grad (a training forward);
+- ``flash_call``: the host's cost of one ``flash_attention`` forward and
+  backward (``ops.kernels.flash_attention``) at [1, 128, 2, 64] bf16,
+  causal, 200 calls back to back ending in a synchronise, five times: µs
+  a call through the fused backward, and through the split pair (the
+  router's scratch limit set to 0 bytes);
 - ``layer_call``: the host's cost of one ``paddle.nn.Layer`` call inside
   another: a Layer whose forward calls 200 identity sublayers in turn on
   a [4, 4] Tensor on the card, 50 outer calls back to back, fifteen
@@ -76,6 +81,35 @@ grad = us(x.clone().requires_grad_())
 print('AB', json.dumps({'samples': inf, 'grad_samples': grad,
                         'median': statistics.median(inf),
                         'grad_median': statistics.median(grad)}))
+""",
+    "flash_call": _HEAD + """
+import time, statistics
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+g = torch.Generator(device='cuda').manual_seed(0)
+q, k, v = (torch.randn(1, 128, 2, 64, device='cuda', dtype=torch.bfloat16,
+                       generator=g).requires_grad_() for _ in range(3))
+do = torch.randn(1, 128, 2, 64, device='cuda', dtype=torch.bfloat16,
+                 generator=g)
+def call():
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+def us():
+    for _ in range(50):
+        call()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / 200 * 1e6)
+    return out
+fused = us()
+fa.FUSED_DQ_SCRATCH_BYTES = 0
+split = us()
+print('AB', json.dumps({'samples': fused, 'split_samples': split,
+                        'median': statistics.median(fused),
+                        'split_median': statistics.median(split)}))
 """,
     "layer_call": _HEAD + """
 import time, statistics

@@ -351,11 +351,32 @@ Phases, each of which fails the run on error:
              raises naming aten.log and no byte of a parameter or slot
              changes; off, one step launches phase 6's per-layer counts.
 
+   tools   - the operator's tools: (a) ``paddle.profiler`` over 6 steps of
+             config 4's Pipe (its width, bf16, 3 x 2048, 4 of its 24
+             layers) under make_scheduler(closed=1, ready=1, record=2,
+             repeat=1) and export_chrome_tracing, each step a
+             RecordEvent("train_step"): the device table gives each kernel
+             the launches of the 2 recorded steps (flash fwd 2L, fused bwd
+             L, swiglu_down 2L, rms_norm 4L a step), the chrome trace
+             names the four, the host table counts 6 ranges; readings: the
+             step median without the profiler, closed and recording, the
+             family totals, the window's busy share against
+             _profile_step's, and whether a graphed decode tick's kernels
+             are listed; (b) the memory planner over config 4 at 24
+             layers, batch {3, 6} x {no remat, phase 8's names: list}: each
+             candidate's static memory_stats and trace seconds, a plan
+             under a budget between two static peaks (the highest-scoring
+             fit wins), its winner's real step peaking within the budget;
+             (c) the JAX package's checkpoint fixture (tests/data/
+             jax_ckpt): validated with CRC32C, restored into the port's
+             f32 Pipe on the card, its next loss within 1e-4 relative of
+             the JAX package's, its paddle.save file loaded bit for bit.
+
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, float16, training, quant_train (run b),
-long-context, model_rest, shared_block, paddle_surface, vision, amp and
-deploy runs;
+long-context, model_rest, shared_block, paddle_surface, vision, amp,
+deploy and tools runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -7806,6 +7827,325 @@ def phase_deploy(smi="", bert_kw=None, batch=BERT_BATCH, seq=BERT_SEQ,
     return res
 
 
+
+# ------------------------------------------------------------- phase tools
+#: (a) config 4's Pipe at this many of its 24 layers under the profiler
+TOOLS_PROFILE_LAYERS = 4
+#: (b) the planner's config 4 at this many of its 24 layers, and its grid
+TOOLS_PLAN_LAYERS = 24
+TOOLS_PLAN_BATCHES = (3, 6)
+#: no remat against phase 8's names: list. Under full remat at 24 layers
+#: the optimizer update's f32 temporaries, not the activations, set the
+#: static peak (18.5 GB at batch 3 and 6 alike, PR 23's first call), so
+#: a grid of full and names: would give budgets no bytes apart
+TOOLS_PLAN_POLICIES = ("none", LONG_POLICY)
+PROFILER_DIR = Path(__file__).resolve().parent / "build" / "profiler"
+#: (c) the JAX package's checkpoint, written by tests/data/jax_ckpt/
+#: write_fixture.py (a depth-2 f32 Pipe after two AdamW steps)
+JAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "jax_ckpt"
+
+
+def phase_tools(smi="", cfg4=None, batch=3, seq=2048, plan_layers=None,
+                plan_batches=TOOLS_PLAN_BATCHES, engine_kw=None):
+    """The operator's tools on the card: (a) ``paddle.profiler`` over 6
+    steps of config 4's Pipe at ``TOOLS_PROFILE_LAYERS`` layers, bf16,
+    ``batch`` x ``seq``, under ``make_scheduler(closed=1, ready=1,
+    record=2, repeat=1)`` and ``export_chrome_tracing``, each step in a
+    ``RecordEvent("train_step")``: the device table's launches of each
+    kernel against the 2 recorded steps', the exported trace naming the
+    four kernels, the host table's ranges; readings: the step median
+    without a profiler, with it closed and while recording, the family
+    totals, the window's busy share against ``_profile_step``'s, and
+    whether a graphed decode tick's kernels are listed; (b) the memory
+    planner over config 4 at ``plan_layers`` layers: each candidate's
+    static ``memory_stats`` and trace seconds, then a plan under a budget
+    between two static peaks, its winner's real step and its
+    ``max_memory_allocated`` within the budget; (c) the JAX package's
+    checkpoint fixture (``tests/data/jax_ckpt``): validated (CRC32C through
+    the native library), restored into the port's Pipe on the card, its
+    next loss against the JAX package's within phase 7's bound, and its
+    ``paddle.save`` file loaded on the card bit for bit. ``cfg4``,
+    ``plan_layers``, the shapes and ``engine_kw``, with ``DEVICE = "cpu"``,
+    rehearse it small (no launch or memory checks)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import memory, profiler
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMPipe
+    from paddle_tpu_torch.models.llama import llama_preset
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import device_trace
+
+    K = paddle.ops.kernels
+    card = DEVICE != "cpu"
+    dev = DEVICE if card else "cpu"
+    res = {"smi": smi}
+    launches = {name: 0 for name in K.launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    # (a) paddle.profiler over config 4's Pipe at TOOLS_PROFILE_LAYERS
+    base_kw = dict(CONFIG4, **(cfg4 or {}))
+    L = TOOLS_PROFILE_LAYERS
+    cfg = GPTConfig(**dict(base_kw, num_layers=L))
+    model, step = _train_setup(cfg, torch.bfloat16, dev, seed=0)
+    ids, labels = _train_batch(cfg.vocab_size, batch, seq, 0, dev)
+
+    def timed_step():
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3, loss
+
+    timed_step()                                           # warm-up
+    plain_ms = [timed_step()[0] for _ in range(3)]
+    shutil.rmtree(PROFILER_DIR, ignore_errors=True)
+    prof = profiler.Profiler(
+        scheduler=profiler.make_scheduler(closed=1, ready=1, record=2,
+                                          repeat=1),
+        on_trace_ready=profiler.export_chrome_tracing(str(PROFILER_DIR)))
+    states, prof_ms, losses = [], [], []
+    K.reset_launch_counts()
+    prof.start()
+    for _ in range(6):
+        states.append(prof._state.name)
+        with profiler.RecordEvent("train_step"):
+            ms, loss = timed_step()
+        prof_ms.append(ms)
+        losses.append(loss.item())
+        prof.step()
+    prof.stop()
+    counts = K.launch_counts()
+    add(counts)
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+                "swiglu_down": 2 * L, "rms_norm": 4 * L}
+    check(states == ["CLOSED", "READY", "RECORD", "RECORD_AND_RETURN",
+                     "CLOSED", "CLOSED"], f"tools (a): states {states}")
+    recorded = [i for i, st in enumerate(states) if st.startswith("RECORD")]
+    rows = prof.device_rows()
+    by_kernel = {}
+    for r in rows:
+        name = device_trace.port_kernel(r["name"])
+        if name is not None:
+            by_kernel[name] = by_kernel.get(name, 0) + r["calls"]
+    files = sorted(PROFILER_DIR.glob("*.json"))
+    check(len(files) == 1, f"tools (a): trace files {files}")
+    trace = json.loads(files[0].read_text())
+    traced = {device_trace.port_kernel(e.get("name", ""))
+              for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    stats = profiler.host_event_statistics(prof._host_events)
+    check(stats.get("train_step", {}).get("calls") == 6,
+          f"tools (a): host ranges {stats.get('train_step')}")
+    check(all(np.isfinite(losses)), f"tools (a): losses {losses}")
+    if card:
+        want = {k: v * len(recorded) for k, v in per_step.items()}
+        check(by_kernel == want, f"tools (a): the device table's launches "
+              f"{by_kernel}, want {want} (2 recorded steps, L = {L})")
+        check({k: counts[k] for k in per_step}
+              == {k: v * 6 for k, v in per_step.items()},
+              f"tools (a): launches {counts}")
+        check(set(per_step) <= traced, f"tools (a): the chrome trace names "
+              f"{sorted(n for n in traced if n)}")
+    union_us, span_us = device_trace.busy_us(prof._device_events)
+    window_ms = sum(prof_ms[i] for i in recorded)
+    fams = device_trace.summarize_families(rows)
+    ref = _profile_step(step, (ids, labels), statistics.median(plain_ms),
+                        repeat=2) if card else None
+    res["a"] = {
+        "layers": L, "batch": batch, "seq": seq, "states": states,
+        "step_ms_no_profiler": plain_ms, "step_ms_profiled": prof_ms,
+        "median_no_profiler": statistics.median(plain_ms),
+        "median_closed": statistics.median(
+            [prof_ms[i] for i, st in enumerate(states) if st == "CLOSED"]),
+        "median_recording": statistics.median([prof_ms[i]
+                                               for i in recorded]),
+        "device_launches_recorded": by_kernel,
+        "families_us": {f["family"]: round(f["total_us"], 1) for f in fams},
+        "window_busy_share": (union_us / 1e3 / window_ms
+                              if window_ms else None),
+        "profile_step_busy_share": (ref["device_union_ms"] / 2
+                                    / statistics.median(plain_ms)
+                                    if ref else None),
+        "trace_file": str(files[0].relative_to(Path(__file__).parent)),
+        "trace_bytes": files[0].stat().st_size,
+        "host_ranges": stats["train_step"]["calls"]}
+    print(f"tools (a): Pipe at {L} layers bf16 [{batch}, {seq}]: step "
+          f"median {res['a']['median_no_profiler']:.1f} ms without the "
+          f"profiler, {res['a']['median_closed']:.1f} closed, "
+          f"{res['a']['median_recording']:.1f} recording; device table "
+          f"launches over the 2 recorded steps {by_kernel}; families "
+          f"{res['a']['families_us']} us; window busy share "
+          f"{res['a']['window_busy_share']} against _profile_step's "
+          f"{res['a']['profile_step_busy_share']}; trace "
+          f"{res['a']['trace_bytes']} B", flush=True)
+    del step, model
+    _free(card)
+
+    # (a') a graphed decode tick under the profiler: are its kernels listed?
+    lcfg = llama_preset("tiny")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    lm = LlamaForCausalLM(lcfg, device=dev, dtype=torch.bfloat16) \
+        .init_weights(gen, std=0.02)
+    eng = ContinuousBatchingEngine(lm, max_new_tokens=16, **dict(
+        dict(max_slots=4, page_size=64, max_seq_len=512, prefill_chunk=128,
+             seed=0, device=dev), **(engine_kw or {})))
+    rng = np.random.default_rng(3)
+    for n in (40, 70, 90, 120):
+        eng.submit(rng.integers(1, lcfg.vocab_size, n).tolist())
+    for _ in range(4):                       # prefills, then graphed ticks
+        eng.step()
+    tick = profiler.Profiler()
+    K.reset_launch_counts()
+    with tick:
+        for _ in range(4):
+            eng.step()
+        _sync(dev)
+    tick_counts = K.launch_counts()
+    add(tick_counts)
+    listed = {}
+    for r in tick.device_rows():
+        name = device_trace.port_kernel(r["name"])
+        if name is not None:
+            listed[name] = listed.get(name, 0) + r["calls"]
+    res["a_tick"] = {"graphed": getattr(eng, "_graph", None) is not None,
+                     "launches": {k: v for k, v in tick_counts.items() if v},
+                     "listed": listed}
+    print(f"tools (a'): 4 decode ticks of a graphed engine (tiny LLaMA): "
+          f"launches {res['a_tick']['launches']}, the profiler lists "
+          f"{listed}", flush=True)
+    del eng, lm
+    _free(card)
+
+    # (b) the planner over config 4 at plan_layers layers
+    PL = plan_layers or TOOLS_PLAN_LAYERS
+    pcfg = GPTConfig(**dict(base_kw, num_layers=PL))
+    _sync(dev)
+    base = torch.cuda.memory_allocated() if card else 0
+    t0 = time.perf_counter()
+    pmodel, pstep = _train_setup(pcfg, torch.bfloat16, dev, seed=2)
+    build_s = time.perf_counter() - t0
+    popt = pstep.optimizer
+
+    def factory(cand):
+        pcfg.recompute = cand.policy != "none"
+        pcfg.recompute_policy = cand.policy
+        step = TrainStep(pmodel, pstep.train_fn, popt)
+        return step, tuple(torch.empty(cand.batch, seq, dtype=torch.int64,
+                                       device="meta") for _ in range(2))
+
+    cands = [memory.Candidate(b, pol) for b in plan_batches
+             for pol in TOOLS_PLAN_POLICIES]
+    priced = []
+    for cand in cands:
+        t0 = time.perf_counter()
+        cstep, cbatch = factory(cand)
+        mem = cstep.memory_stats(*cbatch)
+        priced.append({"batch": cand.batch, "policy": cand.policy,
+                       "score": memory.throughput_score(cand.batch,
+                                                        cand.policy),
+                       "trace_s": time.perf_counter() - t0, **mem})
+        c = priced[-1]
+        print(f"tools (b): batch {c['batch']} {c['policy']}: argument "
+              f"{c['argument_bytes']} temp {c['temp_bytes']} peak "
+              f"{c['peak_bytes']} B, score {c['score']:.4f}, traced in "
+              f"{c['trace_s']:.2f} s", flush=True)
+    order = sorted(priced, key=lambda c: -c["score"])
+    first = order[0]["peak_bytes"]
+    below = [c for c in order[1:] if c["peak_bytes"] < first]
+    check(bool(below), f"tools (b): no candidate prices below the "
+          f"highest-scoring one: {priced}")
+    budget = (first + max(c["peak_bytes"] for c in below)) // 2
+    fit = [c for c in order if c["peak_bytes"] <= budget]
+    t0 = time.perf_counter()
+    decision = memory.plan_train_step(factory, cands, budget_bytes=budget,
+                                      cache_path="")
+    plan_s = time.perf_counter() - t0
+    check((decision.batch, decision.policy)
+          == (fit[0]["batch"], fit[0]["policy"]),
+          f"tools (b): the plan chose {decision.batch}, {decision.policy}; "
+          f"the highest-scoring fit is {fit[0]}")
+    pcfg.recompute = decision.policy != "none"
+    pcfg.recompute_policy = decision.policy
+    wids, wlabels = _train_batch(pcfg.vocab_size, decision.batch, seq, 2,
+                                 dev)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    wloss = pstep(wids, wlabels).item()
+    _sync(dev)
+    win_ms = (time.perf_counter() - t0) * 1e3
+    add(K.launch_counts())
+    measured = (torch.cuda.max_memory_allocated() - base) if card else None
+    check(np.isfinite(wloss), f"tools (b): the winner's loss {wloss}")
+    if card:
+        check(measured <= budget, f"tools (b): the winner's real step "
+              f"peaked at {measured} B over the budget {budget} B")
+    res["b"] = {"layers": PL, "seq": seq, "build_s": build_s,
+                "candidates": priced, "budget_bytes": budget,
+                "decision": decision.as_json(), "plan_s": plan_s,
+                "winner_step_ms": win_ms, "winner_loss": wloss,
+                "measured_peak_bytes": measured,
+                "static_peak_bytes": decision.peak_bytes,
+                "measured_over_static": (measured / decision.peak_bytes
+                                         if measured else None)}
+    print(f"tools (b): config 4 at {PL} layers: budget {budget} B -> batch "
+          f"{decision.batch} {decision.policy} (static peak "
+          f"{decision.peak_bytes} B, planned in {plan_s:.2f} s); its real "
+          f"step {win_ms:.0f} ms, loss {wloss:.4f}, measured peak "
+          f"{measured} B ({res['b']['measured_over_static']} of static)",
+          flush=True)
+    del pstep, pmodel, popt
+    _free(card)
+
+    # (c) the JAX package's checkpoint on the card
+    exp = json.loads((JAX_FIXTURE / "expected.json").read_text())
+    mgr = CheckpointManager(str(JAX_FIXTURE / "root"))
+    problems = mgr.validate_step(2)
+    check(mgr.latest_step() == 2 and problems == [],
+          f"tools (c): the fixture's root: {problems}")
+    jcfg = GPTConfig(**exp["config"])
+    jmodel = GPTForCausalLMPipe(jcfg, device=dev)
+    jopt = AdamW(jmodel.named_parameters(), lr=exp["lr"], factored=True)
+    check(mgr.restore_training_state(jmodel, jopt) == 2,
+          "tools (c): restore")
+    rng = np.random.default_rng(exp["next_seed"])
+    jids = rng.integers(0, jcfg.vocab_size, (exp["batch"], exp["seq"]))
+    jlabels = rng.integers(0, jcfg.vocab_size, (exp["batch"], exp["seq"]))
+    paddle.set_device("gpu" if card else "cpu")
+    saved = paddle.load(str(JAX_FIXTURE / "state.pdparams"))
+    same = all(torch.equal(saved[n]._data, t)
+               for n, t in jmodel.state_dict().items())
+    check(same and saved["extra.bf16"]._data.dtype == torch.bfloat16
+          and saved["extra.bf16"]._data.device.type == dev.split(":")[0],
+          "tools (c): paddle.load of the JAX file against the restored "
+          "parameters")
+    K.reset_launch_counts()
+    jstep = TrainStep(jmodel, jmodel.loss, jopt)
+    jloss = jstep(torch.as_tensor(jids, device=dev),
+                  torch.as_tensor(jlabels, device=dev)).item()
+    add(K.launch_counts())
+    rel = abs(jloss - exp["next_loss"]) / abs(exp["next_loss"])
+    check(rel <= TRAIN_LOSS_RTOL, f"tools (c): the next loss {jloss} "
+          f"against the JAX package's {exp['next_loss']} (rel {rel})")
+    res["c"] = {"next_loss": jloss, "jax_next_loss": exp["next_loss"],
+                "rel": rel, "validated": problems == []}
+    print(f"tools (c): the JAX root validates (crc32c), restores into the "
+          f"port's Pipe on {dev}; next loss {jloss:.7f} against the JAX "
+          f"package's {exp['next_loss']:.7f} (rel {rel:.2e}, bound "
+          f"{TRAIN_LOSS_RTOL}); paddle.load of its state file bit for bit",
+          flush=True)
+    del jstep, jmodel, jopt
+    _free(card)
+    res["launches"] = launches
+    return res
+
+
 def _free(card):
     gc.collect()
     if card:
@@ -7909,6 +8249,7 @@ def main():
         report["amp"] = run("amp", phase_amp, report["device"]["smi"])
         report["deploy"] = run("deploy", phase_deploy,
                                report["device"]["smi"])
+        report["tools"] = run("tools", phase_tools, report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -7972,7 +8313,7 @@ def main():
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
                                 "paddle_surface", "vision", "amp",
-                                "deploy")}
+                                "deploy", "tools")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -69,6 +69,7 @@ from . import incubate  # noqa: F401,E402
 from . import distributed  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
 from . import static  # noqa: F401,E402
+from . import profiler  # noqa: F401,E402
 from . import utils  # noqa: F401,E402
 from . import version  # noqa: F401,E402
 from . import sysconfig  # noqa: F401,E402
@@ -130,6 +131,20 @@ def get_cuda_rng_state():
 
 def set_cuda_rng_state(state):
     set_rng_state(state)
+
+
+class CUDAGraph:
+    """The reference's stub (``paddle_tpu/__init__.py:261-263``): it
+    raises. On the port the card replays CUDA graphs where a path is
+    graphed for the user: the inference ``Predictor`` captures one per
+    feed shape and the serving engine's decode tick is one
+    (``ops.kernels.CountedGraph``)."""
+
+    def __init__(self, *a, **k):
+        raise NotImplementedError(
+            "paddle.CUDAGraph is not on the port: the inference Predictor "
+            "graphs each feed shape and the serving engine graphs its "
+            "decode tick (paddle_tpu_torch.ops.kernels.CountedGraph)")
 
 
 class LazyGuard:

@@ -132,7 +132,8 @@ def pipe_state_dict_to_jax(state: dict) -> dict[str, np.ndarray]:
 
 def training_state_from_jax(flat: dict, model) -> dict[str, torch.Tensor]:
     """The JAX package's ``training_state_dict(model, opt)`` of a
-    ``GPTForCausalLMPipe``, taken as numpy arrays (parameters under their
+    ``GPTForCausalLMPipe``, taken as numpy arrays or CPU tensors (as the
+    checkpoint reader gives a JAX directory's; parameters under their
     names, slots as ``opt.<name>.<slot>``), -> the port's training state
     in the same layout (CPU tensors, dtypes kept, bf16 included): what
     ``CheckpointManager.save`` writes and ``restore_training_state``
@@ -149,7 +150,8 @@ def training_state_from_jax(flat: dict, model) -> dict[str, torch.Tensor]:
         if name not in want:
             raise KeyError(f"training_state_from_jax: {key!r} names no "
                            "parameter of the model")
-        out[key] = _to_torch(np.asarray(a))
+        out[key] = (a.detach().clone() if isinstance(a, torch.Tensor)
+                    else _to_torch(np.asarray(a)))
     missing = sorted(want - set(out))
     if missing:
         raise KeyError(f"training_state_from_jax: missing {missing}")

@@ -16,8 +16,8 @@ commit protocol, retention and resume on top.
   followed by each tensor's raw bytes, so bf16 needs no numpy dtype and
   writing needs no copy beyond the snapshot.
 - **Crash safety.** Every file lands via a tmp file and ``os.replace``; a
-  checksum (crc32c when ``google_crc32c`` imports, else zlib's crc32)
-  of every file rides in the metadata and the manager's COMMIT manifest;
+  CRC32C (the native library's, ``core/native/crc32c.cc``) of every file
+  rides in the metadata and the manager's COMMIT manifest;
   a transient ``OSError`` is retried with exponential backoff;
   ``_WRITE_FAULT_HOOK`` is the chaos seam, called before every write
   attempt.
@@ -27,6 +27,18 @@ commit protocol, retention and resume on top.
 - ``training_state_dict(model, optimizer)`` is the model's state dict
   plus ``opt.<name>.<slot>`` for every optimizer slot, by the model's own
   parameter names.
+- **The JAX package's directories.** ``read_state_dict``,
+  ``load_state_dict`` and ``load_checkpoint`` also read a directory the
+  JAX package's ``save_state_dict`` wrote: its payload file is one pickle
+  of ``{"<key>|<offsets>": numpy block}`` (the port's starts with an
+  8-byte index length; the first bytes tell them apart) and its metadata
+  names ``paddle_tpu.distributed.checkpoint``'s classes, both read through
+  :mod:`paddle_tpu_torch.jax_pickle` without importing the JAX package;
+  blocks of ``ml_dtypes`` types come back as torch bf16 or float8 over
+  their raw bytes, and a tensor saved as several boxes is assembled by
+  offset. ``load_checkpoint`` carries such a directory's training state
+  (names and layout of the JAX ``GPTForCausalLMPipe`` and its optimizer)
+  through ``convert.training_state_from_jax`` into the port's model.
 
 Sharded tensors and the multi-process metadata merge are not ported
 (ROADMAP A.10).
@@ -44,19 +56,17 @@ import zlib
 
 import torch
 
-try:  # hardware CRC32C when available; zlib CRC32 otherwise
-    import google_crc32c as _crc32c
+from ... import jax_pickle
+from ...core import native
 
-    CHECKSUM_ALGO = "crc32c"
-except ImportError:  # pragma: no cover - depends on the machine
-    _crc32c = None
-    CHECKSUM_ALGO = "crc32"
+#: what a save writes; a validator also checks the JAX package's "crc32"
+CHECKSUM_ALGO = "crc32c"
 
 
 def checksum_bytes(data, algo: str = None):
-    """Checksum ``data`` with ``algo`` (default: this host's best). None
-    for an algo this host cannot compute: the validator then checks the
-    size only rather than report false corruption."""
+    """Checksum ``data`` with ``algo`` (default :data:`CHECKSUM_ALGO`).
+    None for an algo the port does not know: the validator then checks
+    the size only rather than report false corruption."""
     return _checksum_update(None, data, algo)
 
 
@@ -65,8 +75,7 @@ def _checksum_update(crc, data, algo=None):
     uint8 numpy array)."""
     algo = CHECKSUM_ALGO if algo is None else algo
     if algo == "crc32c":
-        return (int(_crc32c.extend(crc or 0, data)) if _crc32c is not None
-                else None)
+        return native.crc32c(data, crc or 0)
     if algo == "crc32":
         return zlib.crc32(data, crc or 0) & 0xFFFFFFFF
     return None
@@ -150,6 +159,12 @@ class Metadata:
     flat_mapping: dict = dataclasses.field(default_factory=dict)
     # filename -> {"algo", "value", "nbytes"}
     file_checksums: dict = dataclasses.field(default_factory=dict)
+
+
+# the JAX package's metadata classes, read as these
+jax_pickle.JAX_CLASSES.update({
+    ("paddle_tpu.distributed.checkpoint", cls.__name__): cls
+    for cls in (Metadata, LocalTensorMetadata, LocalTensorIndex)})
 
 
 def file_checksums_of(meta) -> dict:
@@ -357,18 +372,45 @@ def _load_metadata(path):
     for fn in sorted(os.listdir(path)):
         if fn.endswith(".metadata"):
             with open(os.path.join(path, fn), "rb") as f:
-                metas.append(pickle.load(f))
+                metas.append(jax_pickle.load(f))
     if not metas:
         raise FileNotFoundError(f"no .metadata file under {path}")
     return metas
 
 
+def _port_payload(head, size):
+    """Whether a payload file's first 9 bytes (of ``size``) begin the
+    port's layout: an 8-byte index length, then the index's pickle. A JAX
+    package's payload is one pickle, whose 9th byte lies in its frame
+    length."""
+    if len(head) < 9 or head[8] != 0x80:
+        return False
+    (n,) = struct.unpack_from("<Q", head, 0)
+    return 8 + n <= size
+
+
+def written_by_jax(path):
+    """Whether the checkpoint directory ``path`` holds the JAX package's
+    payload files (read from their first bytes)."""
+    for fn in sorted(os.listdir(path)):
+        if fn.endswith(".distcp"):
+            fp = os.path.join(path, fn)
+            with open(fp, "rb") as f:
+                head = f.read(9)
+            return not _port_payload(head, os.path.getsize(fp))
+    return False
+
+
 def _read_payload(fp):
-    """``{"<key>|<offsets>": CPU tensor}`` of one payload file (views
-    into one buffer read from disk)."""
+    """``{"<key>|<offsets>": CPU tensor}`` of one payload file: the port's
+    (views into one buffer read from disk) or the JAX package's (one
+    pickle of numpy blocks)."""
     with open(fp, "rb") as f:
         buf = bytearray(os.fstat(f.fileno()).st_size)
         f.readinto(buf)
+    if not _port_payload(buf[:9], len(buf)):
+        return {k: jax_pickle.to_torch(v)
+                for k, v in jax_pickle.loads(bytes(buf)).items()}
     (n,) = struct.unpack_from("<Q", buf, 0)
     index = pickle.loads(bytes(buf[8:8 + n]))
     base = 8 + n
@@ -381,28 +423,47 @@ def _read_payload(fp):
     return out
 
 
-@torch.no_grad()
-def load_state_dict(state_dict, path, strict=True):
-    """Fill ``state_dict``'s tensors from the checkpoint at ``path``, in
-    place (each on its own device, in its own dtype). ``strict``: raise
-    :class:`MissingKeysError` listing every key the checkpoint lacks,
-    after filling the keys it has; else keep the live values and count
-    them on ``checkpoint_missing_keys_total``. A saved shape that differs
-    from the target's raises ``ValueError``."""
-    files = {}
+def _saved_tensors(path, keys=None):
+    """``{key: CPU tensor}`` of the tensors saved under ``path`` (those
+    in ``keys``, where given), each assembled from its boxes by offset; a
+    key with a box whose payload is missing is left out."""
+    out, cache = {}, {}
     for meta in _load_metadata(path):
-        files.update(meta.storage_metadata)
-    cache = {}
+        for key, boxes in meta.state_dict_metadata.items():
+            if keys is not None and key not in keys:
+                continue
+            blocks = []
+            for box in boxes:
+                offset = tuple(box.global_offset)
+                fn = meta.storage_metadata.get(LocalTensorIndex(key, offset))
+                if fn is None:
+                    break
+                if fn not in cache:
+                    cache[fn] = _read_payload(os.path.join(path, fn))
+                block = cache[fn].get(f"{key}|{','.join(map(str, offset))}")
+                if block is None:
+                    break
+                blocks.append((offset, block))
+            else:
+                shape = tuple(meta.flat_mapping.get(key, blocks[0][1].shape))
+                if (len(blocks) == 1 and not any(blocks[0][0])
+                        and tuple(blocks[0][1].shape) == shape):
+                    out[key] = blocks[0][1]
+                    continue
+                whole = torch.empty(shape, dtype=blocks[0][1].dtype)
+                for offset, block in blocks:
+                    whole[tuple(slice(o, o + n) for o, n in
+                                zip(offset, block.shape))] = block
+                out[key] = whole
+    return out
+
+
+@torch.no_grad()
+def _fill(state_dict, saved, path, strict):
+    """Copy ``saved[key]`` into each ``state_dict[key]``, in place."""
     missing = []
     for key, target in state_dict.items():
-        offset = (0,) * target.dim()
-        fn = files.get(LocalTensorIndex(key, offset))
-        if fn is None:
-            missing.append(key)
-            continue
-        if fn not in cache:
-            cache[fn] = _read_payload(os.path.join(path, fn))
-        block = cache[fn].get(f"{key}|{','.join(map(str, offset))}")
+        block = saved.get(key)
         if block is None:
             missing.append(key)
             continue
@@ -417,18 +478,24 @@ def load_state_dict(state_dict, path, strict=True):
     return state_dict
 
 
+def load_state_dict(state_dict, path, strict=True):
+    """Fill ``state_dict``'s tensors from the checkpoint at ``path`` (the
+    port's or the JAX package's), in place (each on its own device, in
+    its own dtype). ``strict``: raise :class:`MissingKeysError` listing
+    every key the checkpoint lacks, after filling the keys it has; else
+    keep the live values and count them on
+    ``checkpoint_missing_keys_total``. A saved shape that differs from the
+    target's raises ``ValueError``."""
+    return _fill(state_dict, _saved_tensors(path, set(state_dict)), path,
+                 strict)
+
+
 def read_state_dict(path):
-    """``{key: CPU tensor}`` of every tensor saved under ``path``, by its
-    saved name and shape: no target is needed (the reference's
-    ``saved_state_template`` and load in one)."""
-    out, cache = {}, {}
-    for meta in _load_metadata(path):
-        for index, fn in meta.storage_metadata.items():
-            if fn not in cache:
-                cache[fn] = _read_payload(os.path.join(path, fn))
-            offset = ",".join(map(str, index.global_offset))
-            out[index.tensor_key] = cache[fn][f"{index.tensor_key}|{offset}"]
-    return out
+    """``{key: CPU tensor}`` of every tensor saved under ``path`` (the
+    port's or the JAX package's), by its saved name and shape: no target
+    is needed (the reference's ``saved_state_template`` and load in
+    one)."""
+    return _saved_tensors(path)
 
 
 # ---------------------------------------------------------------------------
@@ -479,9 +546,20 @@ def save_checkpoint(path, model, optimizer=None, async_save=False):
 
 
 def load_checkpoint(path, model, optimizer=None, strict=True):
-    """Restore model (+ optimizer) training state from ``path``, in place."""
-    load_state_dict(training_state_target(model, optimizer), path,
-                    strict=strict)
+    """Restore model (+ optimizer) training state from ``path``, in place.
+    A directory the JAX package wrote goes through
+    ``convert.training_state_from_jax`` (a ``GPTForCausalLMPipe``'s names
+    and layout; any other model raises its ``TypeError``)."""
+    target = training_state_target(model, optimizer)
+    if not written_by_jax(path):
+        load_state_dict(target, path, strict=strict)
+        return
+    from ...convert import training_state_from_jax
+
+    saved = read_state_dict(path)
+    if optimizer is None:
+        saved = {k: v for k, v in saved.items() if not k.startswith("opt.")}
+    _fill(target, training_state_from_jax(saved, model), path, strict)
 
 
 from .manager import (  # noqa: E402
@@ -495,7 +573,7 @@ __all__ = [
     "CHECKSUM_ALGO", "CheckpointManager", "CheckpointValidationError",
     "Metadata", "MissingKeysError", "NoCheckpointError", "PreemptionGuard",
     "checksum_bytes", "load_checkpoint", "load_state_dict",
-    "read_state_dict",
+    "read_state_dict", "written_by_jax",
     "optimizer_state_dict", "save_checkpoint", "save_state_dict",
     "training_state_dict", "training_state_target", "wait_async_save",
 ]

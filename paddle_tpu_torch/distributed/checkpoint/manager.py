@@ -28,7 +28,13 @@ the next step boundary. Spans ``ckpt:snapshot``, ``ckpt:write_commit``,
 
 One process: the reference's multi-process commit fence (an all-gather
 before COMMIT) and its async-save downgrade are not ported (ROADMAP
-A.10), nor is ``read_state`` (a checkpoint without a live model).
+A.10).
+
+A root the JAX package's manager wrote reads as the port's own:
+``latest_step``, ``last_good_step``, ``validate_step`` (its COMMIT JSON,
+sizes, CRC32C through the native library, metadata read through
+``jax_pickle``), ``restore``, ``read_state`` and
+``restore_training_state`` (through ``load_checkpoint``).
 """
 from __future__ import annotations
 
@@ -36,13 +42,13 @@ import atexit
 import collections
 import json
 import os
-import pickle
 import shutil
 import signal
 import threading
 import time
 import weakref
 
+from ... import jax_pickle
 from ...telemetry import trace as _trace
 
 
@@ -426,7 +432,7 @@ class CheckpointManager:
                 continue
             if fn.endswith(".metadata"):
                 try:
-                    meta = pickle.loads(data)
+                    meta = jax_pickle.loads(data)
                 except Exception as e:
                     problems.append(f"{fn}: unpicklable ({e!r})")
                     continue
@@ -490,9 +496,11 @@ class CheckpointManager:
                 with _trace.span("ckpt:load", attrs={"step": s},
                                  cat="ckpt"):
                     load(self.step_dir(s))
-            except MissingKeysError:
-                raise  # wrong state shape, not corruption: older steps
-                       # would silently resurrect stale values
+            except (MissingKeysError, TypeError):
+                raise  # wrong state shape, or a model the converter does
+                       # not take (a JAX root into a per-layer model): not
+                       # corruption, and older steps would silently
+                       # resurrect stale values
             except Exception as e:
                 # a read error after validation: count it as a validation
                 # failure and fall back
@@ -552,7 +560,7 @@ class CheckpointManager:
         `before_step` (the anomalous step a rewind must land under).
         Corrupt steps fall back like `restore`; returns the step
         restored. The resilience guard's escalation entry point."""
-        from . import training_state_target
+        from . import load_checkpoint
 
         candidates = list(reversed(self.good_steps(before_step)))
         if not candidates:
@@ -561,17 +569,27 @@ class CheckpointManager:
                 + ("" if before_step is None
                    else f" before step {int(before_step)}"))
         return self._restore_candidates(
-            training_state_target(model, optimizer), candidates,
-            strict=strict)
+            None, candidates, strict=strict,
+            load=lambda path: load_checkpoint(path, model, optimizer,
+                                              strict=strict))
 
     def restore_training_state(self, model, optimizer=None, step=None,
                                strict=True):
         """``restore()`` into model + optimizer, in place on their live
-        tensors; returns the step restored."""
-        from . import training_state_target
+        tensors (``load_checkpoint``: a step the JAX package wrote goes
+        through ``convert.training_state_from_jax``); returns the step
+        restored."""
+        from . import load_checkpoint
 
-        return self.restore(training_state_target(model, optimizer),
-                            step=step, strict=strict)
+        candidates = ([int(step)] if step is not None
+                      else list(reversed(self.good_steps())))
+        if not candidates:
+            raise NoCheckpointError(
+                f"no committed checkpoint step under {self.root!r}")
+        return self._restore_candidates(
+            None, candidates, strict=strict, fallback=step is None,
+            load=lambda path: load_checkpoint(path, model, optimizer,
+                                              strict=strict))
 
     # -- retention -----------------------------------------------------------
     def gc(self):

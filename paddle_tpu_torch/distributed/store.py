@@ -2,11 +2,14 @@
 ``paddle_tpu/distributed/store.py``; parity: phi TCPStore
 `tcp_store.h:121`, python `paddle.distributed.TCPStore`).
 
-Server: an in-process Python thread (``_PyServer``) speaking the
-reference's wire protocol. The reference starts the C++ poll loop of
-``paddle_tpu/core/native/store.cc`` when it can build it; the port does
-not load that library. Client: Python sockets (control-plane only —
-tensor traffic never touches the store).
+Server: the C++ poll loop of the port's copy of ``store.cc``
+(``paddle_tpu_torch.core.native``), started by ``is_master=True``, as the
+reference starts it (``paddle_tpu/distributed/store.py:117-161``). The
+reference falls back to a Python server when the library cannot be built
+or the port cannot be bound; the port raises. ``_PyServer`` stays as the
+plain version of the protocol that the tests hold the C++ server against.
+Client: Python sockets (control-plane only — tensor traffic never touches
+the store).
 """
 from __future__ import annotations
 
@@ -15,13 +18,15 @@ import struct
 import threading
 import time
 
+from ..core import native
+
 _CMD_SET, _CMD_GET, _CMD_ADD, _CMD_WAIT, _CMD_DEL, _CMD_PING = 0, 1, 2, 3, 4, 6
 _MISS = 0xFFFFFFFFFFFFFFFF
 
 
 class _PyServer:
-    """The store's server, protocol-compatible with the reference's
-    store.cc."""
+    """The store's server in Python, one thread a connection: the plain
+    version of ``store.cc``'s protocol (no ``TCPStore`` starts it)."""
 
     def __init__(self, port):
         self._kv = {}
@@ -120,13 +125,15 @@ def _recv_exact(conn, n):
 class TCPStore:
     """paddle.distributed.TCPStore parity.
 
-    is_master=True starts the server; every rank connects a client.
-    add/get/set/wait match the reference semantics.
+    is_master=True starts the native server (``OSError`` if it cannot
+    bind, ``NativeBuildError`` if the library cannot be built); every
+    rank connects a client. add/get/set/wait match the reference
+    semantics.
     """
 
     def __init__(self, host="127.0.0.1", port=0, is_master=False,
                  world_size=1, timeout=30.0, clock=None):
-        self._server = None
+        self._native_handle = None
         self.host = host
         self.timeout = timeout
         # connect/wait deadlines are measured on a monotonic clock: a
@@ -134,14 +141,18 @@ class TCPStore:
         # rendezvous wait. `clock` is injectable for tests.
         self._clock = clock if clock is not None else time.monotonic
         if is_master:
-            self._server = _PyServer(port)
-            port = self._server.port
+            self._native_handle, port = native.store_server_start(port)
         self.port = port
         self._sock = None
         # one request/response in flight per client: heartbeat threads
         # (fleet.hosts) share the store with the main thread
         self._lock = threading.Lock()
         self._connect()
+
+    @property
+    def is_native(self):
+        """True while this store runs the C++ server (the master)."""
+        return self._native_handle is not None
 
     def _connect(self):
         deadline = self._clock() + self.timeout
@@ -219,9 +230,9 @@ class TCPStore:
             except OSError:
                 pass
             self._sock = None
-        if self._server is not None:
-            self._server.stop()
-            self._server = None
+        if self._native_handle is not None:
+            native.store_server_stop(self._native_handle)
+            self._native_handle = None
 
     def __del__(self):
         try:

@@ -12,9 +12,15 @@ torch tensor as a torch tensor. ``return_numpy=True`` gives numpy arrays
 instead, bfloat16 and the float8s as their exact float32 upcast (what
 ``Tensor.numpy()`` gives).
 
-Reading a file the JAX package wrote is not ported (``ROADMAP.md`` A.6
-item 5): its pickles name ``paddle_tpu`` classes, which the port does not
-import.
+``load`` also reads a file the JAX package's ``paddle.save`` wrote
+(``paddle_tpu/framework_io.py``): its pickle names
+``paddle_tpu.framework_io._TensorPayload`` (numpy's dtype name, shape and
+raw bytes), which :mod:`paddle_tpu_torch.jax_pickle` maps to a stand-in
+without importing ``paddle_tpu``, ``jax`` or ``ml_dtypes``; each payload
+comes back as the port's ``Parameter`` (trainability and name kept) or
+``Tensor``, bit for bit, or as numpy with ``return_numpy=True``. Any other
+name of those packages in a pickle is refused with
+``jax_pickle.ForeignPickleError``.
 
 ``async_save`` snapshots on the caller's thread (the device-to-host
 copies) and pickles and writes in a background thread, through a
@@ -32,6 +38,7 @@ import threading
 import torch
 
 from . import dtypes as _dt
+from . import jax_pickle
 from .core.tensor import Parameter, Tensor, _to_numpy
 
 
@@ -68,6 +75,14 @@ def _encode(obj):
 
 
 def _decode(obj, return_numpy, device):
+    if isinstance(obj, jax_pickle.JaxTensorPayload):
+        t = obj.torch_tensor().to(device)
+        if return_numpy:
+            return _to_numpy(t)
+        if obj.is_parameter:
+            return Parameter(t, trainable=not obj.stop_gradient,
+                             name=obj.name)
+        return Tensor(t, stop_gradient=obj.stop_gradient, name=obj.name)
     if isinstance(obj, _TensorPayload):
         t = obj.torch_tensor(device)
         if return_numpy:
@@ -101,15 +116,16 @@ def save(obj, path, protocol=4, **configs):
 
 
 def load(path, return_numpy=False, **configs):
-    """``paddle.load``: what :func:`save` wrote, its tensors on the current
-    place (numpy arrays with ``return_numpy=True``)."""
+    """``paddle.load``: what :func:`save` (or the JAX package's
+    ``paddle.save``) wrote, its tensors on the current place (numpy arrays
+    with ``return_numpy=True``)."""
     from .device import _current_device
 
     if hasattr(path, "read"):
-        obj = pickle.load(path)
+        obj = jax_pickle.load(path)
     else:
         with open(str(path), "rb") as f:
-            obj = pickle.load(f)
+            obj = jax_pickle.load(f)
     device = torch.device("cpu") if return_numpy else _current_device()
     return _decode(obj, return_numpy, device)
 

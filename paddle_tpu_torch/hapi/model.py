@@ -10,9 +10,8 @@ forward after the step.
 
 Raising ``NotImplementedError``: ``prepare(amp_configs=...)``, which
 the reference accepts and never reads (``paddle.amp.decorate`` and
-``auto_cast`` do the work), and ``save(path, training=False)``, the
-inference export through ``jit.save`` (not ported yet, ``ROADMAP.md``
-A.6 item 2). The reference's
+``auto_cast`` do the work). ``save(path, training=False)`` writes the
+inference artifact through ``jit.save``. The reference's
 mesh branch (``ShardedTrainStep`` under an active fleet mesh, A.10) has
 no counterpart: the port's ``Model`` trains on one card.
 """

@@ -36,6 +36,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ... import telemetry as _telemetry
 from ...device import resolve_device
@@ -109,8 +110,11 @@ def int8_head_gate(tol=None, device=None):
         return loss.item(), gh.cpu().numpy(), gw.cpu().numpy()
 
     try:
-        lf, ghf, gwf = loss_grads(False)
-        l8, gh8, gw8 = loss_grads(True)
+        # real tensors even inside a tracing mode (the fake-tensor trace
+        # of TrainStep.memory_stats)
+        with _disable_current_modes():
+            lf, ghf, gwf = loss_grads(False)
+            l8, gh8, gw8 = loss_grads(True)
         ok = abs(l8 - lf) / max(abs(lf), 1e-9) < tol
         for g8, gf in ((gh8, ghf), (gw8, gwf)):
             denom = np.abs(gf).mean() + 1e-9

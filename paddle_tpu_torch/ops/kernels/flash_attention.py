@@ -65,8 +65,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import (LAUNCHES, check_launch, launch_key, load, ptr, stream_handle,
-               use_kernel)
+from . import (LAUNCHES, check_launch, define_op, launch_key, load, ptr,
+               stream_handle, use_kernel)
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -373,17 +373,49 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     return _unpad(dk, d), _unpad(dv, d)
 
 
+_BWD_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+             "Tensor delta, bool causal, float scale")
+
+
+def _bwd_fused_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _bwd_dq_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(q)
+
+
+def _bwd_dkv_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+# The backward's three routes as dispatcher ops, like the forward's: a
+# fake-tensor trace of a training step (``TrainStep.memory_stats``) and
+# ``torch.export`` see each as one node, with its outputs' shapes and
+# types from the fake. No autograd kernel: the forward op's backward calls
+# them with grad off.
+flash_bwd_fused_op = define_op(
+    f"flash_bwd_fused({_BWD_ARGS}) -> (Tensor, Tensor, Tensor)",
+    flash_attention_bwd_fused, _bwd_fused_fake)
+flash_bwd_dq_op = define_op(f"flash_bwd_dq({_BWD_ARGS}) -> Tensor",
+                            flash_attention_bwd_dq, _bwd_dq_fake)
+flash_bwd_dkv_op = define_op(
+    f"flash_bwd_dkv({_BWD_ARGS}) -> (Tensor, Tensor)",
+    flash_attention_bwd_dkv, _bwd_dkv_fake)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     """Flash attention backward on the kernel layout -> (dq, dk, dv):
     ``delta = rowsum(do * o)`` once, then the fused kernel or the split
     pair, as :func:`bwd_route` picks (the plain versions of that choice on
-    CPU tensors)."""
+    CPU tensors), each through its dispatcher op."""
     delta = _delta(o, do)
+    scale = _scale(q, scale)
+    causal = bool(causal)
     if bwd_route(q.shape[0] // k.shape[0], q.shape[1], q.shape[2]) == "fused":
-        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
-                                         scale)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        return flash_bwd_fused_op(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_bwd_dq_op(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
 
 

@@ -53,6 +53,7 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from .. import telemetry as _telemetry
 from ..device import resolve_device
@@ -363,7 +364,10 @@ def quant_gate_report(tol=None, dtype=None, device=None):
     key = (round(tol, 9), dtype, dev)
     if key not in _GATE_CACHE:
         try:
-            ok, loss_err, grad_err = _gate_probe(tol, dtype, dev)
+            # real tensors even inside a tracing mode (the fake-tensor
+            # trace of TrainStep.memory_stats)
+            with _disable_current_modes():
+                ok, loss_err, grad_err = _gate_probe(tol, dtype, dev)
         except Exception as e:  # noqa: BLE001 - a crashed probe means off
             warnings.warn(
                 f"quant-compute parity probe crashed ({e!r}); scaled {dtype}"

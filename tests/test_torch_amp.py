@@ -40,6 +40,7 @@ from paddle_tpu_torch.models import BertConfig, BertForPretraining
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 
 import torch_numpy_init
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: config 3 in bf16 O2 over 10 steps, the port against the JAX package:
 #: each loss within this of the JAX loss, relative (measured 4.1e-4 at

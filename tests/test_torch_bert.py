@@ -22,6 +22,7 @@ from paddle_tpu.models.bert import BertForPretraining as JBert
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import layer_state_from_numpy
 from paddle_tpu_torch.models import BertConfig, BertForPretraining
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            intermediate_size=128, max_seq_len=32, dropout=0.0)

@@ -39,6 +39,7 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMPipe
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.testing import chaos
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -18,6 +18,7 @@ from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import layer_state_from_numpy
 
 import torch_numpy_init
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL, GTOL = 1e-5, 1e-4
 

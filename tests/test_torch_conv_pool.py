@@ -29,6 +29,7 @@ from paddle_tpu.jit import functional_call
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import layer_state_from_numpy
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 CONV_TOL = 1e-4
 POOL_TOL = 1e-5

@@ -39,7 +39,8 @@ CUDA started, and a ResNet's ``bfloat16()`` casting its buffers; the
 deployment path: ``rms_norm``, ``add_rms_norm`` and ``swiglu_down`` as
 custom ops against their ``*_fwd`` launchers bit for bit, eagerly and
 from a CUDA graph, a program exported from CPU tensors run on the card,
-and a ``Predictor``'s graphed runs against its eager run.
+and a ``Predictor``'s graphed runs against its eager run; the flash
+backward's three dispatcher ops against their wrappers.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -2392,6 +2393,46 @@ def test_exported_custom_ops_run_on_the_card(cuda_device):
     assert (counts["rms_norm"], counts["add_rms_norm"],
             counts["swiglu_down"]) == (1, 1, 1)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_ops_equal_their_wrappers(cuda_device, dtype):
+    """The flash backward's three routes as ``paddle_tpu_torch::`` ops:
+    the split pair gives its wrappers' bytes, the fused op its wrapper's
+    within FLASH_TOL (its dq adds land in a varying order), one launch a
+    call, eagerly and replayed from a CUDA graph."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    args = _split_inputs(8, 2, 128, 300, 300, dtype, True, cuda_device)
+    want = (flash_attention_bwd_dq(*args, True),
+            *flash_attention_bwd_dkv(*args, True),
+            *flash_attention_bwd_fused(*args, True))
+    scale = 1.0 / 128 ** 0.5
+
+    def run():
+        return (fa.flash_bwd_dq_op(*args, True, scale),
+                *fa.flash_bwd_dkv_op(*args, True, scale),
+                *fa.flash_bwd_fused_op(*args, True, scale))
+
+    kernels.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"],
+            counts["flash_attention_bwd"]) == (1, 1, 1)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i < 3:
+            assert torch.equal(a, b), i
+        else:
+            assert _rel_err(a, b) <= FLASH_TOL[dtype], i
+    graph = kernels.CountedGraph()
+    out = graph.capture(run)
+    kernels.reset_launch_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd_dq"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], want[:3]))
 
 
 def test_predictor_graphed_run_equals_its_eager_run(cuda_device, tmp_path):

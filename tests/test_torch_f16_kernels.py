@@ -39,6 +39,7 @@ from paddle_tpu_torch.ops.kernels.decode_attention import (
 from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm_fwd
 from paddle_tpu_torch.ops.kernels.swiglu_down import swiglu_down_fwd
 from test_torch_kernels import _paged_inputs
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 F16_ULP = 2.0 ** -10
 DECODE_ATOL = 2.0 ** -9

@@ -18,6 +18,7 @@ from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from test_torch_serving_engine import COUNTERS, _llama_pair
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 ENGINE = dict(max_slots=2, page_size=8, max_seq_len=64, max_new_tokens=6)
 

@@ -27,6 +27,7 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
 from paddle_tpu_torch.ops.kernels.swiglu_down import (swiglu_down,
                                                       swiglu_down_supported)
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: f32 on both sides; only the order of the sums differs (online softmax
 #: over k tiles in the Pallas kernel against one materialised softmax)

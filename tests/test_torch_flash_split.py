@@ -19,6 +19,7 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     bwd_route, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_fwd)
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: f32 on both sides; the sums over keys (dq) and over query rows and the
 #: rep q heads (dk, dv) run in other orders: tile by tile in the Pallas

@@ -23,6 +23,7 @@ from paddle_tpu_torch.convert import state_dict_from_jax
 from paddle_tpu_torch.inference import fleet as tfleet
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, max_seq_len=128, dropout=0.0)

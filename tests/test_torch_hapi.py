@@ -20,6 +20,7 @@ import paddle_tpu as jp
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from test_torch_conv_pool import fast_jax_init, seeded  # noqa: F401
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 LOSS_RTOL = 1e-4
 

@@ -29,6 +29,7 @@ from paddle_tpu_torch.inference.fleet import hosts as thosts
 from paddle_tpu_torch.inference.fleet.transport import (LoopbackTransport,
                                                         RemoteEngine,
                                                         is_stale_lease)
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 CONFIG_KW = dict(vocab_size=64, hidden_size=32, num_layers=1,
                  num_heads=2, num_kv_heads=2, max_seq_len=64)

@@ -19,6 +19,7 @@ from paddle_tpu_torch.convert import state_dict_from_jax
 from paddle_tpu_torch.incubate.nn import functional as TF
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import kernels
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: f32 on both sides; only the summation order differs
 ATOL = 1e-5

@@ -29,6 +29,7 @@ from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import load_fused_from_jax
 from paddle_tpu_torch.incubate.nn import functional as TF
 from paddle_tpu_torch.optimizer import SGD
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: f32 on both sides; only sum orders differ
 ATOL = 1e-5

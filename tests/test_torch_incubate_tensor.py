@@ -25,6 +25,7 @@ import paddle_tpu_torch.incubate.nn as TN
 import paddle_tpu_torch.incubate.nn.functional as TF
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import load_fused_from_jax
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -32,6 +32,7 @@ from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch import inference
 from paddle_tpu_torch.convert import layer_state_from_numpy
 from paddle_tpu_torch.static import InputSpec
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

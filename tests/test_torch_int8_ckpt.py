@@ -17,6 +17,7 @@ from paddle_tpu.memory import int8_ckpt as J
 from paddle_tpu_torch import memory as T
 from paddle_tpu_torch.memory import int8 as T_rows
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMPipe
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _jax_bf16(a):

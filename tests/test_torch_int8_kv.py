@@ -24,6 +24,7 @@ from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.memory import (SCALE_EPS, dequantize_rows_int8,
                                      quantize_rows_int8)
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, max_seq_len=128, dropout=0.0)

@@ -27,6 +27,7 @@ from paddle_tpu_torch.io import (BatchSampler, DataLoader, Dataset,
                                  TensorDataset, WeightedRandomSampler,
                                  default_collate_fn, get_worker_info,
                                  random_split)
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -25,6 +25,7 @@ from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import layer_state_from_numpy
 from paddle_tpu_torch.static import InputSpec
 from paddle_tpu_torch.utils.flags import set_flags
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 

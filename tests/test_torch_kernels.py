@@ -34,6 +34,7 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm, rms_norm_fwd
 from paddle_tpu_torch.ops.kernels.swiglu_down import swiglu_down_fwd
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: f32 on both sides; only the summation order differs
 ATOL_F32 = 1e-5

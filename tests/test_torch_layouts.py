@@ -23,6 +23,7 @@ from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          decoder_state_layout,
                                          restore_decoder_any_layout)
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=3, num_heads=2,
            max_seq_len=32, dropout=0.0)

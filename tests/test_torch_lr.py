@@ -14,6 +14,7 @@ import torch
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch.optimizer import SGD, AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 STEPS = 60
 

@@ -30,6 +30,7 @@ from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            LlamaForCausalLMPipe, LlamaModel,
                                            llama_preset)
 from paddle_tpu_torch.nn.norm import LayerNorm
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -17,6 +17,7 @@ from paddle_tpu_torch.convert import (expected_keys, state_dict_from_jax,
 from paddle_tpu_torch.models.gpt import GPTConfig, _rope_at_positions
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            llama_preset)
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def _no_active_mesh():

@@ -25,6 +25,7 @@ from paddle_tpu_torch.incubate.distributed.models import moe
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLMMoE
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

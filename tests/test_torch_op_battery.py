@@ -28,6 +28,7 @@ import paddle_tpu as jp
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from test_op_battery import CASES
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 DEFERRED = {
     "matrix_transpose": "A.13 (e): linalg_ns.py",

@@ -6,6 +6,7 @@ import pytest
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from test_torch_op_battery import HALF, RUN, check_coverage, run_case
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 MINE = RUN[HALF:]
 

@@ -10,6 +10,7 @@ import paddle_tpu_torch as tp
 import paddle_tpu_torch.nn.functional as TF
 from paddle_tpu.ops import registry as jreg
 from paddle_tpu_torch.ops import registry as treg
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: registered ops whose public function lives in a module of A.13 (e)
 #: (``linalg_ns.py``, ``fft.py``), not in the port yet

@@ -24,6 +24,7 @@ from paddle_tpu.core.tensor import Parameter as JaxParameter
 from paddle_tpu.core.tensor import Tensor as JaxTensor
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 #: the last one has more than one int8 block (2048), padded
 SHAPES = [(6,), (4, 8), (2, 4, 8), (3, 1500)]

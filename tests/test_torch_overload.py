@@ -26,6 +26,7 @@ import paddle_tpu.testing.chaos as jchaos
 import paddle_tpu_torch.inference.fleet.overload as tov
 import paddle_tpu_torch.inference.fleet.router as trouter
 import paddle_tpu_torch.testing.chaos as tchaos
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 SIDES = {
     "jax": types.SimpleNamespace(ov=jov, FleetRouter=jrouter.FleetRouter,

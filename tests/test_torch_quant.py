@@ -45,6 +45,7 @@ from paddle_tpu_torch.nn.functional import (chunked_lm_loss_arrays,
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.resilience import StepGuard
 from paddle_tpu_torch.testing import chaos
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

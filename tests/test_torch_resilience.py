@@ -29,6 +29,7 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.resilience import (GuardAbortError, HangWatchdog,
                                          StepGuard, install_anomaly_hook)
 from paddle_tpu_torch.testing import chaos
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _make(seed=7, lr=0.01, grad_clip=None, dropout=False):

@@ -16,6 +16,7 @@ import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import layer_state_from_numpy
 from paddle_tpu_torch.ops import kernels
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -27,6 +27,7 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          compute_loss)
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = dict(vocab_size=64, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, intermediate_size=128, max_seq_len=16,

@@ -17,6 +17,7 @@ import paddle_tpu as jp
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.convert import layer_state_from_numpy
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-5
 
@@ -42,7 +43,7 @@ NOT_ON_THE_PORT = {
     "digamma_fn": "helper", "exponent_bias": "helper",
     "inner_alias": "helper", "linalg_ns": "module alias of linalg",
     # queued in ROADMAP §A
-    "CUDAGraph": "A.6", "DataParallel": "A.10", "profiler": "A.12",
+    "DataParallel": "A.10",
     "disable_static": "A.13 (e)", "enable_static": "A.13 (e)",
     "sparse": "A.13 (e)", "distribution": "A.13 (e)", "fft": "A.13 (e)",
     "signal": "A.13 (e)", "matrix_transpose": "A.13 (e)",

@@ -15,6 +15,7 @@ import torch
 import paddle_tpu as jp
 import paddle_tpu_torch as tp
 from paddle_tpu_torch import device as tdevice
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -32,6 +32,7 @@ from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn.functional import chunked_lm_loss_arrays, rms_norm
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def _no_active_mesh():

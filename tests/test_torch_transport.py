@@ -44,6 +44,7 @@ from paddle_tpu_torch.inference.fleet import wire as twire
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.testing import chaos as tchaos
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 try:
     import ml_dtypes

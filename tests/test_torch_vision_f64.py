@@ -13,6 +13,7 @@ import pytest
 from test_torch_conv_pool import fast_jax_init  # noqa: F401
 from test_torch_vision import (_cpu, assert_resnet_step_like_jax,  # noqa: F401
                                resnet_step)
+from test_torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["resnet18", "resnet50"])
