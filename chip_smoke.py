@@ -372,11 +372,29 @@ Phases, each of which fails the run on error:
              f32 Pipe on the card, its next loss within 1e-4 relative of
              the JAX package's, its paddle.save file loaded bit for bit.
 
+   static  - the static graph on BERT-base (f32, 32 x 512, dropout 0):
+             (a) program_guard -> AdamW.minimize -> Executor.run, a
+             warm-up and 3 timed runs on one batch against the eager step
+             from the same weights: flash fwd L and fused bwd L a run, the
+             first loss bit for bit, the next two within 1e-4, the timed
+             runs' third below their first; (b) an eval program ->
+             save_inference_model -> load_inference_model ->
+             Executor.run(predictor): flash fwd L, logits within
+             FLASH_TOL of the program's fetch; (c) its IR (12 layers):
+             L flash_fwd nodes, the three built-in patterns, run, and
+             serialize -> deserialize within FLASH_TOL; (d)
+             cost_model.profile_measure of the forward within 1% of the
+             analytic flops; (e) cinn.compiler.compile against eager and
+             tensorrt.convert to BF16 (floating bytes halved, served
+             within 2e-2); (f) two CheckpointManager steps of (a)'s
+             model and AdamW and the inspector: exit 0, every key
+             changed, exit 1 on a flipped payload byte.
+
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, float16, training, quant_train (run b),
 long-context, model_rest, shared_block, paddle_surface, vision, amp,
-deploy and tools runs;
+deploy, tools and static runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -8146,6 +8164,380 @@ def phase_tools(smi="", cfg4=None, batch=3, seq=2048, plan_layers=None,
     return res
 
 
+# ------------------------------------------------------------ phase static
+STATIC_DIR = Path(__file__).resolve().parent / "build" / "static"
+#: Executor runs of (a): one warm-up, then timed
+STATIC_RUNS = 4
+
+
+def _bert_arrays(vocab, batch, seq, seed):
+    """Seeded ``ids``, ``types`` (segment ids), MLM ``labels`` on 15% of
+    positions (the rest -100) and ``nsp`` labels, as numpy int64."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    types = rng.randint(0, 2, (batch, seq)).astype(np.int64)
+    labels = np.full((batch, seq), -100, np.int64)
+    pick = rng.rand(batch, seq) < 0.15
+    labels[pick] = rng.randint(0, vocab, int(pick.sum()))
+    nsp = rng.randint(0, 2, (batch,)).astype(np.int64)
+    return {"ids": ids, "types": types, "labels": labels, "nsp": nsp}
+
+
+def phase_static(smi="", cfg_kw=None, batch=BERT_BATCH, seq=BERT_SEQ):
+    """BERT-base (config 3's model, f32, dropout 0) through the static
+    graph: (a) ``program_guard`` -> ``AdamW.minimize`` ->
+    ``Executor.run`` (a warm-up and 3 timed runs on one batch) against
+    the eager step from the same weights: launches a run, the first loss
+    bit for bit, the next two within 1e-4, each loss on the repeated
+    batch moved from the one before (a frozen update repeats it), the
+    step medians, a profiled run's host share and the replay's host µs a
+    record (an eval replay's); (b) an eval program -> ``save_inference_model`` ->
+    ``load_inference_model`` -> ``Executor.run(predictor)``: launches,
+    logits against the program's own fetch, save/load s and bytes; (c)
+    ``ir_module`` of the eval program, the three
+    built-in patterns, ``run`` before and after, ``serialize`` ->
+    ``deserialize``: the flash op's nodes, values, node counts and
+    seconds; (d) ``cost_model.profile_measure`` of the forward against
+    the analytic flops; (e) ``cinn.compiler.compile`` against eager and
+    ``tensorrt.convert`` of (b)'s artifact to BF16 served by a
+    ``Predictor``; (f) two ``CheckpointManager`` steps of (a)'s model and
+    optimizer and the inspector: exit codes, the diff, a flipped byte.
+    ``cfg_kw`` (BertConfig overrides) and the shapes, with ``DEVICE =
+    "cpu"``, rehearse it small (no launch checks, no profile)."""
+    import contextlib
+    import io
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import cinn, cost_model, inference, static, tensorrt
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.checkpoint import inspect as ckpt
+    from paddle_tpu_torch.ir import (AddZeroPattern, CastChainPattern,
+                                     TransposePairPattern, graph_targets)
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+
+    K = paddle.ops.kernels
+    card = DEVICE != "cpu"
+    dev = DEVICE if card else "cpu"
+    paddle.set_device("gpu" if card else "cpu")
+    exe = static.Executor(paddle.CUDAPlace(0) if card else paddle.CPUPlace())
+    root = STATIC_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    res = {"smi": smi}
+    launches = {name: 0 for name in K.launch_counts()}
+    tol = FLASH_TOL[torch.float32]
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        _sync(dev)
+        counts = K.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        return out, counts
+
+    def want_only(counts, want, tag):
+        if not card:
+            return
+        full = {name: 0 for name in counts}
+        full.update(want)
+        check(counts == full, f"static {tag}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, want {want}")
+
+    t_phase = time.perf_counter()
+    cfg = bert_base(dropout=0.0, **(cfg_kw or {}))
+    L, V = cfg.num_layers, cfg.vocab_size
+    b, s = batch, seq
+    feed = _bert_arrays(V, b, s, 11)
+    ids_t, types_t, labels_t, nsp_t = (paddle.to_tensor(feed[k]) for k in
+                                       ("ids", "types", "labels", "nsp"))
+
+    # (a) the eager step, then the static program, from the same weights
+    paddle.seed(0)
+    model = BertForPretraining(cfg)
+    init = {k: v._data.detach().clone() for k, v in
+            model.state_dict().items()}
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    eager_losses, eager_ms = [], []
+    for i in range(STATIC_RUNS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss = model.loss(ids_t, labels_t, nsp_t, token_type_ids=types_t)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager_losses.append(float(loss))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    del opt, loss
+    model.set_state_dict(init)
+    del init
+    _free(card)
+    t0 = time.perf_counter()
+    main = static.Program()
+    with static.program_guard(main, static.Program()):
+        vs = {k: static.data(k, [b, s] if k != "nsp" else [b], "int64")
+              for k in ("ids", "types", "labels", "nsp")}
+        sloss = model.loss(vs["ids"], vs["labels"], vs["nsp"],
+                           token_type_ids=vs["types"])
+        sopt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters())
+        sopt.minimize(sloss)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    losses, ms = [], []
+    for i in range(STATIC_RUNS):
+        t0 = time.perf_counter()
+        (lv,), counts = counted(lambda: exe.run(main, feed=feed,
+                                                fetch_list=[sloss]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want_only(counts, {"flash_attention_fwd": L,
+                           "flash_attention_bwd": L}, f"(a) run {i}")
+        losses.append(float(lv))
+    check(all(np.isfinite(losses)), f"static (a): losses {losses}")
+    check(_hex32(losses[0]) == _hex32(eager_losses[0]),
+          f"static (a): first loss {losses[0]!r} against the eager step's "
+          f"{eager_losses[0]!r}")
+    rels = [abs(a - e) / abs(e) for a, e in zip(losses, eager_losses)]
+    check(max(rels[1:3]) <= TRAIN_LOSS_RTOL,
+          f"static (a): losses {losses} against eager {eager_losses}")
+    # AdamW at 1e-4 without warm-up raises the loss of its first steps on
+    # a fresh BERT-base, the eager step's too, so this run shows that the
+    # update acts (a frozen one repeats the loss bit for bit) and, with
+    # the eager comparison above, that it is the eager step's; not that
+    # the repeated batch is learned
+    check(all(a != c for a, c in zip(losses, losses[1:])),
+          f"static (a): the update left the loss unchanged: {losses}")
+    med, eager_med = statistics.median(ms[1:]), statistics.median(
+        eager_ms[1:])
+    prof = (_profile_step(lambda: exe.run(main, feed=feed,
+                                          fetch_list=[sloss]), (), med)
+            if card else {})
+    res["a"] = {"seconds": time.perf_counter() - t_phase,
+                "records": len(main.records), "build_s": build_s,
+                "losses": losses, "eager_losses": eager_losses,
+                "loss_rel": rels, "run_ms": ms, "run_ms_median": med,
+                "eager_ms": eager_ms, "eager_ms_median": eager_med,
+                "host_share": prof.get("host_share"),
+                "device_busy_ms": prof.get("device_busy_ms"),
+                "by_group_ms": prof.get("by_group_ms")}
+    print(f"static (a): BERT-base [{b}, {s}] f32 program of "
+          f"{len(main.records)} records, built in {build_s:.2f} s; losses "
+          f"{losses} against eager {eager_losses} (first bit for bit, rel "
+          f"{[f'{r:.1e}' for r in rels]}); Executor.run median {med:.1f} ms "
+          f"against the eager step's {eager_med:.1f} ms; host share "
+          f"{prof.get('host_share')}", flush=True)
+
+    # (b) the eval program and its inference model
+    model.eval()
+    evalp = static.Program()
+    with paddle.no_grad(), static.program_guard(evalp):
+        eids = static.data("ids", [b, s], "int64")
+        mlm, _ = model(eids)
+    efeed = {"ids": feed["ids"]}
+    (ref,), counts = counted(lambda: exe.run(
+        evalp, feed=efeed, fetch_list=[mlm], return_numpy=False))
+    want_only(counts, {"flash_attention_fwd": L}, "(b) eval run")
+    ref = ref._data
+    t_host = time.perf_counter()
+    with torch.no_grad():
+        static.replay(evalp.records, {id(eids): ref.new_tensor(
+            feed["ids"], dtype=torch.int64)})
+    replay_host_s = time.perf_counter() - t_host
+    _sync(dev)
+    prefix = str(root / "bert")
+    t0 = time.perf_counter()
+    static.save_inference_model(prefix, [eids], [mlm], program=evalp)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred, feeds, fetches = static.load_inference_model(prefix, exe)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    check(feeds == ["ids"], f"static (b): feed names {feeds}")
+    first = exe.run(pred, feed=efeed, fetch_list=fetches,
+                    return_numpy=False)[0]._data.clone()
+    (got,), counts = counted(lambda: exe.run(
+        pred, feed=efeed, fetch_list=fetches, return_numpy=False))
+    want_only(counts, {"flash_attention_fwd": L}, "(b) predictor run")
+    err, rel = _rel_err(got._data, ref)
+    check(rel <= tol, f"static (b): predictor logits rel {rel}")
+    check(torch.equal(got._data, first),
+          "static (b): the graphed run differs from the eager run")
+    pred_ms = _wall_ms(lambda: exe.run(pred, feed=efeed, fetch_list=fetches,
+                                       return_numpy=False))
+    res["b"] = {"seconds": time.perf_counter() - t_phase, "save_s": save_s, "load_s": load_s,
+                "artifact_bytes": _artifact_bytes(prefix),
+                "max_abs_err": err, "max_rel_err": rel,
+                "predictor_ms": pred_ms,
+                "replay_host_us_per_record": replay_host_s * 1e6
+                / len(evalp.records)}
+    print(f"static (b): save_inference_model {save_s:.2f} s, load "
+          f"{load_s:.2f} s, bytes {res['b']['artifact_bytes']}; predictor "
+          f"logits rel {rel:.2e} (tol {tol}), {pred_ms:.2f} ms a run; eval "
+          f"replay {res['b']['replay_host_us_per_record']:.1f} host us a "
+          f"record over {len(evalp.records)} records", flush=True)
+    del first, got
+    _free(card)
+
+    # (c) the IR of the eval program
+    t_c = time.perf_counter()
+    ir = evalp.ir_module([mlm])
+    t0 = time.perf_counter()
+    g0 = ir.graph(efeed)
+    trace_s = time.perf_counter() - t0
+    n0 = graph_targets(g0)
+    check(n0.count("flash_fwd") == L,
+          f"static (c): {n0.count('flash_fwd')} flash_fwd nodes, want {L}")
+    before, counts = counted(lambda: ir.run(efeed, return_numpy=False)[0])
+    want_only(counts, {"flash_attention_fwd": L}, "(c) IR run")
+    ir.apply(TransposePairPattern(), CastChainPattern(), AddZeroPattern())
+    t0 = time.perf_counter()
+    n1 = graph_targets(ir.graph(efeed))
+    rewrite_s = time.perf_counter() - t0
+    after = ir.run(efeed, return_numpy=False)[0]
+    _, rel_ir = _rel_err(after._data, before._data)
+    check(rel_ir <= tol, f"static (c): rewritten IR rel {rel_ir}")
+    path = str(root / "bert_ir.pt2")
+    t0 = time.perf_counter()
+    ir.serialize(path, efeed)
+    call = static.IrProgram.deserialize(path)
+    back = call(feed["ids"])[0]
+    serial_s = time.perf_counter() - t0
+    _, rel_rt = _rel_err(back, before._data)
+    check(rel_rt <= tol, f"static (c): deserialized program rel {rel_rt}")
+    res["c"] = {"layers": L, "nodes_before": len(n0),
+                "nodes_after": len(n1), "flash_nodes": n0.count("flash_fwd"),
+                "trace_s": trace_s, "rewrite_s": rewrite_s,
+                "serialize_roundtrip_s": serial_s, "rel_rewrite": rel_ir,
+                "rel_roundtrip": rel_rt,
+                "seconds": time.perf_counter() - t_c}
+    print(f"static (c): IR at {L} layers, {len(n0)} nodes ({n0.count('flash_fwd')} "
+          f"flash_fwd) -> {len(n1)} after the patterns; trace {trace_s:.2f} "
+          f"s, rewrite {rewrite_s:.2f} s, serialize+load+run {serial_s:.2f} "
+          f"s; rel {rel_ir:.2e} rewritten, {rel_rt:.2e} round trip",
+          flush=True)
+    del before, after, back, call, ir
+    _free(card)
+
+    # (d) the cost model of the forward
+    cm = cost_model.CostModel()
+    (cost,), counts = counted(lambda: [cm.profile_measure(
+        lambda i: model(i)[0], ids_t)])
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    tokens = b * s
+    proj = 2 * tokens * (L * (4 * h * h + 2 * h * f) + h * h + h * V)
+    attn = L * 4 * b * cfg.num_heads * s * s * (h // cfg.num_heads)
+    want_flops = proj + attn
+    frel = abs(cost["flops"] - want_flops) / want_flops
+    check(frel <= 0.01, f"static (d): flops {cost['flops']} against the "
+          f"analytic {want_flops} (rel {frel})")
+    check(cost["flops"] - proj > attn / 2,
+          f"static (d): the attention's flops not counted ({cost['flops']}"
+          f" against the projections' {proj})")
+    with paddle.no_grad():
+        fwd_ms = _wall_ms(lambda: model(ids_t))
+    res["d"] = {"seconds": time.perf_counter() - t_phase,
+                "flops": cost["flops"], "analytic_flops": want_flops,
+                "attention_flops": attn, "rel": frel,
+                "bytes": cost["bytes accessed"], "roofline_ms":
+                None if cost["time"] is None else cost["time"] * 1e3,
+                "forward_ms": fwd_ms}
+    print(f"static (d): profile_measure flops {cost['flops']:.4e} against "
+          f"{want_flops:.4e} (rel {frel:.2e}; attention {attn:.3e}), bytes "
+          f"{cost['bytes accessed']:.4e}, roofline {res['d']['roofline_ms']} "
+          f"ms against the measured forward {fwd_ms:.2f} ms", flush=True)
+
+    # (e) cinn.compiler.compile and tensorrt.convert
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(256, 256, generator=gen, device=dev)
+    y = torch.randn(256, 256, generator=gen, device=dev)
+
+    def fn(a, c):
+        return torch.tanh(a @ c) * 2.0 + c.sum(0)
+
+    compiled = cinn.compiler.compile(fn)
+    cerr, crel = _rel_err(compiled(x, y), fn(x, y))
+    check(crel <= 1e-6, f"static (e): cinn.compile rel {crel}")
+    trt_dir = str(root / "trt")
+    t0 = time.perf_counter()
+    out = tensorrt.convert(prefix, tensorrt.TensorRTConfig(
+        precision_mode=tensorrt.PrecisionMode.BF16, save_model_dir=trt_dir))
+    convert_s = time.perf_counter() - t0
+    f32_bytes, bf16_bytes = (_float_weight_bytes(prefix),
+                             _float_weight_bytes(out))
+    check(2 * bf16_bytes == f32_bytes, f"static (e): floating weights "
+          f"{bf16_bytes} B against f32's {f32_bytes} B")
+    trt_pred, _, _ = static.load_inference_model(out, exe)
+    exe.run(trt_pred, feed=efeed, return_numpy=False)
+    (tgot,), counts = counted(lambda: exe.run(trt_pred, feed=efeed,
+                                              return_numpy=False))
+    want_only(counts, {"flash_attention_fwd": L}, "(e) bf16 predictor run")
+    trel = _leaf_rel([tgot._data], [ref])
+    check(trel <= DEPLOY_BF16_TOL, f"static (e): bf16 weights rel {trel}")
+    res["e"] = {"seconds": time.perf_counter() - t_phase, "cinn_rel": crel, "convert_s": convert_s,
+                "float_bytes": [f32_bytes, bf16_bytes], "bf16_rel": trel}
+    print(f"static (e): cinn.compile rel {crel:.1e}; tensorrt.convert BF16 "
+          f"{convert_s:.2f} s, floating bytes {f32_bytes} -> {bf16_bytes}, "
+          f"served rel {trel:.2e} (tol {DEPLOY_BF16_TOL})", flush=True)
+    del pred, trt_pred, tgot, ref, compiled
+    _free(card)
+
+    # (f) two checkpoint steps of (a)'s model and optimizer, inspected
+    model.train()
+    ck = str(root / "ckpt")
+    mgr = CheckpointManager(ck)
+    t0 = time.perf_counter()
+    mgr.save_training_state(1, model, sopt)
+    mgr.wait()
+    save1_s = time.perf_counter() - t0
+    counted(lambda: exe.run(main, feed=feed, fetch_list=[sloss]))
+    mgr.save_training_state(2, model, sopt)
+    mgr.wait()
+
+    def inspect(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ckpt.main([ck, *argv, "--json"])
+        return rc, json.loads(buf.getvalue()), time.perf_counter() - t0
+
+    rc, rep, validate_s = inspect()
+    check(rc == 0 and [r["step"] for r in rep] == [1, 2]
+          and not any(r["problems"] for r in rep),
+          f"static (f): inspector exit {rc}, {rep}")
+    rc, rep, diff_s = inspect("--diff", "1", "2")
+    keys = set(mgr.saved_keys(2))
+    check(rc == 0 and not rep["identical"] and not rep["added"]
+          and not rep["removed"]
+          and {c.split(":")[0] for c in rep["changed"]} == keys,
+          f"static (f): the diff left {rep['identical']} identical")
+    payload = Path(mgr.step_dir(2)) / "0_0.distcp"
+    with open(payload, "r+b") as fh:
+        fh.seek(payload.stat().st_size // 2)
+        byte = fh.read(1)
+        fh.seek(-1, 1)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+    rc_bad, rep_bad, _ = inspect("--step", "2")
+    check(rc_bad == 1 and rep_bad[0]["problems"],
+          f"static (f): a flipped byte gave exit {rc_bad}, {rep_bad}")
+    res["f"] = {"seconds": time.perf_counter() - t_phase, "save_s": save1_s, "validate_s": validate_s,
+                "diff_s": diff_s, "keys": len(keys),
+                "step_bytes": sum(p.stat().st_size for p in
+                                  Path(mgr.step_dir(1)).iterdir()),
+                "flipped": rep_bad[0]["problems"]}
+    print(f"static (f): {len(keys)} keys a step "
+          f"({res['f']['step_bytes']} B), save {save1_s:.2f} s, validate "
+          f"{validate_s:.2f} s (exit 0), diff {diff_s:.2f} s (every key "
+          f"changed), a flipped byte: exit 1 ({rep_bad[0]['problems']})",
+          flush=True)
+    mgr.close()
+    del main, evalp, model, sopt, mgr
+    shutil.rmtree(root, ignore_errors=True)
+    _free(card)
+    res["launches"] = launches
+    return res
+
+
 def _free(card):
     gc.collect()
     if card:
@@ -8250,6 +8642,8 @@ def main():
         report["deploy"] = run("deploy", phase_deploy,
                                report["device"]["smi"])
         report["tools"] = run("tools", phase_tools, report["device"]["smi"])
+        report["static"] = run("static", phase_static,
+                               report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -8313,7 +8707,7 @@ def main():
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
                                 "paddle_surface", "vision", "amp",
-                                "deploy", "tools")}
+                                "deploy", "tools", "static")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -16,7 +16,9 @@ with worker processes), ``metric``, ``Model`` with ``callbacks``,
 ``save``/``load`` and ``vision``, and, as in the reference, ``incubate``
 (the fused ops and ``Fused*`` layers), ``distributed`` and ``inference``
 (the ``Predictor`` over ``jit.save`` artifacts), ``jit.to_static``,
-``static.InputSpec``, ``utils`` (``flags``, ``unique_name``), ``version``,
+``static`` (``Program``, ``Executor``, ``static.nn``, the inference
+model), ``ir`` (FX graph rewrites), ``cost_model``, ``cinn``,
+``tensorrt``, ``api_tracer``, ``utils`` (``flags``, ``unique_name``), ``version``,
 ``sysconfig``, ``get_flags``/``set_flags`` and ``flops``. A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
 making it raises. Imports run one way: the surface imports the torch-level
@@ -69,6 +71,11 @@ from . import incubate  # noqa: F401,E402
 from . import distributed  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
 from . import static  # noqa: F401,E402
+from . import ir  # noqa: F401,E402
+from . import cost_model  # noqa: F401,E402
+from . import cinn  # noqa: F401,E402
+from . import tensorrt  # noqa: F401,E402
+from . import api_tracer  # noqa: F401,E402
 from . import profiler  # noqa: F401,E402
 from . import utils  # noqa: F401,E402
 from . import version  # noqa: F401,E402
@@ -171,6 +178,21 @@ def batch(reader, batch_size, drop_last=False):
             yield buf
 
     return batched
+
+
+def disable_static(place=None):
+    """Dynamic mode is the port's only mode: nothing to switch."""
+    return None
+
+
+def enable_static():
+    """The reference's refusal: programs are recorded under
+    ``static.program_guard`` (and ``jit.to_static`` compiles), there is no
+    global static mode."""
+    raise NotImplementedError(
+        "paddle_tpu_torch is dynamic-first; record a program under "
+        "paddle.static.program_guard, or use paddle.jit.to_static for "
+        "compiled execution.")
 
 
 def is_grad_enabled_():

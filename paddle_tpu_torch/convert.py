@@ -200,3 +200,31 @@ def layer_state_from_numpy(state: dict, layer) -> None:
                        f"unexpected {unexpected}")
     for name, t in own.items():
         t.set_value(_to_torch(np.asarray(state[name])))
+
+
+def program_params_from_numpy(params, program) -> None:
+    """Set a port ``static.Program``'s trainable parameters from the JAX
+    ``Program``'s, given as numpy arrays: a list in ``trainable_params()``
+    order, or a dict by parameter name. In place (each ``Parameter``'s
+    ``torch.nn.Parameter``); shapes must match."""
+    own = program.trainable_params()
+    if isinstance(params, dict):
+        by_name = {p.name: p for p in own}
+        missing = sorted(set(by_name) - set(params))
+        unexpected = sorted(set(params) - set(by_name))
+        if missing or unexpected:
+            raise KeyError(f"parameter names differ: missing {missing}, "
+                           f"unexpected {unexpected}")
+        pairs = [(by_name[n], params[n]) for n in by_name]
+    else:
+        params = list(params)
+        if len(params) != len(own):
+            raise ValueError(f"{len(params)} arrays for the program's "
+                             f"{len(own)} trainable parameters")
+        pairs = list(zip(own, params))
+    for p, a in pairs:
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{p.name}: {a.shape} against the program's "
+                             f"{tuple(p.shape)}")
+        p.set_value(_to_torch(a))

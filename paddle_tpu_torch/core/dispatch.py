@@ -20,8 +20,13 @@ carries each gradient back to its input's own type through the cast.
 Under ``FLAGS_check_nan_inf`` every floating output is checked after the
 op runs (``_check_nan_inf``, the reference's ``:145-161``): a NaN or Inf
 raises ``FloatingPointError`` naming the op. Off, the flag's read is the
-only cost. Not ported: static-program recording (``_record_static``,
-A.13 (e)).
+only cost.
+
+Inside ``static.program_guard`` every op is also recorded into the active
+``static.Program`` (the reference's ``_record_static``, ``:119-150``): the
+op's function, its arguments as given (Tensors by identity, the rest as
+they are) and its output Tensors. Outside a program the hook is one
+attribute check (``RECORDER.program``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch
 from .. import amp as _amp
 from .. import telemetry as _telemetry
 from ..utils.flags import CHECK_NAN_INF as _CHECK_NAN_INF
-from .tensor import Parameter, Tensor
+from .tensor import RECORDER, Parameter, Tensor
 
 # module-level handles: the disabled path costs one attribute check
 _TELEMETRY_REG = _telemetry.get_registry()
@@ -90,14 +95,16 @@ def apply_op(fn, *args, _op_name=None, **kwargs):
     """``fn(*args, **kwargs)`` on the torch payloads; outputs as Tensors."""
     if _TELEMETRY_REG.enabled:
         _OP_DISPATCH.inc(labels=(_op_name or getattr(fn, "__name__", "op"),))
-    args = [unwrap(a) for a in args]
-    if kwargs:
-        kwargs = {k: unwrap(v) for k, v in kwargs.items()}
+    targs = [unwrap(a) for a in args]
+    tkwargs = {k: unwrap(v) for k, v in kwargs.items()} if kwargs else kwargs
     if _AMP_STATE.enabled:
         name = _op_name or getattr(fn, "__name__", "op")
-        args = _amp.autocast(name, args)
-        kwargs = _amp.autocast(name, kwargs)
-    out = fn(*args, **kwargs)
+        targs = _amp.autocast(name, targs)
+        tkwargs = _amp.autocast(name, tkwargs)
+    out = fn(*targs, **tkwargs)
     if _CHECK_NAN_INF.value:
         _check_nan_inf(_op_name or getattr(fn, "__name__", "op"), out)
-    return wrap(out)
+    out = wrap(out)
+    if RECORDER.program is not None:
+        RECORDER.program._record(fn, args, kwargs, out, _op_name)
+    return out

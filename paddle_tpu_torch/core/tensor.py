@@ -44,6 +44,21 @@ from .. import dtypes as _dtype_mod
 _tensor_counter = itertools.count(1)
 
 
+class _Recorder:
+    """The static program ops record into: ``program`` is set by
+    ``static.program_guard`` (None outside it, and while a program
+    replays)."""
+
+    __slots__ = ("program",)
+
+    def __init__(self):
+        self.program = None
+
+
+#: read by ``apply_op`` once an op, and by the in-place rebind
+RECORDER = _Recorder()
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host copy as numpy. bfloat16 and the float8s, which numpy lacks,
     come back as an exact float32 upcast."""
@@ -249,8 +264,12 @@ class Tensor:
 
     # -- in-place rebind machinery -----------------------------------------
     def _assign_result_(self, result: "Tensor"):
-        """Re-point this handle at ``result`` (functional in-place)."""
+        """Re-point this handle at ``result`` (functional in-place). In a
+        static program the rebind is recorded too, so a replay reads this
+        handle as ``result``."""
         self._data = result._data
+        if RECORDER.program is not None:
+            RECORDER.program._alias(self, result)
         return self
 
     def set_value(self, value):

@@ -26,7 +26,8 @@ commit protocol, retention and resume on top.
   :class:`MissingKeysError` for keys the checkpoint lacks.
 - ``training_state_dict(model, optimizer)`` is the model's state dict
   plus ``opt.<name>.<slot>`` for every optimizer slot, by the model's own
-  parameter names.
+  parameter names; the model is a ``torch.nn.Module`` or a Paddle
+  ``Layer`` of the surface.
 - **The JAX package's directories.** ``read_state_dict``,
   ``load_state_dict`` and ``load_checkpoint`` also read a directory the
   JAX package's ``save_state_dict`` wrote: its payload file is one pickle
@@ -423,6 +424,19 @@ def _read_payload(fp):
     return out
 
 
+def _payload_keys(fp):
+    """The ``"<key>|<offsets>"`` entries of one payload file: the port's
+    from its index alone, the JAX package's from its pickle."""
+    size = os.path.getsize(fp)
+    with open(fp, "rb") as f:
+        head = f.read(9)
+        if not _port_payload(head, size):
+            return set(_read_payload(fp))
+        (n,) = struct.unpack_from("<Q", head, 0)
+        f.seek(8)
+        return set(pickle.loads(f.read(n)))
+
+
 def _saved_tensors(path, keys=None):
     """``{key: CPU tensor}`` of the tensors saved under ``path`` (those
     in ``keys``, where given), each assembled from its boxes by offset; a
@@ -501,6 +515,14 @@ def read_state_dict(path):
 # ---------------------------------------------------------------------------
 # model + optimizer training state, by the model's parameter names
 # ---------------------------------------------------------------------------
+def _live_state(model):
+    """``{name: live torch tensor}`` of a ``torch.nn.Module``'s or a Paddle
+    ``Layer``'s state dict (a Layer's Tensors by their torch tensors)."""
+    if isinstance(model, torch.nn.Module):
+        return model.state_dict(keep_vars=True)
+    return {n: t._data for n, t in model.state_dict().items()}
+
+
 def _opt_params(optimizer):
     return {id(p) for group in optimizer.param_groups
             for p in group["params"]}
@@ -510,7 +532,7 @@ def optimizer_state_dict(model, optimizer):
     """``{"opt.<param_name>.<slot>": live slot tensor}`` for every
     parameter of ``model`` that has optimizer state."""
     out = {}
-    for n, p in model.state_dict(keep_vars=True).items():
+    for n, p in _live_state(model).items():
         for k, v in optimizer.state.get(p, {}).items():
             out[f"opt.{n}.{k}"] = v
     return out
@@ -520,7 +542,7 @@ def training_state_dict(model, optimizer=None):
     """The model's state dict plus :func:`optimizer_state_dict`: the unit
     ``CheckpointManager`` saves a step (live tensors; a save snapshots
     them)."""
-    state = dict(model.state_dict(keep_vars=True))
+    state = dict(_live_state(model))
     if optimizer is not None:
         state.update(optimizer_state_dict(model, optimizer))
     return state
@@ -529,7 +551,7 @@ def training_state_dict(model, optimizer=None):
 def training_state_target(model, optimizer=None):
     """The live tensors a restore of model and optimizer writes into;
     slots the optimizer has not made yet are made first."""
-    target = dict(model.state_dict(keep_vars=True))
+    target = dict(_live_state(model))
     if optimizer is not None:
         ours = _opt_params(optimizer)
         for n, p in list(target.items()):

@@ -187,16 +187,19 @@ class _Program(torch.nn.Module):
         return tuple(_flat_leaves(out))
 
 
-def export_program(module, weights, specs, device):
+def export_program(module, weights, specs, device, shared_dims=False):
     """``torch.export`` (non-strict) of ``module(weights, inputs)`` with a
-    ``torch.export.Dim`` for each dynamic dim of ``specs``; returns the
-    program without its example inputs."""
+    ``torch.export.Dim`` for each dynamic dim of ``specs`` (with
+    ``shared_dims``, one ``Dim`` per axis index shared by every input, as
+    ``static.save_inference_model``'s feeds share their batch); returns
+    the program without its example inputs."""
     examples, dims = [], []
     for shape, dtype, _ in specs:
         examples.append(torch.zeros([_DYN_EXAMPLE if d is None else d
                                      for d in shape], dtype=dtype,
                                     device=device))
-        dyn = {ax: torch.export.Dim.DYNAMIC
+        dyn = {ax: (torch.export.Dim(f"_dyn{ax}") if shared_dims
+                    else torch.export.Dim.DYNAMIC)
                for ax, d in enumerate(shape) if d is None}
         dims.append(dyn or None)
     with torch.no_grad():

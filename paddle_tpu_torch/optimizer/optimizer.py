@@ -55,7 +55,9 @@ the reference's (``parameters=``, ``learning_rate=``,
 the surface's ``nn.Layer``) are accepted anywhere parameters are: each
 travels as its ``torch.nn.Parameter`` under its Paddle name, which
 ``apply_decay_param_fun`` then sees. ``clear_grad(set_to_zero=False)`` and
-``minimize(loss)`` are the reference's (:133, :147).
+``minimize(loss)`` are the reference's (:133, :147); under a static
+``program_guard``, ``minimize`` registers the loss on the program
+(:133-140), and ``static.Executor.run`` trains it through ``step()``.
 
 A Paddle ``Parameter``'s ``ParamAttr`` counts in every update, as in the
 reference's eager step (:119-131): its lr is the group's times
@@ -161,7 +163,15 @@ class Optimizer(torch.optim.Optimizer):
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """``loss.backward()``, ``step()``, ``clear_grad()``."""
+        """``loss.backward()``, ``step()``, ``clear_grad()``; under
+        ``static.program_guard``, registers ``(self, loss)`` on the
+        program instead, whose ``Executor.run`` then trains."""
+        from ..static import _active_program
+
+        prog = _active_program()
+        if prog is not None:
+            prog._minimize = (self, loss)
+            return None, None
         loss.backward()
         self.step()
         self.clear_grad()

@@ -2465,3 +2465,95 @@ def test_predictor_graphed_run_equals_its_eager_run(cuda_device, tmp_path):
     with torch.no_grad():
         want = model.to(cuda_device)(ids.to(cuda_device))
     assert torch.equal(first[0], want)
+
+
+# -- the static graph (paddle.static) --------------------------------------
+def _static_bert(paddle, static, num_layers=2):
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    cfg = BertConfig(vocab_size=1024, hidden_size=256, num_layers=num_layers,
+                     num_heads=4, intermediate_size=512, max_seq_len=128,
+                     dropout=0.0)
+    paddle.seed(0)
+    return cfg, BertForPretraining(cfg)
+
+
+def test_static_executor_trains_on_the_card_like_eager(surface):
+    """``program_guard`` -> ``AdamW.minimize`` -> ``Executor()`` (the card
+    by default): flash forward L and fused backward L launches a run and
+    nothing else, the first loss bit for bit the eager step's from the
+    same weights, the next within 1e-4."""
+    paddle = surface
+    from paddle_tpu_torch import static
+
+    cfg, model = _static_bert(paddle, static)
+    rng = np.random.RandomState(3)
+    feed = {"ids": rng.randint(0, 1024, (4, 128)),
+            "labels": rng.randint(0, 1024, (4, 128)),
+            "nsp": rng.randint(0, 2, (4,))}
+    init = {k: v._data.detach().clone() for k, v in
+            model.state_dict().items()}
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+    eager = []
+    for _ in range(2):
+        loss = model.loss(*(paddle.to_tensor(feed[k])
+                            for k in ("ids", "labels", "nsp")))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager.append(float(loss))
+    model.set_state_dict(init)
+    main = static.Program()
+    with static.program_guard(main):
+        vs = {k: static.data(k, list(a.shape), "int64")
+              for k, a in feed.items()}
+        sloss = model.loss(vs["ids"], vs["labels"], vs["nsp"])
+        paddle.optimizer.AdamW(learning_rate=1e-3,
+                               parameters=model.parameters()).minimize(sloss)
+    exe = static.Executor()
+    got = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        got.append(float(exe.run(main, feed=feed, fetch_list=[sloss])[0]))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(flash_attention_fwd=2, flash_attention_bwd=2)
+        assert counts == want
+    assert np.float32(got[0]).tobytes() == np.float32(eager[0]).tobytes()
+    assert abs(got[1] - eager[1]) <= 1e-4 * abs(eager[1])
+
+
+def test_static_inference_model_on_the_card(surface, tmp_path):
+    """An eval program's inference model, loaded on the card and run by
+    ``Executor.run``: flash forward L a run, the logits within 1e-4 of
+    the program's own fetch; its IR holds the flash op L times and runs
+    to the same values."""
+    paddle = surface
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ir import graph_targets
+
+    cfg, model = _static_bert(paddle, static)
+    model.eval()
+    prog = static.Program()
+    with paddle.no_grad(), static.program_guard(prog):
+        ids = static.data("ids", [4, 128], "int64")
+        logits, _ = model(ids)
+    feed = {"ids": np.random.RandomState(4).randint(0, 1024, (4, 128))}
+    exe = static.Executor()
+    (want,) = exe.run(prog, feed=feed, fetch_list=[logits])
+    prefix = str(tmp_path / "bert")
+    static.save_inference_model(prefix, [ids], [logits], program=prog)
+    pred, feeds, fetches = static.load_inference_model(prefix, exe)
+    exe.run(pred, feed=feed, fetch_list=fetches)
+    kernels.reset_launch_counts()
+    (got,) = exe.run(pred, feed=feed, fetch_list=fetches)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_fwd"] == 2
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-4 * scale
+    ir = prog.ir_module([logits])
+    assert graph_targets(ir.graph(feed)).count("flash_fwd") == 2
+    np.testing.assert_allclose(ir.run(feed)[0], want, rtol=0,
+                               atol=1e-4 * scale)

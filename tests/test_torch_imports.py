@@ -7,8 +7,9 @@ card's machine has neither; the port reads bf16 blocks through their
 bytes and computes CRC32C natively) or ``paddle_tpu`` (other than
 ``paddle_tpu_torch``) fails. And ``import paddle_tpu_torch`` in a fresh
 interpreter, whose top level imports ``incubate``, ``distributed``,
-``inference`` and ``profiler`` as the reference's does, loads none of
-them.
+``inference``, ``profiler``, ``static``, ``ir``, ``cost_model``,
+``cinn``, ``tensorrt`` and ``api_tracer`` as the reference's does, loads
+none of them.
 """
 import ast
 import subprocess
@@ -74,6 +75,11 @@ def test_scan_covers_the_package():
     assert {f"paddle_tpu_torch/inference/fleet/{m}.py" for m in (
         "__init__", "overload", "router", "soak", "wire", "transport",
         "worker", "cluster", "hosts", "disagg", "spec_decode")} <= rel
+    assert {f"paddle_tpu_torch/{m}.py" for m in (
+        "static/__init__", "static/nn", "ir/__init__", "cost_model/__init__",
+        "cinn/__init__", "cinn/compiler/__init__", "cinn/runtime/__init__",
+        "cinn/auto_schedule/cost_model/__init__", "tensorrt/__init__",
+        "api_tracer/__init__", "distributed/checkpoint/inspect")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
@@ -95,7 +101,9 @@ def test_top_level_import_loads_no_jax():
     code = ("import sys, paddle_tpu_torch as p; print(sorted({m.split('.')[0]"
             " for m in sys.modules} & set(%r))); "
             "print(all(hasattr(p, n) for n in ('incubate', 'distributed', "
-            "'inference', 'bool', 'profiler', 'CUDAGraph')))" % (FORBIDDEN,))
+            "'inference', 'bool', 'profiler', 'CUDAGraph', 'static', 'ir', "
+            "'cost_model', 'cinn', 'tensorrt', 'api_tracer', "
+            "'enable_static')))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=300).stdout
     assert out.split() == ["[]", "True"], out

@@ -44,13 +44,10 @@ NOT_ON_THE_PORT = {
     "inner_alias": "helper", "linalg_ns": "module alias of linalg",
     # queued in ROADMAP §A
     "DataParallel": "A.10",
-    "disable_static": "A.13 (e)", "enable_static": "A.13 (e)",
     "sparse": "A.13 (e)", "distribution": "A.13 (e)", "fft": "A.13 (e)",
     "signal": "A.13 (e)", "matrix_transpose": "A.13 (e)",
     "geometric": "A.13 (e)", "strings": "A.13 (e)", "text": "A.13 (e)",
-    "audio": "A.13 (e)", "quantization": "A.13 (e)", "ir": "A.13 (e)",
-    "cost_model": "A.13 (e)", "api_tracer": "A.13 (e)",
-    "tensorrt": "A.13 (e)", "cinn": "A.13 (e)",
+    "audio": "A.13 (e)", "quantization": "A.13 (e)",
     # left out on purpose (no network; no ONNX export)
     "hub": "download", "onnx": "needs paddle2onnx",
 }
