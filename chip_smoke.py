@@ -188,7 +188,7 @@ Phases, each of which fails the run on error:
 7. training consistency - f32, full width, depth 2: three TrainSteps on
              the card equal the same three on the CPU (plain versions),
              the CE head pinned to f32 logits on both.
-   resilience - config 4 in bf16 at full width (12 of its 24 layers in
+   resilience - config 4 in bf16 at full width (6 of its 24 layers in
              the whole script, RESILIENCE_CONFIG4), batch 3 x seq
              2048, with LinearWarmup(CosineAnnealingDecay), a global-norm
              clip and AdamW(factored) leaving the norms undecayed: four
@@ -255,11 +255,12 @@ Phases, each of which fails the run on error:
              GPTForCausalLMMoE at config 4's width and depth, 8 experts
              of FFN width 5504, top 2, gshard, capacity factor 2: losses,
              aux loss, dropped (token, choice) pairs per layer, peak
-             memory; (f) f32 depth 2, card against CPU for (b)'s variant
-             and (d)'s MoE, phase 7's bounds. One more step of (a), (b)
-             and (d) runs under the profiler (busy, host share, groups).
-             The script runs (b)-(e) at 12 of config 4's 24 layers
-             (MODEL_REST_CONFIG4), at its width.
+             memory; (f) f32 depth 2, 1 x 128 (REST_CPU_SEQ), card
+             against CPU for (b)'s variant and (d)'s MoE, phase 7's
+             bounds. One more step of (a), (b) and (d) runs under the
+             profiler (busy, host share, groups). The script runs (b)-(e)
+             at 6 of config 4's 24 layers (MODEL_REST_CONFIG4), at its
+             width.
 11. shared_block - config 4's widths and depth as a per-layer
              GPTForCausalLM whose layers run through the shared block, bf16,
              a warm-up and 3 timed AdamW(factored) steps of batch 3 x seq
@@ -390,6 +391,35 @@ Phases, each of which fails the run on error:
              model and AdamW and the inspector: exit 0, every key
              changed, exit 1 on a flipped payload byte.
 
+   domains - the domain libraries, f32, each part against the CPU run of
+             the same code (or float64, or dense attention): (a)
+             SECOND's VoxelBackBone8x (12 sparse convs, BatchNorm, ReLU)
+             at KITTI's grid [41, 1600, 1408], 2 x 16,000 seeded voxels
+             (a ground plane and 40 box surfaces), forward, a sum loss
+             and backward: at least 4 active sites a 3^3 window, each
+             SubmConv3D keeps its sites, output and weight gradients
+             within 1e-4 of the CPU run, peak under 1 GiB; (b) BigBird's
+             pattern (12 heads, d 64, blocks of 64: 3 sliding, 2 global,
+             3 random) at 4096 through sparse.nn.functional.attention
+             against dense masked attention (output 1e-4, q/k/v
+             gradients 1e-3), no S x S op output; (c) a GCN at
+             ogbn-arxiv's size (169,343 nodes, 2.5 M messages, 128 ->
+             256 -> 256 -> 40: send_ue_recv, send_u_recv mean, max), 3
+             Adam steps: the first loss and gradients within 1e-4 of the
+             float64 step, every loss moves, an isolated node reads 0
+             under max; (d) Whisper's front end on 32 x 30 s clips:
+             LogMelSpectrogram [32, 80, 3001] and a 40-coefficient MFCC
+             within 1e-4 of the CPU run, stft -> istft within 1e-5 of
+             the peak, istft under 50 ops a call (each op a kernel or
+             two; the profiler's count a reading); (e) Categorical over
+             [4096, 32000] sampled from a CUDA generator, Normal and
+             MultivariateNormal (d 64) rsample gradients, Dirichlet and
+             Gamma samples within 5 standard errors, every KL pair and
+             closed form within 1e-5 of the CPU run, Viterbi over
+             [64, 512, 9] with mixed lengths equal to the CPU run's,
+             svd_lowrank and pca_lowrank of [4096, 1024] within the CPU
+             run's error plus 1e-4. It launches none of the ten kernels.
+
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, float16, training, quant_train (run b),
@@ -417,6 +447,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 DEVICE = "cuda"
@@ -4661,15 +4692,20 @@ GPT3_ARCH = dict(norm_type="layernorm", act="gelu", rope=False)
 #: the MoE decoder of (d): 8 experts of config 4's FFN width, top 2
 MOE_KW = dict(num_experts=8, top_k=2, gate="gshard", capacity_factor=2.0)
 REST_STEPS = 3
-#: model_rest's config-4 parts (b)-(e) at 12 of config 4's 24 layers in
+#: model_rest's config-4 parts (b)-(e) at 6 of config 4's 24 layers in
 #: the whole script (the width is config 4's): at 24, (b)-(e) took 96.2
 #: of the phase's 152.2 s ((e)'s two 5 GB saves and restores 61.2 s), and
-#: phase deploy's 60 s had to fit under the script's 1000
-MODEL_REST_CONFIG4 = dict(CONFIG4, num_layers=12)
+#: phase deploy's 60 s had to fit under the script's 1000; at 12 they took
+#: 49.7 of 108.4 s, and phase domains had to fit too
+MODEL_REST_CONFIG4 = dict(CONFIG4, num_layers=6)
 #: phase resilience's depth in the whole script, for the same reason (at
 #: 24 layers its two saves and restores of 5.12 GB took about 36 of its
-#: 62-64 s): config 4's width and training setup at 12 of its 24 layers
-RESILIENCE_CONFIG4 = dict(CONFIG4, num_layers=12)
+#: 62-64 s, at 12 the phase 32.9 s): config 4's width and training setup
+#: at 6 of its 24 layers
+RESILIENCE_CONFIG4 = dict(CONFIG4, num_layers=6)
+#: the sequence of the f32 depth-2 card-against-CPU steps of model_rest
+#: (f) and shared_block: at 256 the CPU runs took most of (f)'s 54.7 s
+REST_CPU_SEQ = 128
 #: (c): a seam's losses against the unfused run's, the reference's bound
 #: for int8 saves (tests/test_memory.py:113-122)
 REST_SEAM_RTOL = 0.02
@@ -4842,7 +4878,8 @@ def _rest_layouts(pipe, popt, cfg, batch, root, device):
     return out
 
 
-def _rest_card_vs_cpu(tag, build, loss_fn, vocab, device, seq=256):
+def _rest_card_vs_cpu(tag, build, loss_fn, vocab, device,
+                      seq=REST_CPU_SEQ):
     """(f): f32, three AdamW(factored) TrainSteps of one model on the card
     and on the CPU from the same weights, as phase 7: losses within
     TRAIN_LOSS_RTOL, step-1 gradients within TRAIN_GRAD_RTOL of each
@@ -5061,11 +5098,11 @@ def phase_model_rest(smi="", cfg5=None, cfg4=None, batch=3, seq=2048,
         return {"variant": _rest_card_vs_cpu(
                     "GPT-3 architecture", build(GPTForCausalLM, variant),
                     lambda m: functools.partial(m.loss, int8=False),
-                    variant.vocab_size, device, min(seq, 256)),
+                    variant.vocab_size, device, min(seq, REST_CPU_SEQ)),
                 "moe": _rest_card_vs_cpu(
                     "MoE", build(GPTForCausalLMMoE, moe_cfg, **MOE_KW),
                     lambda m: m.loss, moe_cfg.vocab_size, device,
-                    min(seq, 256))}
+                    min(seq, REST_CPU_SEQ))}
 
     out["a"] = timed("a", part_a)
     out["b"] = timed("b", part_b)
@@ -5896,8 +5933,9 @@ def phase_shared_block(smi="", cfg4=None, batch=3, seq=2048, device=DEVICE,
     median, tokens/s and host share beside ``pipe_step`` (phase 6's
     results); the per-step copy of every down projection into the
     contiguous [M, H] swiglu_down takes (2L a step), timed. Then f32,
-    depth 2, 1 x 256: the per-layer model against the Pipe on the same
-    weights, and the card against the CPU, within phase 7's bounds."""
+    depth 2: the per-layer model against the Pipe on the same weights at
+    1 x 256, and the card against the CPU at 1 x 128 (REST_CPU_SEQ),
+    within phase 7's bounds."""
     import functools
 
     from paddle_tpu_torch.jit import TrainStep
@@ -6014,7 +6052,7 @@ def phase_shared_block(smi="", cfg4=None, batch=3, seq=2048, device=DEVICE,
     out["card_vs_cpu"] = _rest_card_vs_cpu(
         "shared block", build, lambda m: functools.partial(m.loss,
                                                            int8=False),
-        small.vocab_size, device, min(seq, 256))
+        small.vocab_size, device, min(seq, REST_CPU_SEQ))
     per_layer = build("cpu").to(device)
     pipe = GPTForCausalLMPipe(small, device=device)
     pipe.load_state_dict(convert_decoder_state_dict(per_layer.state_dict(),
@@ -8538,6 +8576,765 @@ def phase_static(smi="", cfg_kw=None, batch=BERT_BATCH, seq=BERT_SEQ):
     return res
 
 
+# ------------------------------------------------------------ phase domains
+#: SECOND's VoxelBackBone8x (OpenPCDet pcdet/models/backbones_3d/
+#: spconv_backbone.py) at KITTI's voxel grid (z, y, x) and its
+#: MAX_NUMBER_OF_VOXELS for train (tools/cfgs/dataset_configs/
+#: kitti_dataset.yaml): (in, out, kernel, stride, padding, subm) per conv
+SECOND_GRID = (41, 1600, 1408)
+SECOND_VOXELS = 16000
+SECOND_BATCH = 2
+SECOND_BOXES = 40
+SECOND_CONVS = (
+    (4, 16, 3, 1, 1, True), (16, 16, 3, 1, 1, True),
+    (16, 32, 3, 2, 1, False), (32, 32, 3, 1, 1, True),
+    (32, 32, 3, 1, 1, True),
+    (32, 64, 3, 2, 1, False), (64, 64, 3, 1, 1, True),
+    (64, 64, 3, 1, 1, True),
+    (64, 64, 3, 2, (0, 1, 1), False), (64, 64, 3, 1, 1, True),
+    (64, 64, 3, 1, 1, True),
+    (64, 128, (3, 1, 1), (2, 1, 1), 0, False))
+#: google/bigbird-roberta-base's block-sparse pattern
+BIGBIRD = dict(heads=12, head_dim=64, block=64, window=3, globals=2,
+               randoms=3, seq=4096)
+#: ogbn-arxiv's size and OGB's arxiv GCN widths
+ARXIV = dict(nodes=169343, edges=1166243, features=128, hidden=256,
+             classes=40, steps=3)
+#: openai/whisper audio.py: 16 kHz, N_FFT 400, HOP_LENGTH 160, 80 mels,
+#: 30 s chunks
+WHISPER = dict(clips=32, samples=480000, sr=16000, n_fft=400, hop=160,
+               n_mels=80, n_mfcc=40)
+#: the distributions, Viterbi and low-rank tail: LLaMA's vocabulary,
+#: CoNLL-2003's 9 BIO tags
+DOMAINS_TAIL = dict(cat_rows=4096, vocab=32000, cat_draws=16, mvn_dim=64,
+                    viterbi=(64, 512, 9), lowrank=(4096, 1024), rank=16)
+DOMAINS_REL_TOL = 1e-4            # card against the CPU run / float64
+DOMAINS_GRAD_TOL = 1e-3           # BigBird's gradients against dense
+DOMAINS_CLOSED_TOL = 1e-5         # closed forms card against CPU
+#: the f32 GCN step's gradients against float64, of each leaf's norm: the
+#: first layers' gradients sum thousands of messages of both signs into
+#: each hub node, and f32 keeps about 4e-4 of the leaf's norm there (the
+#: CPU at 40,000 nodes the same), so 1e-4 is out of f32's reach
+GCN_GRAD_TOL = 1e-3
+ROUND_TRIP_TOL = 1e-5             # istft(stft(x)) of the clips' peak
+ISTFT_MAX_LAUNCHES = 50           # ops a call (the reference: 2 a frame)
+
+
+def _rel(got, want):
+    """max |got - want| over max |want| (float64, on the host)."""
+    g = got.detach().double().cpu()
+    w = want.detach().double().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def _kitti_voxels(grid, n, batch, boxes, seed):
+    """``batch`` point-cloud-like voxel sets of ``n`` distinct sites each:
+    a ground patch with height noise and ``boxes`` box surfaces (top and
+    four sides) standing on it, subsampled to ``n``. Returns indices
+    [4, batch * n] (b, z, y, x) and features [batch * n, 4]."""
+    rng = np.random.default_rng(seed)
+    Z, Y, X = grid
+    out = []
+    for b in range(batch):
+        side = int(math.ceil(math.sqrt(0.8 * n)))
+        y0 = int(rng.integers(0, max(1, Y - side)))
+        x0 = int(rng.integers(0, max(1, X - side)))
+        yy, xx = np.meshgrid(np.arange(y0, y0 + side),
+                             np.arange(x0, x0 + side), indexing="ij")
+        ground = (Z // 4 + np.round(np.sin(yy / 9.0) + np.cos(xx / 13.0)
+                                    + 0.3 * rng.standard_normal(yy.shape)))
+        pts = [np.stack([ground.ravel(), yy.ravel(), xx.ravel()], 1)]
+        for _ in range(boxes):
+            ly, lx, h = (int(rng.integers(4, 9)), int(rng.integers(8, 17)),
+                         int(rng.integers(4, 9)))
+            by = int(rng.integers(y0, y0 + side - ly))
+            bx = int(rng.integers(x0, x0 + side - lx))
+            gz = int(ground[by - y0, bx - x0]) + 1
+            cz, cy, cx = np.meshgrid(np.arange(gz, gz + h),
+                                     np.arange(by, by + ly),
+                                     np.arange(bx, bx + lx), indexing="ij")
+            shell = ((cz == gz + h - 1) | (cy == by) | (cy == by + ly - 1)
+                     | (cx == bx) | (cx == bx + lx - 1))
+            pts.append(np.stack([cz[shell], cy[shell], cx[shell]], 1))
+        p = np.concatenate(pts).astype(np.int64)
+        p[:, 0] = p[:, 0].clip(0, Z - 1)
+        p = np.unique(p, axis=0)
+        check(len(p) >= n, f"domains (a): {len(p)} candidate sites < {n}")
+        p = p[np.sort(rng.choice(len(p), n, replace=False))]
+        out.append(np.concatenate([np.full((n, 1), b), p], 1))
+    idx = np.concatenate(out).T
+    return idx, rng.standard_normal((idx.shape[1], 4)).astype(np.float32)
+
+
+def _second_net(paddle, sp):
+    layers = []
+    for cin, cout, k, s, p, subm in SECOND_CONVS:
+        conv = (sp.nn.SubmConv3D(cin, cout, k, padding=p, bias_attr=False)
+                if subm else sp.nn.Conv3D(cin, cout, k, stride=s,
+                                          padding=p, bias_attr=False))
+        layers += [conv, sp.nn.BatchNorm(cout, epsilon=1e-3, momentum=0.99),
+                   sp.nn.ReLU()]
+    return paddle.nn.Sequential(*layers)
+
+
+def _second_forward(net, x, sp, checks):
+    """The backbone, layer by layer; each SubmConv3D's output sites are
+    its input's (when ``checks``)."""
+    for layer in net:
+        y = layer(x)
+        if checks and isinstance(layer, sp.nn.SubmConv3D):
+            check(torch.equal(y.indices()._data, x.indices()._data),
+                  "domains (a): a SubmConv3D moved its sites")
+        x = y
+    return x
+
+
+def _domains_second(paddle, card, grid, n, batch, boxes):
+    import paddle_tpu_torch.sparse as sp
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.convert import layer_state_from_numpy
+    from paddle_tpu_torch.sparse.nn import functional as SF
+
+    dev = torch.device(DEVICE)
+    idx, feats = _kitti_voxels(grid, n, batch, boxes, seed=0)
+    shape = (batch,) + tuple(grid) + (4,)
+    cpu = torch.device("cpu")
+    with tdevice._place_scope(cpu):
+        paddle.seed(0)
+        net_cpu = _second_net(paddle, sp)
+    net = _second_net(paddle, sp)
+    layer_state_from_numpy({k: v.numpy() for k, v in
+                            net_cpu.state_dict().items()}, net)
+
+    # the first SubmConv3D's rulebook: active sites in each 3^3 window;
+    # each build's wall (host reads included), the median of 3 warm ones
+    ind = torch.as_tensor(idx, device=dev)
+
+    def build(subm, reps=3):
+        walls, rb = [], None
+        for _ in range(reps + 1):
+            _sync(DEVICE)
+            t = time.perf_counter()
+            _, rb, _ = SF._build_rulebook(
+                ind, list(grid), [3, 3, 3], [1, 1, 1] if subm else
+                [2, 2, 2], [1, 1, 1], [1, 1, 1], subm, batch)
+            _sync(DEVICE)
+            walls.append((time.perf_counter() - t) * 1e3)
+        return rb, statistics.median(walls[1:])
+
+    rb, subm_rb_ms = build(True)
+    _, strided_rb_ms = build(False)
+    neighbours = sum(int(p[0].numel()) for p in rb) / ind.shape[1]
+    check(neighbours >= 4, f"domains (a): {neighbours:.2f} active sites "
+          "per 3^3 window, want >= 4")
+
+    def step(model, place, checks):
+        with tdevice._place_scope(place):
+            vals = paddle.to_tensor(feats)
+            x = sp.sparse_coo_tensor(idx, vals, shape)
+            _sync(place.type)
+            t0 = time.perf_counter()
+            out = _second_forward(model, x, sp, checks)
+            _sync(place.type)
+            t1 = time.perf_counter()
+            out.values().sum().backward()
+            _sync(place.type)
+            t2 = time.perf_counter()
+        grads = [p.grad._data.clone() for p in model.parameters()]
+        model.clear_gradients()
+        return out, grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    # the backbone's own peak, above what earlier phases left allocated
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    out, grads, _, _ = step(net, dev, True)
+    peak = torch.cuda.max_memory_allocated() - base if card else 0
+    want, want_g, _, _ = step(net_cpu, cpu, False)
+    check(torch.equal(out.indices()._data.cpu(), want.indices()._data),
+          "domains (a): output sites differ from the CPU run's")
+    out_rel = _rel(out.values()._data, want.values()._data)
+    grad_rel = max(_rel(g, w) for g, w in zip(grads, want_g))
+    check(out_rel <= DOMAINS_REL_TOL and grad_rel <= DOMAINS_REL_TOL,
+          f"domains (a): card against CPU: output {out_rel:.2e}, weight "
+          f"gradients {grad_rel:.2e} (tol {DOMAINS_REL_TOL})")
+    check(not card or peak < 2 ** 30,
+          f"domains (a): peak {peak / 2 ** 20:.1f} MiB, want < 1 GiB")
+    runs = [step(net, dev, False)[2:] for _ in range(3)]
+    res = dict(grid=list(grid), voxels=[n] * batch, out_shape=out.shape,
+               out_sites=out.nnz(), neighbours=neighbours,
+               rulebook_ms=dict(subm=subm_rb_ms, strided=strided_rb_ms),
+               fwd_ms=statistics.median(r[0] for r in runs),
+               bwd_ms=statistics.median(r[1] for r in runs),
+               peak_mib=peak / 2 ** 20, out_rel=out_rel, grad_rel=grad_rel)
+    print(f"  domains (a) SECOND backbone {list(grid)} x {batch} x {n}: "
+          f"{neighbours:.2f} sites a 3^3 window, out {out.shape} "
+          f"({out.nnz()} sites), rulebook subm {subm_rb_ms:.2f} ms / "
+          f"strided {strided_rb_ms:.2f} ms, fwd {res['fwd_ms']:.2f} ms, "
+          f"bwd {res['bwd_ms']:.2f} ms, peak {res['peak_mib']:.1f} MiB, "
+          f"card vs CPU out {out_rel:.2e} grads {grad_rel:.2e}", flush=True)
+    return res
+
+
+def _bigbird_blocks(cfg, seed):
+    """[heads, nb, nb] block mask: sliding window, global first and last
+    blocks (rows and columns), and ``randoms`` random blocks a row."""
+    rng = np.random.default_rng(seed)
+    nb = cfg["seq"] // cfg["block"]
+    m = np.zeros((cfg["heads"], nb, nb), bool)
+    half = cfg["window"] // 2
+    for i in range(nb):
+        m[:, i, max(0, i - half):i + half + 1] = True
+    g = [0, nb - 1][:cfg["globals"]]
+    m[:, g, :] = True
+    m[:, :, g] = True
+    for h in range(cfg["heads"]):
+        for i in range(1, nb - 1):
+            free = np.flatnonzero(~m[h, i])
+            m[h, i, rng.choice(free, min(cfg["randoms"], len(free)),
+                               replace=False)] = True
+    return m
+
+
+class _OpOutputs(TorchDispatchMode):
+    """Records the shape of every op's output while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for o in (out if isinstance(out, (list, tuple)) else (out,)):
+            if isinstance(o, torch.Tensor):
+                self.shapes.append(tuple(o.shape))
+        return out
+
+
+def _domains_bigbird(paddle, card, cfg):
+    import paddle_tpu_torch.sparse as sp
+    from paddle_tpu_torch.core.dispatch import apply_op
+    from paddle_tpu_torch.sparse.nn import functional as SF
+
+    dev = torch.device(DEVICE)
+    H, D, S, blk = cfg["heads"], cfg["head_dim"], cfg["seq"], cfg["block"]
+    bm = torch.as_tensor(_bigbird_blocks(cfg, seed=1), device=dev)
+    hb = torch.nonzero(bm)                                   # [blocks, 3]
+    d = torch.arange(blk, device=dev)
+    rows = (hb[:, 1, None, None] * blk + d[:, None]).expand(-1, blk, blk)
+    cols = (hb[:, 2, None, None] * blk + d[None, :]).expand(-1, blk, blk)
+    heads = hb[:, 0, None, None].expand(-1, blk, blk)
+    ind = torch.stack([heads.reshape(-1), rows.reshape(-1),
+                       cols.reshape(-1)])
+    nnz = ind.shape[1]
+    del rows, cols, heads
+    mask = sp.sparse_coo_tensor(ind, torch.ones(nnz, device=dev),
+                                (H, S, S))
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (torch.randn(1, H, S, D, generator=g, device=dev)
+                   for _ in range(4))
+    ts = [paddle.to_tensor(a, stop_gradient=False) for a in (q, k, v)]
+
+    def sparse():
+        return SF.attention(*ts, mask)
+
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with _OpOutputs() as rec:
+        out = sparse()
+        out.backward(paddle.to_tensor(do))
+    _sync(DEVICE)
+    peak = torch.cuda.max_memory_allocated() - base if card else 0
+    got = [out._data.detach()] + [t.grad._data.clone() for t in ts]
+    for t in ts:
+        t.clear_grad()
+    biggest = max(math.prod(s) for s in rec.shapes)
+    check(not any(list(s).count(S) >= 2 for s in rec.shapes),
+          "domains (b): the sparse call made an S x S tensor")
+    check(biggest <= nnz * D, f"domains (b): an op output of {biggest} "
+          f"elements, above nnz * D = {nnz * D}")
+    del out
+
+    def timed(fn):
+        _sync(DEVICE)
+        t0 = time.perf_counter()
+        o = fn()
+        _sync(DEVICE)
+        t1 = time.perf_counter()
+        o.backward(paddle.to_tensor(do))
+        _sync(DEVICE)
+        for t in ts:
+            t.clear_grad()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    sparse_ms = [timed(sparse) for _ in range(2)][-1]
+    dense_mask = bm.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+
+    def dense():
+        def _d(q_, k_, v_):
+            s = (q_[0] @ k_[0].transpose(-1, -2)) / math.sqrt(D)
+            s = s.masked_fill(~dense_mask, float("-inf"))
+            return (torch.softmax(s, -1) @ v_[0])[None]
+
+        return apply_op(_d, *ts, _op_name="dense_attention")
+
+    out_d = dense()
+    out_d.backward(paddle.to_tensor(do))
+    want = [out_d._data.detach()] + [t.grad._data.clone() for t in ts]
+    for t in ts:
+        t.clear_grad()
+    del out_d
+    dense_ms = timed(dense)
+    out_rel = _rel(got[0], want[0])
+    grad_rel = max(_rel(a, b) for a, b in zip(got[1:], want[1:]))
+    check(out_rel <= DOMAINS_REL_TOL, f"domains (b): output {out_rel:.2e} "
+          f"from dense masked attention (tol {DOMAINS_REL_TOL})")
+    check(grad_rel <= DOMAINS_GRAD_TOL, f"domains (b): q, k, v gradients "
+          f"{grad_rel:.2e} from dense (tol {DOMAINS_GRAD_TOL})")
+    res = dict(seq=S, heads=H, nnz=nnz, density=nnz / (H * S * S),
+               biggest_output=biggest, peak_gb=peak / 1e9,
+               fwd_ms=sparse_ms[0], bwd_ms=sparse_ms[1],
+               dense_fwd_ms=dense_ms[0], dense_bwd_ms=dense_ms[1],
+               out_rel=out_rel, grad_rel=grad_rel)
+    print(f"  domains (b) BigBird {H} x {S}: nnz {nnz} "
+          f"({res['density']:.4f} of S^2), largest op output {biggest}, "
+          f"sparse fwd {sparse_ms[0]:.2f} ms bwd {sparse_ms[1]:.2f} ms, "
+          f"peak {res['peak_gb']:.2f} GB; dense fwd {dense_ms[0]:.2f} ms "
+          f"bwd {dense_ms[1]:.2f} ms; out {out_rel:.2e}, grads "
+          f"{grad_rel:.2e}", flush=True)
+    del ts, q, k, v, do, dense_mask, mask, ind, got, want
+    _free(card)
+    return res
+
+
+def _arxiv_graph(cfg, seed):
+    """Seeded power-law edges over ``nodes`` (the last node isolated),
+    symmetrised: (src, dst) without and (src, dst, norm) with self
+    loops."""
+    rng = np.random.default_rng(seed)
+    n = cfg["nodes"]
+    w = rng.permutation(n - 1)
+    p = 1.0 / (w + 1.0) ** 0.8
+    p /= p.sum()
+    src = rng.choice(n - 1, cfg["edges"], p=p)
+    dst = rng.choice(n - 1, cfg["edges"], p=p)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    s2, d2 = np.concatenate([src, dst]), np.concatenate([dst, src])
+    loops = np.arange(n)
+    gs, gd = np.concatenate([s2, loops]), np.concatenate([d2, loops])
+    deg = np.bincount(gd, minlength=n).astype(np.float64)
+    norm = (1.0 / np.sqrt(deg[gs] * deg[gd]))[:, None]
+    return s2, d2, gs, gd, norm
+
+
+class _ArxivNet:
+    """GCN (sym-normalised ``send_ue_recv``), then GraphSAGE with
+    ``send_u_recv`` mean, then GraphSAGE with max."""
+
+    def __init__(self, paddle, cfg):
+        f, h, c = cfg["features"], cfg["hidden"], cfg["classes"]
+        nn = paddle.nn
+        self.layers = nn.LayerList([
+            nn.Linear(f, h), nn.Linear(h, h), nn.Linear(h, h),
+            nn.Linear(h, c), nn.Linear(h, c)])
+
+    def __call__(self, paddle, x, g):
+        geo = paddle.geometric
+        lin, s1, n1, s2, n2 = self.layers
+        relu = paddle.nn.functional.relu
+        h = relu(geo.send_ue_recv(lin(x), g["norm"], g["gs"], g["gd"], "mul",
+                                  "sum"))
+        h = relu(s1(h) + n1(geo.send_u_recv(h, g["src"], g["dst"], "mean")))
+        agg = geo.send_u_recv(h, g["src"], g["dst"], "max")
+        return s2(h) + n2(agg), agg
+
+
+def _domains_gcn(paddle, card, cfg):
+    dev = torch.device(DEVICE)
+    s2, d2, gs, gd, norm = _arxiv_graph(cfg, seed=3)
+    rng = np.random.default_rng(4)
+    n = cfg["nodes"]
+    x_np = rng.standard_normal((n, cfg["features"])).astype(np.float32)
+    y_np = rng.integers(0, cfg["classes"], n)
+    paddle.seed(5)
+    net = _ArxivNet(paddle, cfg)
+    init = {k: v.numpy().copy() for k, v in
+            net.layers.state_dict().items()}
+
+    def graph(dtype):
+        return dict(src=paddle.to_tensor(s2), dst=paddle.to_tensor(d2),
+                    gs=paddle.to_tensor(gs), gd=paddle.to_tensor(gd),
+                    norm=paddle.to_tensor(norm, dtype=dtype))
+
+    g32 = graph("float32")
+    x = paddle.to_tensor(x_np)
+    y = paddle.to_tensor(y_np)
+    ce = paddle.nn.functional.cross_entropy
+    opt = paddle.optimizer.Adam(learning_rate=1e-2,
+                                parameters=net.layers.parameters())
+    losses, ms, first = [], [], None
+    for i in range(cfg["steps"]):
+        _sync(DEVICE)
+        t0 = time.perf_counter()
+        logits, agg = net(paddle, x, g32)
+        loss = ce(logits, y)
+        loss.backward()
+        if i == 0:
+            first = [p.grad._data.clone() for p in net.layers.parameters()]
+            lonely = agg._data[n - 1]
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        _sync(DEVICE)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool((lonely == 0).all()), "domains (c): the node with no in-edge "
+          "does not read 0 under max")
+    check(all(a != b for a, b in zip(losses, losses[1:])),
+          f"domains (c): a loss did not move: {losses}")
+    check(all(math.isfinite(v) for v in losses), f"domains (c): {losses}")
+    # the same first step in float64 on the card
+    net64 = _ArxivNet(paddle, cfg)
+    net64.layers.astype("float64")
+    layer_state = {k: v.astype(np.float64) for k, v in init.items()}
+    from paddle_tpu_torch.convert import layer_state_from_numpy
+
+    layer_state_from_numpy(layer_state, net64.layers)
+    logits64, _ = net64(paddle, paddle.to_tensor(x_np, dtype="float64"),
+                        graph("float64"))
+    loss64 = ce(logits64, y)
+    loss64.backward()
+    loss_rel = abs(losses[0] - float(loss64)) / abs(float(loss64))
+    want = [p.grad._data.double() for p in net64.layers.parameters()]
+    grad_norm_rel = max(float((a.double() - w).norm() / w.norm())
+                        for a, w in zip(first, want))
+    grad_rel = max(_rel(a, w) for a, w in zip(first, want))
+    check(loss_rel <= DOMAINS_REL_TOL and grad_norm_rel <= GCN_GRAD_TOL,
+          f"domains (c): first step against float64: loss {loss_rel:.2e} "
+          f"(tol {DOMAINS_REL_TOL}), gradients {grad_norm_rel:.2e} of a "
+          f"leaf's norm (tol {GCN_GRAD_TOL})")
+    res = dict(nodes=n, messages=len(gs), edges_sym=len(s2), losses=losses,
+               step_ms=ms, loss_rel=loss_rel, grad_norm_rel=grad_norm_rel,
+               grad_rel=grad_rel)
+    print(f"  domains (c) arxiv GCN: {n} nodes, {len(gs)} messages, losses "
+          f"{[round(v, 5) for v in losses]}, step ms "
+          f"{[round(v, 2) for v in ms]}, first step vs float64 loss "
+          f"{loss_rel:.2e} grads {grad_norm_rel:.2e} of a leaf's norm "
+          f"({grad_rel:.2e} of its largest entry)", flush=True)
+    del net, net64, opt, g32, x, y, first
+    _free(card)
+    return res
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ops dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _launch_count(fn):
+    """(ops dispatched, CUDA kernels traced) for one call of ``fn``. The
+    dispatch mode's count is exact in any process; the profiler's is a
+    reading: alone it traced istft's 11 kernels, but late in the whole
+    script it has recorded none for so short a window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with _OpCount() as ops:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return ops.n, sum(1 for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(ev, "is_user_annotation", False))
+
+
+def _domains_whisper(paddle, card, cfg):
+    from paddle_tpu_torch import device as tdevice
+
+    rng = np.random.default_rng(6)
+    n, c = cfg["samples"], cfg["clips"]
+    t = np.arange(n) / cfg["sr"]
+    tones = rng.uniform(80, 4000, (c, 3))
+    clips = (0.05 * rng.standard_normal((c, n))
+             + sum(0.3 * np.sin(2 * np.pi * tones[:, i, None] * t)
+                   for i in range(3))).astype(np.float32)
+    feat = paddle.audio.features
+    kw = dict(sr=cfg["sr"], n_fft=cfg["n_fft"], hop_length=cfg["hop"],
+              n_mels=cfg["n_mels"], f_min=0.0, top_db=80.0)
+
+    def layers():
+        return (feat.LogMelSpectrogram(**kw),
+                feat.MFCC(n_mfcc=cfg["n_mfcc"], **kw))
+
+    logmel, mfcc = layers()
+    x = paddle.to_tensor(clips)
+    lm, mf = logmel(x), mfcc(x)
+    frames = 1 + n // cfg["hop"]
+    check(lm.shape == [c, cfg["n_mels"], frames],
+          f"domains (d): log-mel {lm.shape}")
+    with tdevice._place_scope(torch.device("cpu")):
+        logmel_c, mfcc_c = layers()
+        xc = paddle.to_tensor(clips)
+        lm_c, mf_c = logmel_c(xc), mfcc_c(xc)
+    lm_rel, mf_rel = _rel(lm._data, lm_c._data), _rel(mf._data, mf_c._data)
+    check(lm_rel <= DOMAINS_REL_TOL and mf_rel <= DOMAINS_REL_TOL,
+          f"domains (d): card against CPU: log-mel {lm_rel:.2e}, MFCC "
+          f"{mf_rel:.2e} (tol {DOMAINS_REL_TOL})")
+    win = paddle.audio.functional.get_window("hann", cfg["n_fft"])
+    sig = paddle.signal
+
+    def stft():
+        return sig.stft(x, cfg["n_fft"], cfg["hop"], window=win)
+
+    spec = stft()
+
+    def istft():
+        return sig.istft(spec, cfg["n_fft"], cfg["hop"], window=win,
+                         length=n)
+
+    back = istft()
+    rt = _rel(back._data, x._data)
+    check(rt <= ROUND_TRIP_TOL, f"domains (d): istft(stft(x)) {rt:.2e} of "
+          f"the peak (tol {ROUND_TRIP_TOL})")
+    ops, kernels = _launch_count(istft) if card else (0, 0)
+    check(not card or 0 < ops < ISTFT_MAX_LAUNCHES,
+          f"domains (d): istft dispatched {ops} ops")
+    timer = time_ms if card else (lambda fn, **k: 0.0)
+    res = dict(shape=lm.shape, logmel_rel=lm_rel, mfcc_rel=mf_rel,
+               round_trip=rt, istft_ops=ops, istft_kernels=kernels,
+               logmel_ms=timer(lambda: logmel(x), reps=5, inner=1),
+               mfcc_ms=timer(lambda: mfcc(x), reps=5, inner=1),
+               stft_ms=timer(stft, reps=5, inner=1),
+               istft_ms=timer(istft, reps=5, inner=1))
+    print(f"  domains (d) Whisper front end {c} x {n}: log-mel {lm.shape} "
+          f"{res['logmel_ms']:.2f} ms, MFCC {res['mfcc_ms']:.2f} ms, stft "
+          f"{res['stft_ms']:.2f} ms, istft {res['istft_ms']:.2f} ms "
+          f"({ops} ops, {kernels} kernels traced); card vs CPU log-mel "
+          f"{lm_rel:.2e} MFCC "
+          f"{mf_rel:.2e}; round trip {rt:.2e}", flush=True)
+    del x, spec, back, lm, mf
+    _free(card)
+    return res
+
+
+def _on_both(fn):
+    """``fn()`` on the current place and again on the CPU."""
+    from paddle_tpu_torch import device as tdevice
+
+    here = fn()
+    with tdevice._place_scope(torch.device("cpu")):
+        there = fn()
+    return here, there
+
+
+def _within_se(samples, mean, var, tag):
+    """The largest distance, in standard errors, of a column mean of
+    ``samples`` from ``mean`` (population variance ``var``)."""
+    samples, mean, var = (torch.as_tensor(t).double().cpu()
+                          for t in (samples, mean, var))
+    n = samples.shape[0]
+    z = ((samples.mean(0) - mean) / (var / n).sqrt()).abs().max()
+    check(float(z) <= 5, f"domains (e): {tag} sample mean {float(z):.2f} "
+          "standard errors off")
+    return float(z)
+
+
+def _domains_tail(paddle, card, cfg):
+    from paddle_tpu_torch import device as tdevice
+
+    D = paddle.distribution
+    dev = torch.device(DEVICE)
+
+    def P(t, **kw):
+        """A host tensor as a Tensor on the current place."""
+        return paddle.to_tensor(t.numpy(), **kw)
+
+    gcpu = torch.Generator().manual_seed(7)
+    closed = {}
+
+    def closed_rel(tag, pair):
+        got, want = pair
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        r = max(_rel(a._data, b._data) for a, b in zip(got, want))
+        closed[tag] = r
+        check(r <= DOMAINS_CLOSED_TOL, f"domains (e): {tag} card against "
+              f"CPU {r:.2e} (tol {DOMAINS_CLOSED_TOL})")
+
+    # Categorical over LLaMA's vocabulary
+    R, V, m = cfg["cat_rows"], cfg["vocab"], cfg["cat_draws"]
+    logits = torch.randn(R, V, generator=gcpu) * 2.0
+    cat = D.Categorical(P(logits))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    _sync(DEVICE)
+    t0 = time.perf_counter()
+    draws = cat.sample([m], generator=gen)
+    _sync(DEVICE)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    lp = cat.log_prob(draws)
+    ent = cat.entropy()
+    with tdevice._place_scope(torch.device("cpu")):
+        cat_c = D.Categorical(P(logits))
+        lp_c = cat_c.log_prob(P(draws._data.cpu()))
+        ent_c = cat_c.entropy()
+    closed_rel("categorical", ([lp, ent], [lp_c, ent_c]))
+    p = torch.softmax(logits.double(), -1)
+    lpd = torch.log_softmax(logits.double(), -1)
+    var = ((p * lpd ** 2).sum(-1) - (p * lpd).sum(-1) ** 2).mean()
+    z_cat = _within_se(lp._data.reshape(-1, 1), -ent_c._data.mean(),
+                       var.expand(1), "categorical log-prob")
+    # Normal and MultivariateNormal rsample, with gradients
+    loc = P(torch.randn(4096, generator=gcpu), stop_gradient=False)
+    scale = P(torch.rand(4096, generator=gcpu) + 0.5, stop_gradient=False)
+    xs = D.Normal(loc, scale).rsample([8])
+    xs.mean().backward()
+    d = cfg["mvn_dim"]
+    a = torch.randn(d, d, generator=gcpu) / math.sqrt(d)
+    tril = torch.tril(a, -1) + torch.diag(torch.rand(d, generator=gcpu) + 0.5)
+    mloc = P(torch.randn(d, generator=gcpu), stop_gradient=False)
+    mtril = P(tril, stop_gradient=False)
+    mvn = D.MultivariateNormal(mloc, scale_tril=mtril)
+    mx = mvn.rsample([8192], generator=gen)
+    mx.sum().backward()
+    for tag, t in (("loc", loc), ("scale", scale), ("mvn loc", mloc),
+                   ("mvn scale_tril", mtril)):
+        check(t.grad is not None and float(t.grad.abs().sum()) > 0,
+              f"domains (e): {tag} got no rsample gradient")
+    cov = (tril @ tril.T).double()
+    z_mvn = _within_se(mx._data.detach(), mloc._data.detach(),
+                       torch.diagonal(cov), "mvn")
+    # Dirichlet (an explicit CUDA generator) and Gamma (the default one)
+    conc = torch.rand(32, generator=gcpu) * 2.5 + 0.5
+    dx = D.Dirichlet(P(conc)).sample([8192], generator=gen)
+    a0 = conc.sum()
+    mean = (conc / a0).double()
+    z_dir = _within_se(dx._data, mean, mean * (1 - mean) / (a0 + 1),
+                       "dirichlet")
+    gc_ = torch.rand(1024, generator=gcpu) * 3 + 0.2
+    gr = torch.rand(1024, generator=gcpu) + 0.5
+    gx = D.Gamma(P(gc_), P(gr)).sample([256])
+    z_gam = _within_se(gx._data, gc_ / gr, gc_ / gr ** 2, "gamma")
+    # the KL table, each registered pair at a batch of 1024
+    u = [torch.rand(1024, generator=gcpu) + 0.2 for _ in range(8)]
+    pairs = {
+        "Normal": ((u[0] - 0.6, u[1]), (u[2] - 0.6, u[3])),
+        "Uniform": ((u[0] - 2.0, u[1]), (u[0] - 2.5, u[1] + 0.5)),
+        "Bernoulli": ((u[0] * 0.8,), (u[1] * 0.8,)),
+        "Exponential": ((u[0],), (u[1],)),
+        "Laplace": ((u[0], u[1]), (u[2], u[3])),
+        "Beta": ((u[0] * 3, u[1] * 3), (u[2] * 3, u[3] * 3)),
+        "Gamma": ((u[0] * 3, u[1]), (u[2] * 3, u[3])),
+        "Dirichlet": ((torch.stack(u[:4], -1) * 3,),
+                      (torch.stack(u[4:], -1) * 3,)),
+        "Categorical": ((torch.stack(u[:4], -1),), (torch.stack(u[4:], -1),)),
+    }
+    for name, (pa, qa) in pairs.items():
+        def kl(name=name, pa=pa, qa=qa):
+            cls = getattr(D, name)
+            return D.kl_divergence(cls(*[P(t) for t in pa]),
+                                   cls(*[P(t) for t in qa]))
+
+        closed_rel(f"kl {name}", _on_both(kl))
+    check({(a.__name__, b.__name__) for a, b in D._KL_REGISTRY}
+          == {(k, k) for k in pairs}, "domains (e): the KL table changed")
+    # Viterbi over CoNLL-2003's tags
+    B, T, N = cfg["viterbi"]
+    pot = torch.randn(B, T, N, generator=gcpu)
+    trans = torch.randn(N, N, generator=gcpu)
+    lens = torch.randint(1, T + 1, (B,), generator=gcpu)
+    lens[:4] = T
+
+    def vit():
+        return paddle.text.viterbi_decode(P(pot), P(trans), P(lens))
+
+    (vs, vp), (vs_c, vp_c) = _on_both(vit)
+    _sync(DEVICE)
+    t0 = time.perf_counter()
+    vit()
+    _sync(DEVICE)
+    viterbi_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(vp._data.cpu(), vp_c._data),
+          "domains (e): Viterbi paths differ from the CPU run's")
+    closed_rel("viterbi scores", (vs, vs_c))
+    # low-rank factorisations of a rank-r matrix plus noise
+    M, K = cfg["lowrank"]
+    r = cfg["rank"]
+    s = torch.logspace(1, -1, r)
+    base = (torch.linalg.qr(torch.randn(M, r, generator=gcpu))[0] * s
+            ) @ torch.linalg.qr(torch.randn(K, r, generator=gcpu))[0].T
+    mat = base + 1e-4 * torch.randn(M, K, generator=gcpu)
+
+    def lowrank():
+        A = P(mat)
+        out = []
+        for fn, centred in ((paddle.linalg.svd_lowrank, False),
+                            (paddle.linalg.pca_lowrank, True)):
+            u_, s_, v_ = fn(A, q=r)
+            ref = A._data - A._data.mean(0) if centred else A._data
+            rec = (u_._data * s_._data) @ v_._data.T
+            out.append(float((rec - ref).norm() / ref.norm()))
+        return out
+
+    err, err_c = _on_both(lowrank)
+    for e, ec, tag in zip(err, err_c, ("svd_lowrank", "pca_lowrank")):
+        check(e <= ec + 1e-4, f"domains (e): {tag} reconstructs to {e:.2e}, "
+              f"the CPU run to {ec:.2e}")
+    res = dict(closed=closed, se=dict(categorical=z_cat, mvn=z_mvn,
+                                      dirichlet=z_dir, gamma=z_gam),
+               categorical_sample_ms=sample_ms, viterbi_ms=viterbi_ms,
+               lowrank_err=err, lowrank_err_cpu=err_c)
+    print(f"  domains (e) Categorical [{R}, {V}] x {m} draws "
+          f"{sample_ms:.2f} ms; sample means in SE: "
+          f"{ {k: round(v, 2) for k, v in res['se'].items()} }; closed "
+          f"forms card vs CPU max {max(closed.values()):.2e}; Viterbi "
+          f"{list(cfg['viterbi'])} {viterbi_ms:.1f} ms, paths "
+          f"equal; low-rank err {[f'{e:.2e}' for e in err]} (CPU "
+          f"{[f'{e:.2e}' for e in err_c]})", flush=True)
+    _free(card)
+    return res
+
+
+def phase_domains(smi="", second=None, bigbird=None, arxiv=None,
+                  whisper=None, tail=None):
+    """The domain libraries on the card, f32, each part against the CPU
+    run of the same port code (or float64, or the dense attention):
+    (a) SECOND's backbone (sparse convs) at KITTI's grid, forward and
+    backward; (b) BigBird's pattern through the O(nnz) sparse attention
+    against dense masked attention; (c) a GCN at ogbn-arxiv's size, 3
+    Adam steps; (d) Whisper's front end (log-mel, MFCC, stft, istft);
+    (e) distributions, the KL table, Viterbi and the low-rank tail. The
+    keyword arguments override the configurations (``DEVICE = "cpu"``
+    rehearses the phase small: no launch or memory checks)."""
+    import paddle_tpu_torch as paddle
+
+    card = DEVICE != "cpu"
+    paddle.set_device("gpu" if card else "cpu")
+    sec = dict(dict(grid=SECOND_GRID, n=SECOND_VOXELS, batch=SECOND_BATCH,
+                    boxes=SECOND_BOXES), **(second or {}))
+    res = {"smi": smi}
+    t = time.perf_counter()
+    res["a"] = _domains_second(paddle, card, sec["grid"], sec["n"],
+                               sec["batch"], sec["boxes"])
+    res["b"] = _domains_bigbird(paddle, card, dict(BIGBIRD, **(bigbird or {})))
+    res["c"] = _domains_gcn(paddle, card, dict(ARXIV, **(arxiv or {})))
+    res["d"] = _domains_whisper(paddle, card, dict(WHISPER, **(whisper or {})))
+    res["e"] = _domains_tail(paddle, card, dict(DOMAINS_TAIL, **(tail or {})))
+    res["seconds"] = time.perf_counter() - t
+    print(f"  domains: {res['seconds']:.1f} s on {smi}", flush=True)
+    return res
+
+
 def _free(card):
     gc.collect()
     if card:
@@ -8644,6 +9441,8 @@ def main():
         report["tools"] = run("tools", phase_tools, report["device"]["smi"])
         report["static"] = run("static", phase_static,
                                report["device"]["smi"])
+        report["domains"] = run("domains", phase_domains,
+                                report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

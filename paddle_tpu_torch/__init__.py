@@ -19,7 +19,10 @@ with worker processes), ``metric``, ``Model`` with ``callbacks``,
 ``static`` (``Program``, ``Executor``, ``static.nn``, the inference
 model), ``ir`` (FX graph rewrites), ``cost_model``, ``cinn``,
 ``tensorrt``, ``api_tracer``, ``utils`` (``flags``, ``unique_name``), ``version``,
-``sysconfig``, ``get_flags``/``set_flags`` and ``flops``. A tensor made with no place lands on the CUDA card
+``sysconfig``, ``get_flags``/``set_flags`` and ``flops``, and the domain
+libraries: ``sparse`` (COO tensors, rulebook convs, O(nnz) attention),
+``geometric``, ``fft``, ``signal``, ``linalg`` (``linalg_ns.py``),
+``audio``, ``distribution``, ``text`` and ``strings``. A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
 making it raises. Imports run one way: the surface imports the torch-level
 port (``ops.kernels``, ``optimizer``, ``jit``, ``telemetry``), which imports
@@ -51,7 +54,6 @@ from .core.tensor import Tensor, Parameter  # noqa: F401,E402
 
 # ops: importing patches Tensor methods
 from .ops import *  # noqa: F401,F403,E402
-from .ops import linalg  # noqa: F401,E402
 
 from . import autograd  # noqa: F401,E402
 from .autograd import grad, PyLayer  # noqa: F401,E402
@@ -80,6 +82,15 @@ from . import profiler  # noqa: F401,E402
 from . import utils  # noqa: F401,E402
 from . import version  # noqa: F401,E402
 from . import sysconfig  # noqa: F401,E402
+from . import sparse  # noqa: F401,E402
+from . import strings  # noqa: F401,E402
+from . import distribution  # noqa: F401,E402
+from . import linalg_ns as linalg  # noqa: F401,E402
+from . import fft  # noqa: F401,E402
+from . import signal  # noqa: F401,E402
+from . import text  # noqa: F401,E402
+from . import audio  # noqa: F401,E402
+from . import geometric  # noqa: F401,E402
 from .hapi.model import Model, summary  # noqa: F401,E402
 from .framework_io import (  # noqa: F401,E402
     async_save, clear_async_save_task_queue, load, save)

@@ -61,8 +61,9 @@ RECORDER = _Recorder()
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host copy as numpy. bfloat16 and the float8s, which numpy lacks,
-    come back as an exact float32 upcast."""
-    t = t.detach()
+    come back as an exact float32 upcast; a lazily conjugated complex
+    tensor (``torch.fft``'s inverse transforms give one) is resolved."""
+    t = t.detach().resolve_conj()
     if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
         t = t.float()
     return t.cpu().numpy()

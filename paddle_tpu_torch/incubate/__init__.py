@@ -3,9 +3,11 @@ fused ops and layers under ``incubate.nn``, the MoE layer under
 ``incubate.distributed``, and the top level of
 ``paddle_tpu/incubate/__init__.py``: the masked softmaxes,
 ``identity_loss``, the ``LookAhead`` and ``ModelAverage`` wrappers,
-``autotune`` and ``inference``, and ``incubate.optimizer.functional``.
-
-``graph_*`` and ``segment_*`` wait for ``geometric/`` (ROADMAP A.13 (e)).
+``autotune`` and ``inference``, ``incubate.optimizer.functional``, and
+the graph ops over ``geometric``: ``graph_send_recv``, the ``segment_*``
+reductions, and the three host samplers' names, which raise as the
+reference's do (``geometric.sample_neighbors`` and
+``geometric.reindex_graph`` are the working ones).
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from . import nn  # noqa: F401
 from . import optimizer  # noqa: F401
 from .nn import functional  # noqa: F401
 
-__all__ = ["LookAhead", "ModelAverage", "autotune", "identity_loss",
-           "inference", "softmax_mask_fuse",
+__all__ = ["LookAhead", "ModelAverage", "autotune", "graph_khop_sampler",
+           "graph_reindex", "graph_sample_neighbors", "graph_send_recv",
+           "identity_loss", "inference", "segment_max", "segment_mean",
+           "segment_min", "segment_sum", "softmax_mask_fuse",
            "softmax_mask_fuse_upper_triangle"]
 
 
@@ -50,6 +54,35 @@ _REDUCTIONS = {"none": lambda a: a, 0: lambda a: a, "sum": torch.sum,
 def identity_loss(x, reduction="none"):
     """``x`` reduced by ``reduction``: none/0, sum/1 or mean/2 (:36-43)."""
     return _REDUCTIONS[reduction](x)
+
+
+def graph_send_recv(x, src_index, dst_index, pool_type="sum",
+                    out_size=None, name=None):
+    """``geometric.send_u_recv`` under its older name (:46-51)."""
+    from ..geometric import send_u_recv
+
+    return send_u_recv(x, src_index, dst_index, reduce_op=pool_type,
+                       out_size=out_size)
+
+
+def graph_khop_sampler(row, colptr, input_nodes, sample_sizes, **kw):
+    raise NotImplementedError(
+        "graph_khop_sampler: host-side sampling; use numpy/scipy graph "
+        "sampling and feed the sampled subgraph")
+
+
+def graph_sample_neighbors(row, colptr, input_nodes, sample_size=-1, **kw):
+    raise NotImplementedError(
+        "graph_sample_neighbors: host-side sampling; use numpy/scipy graph "
+        "sampling and feed the sampled subgraph")
+
+
+def graph_reindex(x, neighbors, count, **kw):
+    raise NotImplementedError("graph_reindex: host-side preprocessing step")
+
+
+from ..geometric import (  # noqa: E402,F401
+    segment_max, segment_mean, segment_min, segment_sum)
 
 
 class LookAhead:

@@ -277,7 +277,7 @@ class Layer:
         record its Tensor inputs' ``(shape, dtype)`` as
         ``_last_call_spec`` and mark the calls inside it as sublayer
         calls, which record nothing."""
-        spec = tuple((tuple(t._data.shape), t.dtype.name)
+        spec = tuple((tuple(t.shape), t.dtype.name)
                      for t in inputs if isinstance(t, Tensor))
         if spec and len(spec) == len(inputs):
             object.__setattr__(self, "_last_call_spec", spec)

@@ -5,8 +5,7 @@ Each op is a torch function through ``apply_op``.
 
 Differences from the reference:
 
-- ``matrix_transpose`` stays with ``linalg_ns.py`` (ROADMAP A.13 (e));
-  ``ldexp`` and ``hypot`` are ``ops/math.py``'s, as before;
+- ``ldexp`` and ``hypot`` are ``ops/math.py``'s, as before;
 - ``to_dlpack`` returns the tensor's torch payload, which carries
   ``__dlpack__`` as the reference's jax array does; ``from_dlpack`` takes
   such an object or a legacy capsule (``torch.utils.dlpack``);
@@ -31,8 +30,8 @@ __all__ = [
     "frexp", "nanmedian", "nanquantile", "trapezoid", "cumulative_trapezoid",
     "reduce_as", "histogram_bin_edges", "pdist", "vander", "block_diag",
     "column_stack", "row_stack", "hsplit", "vsplit", "dsplit", "unflatten",
-    "unstack", "vecdot", "diagonal", "combinations", "cartesian_prod",
-    "renorm", "select_scatter", "slice_scatter", "diagonal_scatter",
+    "unstack", "vecdot", "matrix_transpose", "diagonal", "combinations",
+    "cartesian_prod", "renorm", "select_scatter", "slice_scatter", "diagonal_scatter",
     "index_fill", "shard_index", "increment", "reverse", "view_as",
     "as_complex", "as_real", "log_normal", "standard_gamma", "to_dlpack",
     "from_dlpack",
@@ -223,6 +222,11 @@ def unstack(x, axis=0, num=None, name=None):
 def vecdot(x, y, axis=-1, name=None):
     return apply_op(lambda a, b: (a * b).sum(dim=axis), x, y,
                     _op_name="vecdot")
+
+
+def matrix_transpose(x, name=None):
+    return apply_op(lambda a: a.transpose(-1, -2), x,
+                    _op_name="matrix_transpose")
 
 
 def diagonal(x, offset=0, axis1=0, axis2=1, name=None):

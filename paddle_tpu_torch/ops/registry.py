@@ -13,8 +13,8 @@ port imports nothing of the JAX package). Each ``OpSpec`` holds:
 - ``tags``: coarse groups (math, manipulation, creation...).
 
 ``apply_op`` never looks an op up here: the hot path stays one attribute
-check (``core/dispatch.py``). Static-program recording, the reference's
-other reader of the table, is ROADMAP A.13 (e).
+check (``core/dispatch.py``). A recorded static program reads the table
+after the fact, one lookup per recorded op (``static.Program.op_specs``).
 """
 from __future__ import annotations
 

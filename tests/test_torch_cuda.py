@@ -40,7 +40,10 @@ deployment path: ``rms_norm``, ``add_rms_norm`` and ``swiglu_down`` as
 custom ops against their ``*_fwd`` launchers bit for bit, eagerly and
 from a CUDA graph, a program exported from CPU tensors run on the card,
 and a ``Predictor``'s graphed runs against its eager run; the flash
-backward's three dispatcher ops against their wrappers.
+backward's three dispatcher ops against their wrappers; the domain
+libraries: ``chip_smoke.py``'s SECOND backbone at a small grid against
+the CPU, and BigBird's pattern at seq 512 through the sparse attention
+against dense masked attention.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -2557,3 +2560,26 @@ def test_static_inference_model_on_the_card(surface, tmp_path):
     assert graph_targets(ir.graph(feed)).count("flash_fwd") == 2
     np.testing.assert_allclose(ir.run(feed)[0], want, rtol=0,
                                atol=1e-4 * scale)
+
+
+# -- the domain libraries (sparse) --------------------------------------------
+def test_sparse_backbone_on_the_card_matches_cpu(surface):
+    """``chip_smoke.py``'s SECOND backbone at a small grid: every
+    SubmConv3D keeps its sites, the output sites equal the CPU run's and
+    the output and weight gradients are within 1e-4 of it, peak < 1 GiB."""
+    from chip_smoke import _domains_second
+
+    surface.set_device("gpu")
+    res = _domains_second(surface, True, (41, 96, 96), 800, 2, 6)
+    assert res["neighbours"] >= 4 and res["out_sites"] > 0
+
+
+def test_bigbird_sparse_attention_on_the_card_matches_dense(surface):
+    """BigBird's pattern at seq 512 through the O(nnz) attention against
+    dense masked attention on the card (output 1e-4, gradients 1e-3),
+    with no S x S op output."""
+    from chip_smoke import BIGBIRD, _domains_bigbird
+
+    surface.set_device("gpu")
+    res = _domains_bigbird(surface, True, dict(BIGBIRD, seq=512))
+    assert res["nnz"] > 0 and res["density"] < 1

@@ -8,7 +8,9 @@ bytes and computes CRC32C natively) or ``paddle_tpu`` (other than
 ``paddle_tpu_torch``) fails. And ``import paddle_tpu_torch`` in a fresh
 interpreter, whose top level imports ``incubate``, ``distributed``,
 ``inference``, ``profiler``, ``static``, ``ir``, ``cost_model``,
-``cinn``, ``tensorrt`` and ``api_tracer`` as the reference's does, loads
+``cinn``, ``tensorrt``, ``api_tracer`` and the domain libraries
+(``sparse``, ``geometric``, ``fft``, ``signal``, ``linalg``, ``audio``,
+``distribution``, ``text``, ``strings``) as the reference's does, loads
 none of them.
 """
 import ast
@@ -80,6 +82,12 @@ def test_scan_covers_the_package():
         "cinn/__init__", "cinn/compiler/__init__", "cinn/runtime/__init__",
         "cinn/auto_schedule/cost_model/__init__", "tensorrt/__init__",
         "api_tracer/__init__", "distributed/checkpoint/inspect")} <= rel
+    assert {f"paddle_tpu_torch/{m}.py" for m in (
+        "sparse/__init__", "sparse/nn/__init__", "sparse/nn/functional",
+        "geometric/__init__", "fft", "signal", "linalg_ns",
+        "audio/__init__", "audio/functional", "audio/features/__init__",
+        "audio/backends", "audio/datasets", "distribution/__init__",
+        "distribution/transform", "text/__init__", "strings/__init__")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
@@ -103,7 +111,9 @@ def test_top_level_import_loads_no_jax():
             "print(all(hasattr(p, n) for n in ('incubate', 'distributed', "
             "'inference', 'bool', 'profiler', 'CUDAGraph', 'static', 'ir', "
             "'cost_model', 'cinn', 'tensorrt', 'api_tracer', "
-            "'enable_static')))" % (FORBIDDEN,))
+            "'enable_static', 'sparse', 'geometric', 'fft', 'signal', "
+            "'linalg', 'audio', 'distribution', 'text', 'strings', "
+            "'matrix_transpose')))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=300).stdout
     assert out.split() == ["[]", "True"], out

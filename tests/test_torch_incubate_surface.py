@@ -70,7 +70,7 @@ def _close(got, want, atol=ATOL):
 
 def test_the_module_has_the_reference_names():
     """The 22 public names of the JAX module, the 7 layers and the top
-    level except ``graph_*``/``segment_*`` (ROADMAP A.13 (e))."""
+    level, ``graph_*``/``segment_*`` included."""
     want = {n for n in dir(JF) if not n.startswith("_")
             and callable(getattr(JF, n)) and n not in ("annotations",)}
     want -= {"apply_op", "fp8"}
@@ -83,7 +83,9 @@ def test_the_module_has_the_reference_names():
     assert layers <= set(dir(JN)) and layers == set(TN.layer.__all__)
     top = {"softmax_mask_fuse", "softmax_mask_fuse_upper_triangle",
            "identity_loss", "LookAhead", "ModelAverage", "autotune",
-           "inference"}
+           "inference", "graph_send_recv", "graph_khop_sampler",
+           "graph_sample_neighbors", "graph_reindex", "segment_sum",
+           "segment_mean", "segment_max", "segment_min"}
     assert top <= set(dir(JI)) and top == set(TI.__all__)
 
 

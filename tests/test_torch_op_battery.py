@@ -14,9 +14,10 @@ per-case seed.
   tolerances (5e-2 for bf16, exact for int32).
 
 ``DEFERRED`` names every case whose op lives in a module this port does
-not have yet, with its ``ROADMAP.md`` item; the coverage test asserts that
-each of them is still missing from the port (it raises ``AttributeError``)
-and that every other case of the half ran, forward and gradient.
+not have yet, with its ``ROADMAP.md`` item (none since the domain
+libraries landed); the coverage test asserts that each of them is still
+missing from the port (it raises ``AttributeError``) and that every other
+case of the half ran, forward and gradient.
 """
 import zlib
 
@@ -30,10 +31,7 @@ from paddle_tpu_torch import device as tdevice
 from test_op_battery import CASES
 from test_torch_threads import one_intra_op_thread  # noqa: F401
 
-DEFERRED = {
-    "matrix_transpose": "A.13 (e): linalg_ns.py",
-    "fft_abs": "A.13 (e): fft.py", "rfft_abs": "A.13 (e): fft.py",
-}
+DEFERRED = {}
 
 RUN = [c for c in CASES if c.name not in DEFERRED]
 # the halves split where they did while the conv and pooling cases were

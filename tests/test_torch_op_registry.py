@@ -1,7 +1,7 @@
 """The port's op registry (``paddle_tpu_torch/ops/registry.py``) against
 the JAX package's table and the port's own surface: the parts of
 ``tests/test_op_registry.py`` that need neither ``spmd_rules`` (ROADMAP
-A.10) nor static programs (A.13 (e))."""
+A.10) nor static programs."""
 import dataclasses
 
 import pytest
@@ -12,11 +12,8 @@ from paddle_tpu.ops import registry as jreg
 from paddle_tpu_torch.ops import registry as treg
 from test_torch_threads import one_intra_op_thread  # noqa: F401
 
-#: registered ops whose public function lives in a module of A.13 (e)
-#: (``linalg_ns.py``, ``fft.py``), not in the port yet
-A13E = {"svdvals", "matrix_transpose", "cond", "fft", "ifft", "rfft",
-        "irfft", "fft2", "ifft2", "fftn", "ifftn", "hfft", "ihfft",
-        "fftshift", "ifftshift"}
+#: registered ops whose public function the port does not have yet
+A13E = set()
 
 
 def _fields(table):
@@ -39,8 +36,9 @@ def test_every_inplace_method_has_contract():
 
 
 def test_registered_public_ops_exist():
-    """Every registered op resolves on the port's surface, but those of
-    the A.13 (e) modules."""
+    """Every registered op resolves on the port's surface: ``paddle``,
+    ``Tensor``, ``nn.functional``, ``paddle.linalg`` or ``paddle.fft``, as
+    the reference's test looks."""
     aliases = {"cross_entropy_with_softmax": "cross_entropy",
                "flash_attention": "scaled_dot_product_attention",
                "moe_gate": None, "c_embedding": None}
@@ -51,7 +49,8 @@ def test_registered_public_ops_exist():
         target = aliases.get(name, name)
         if target is None:
             continue
-        if not any(hasattr(ns, t) for ns in (tp, tp.Tensor, TF)
+        if not any(hasattr(ns, t) for ns in (tp, tp.Tensor, TF, tp.linalg,
+                                             tp.fft)
                    for t in (target, target + "_")):
             missing.add(name)
     assert missing == A13E

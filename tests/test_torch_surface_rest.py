@@ -41,13 +41,9 @@ NOT_ON_THE_PORT = {
     # the JAX package's own imports and helpers its star imports leak
     "jax": "import", "jnp": "import", "builtins_sum": "helper",
     "digamma_fn": "helper", "exponent_bias": "helper",
-    "inner_alias": "helper", "linalg_ns": "module alias of linalg",
+    "inner_alias": "helper",
     # queued in ROADMAP §A
-    "DataParallel": "A.10",
-    "sparse": "A.13 (e)", "distribution": "A.13 (e)", "fft": "A.13 (e)",
-    "signal": "A.13 (e)", "matrix_transpose": "A.13 (e)",
-    "geometric": "A.13 (e)", "strings": "A.13 (e)", "text": "A.13 (e)",
-    "audio": "A.13 (e)", "quantization": "A.13 (e)",
+    "DataParallel": "A.10", "quantization": "A.13 (e)",
     # left out on purpose (no network; no ONNX export)
     "hub": "download", "onnx": "needs paddle2onnx",
 }
