@@ -210,7 +210,8 @@ Phases, each of which fails the run on error:
              and write-and-commit seconds (trace spans) and GB/s, and the
              restore seconds, beside the card's name and power limit;
              removes build/ckpt/.
-   quant_train - config 4 as phase 6 builds it, 8 steps of one seeded
+   quant_train - config 4 as phase 6 builds it (6 of its 24 layers in the
+             whole script, QUANT_TRAIN_CONFIG4), 8 steps of one seeded
              batch per step number from the same seeded weights, three
              runs: (a) names:<bench.py's base saves>,resid_mid,ffn_gate,
              ffn_up with the head pinned to f32; (b) the same with
@@ -420,11 +421,50 @@ Phases, each of which fails the run on error:
              svd_lowrank and pca_lowrank of [4096, 1024] within the CPU
              run's error plus 1e-4. It launches none of the ten kernels.
 
+   compression - the compression path on BERT-base (config 3's model,
+             f32, dropout 0, AdamW at 1e-4, one seeded 32 x 512 batch
+             with segment ids) and at LLaMA-7B's up projection: (a)
+             QAT(QuantConfig()).quantize swaps exactly 75 QuantedLinears
+             (a deep copy: parameters() and state_dict() see each inner
+             Linear, an optimizer built after moves them); a warm-up and
+             3 timed steps beside the same weights' unquantized eager
+             step, flash fwd L and fused bwd L a step, finite losses, the
+             third timed below the first; the card against the CPU at
+             depth 2 (SURFACE_CPU_SHAPE), the port's quanter recording
+             its codes: with every site quantized to the CPU's codes, the
+             card's own codes within one level of the CPU's, each that
+             moved at a rounding boundary between the two inputs, the
+             weights' equal, the loss and gradients within phase 7's
+             bounds (1e-4, 5e-4); with the card's own codes, the
+             weights' codes equal, the rest readings; (b) PTQ of
+             that model in eval: 2 observed batches, convert, every static
+             scale
+             exactly its inputs' largest |x|; the converted logits' error
+             and MLM top-1 agreement read; (c) ASP: prune_model with
+             mask_1d and mask_2d_best over the 75 weights timed (768 x 2
+             takes the 1-D mask), the card's masks equal the CPU's for
+             each of the three algorithms and all 75 weights, nsp excluded and dense, every other weight
+             at density 0.5, decorate(AdamW) and 3 steps holding 2:4 on
+             the optimizer's own tensors; (d) nn.quant on a [4096, 11008]
+             bf16 weight: weight_quantize's codes equal the CPU's and its
+             scales within 1e-7 for int8, int4 and llm.int8 at group
+             -1/64/128; weight_only_linear against its plain route and
+             within 0.03 of x @ w; llm_int8_linear with 4 outlier
+             channels x 40 dispatching aten::_int_mm, its int32 sums
+             exact, within 0.03 of x @ w, at 8 and 2048 rows; times
+             against torch.matmul and the weights' bytes read; (e)
+             get_cudnn_version, fftshift(axes=1) card against CPU, and a
+             GPU profiler window that lists device events or raises.
+
+Whole-script cuts (a phase's checks stated per layer hold at any
+depth): model_rest (b)-(e) and resilience at 6 of config 4's 24 layers,
+quant_train at 6 (QUANT_TRAIN_CONFIG4, for compression).
+
 The line before the last lists every kernel with its launch counts on the
 serving, int8 serving, spec, int8-weight, disaggregated and fleet
 serving, incubate, incubate_surface, float16, training, quant_train (run b),
 long-context, model_rest, shared_block, paddle_surface, vision, amp,
-deploy, tools and static runs;
+deploy, tools, static and compression runs;
 the last
 line is {"ok": true, "device": {...}}.
 ``--quick`` runs phases 1-3 and flash_widths only, and prints no result
@@ -4703,6 +4743,10 @@ MODEL_REST_CONFIG4 = dict(CONFIG4, num_layers=6)
 #: 62-64 s, at 12 the phase 32.9 s): config 4's width and training setup
 #: at 6 of its 24 layers
 RESILIENCE_CONFIG4 = dict(CONFIG4, num_layers=6)
+#: phase quant_train's depth in the whole script, for phase compression:
+#: config 4's width and its three policies at 6 of its 24 layers (its
+#: launches, flops and amax checks are stated per layer)
+QUANT_TRAIN_CONFIG4 = dict(CONFIG4, num_layers=6)
 #: the sequence of the f32 depth-2 card-against-CPU steps of model_rest
 #: (f) and shared_block: at 256 the CPU runs took most of (f)'s 54.7 s
 REST_CPU_SEQ = 128
@@ -9029,22 +9073,27 @@ def _domains_gcn(paddle, card, cfg):
 
 
 class _OpCount(TorchDispatchMode):
-    """Counts the ops dispatched while it is on."""
+    """The ATen ops dispatched while it is on, by name (``n`` of them)."""
 
     def __init__(self):
         super().__init__()
-        self.n = 0
+        self.ops = []
+
+    @property
+    def n(self):
+        return len(self.ops)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += 1
+        self.ops.append(str(func.overloadpacket))
         return func(*args, **(kwargs or {}))
 
 
 def _launch_count(fn):
     """(ops dispatched, CUDA kernels traced) for one call of ``fn``. The
     dispatch mode's count is exact in any process; the profiler's is a
-    reading: alone it traced istft's 11 kernels, but late in the whole
-    script it has recorded none for so short a window."""
+    reading: on the card a window can lose the first kernels it launches,
+    intermittently once the process has run a while (``PERF.md`` §6 PR
+    26), so a window as short as one istft may trace none of them."""
     from torch.profiler import ProfilerActivity, profile
 
     with _OpCount() as ops:
@@ -9335,6 +9384,656 @@ def phase_domains(smi="", second=None, bigbird=None, arxiv=None,
     return res
 
 
+# -------------------------------------------------------- phase compression
+QAT_QMAX = 127.0
+
+
+#: (a): QAT steps timed after one warm-up, on one seeded batch
+COMPRESSION_STEPS = 3
+#: (d): LLaMA-7B's up projection [hidden, FFN] and the rows of a decode
+#: batch and of a prefill chunk
+LLAMA_PROJ = dict(k=4096, n=11008, rows=(8, 2048))
+#: (d): the relative error of weight_only_linear and llm_int8_linear
+#: against x @ w in f32, the bound of the reference's own test
+#: (tests/test_r5_surface.py:28)
+NN_QUANT_RTOL = 0.03
+#: (d): scales card against CPU, relative
+NN_QUANT_SCALE_RTOL = 1e-7
+#: (d): weight_only_linear against its plain route (dequantize, then one
+#: f32 GEMM): one bf16 rounding step of the output, 2^-7 of its largest
+WOL_PLAIN_RTOL = 2.0 ** -7
+#: (d): LLM.int8's outlier input channels (spread over k) and their factor
+LLM_INT8_OUTLIERS = (4, 40.0)
+
+
+def _retain_site_inputs(model, quanted):
+    """Give every ``QuantedLinear`` of ``model`` an input of its own (a
+    copy, so each site's ``dL/dx`` is its own even where q, k and v read
+    one tensor) whose gradient is kept: returns the list of those torch
+    tensors, filled as the model runs."""
+    got = []
+    for sub in model.sublayers():
+        if isinstance(sub, quanted):
+            fwd = sub.forward
+
+            def forward(x, fwd=fwd):
+                xc = x.clone()
+                xc._data.retain_grad()
+                got.append(xc._data)
+                return fwd(xc)
+
+            sub.forward = forward
+    return got
+
+
+def _compression_qat(paddle, card, cfg, cfg_kw, feed, counted, want_only):
+    """(a): QAT on BERT-base against the same model's unquantized eager
+    step; the card against the CPU at depth 2 (:func:`_qat_card_vs_cpu`)."""
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.quantization import QAT, QuantConfig, QuantedLinear
+
+    dev = DEVICE if card else "cpu"
+    L, V = cfg.num_layers, cfg.vocab_size
+    ids, types, labels, nsp = (paddle.to_tensor(feed[k]) for k in
+                               ("ids", "types", "labels", "nsp"))
+    paddle.seed(0)
+    model = BertForPretraining(cfg)
+    qmodel = QAT(QuantConfig()).quantize(model)     # a deep copy
+    quanted = [m for m in qmodel.sublayers() if isinstance(m, QuantedLinear)]
+    check(len(quanted) == 6 * L + 3,
+          f"compression (a): {len(quanted)} QuantedLinears, want {6 * L + 3}")
+    inner = {id(m.inner.weight) for m in quanted}
+    params = qmodel.parameters()
+    check(len(params) == len(model.parameters())
+          and inner <= {id(p) for p in params}
+          and len(qmodel.state_dict()) == len(model.state_dict()),
+          "compression (a): parameters()/state_dict() miss inner Linears")
+    before = [m.inner.weight._data.detach().clone() for m in quanted]
+
+    def train(m, tag):
+        opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                     parameters=m.parameters())
+        losses, ms = [], []
+        for i in range(1 + COMPRESSION_STEPS):
+            def step():
+                loss = m.loss(ids, labels, nsp, token_type_ids=types)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return float(loss)
+
+            _sync(dev)
+            t0 = time.perf_counter()
+            lv, counts = counted(step)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            want_only(counts, {"flash_attention_fwd": L,
+                               "flash_attention_bwd": L}, f"(a) {tag} {i}")
+            losses.append(lv)
+        return losses, ms, opt
+
+    fp_losses, fp_ms, _ = train(model, "fp")
+    q_losses, q_ms, qopt = train(qmodel, "QAT")
+    stepped = {id(t) for g in qopt.param_groups for t in g["params"]}
+    moved = [not torch.equal(m.inner.weight._data, b)
+             for m, b in zip(quanted, before)]
+    check(all(moved) and len(stepped) == len(params)
+          and all(id(m.inner.weight._data) in stepped for m in quanted),
+          f"compression (a): the optimizer moved {sum(moved)} of "
+          f"{len(quanted)} inner weights")
+    del before
+    check(all(np.isfinite(q_losses)), f"compression (a): losses {q_losses}")
+    check(q_losses[3] < q_losses[1], "compression (a): the third timed "
+          f"QAT loss {q_losses[3]} not below the first {q_losses[1]}")
+    res = {"quanted_linears": len(quanted), "qat_losses": q_losses,
+           "fp_losses": fp_losses, "qat_ms": q_ms, "fp_ms": fp_ms,
+           "qat_ms_median": statistics.median(q_ms[1:]),
+           "fp_ms_median": statistics.median(fp_ms[1:])}
+    print(f"compression (a): QAT BERT-base [{feed['ids'].shape[0]}, "
+          f"{feed['ids'].shape[1]}] f32, {len(quanted)} QuantedLinears; "
+          f"losses {[round(x, 4) for x in q_losses]} (unquantized "
+          f"{[round(x, 4) for x in fp_losses]}); step median "
+          f"{res['qat_ms_median']:.1f} ms against the unquantized eager "
+          f"step's {res['fp_ms_median']:.1f} ms", flush=True)
+    del qmodel, qopt, quanted
+    _free(card)
+
+    res["card_vs_cpu"] = _qat_card_vs_cpu(paddle, card, cfg_kw, V)
+    return res, model
+
+
+class _RecordedQuanter:
+    """The port's ``FakeQuanterWithAbsMax`` with each call's codes read off
+    its output (``q = round(out · qmax / s)``, ``s`` the input's abs max)
+    and kept on the host beside ``s``. Given another run's codes
+    (``replay``), it counts how many of its own codes lie off them and by
+    how many levels at most, and passes the other run's dequantized values
+    on in place of its own (straight through), so the sites after it see
+    that run's inputs."""
+
+    def __init__(self, replay=None):
+        from paddle_tpu_torch.quantization import FakeQuanterWithAbsMax
+
+        self.quanter = FakeQuanterWithAbsMax()
+        self.replay = replay
+        self.codes = []
+        self.moved = 0
+        self.most = 0.0
+
+    def __call__(self, x):
+        from paddle_tpu_torch.core.dispatch import apply_op
+
+        out = self.quanter(x)
+        s = torch.clamp_min(x._data.detach().abs().max(), 1e-8)
+        q = torch.round(out._data.detach() * QAT_QMAX / s)
+        self.codes.append((q.cpu(), s.cpu()))
+        if self.replay is None:
+            return out
+        qc, sc = self.replay[len(self.codes) - 1]
+        d = (self.codes[-1][0] - qc).abs()
+        self.moved += int((d > 0).sum())
+        self.most = max(self.most, float(d.max()))
+        sd = sc.to(s.device)
+        deq = qc.to(s.device) * sd / sd.new_full((), QAT_QMAX)
+        return apply_op(lambda a, dq: a + (dq - a).detach(), x, deq,
+                        _op_name="fake_quant")
+
+
+def _code_levels(codes, other):
+    """(elements whose codes differ, the most levels between them) over
+    all sites of two runs."""
+    moved = most = 0
+    for (q, _), (q2, _) in zip(codes, other):
+        d = (q - q2).abs()
+        moved += int((d > 0).sum())
+        most = max(most, float(d.max()))
+    return moved, most
+
+
+def _unexplained_codes(codes, other, sites, other_sites, qmax=QAT_QMAX):
+    """The codes of one run that differ from another's where no rounding
+    boundary (a half level) lies between the two runs' scaled inputs
+    ``x / s · qmax``, give or take 1e-4 of a level (the f32 rounding of
+    the quantizer's own division and product): what a quantizer that
+    rounds otherwise than the other gives. ``sites`` and ``other_sites``:
+    per site ``(x, dL/dx)`` of each run."""
+    bad = 0
+    for (q, s), (q2, s2), (x, _), (x2, _) in zip(codes, other, sites,
+                                                 other_sites):
+        moved = (q != q2).numpy()
+        if not moved.any():
+            continue
+        v = np.asarray(x, np.float64)[moved] / float(s) * qmax
+        v2 = np.asarray(x2, np.float64)[moved] / float(s2) * qmax
+        lo = np.minimum(v, v2) - 1e-4
+        hi = np.maximum(v, v2) + 1e-4
+        bad += int((np.floor(hi - 0.5) < np.ceil(lo - 0.5)).sum())
+    return bad
+
+
+def _qat_card_vs_cpu(paddle, card, cfg_kw, V):
+    """(a)'s card against the CPU: BERT at depth 2, f32, dropout 0, one
+    QAT forward and backward of SURFACE_CPU_SHAPE on the same weights,
+    every site the port's quanter recording its codes
+    (:class:`_RecordedQuanter`). With every site quantized to the CPU's
+    codes and scales, so each site sees the CPU's inputs up to f32
+    rounding: the card's own codes within one level of the CPU's, each
+    that moved at a rounding boundary between the two inputs
+    (:func:`_unexplained_codes`), the weights' codes equal, the loss and
+    gradients within phase 7's f32 bounds. With the card's own codes (a
+    moved code moves the later sites' inputs, where more codes move, by
+    more than a level): the weights' codes equal; the codes moved, the
+    loss and the gradients are readings."""
+    from paddle_tpu_torch.models import BertForPretraining, bert_base
+    from paddle_tpu_torch.quantization import QAT, QuantConfig, QuantedLinear
+
+    small = bert_base(**dict(cfg_kw or {}, num_layers=2, dropout=0.0))
+    sb, ss = SURFACE_CPU_SHAPE
+    cpu_act, cpu_w = _RecordedQuanter(), _RecordedQuanter()
+    runs = {"cpu": ("cpu", cpu_act, cpu_w),
+            "card": ("gpu" if card else "cpu", _RecordedQuanter(),
+                     _RecordedQuanter()),
+            "pinned": ("gpu" if card else "cpu",
+                       _RecordedQuanter(cpu_act.codes),
+                       _RecordedQuanter(cpu_w.codes))}
+    state, got = None, {}
+    for tag, (where, act, wq) in runs.items():
+        paddle.set_device(where)
+        paddle.seed(1)
+        m = BertForPretraining(small)
+        if state is None:
+            state = m.state_dict()
+        else:
+            m.set_state_dict(state)
+        qm = QAT(QuantConfig(activation=act, weight=wq)).quantize(
+            m, inplace=True)
+        sites = _retain_site_inputs(qm, QuantedLinear)
+        loss = qm.loss(*_bert_batch(paddle, V, sb, ss, 3))
+        loss.backward()
+        got[tag] = (float(loss), {n: p.grad.numpy() for n, p in
+                                  qm.named_parameters()
+                                  if p.grad is not None},
+                    [(x.detach().cpu().numpy(), x.grad.cpu().numpy())
+                     for x in sites])
+        del m, qm, sites, loss
+    paddle.set_device("gpu" if card else "cpu")
+    g_cpu = got["cpu"][1]
+    top = max(np.linalg.norm(g) for g in g_cpu.values())
+
+    def grad_rel(tag):
+        g_dev = got[tag][1]
+        check(set(g_cpu) == set(g_dev), f"compression (a): {tag} leaves")
+        rel = {n: float(np.linalg.norm(g_dev[n] - g)
+                        / max(np.linalg.norm(g), 1e-4 * top))
+               for n, g in g_cpu.items()}
+        worst = max(rel, key=rel.get)
+        return worst, rel[worst]
+
+    l_cpu = got["cpu"][0]
+    own_act, own_w = runs["card"][1], runs["card"][2]
+    moved, most = _code_levels(own_act.codes, cpu_act.codes)
+    w_moved, _ = _code_levels(own_w.codes, cpu_w.codes)
+    check(w_moved == 0, f"compression (a): weights' codes moved {w_moved}")
+    own_diff = abs(got["card"][0] - l_cpu)
+    own_worst, own_rel = grad_rel("card")
+    act, wq = runs["pinned"][1], runs["pinned"][2]
+    unexplained = _unexplained_codes(act.codes, cpu_act.codes,
+                                     got["pinned"][2], got["cpu"][2])
+    check(act.most <= 1 and wq.moved == 0 and unexplained == 0,
+          f"compression (a): pinned, the card's codes lie up to "
+          f"{act.most} levels from the CPU's ({act.moved} moved, "
+          f"{unexplained} with no rounding boundary between the two "
+          f"inputs); weights' codes moved {wq.moved}")
+    pin_rel_loss = abs(got["pinned"][0] - l_cpu) / abs(l_cpu)
+    pin_worst, pin_rel = grad_rel("pinned")
+    check(pin_rel_loss <= TRAIN_LOSS_RTOL and pin_rel <= TRAIN_GRAD_RTOL,
+          f"compression (a): with the CPU's codes, loss rel {pin_rel_loss}, "
+          f"gradient {pin_worst} rel {pin_rel}")
+    n_codes = sum(q.numel() for q, _ in cpu_act.codes)
+    out = {"losses": [l_cpu, got["card"][0], got["pinned"][0]],
+           "loss_diff": own_diff, "grad_rel_max": own_rel,
+           "grad_rel_worst": own_worst, "sites": len(cpu_act.codes),
+           "codes": n_codes, "codes_moved": moved, "most_levels": most,
+           "pinned_codes_moved": act.moved, "pinned_loss_rel": pin_rel_loss,
+           "pinned_grad_rel_max": pin_rel, "pinned_grad_rel_worst": pin_worst}
+    print(f"compression (a): depth 2 QAT card vs CPU, {len(cpu_act.codes)} "
+          f"sites, {n_codes} activation codes: with the CPU's codes "
+          f"pinned, {act.moved} of the card's own one level off, each at a "
+          f"rounding boundary between the two inputs, weights' equal; loss "
+          f"rel {pin_rel_loss:.2e}, grads max rel {pin_rel:.2e} "
+          f"({pin_worst}; bounds {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_RTOL}); "
+          f"with the card's own codes (readings): {moved} moved, up to "
+          f"{most:.0f} levels, loss diff {own_diff:.3e} (rel "
+          f"{own_diff / abs(l_cpu):.2e}), grads max rel {own_rel:.2e} "
+          f"({own_worst})", flush=True)
+    return out
+
+
+def _compression_ptq(paddle, card, model, V, b, s, counted, want_only):
+    """(b): PTQ of (a)'s unquantized model in eval: 2 observed batches,
+    ``convert``; each layer's scale against its inputs' largest |x|."""
+    from paddle_tpu_torch.quantization import PTQ, QuantConfig, QuantedLinear
+
+    L = len(model.bert.layers)
+    ptq = PTQ(QuantConfig())
+    pm = ptq.quantize(model)
+    seen = {}
+    for sub in pm.sublayers():
+        if isinstance(sub, QuantedLinear):
+            seen[id(sub)] = []
+            fwd = sub.forward
+
+            def forward(x, fwd=fwd, acc=seen[id(sub)]):
+                acc.append(x._data.detach().abs().max())
+                return fwd(x)
+
+            sub.forward = forward
+    model.eval()
+    pm.eval()
+    with paddle.no_grad():
+        for i in range(2):
+            f = _bert_arrays(V, b, s, 21 + i)
+            _, counts = counted(lambda: pm(paddle.to_tensor(f["ids"]),
+                                           paddle.to_tensor(f["types"])))
+            want_only(counts, {"flash_attention_fwd": L}, f"(b) observe {i}")
+    ptq.convert(pm)
+    layers = [m for m in pm.sublayers() if isinstance(m, QuantedLinear)]
+    exact = [m.static_scales == float(torch.stack(seen[id(m)]).max())
+             for m in layers]
+    check(len(layers) == 6 * L + 3 and all(exact),
+          f"compression (b): {sum(exact)} of {len(layers)} static scales "
+          "equal their inputs' largest |x|")
+    f = _bert_arrays(V, b, s, 23)
+    with paddle.no_grad():
+        ids, types = paddle.to_tensor(f["ids"]), paddle.to_tensor(f["types"])
+        fp_mlm, fp_nsp = model(ids, types)
+        (q_mlm, q_nsp), counts = counted(lambda: pm(ids, types))
+        want_only(counts, {"flash_attention_fwd": L}, "(b) converted")
+        a, w = q_mlm._data, fp_mlm._data
+        rel = float((a - w).abs().max() / w.abs().max())
+        top1 = float((a.argmax(-1) == w.argmax(-1)).float().mean())
+        nsp_rel = float((q_nsp._data - fp_nsp._data).abs().max()
+                        / fp_nsp._data.abs().max())
+    model.train()
+    res = {"layers": len(layers), "scales_exact": all(exact),
+           "scale_range": [min(m.static_scales for m in layers),
+                           max(m.static_scales for m in layers)],
+           "mlm_rel": rel, "mlm_top1_agreement": top1, "nsp_rel": nsp_rel}
+    print(f"compression (b): PTQ {len(layers)} static scales equal the "
+          f"observed largest |x| (range {res['scale_range'][0]:.3f}-"
+          f"{res['scale_range'][1]:.3f}); converted MLM logits rel "
+          f"{rel:.3e}, top-1 agreement {top1:.4f}, NSP rel {nsp_rel:.3e}",
+          flush=True)
+    del pm, fp_mlm, q_mlm, a, w
+    _free(card)
+    return res
+
+
+def _compression_asp(paddle, card, model, feed, counted, want_only):
+    """(c): 2:4 pruning of BERT-base: the card's masks against the CPU's
+    for every algorithm and each of the 75 weights, each pruning algorithm
+    timed over them, ``nsp`` excluded, and 3 AdamW steps under
+    ``decorate``."""
+    import copy
+
+    from paddle_tpu_torch.incubate import asp
+
+    dev = DEVICE if card else "cpu"
+    L = len(model.bert.layers)
+    ids, types, labels, nsp = (paddle.to_tensor(feed[k]) for k in
+                               ("ids", "types", "labels", "nsp"))
+    weights = [sub.weight._data.detach() for sub in model.sublayers()
+               if isinstance(sub, paddle.nn.Linear)]
+    check(len(weights) == 6 * L + 3, f"compression (c): {len(weights)} "
+          "Linear weights")
+    same = {}
+    for algo, fn in asp._MASK_ALGOS.items():
+        same[algo] = sum(bool(torch.equal(fn(w).cpu(), fn(w.cpu())))
+                         for w in weights)
+    check(all(n == len(weights) for n in same.values()),
+          f"compression (c): card masks equal the CPU's for {same} of "
+          f"{len(weights)} weights")
+    del weights
+    asp.reset_excluded_layers()
+    times = {}
+    for algo in ("mask_1d", "mask_2d_best"):
+        m = copy.deepcopy(model)
+        _sync(dev)
+        t0 = time.perf_counter()
+        masks = asp.prune_model(m, mask_algo=algo)
+        _sync(dev)
+        times[algo] = (time.perf_counter() - t0) * 1e3
+        check(len(masks) == 6 * L + 3, f"compression (c): {algo} pruned "
+              f"{len(masks)} weights")
+        if algo == "mask_2d_best":
+            # 768 x 2: 4 does not divide 2, so the 1-D mask, as the reference
+            check(np.array_equal(masks["nsp"], asp.get_mask_1d(
+                model.nsp.weight.numpy())), "compression (c): nsp mask")
+        del m, masks
+        _free(card)
+    asp.set_excluded_layers(model, ["nsp"])
+    masks = asp.prune_model(model, mask_algo="mask_2d_best")
+    asp.reset_excluded_layers()
+    dens = {n: asp.calculate_density(sub.weight) for n, sub in
+            model.named_sublayers() if n in masks}
+    check(len(masks) == 6 * L + 2 and set(dens.values()) == {0.5}
+          and asp.calculate_density(model.nsp.weight) == 1.0
+          and getattr(model.nsp.weight, "_asp_mask", None) is None,
+          f"compression (c): {len(masks)} pruned, densities "
+          f"{sorted(set(dens.values()))}, nsp "
+          f"{asp.calculate_density(model.nsp.weight)}")
+    opt = asp.decorate(paddle.optimizer.AdamW(learning_rate=1e-4,
+                                              parameters=model.parameters()))
+    check(asp.decorate(opt) is opt, "compression (c): decorate twice")
+    losses, held = [], 0
+    for i in range(3):
+        def step():
+            loss = model.loss(ids, labels, nsp, token_type_ids=types)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss)
+
+        lv, counts = counted(step)
+        want_only(counts, {"flash_attention_fwd": L,
+                           "flash_attention_bwd": L}, f"(c) step {i}")
+        losses.append(lv)
+        held = 0
+        for t in (t for g in opt.param_groups for t in g["params"]):
+            p = opt._paddle_params[id(t)]
+            if getattr(p, "_asp_mask", None) is None:
+                continue
+            check(p._data is t and asp.check_sparsity(
+                t, func_name="check_mask_2d"),
+                f"compression (c): step {i}: {p.name} lost its 2:4 mask")
+            held += 1
+    check(held == 6 * L + 2 and all(np.isfinite(losses)),
+          f"compression (c): {held} masked weights held, losses {losses}")
+    res = {"prune_ms": times, "pruned": len(masks), "masks_equal": same,
+           "losses": losses}
+    print(f"compression (c): ASP prune_model over {6 * L + 3} weights: "
+          f"mask_1d {times['mask_1d']:.1f} ms, mask_2d_best "
+          f"{times['mask_2d_best']:.1f} ms; card masks = CPU's for each "
+          f"algorithm on all {6 * L + 3} weights; "
+          f"{len(masks)} pruned to density 0.5, nsp dense; 3 decorated "
+          f"AdamW steps, 2:4 held on the optimizer's tensors; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    return res
+
+
+def _compression_nn_quant(paddle, card, shape):
+    """(d): ``nn.quant`` at LLaMA-7B's up projection, bf16."""
+    from paddle_tpu_torch.nn import quant as nq
+    from paddle_tpu_torch.quant.gemm import _int_mm
+
+    dev = DEVICE if card else "cpu"
+    k, n = shape["k"], shape["n"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = (0.02 * torch.randn(k, n, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    wt, wc = paddle.to_tensor(w), w.cpu()
+    codes = {}
+    for algo in ("weight_only_int8", "weight_only_int4", "llm.int8"):
+        for gs in (-1, 64, 128):
+            q, s = nq.weight_quantize(wt, algo=algo, group_size=gs)
+            qc, sc = nq.weight_quantize_arrays(wc, algo, gs)
+            srel = float(((s._data.cpu() - sc).abs() / sc).max())
+            same = torch.equal(q._data.cpu(), qc)
+            check(same and srel <= NN_QUANT_SCALE_RTOL,
+                  f"compression (d): {algo} group {gs}: codes equal {same}, "
+                  f"scales rel {srel}")
+            codes[f"{algo},{gs}"] = (q, s)
+    wbytes = {key: q._data.nbytes + s._data.nbytes
+              for key, (q, s) in codes.items()}
+    check(codes["weight_only_int4,-1"][0]._data.nbytes
+          == codes["weight_only_int8,-1"][0]._data.nbytes == k * n,
+          "compression (d): int4 codes hold as many bytes as int8's")
+    q8, s8 = codes["weight_only_int8,-1"]
+    q4, s4 = codes["weight_only_int4,128"]
+    ql, sl = codes["llm.int8,-1"]
+    wf = w.float()
+    rows = {}
+    for m in shape["rows"]:
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        xt = paddle.to_tensor(x)
+        ref = x.float() @ wf
+        scale = ref.abs().max()
+        y = nq.weight_only_linear(xt, q8, weight_scale=s8)._data
+        plain = (x.float() @ nq.weight_dequantize(
+            q8, s8, out_dtype="float32")._data).to(torch.bfloat16)
+        wol_plain = float((y.float() - plain.float()).abs().max() / scale)
+        wol_ref = float((y.float() - ref).abs().max() / scale)
+        check(wol_plain <= WOL_PLAIN_RTOL and wol_ref < NN_QUANT_RTOL,
+              f"compression (d): weight_only_linear [{m}, {k}]: rel "
+              f"{wol_plain} against its plain route, {wol_ref} against "
+              "x @ w")
+        count, factor = LLM_INT8_OUTLIERS
+        chans = [7 + i * (k // count) for i in range(count)]
+        xo = x.clone()
+        xo[:, chans] *= factor
+        xot = paddle.to_tensor(xo)
+        with _OpCount() as ops:
+            yl = nq.llm_int8_linear(xot, ql, weight_scale=sl)._data
+        a_q, a_s, q_in, outlier, _ = nq.llm_int8_parts(xo, ql._data,
+                                                       sl._data, 6.0)
+        acc = _int_mm(a_q, q_in)
+        exact = torch.equal(acc.double(),
+                            a_q.double() @ q_in.double().t())
+        refo = xo.float() @ wf
+        l_ref = float((yl.float() - refo).abs().max() / refo.abs().max())
+        check((not card or "aten._int_mm" in ops.ops) and exact
+              and int(outlier.sum()) == len(chans) and l_ref < NN_QUANT_RTOL,
+              f"compression (d): llm_int8_linear [{m}, {k}]: _int_mm "
+              f"{'aten._int_mm' in ops.ops}, int32 sums exact {exact}, "
+              f"outliers {int(outlier.sum())}, rel {l_ref}")
+        # on the CPU each timed call runs once, untimed
+        timer = time_ms if card else (lambda fn, **kw: (fn(), 0.0)[1])
+        rows[m] = {"wol_rel_plain": wol_plain, "wol_rel_ref": wol_ref,
+                   "llm_int8_rel_ref": l_ref, "int32_exact": exact,
+                   "wol_ms": timer(lambda: nq.weight_only_linear(
+                       xt, q8, weight_scale=s8), reps=5, inner=2),
+                   "wol_int4_g128_ms": timer(lambda: nq.weight_only_linear(
+                       xt, q4, weight_scale=s4, weight_dtype="int4",
+                       group_size=128), reps=5, inner=2),
+                   "llm_int8_ms": timer(lambda: nq.llm_int8_linear(
+                       xot, ql, weight_scale=sl), reps=5, inner=2),
+                   "int_mm_ms": timer(lambda: _int_mm(a_q, q_in), reps=5,
+                                      inner=2),
+                   "bf16_matmul_ms": timer(lambda: torch.matmul(x, w),
+                                           reps=5, inner=2)}
+        print(f"compression (d): [{m}, {k}] x [{k}, {n}] bf16: "
+              f"weight_only_linear {rows[m]['wol_ms']:.3f} ms (int4 g128 "
+              f"{rows[m]['wol_int4_g128_ms']:.3f}), llm_int8_linear "
+              f"{rows[m]['llm_int8_ms']:.3f} ms (its _int_mm "
+              f"{rows[m]['int_mm_ms']:.3f}), torch.matmul bf16 "
+              f"{rows[m]['bf16_matmul_ms']:.3f} ms; rel against x @ w "
+              f"{wol_ref:.2e} and {l_ref:.2e}, against the plain route "
+              f"{wol_plain:.2e}; int32 sums exact", flush=True)
+    res = {"codes_equal_cpu": sorted(codes), "weight_bytes": wbytes,
+           "bf16_bytes": w.nbytes, "rows": rows}
+    print(f"compression (d): weight_quantize codes = CPU's for "
+          f"{len(codes)} (algo, group) pairs; bytes: bf16 {w.nbytes}, "
+          f"int8 {wbytes['weight_only_int8,-1']}, int4 (as int8) "
+          f"{wbytes['weight_only_int4,-1']}, int4 g128 "
+          f"{wbytes['weight_only_int4,128']}", flush=True)
+    del codes, w, wt, wc, wf
+    _free(card)
+    return res
+
+
+def _compression_names(paddle, card):
+    """(e): the device queries, C.3's int ``axes`` and C.4's GPU window on
+    the card."""
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch import profiler as pprof
+    from paddle_tpu_torch.profiler import device_trace
+
+    res = {"cudnn": paddle.device.get_cudnn_version(),
+           "distribute": paddle.device.is_compiled_with_distribute()}
+    check(res["cudnn"] == torch.backends.cudnn.version(),
+          f"compression (e): get_cudnn_version {res['cudnn']}")
+    a = np.arange(24, dtype=np.float32).reshape(4, 6)
+    got = paddle.fft.fftshift(paddle.to_tensor(a), axes=1).numpy()
+    with tdevice._place_scope(torch.device("cpu")):
+        want = paddle.fft.fftshift(paddle.to_tensor(a), axes=1).numpy()
+    check(np.array_equal(got, want) and np.array_equal(
+        want, np.fft.fftshift(a, axes=1)), "compression (e): fftshift")
+    if not card:
+        return res
+    x = torch.randn(32, 480000, device=DEVICE)
+    win = torch.hann_window(400, device=DEVICE)
+    spec = torch.stft(x, 400, 160, window=win, return_complex=True)
+
+    def istft():
+        return torch.istft(spec, 400, 160, window=win, length=480000)
+
+    istft()
+    gpu = [pprof.ProfilerTarget.CPU, pprof.ProfilerTarget.GPU]
+    p = pprof.Profiler(targets=gpu)
+    with p:
+        istft()
+        torch.cuda.synchronize()
+    try:
+        rows = p.device_rows()
+        dev_names = {e[0] for e in p._device_events if e[1] == "device"}
+        check(rows and {r["name"] for r in rows} <= dev_names,
+              "compression (e): a GPU window's table holds host ops")
+        calls = sum(r["calls"] for r in rows)
+        outcome = f"{len(rows)} device rows, {calls} kernels"
+    except device_trace.NoDeviceEvents as e:
+        outcome = f"raised NoDeviceEvents ({e})"
+    res["gpu_window"] = outcome
+    print(f"compression (e): cuDNN {res['cudnn']}, distribute "
+          f"{res['distribute']}; fftshift(axes=1) card = CPU; a GPU "
+          f"profiler window: {outcome}", flush=True)
+    del x, spec
+    _free(card)
+    return res
+
+
+def phase_compression(smi="", cfg_kw=None, batch=BERT_BATCH, seq=BERT_SEQ,
+                      proj=None):
+    """The compression path: (a) ``QAT`` on BERT-base (config 3's model,
+    f32, dropout 0, AdamW at 1e-4, one seeded batch with segment ids): 75
+    ``QuantedLinear``s, a warm-up and 3 timed steps against the same
+    model's unquantized eager step, launches a step, and the card against
+    the CPU at depth 2 with the CPU's codes pinned; (b) ``PTQ`` of that model in eval: 2
+    observed batches, each static scale exactly its inputs' largest |x|,
+    the converted logits against the float ones; (c) ASP: ``prune_model``
+    with ``mask_1d`` and ``mask_2d_best`` timed, the card's masks against
+    the CPU's, ``nsp`` excluded, 3 ``decorate``d AdamW steps holding 2:4 on
+    the optimizer's tensors; (d) ``nn.quant`` at LLaMA-7B's up projection
+    in bf16: codes and scales against the CPU's, ``weight_only_linear`` and
+    ``llm_int8_linear`` against their plain routes and ``x @ w``, times
+    and bytes; (e) the device queries, ``fftshift(axes=1)`` and a GPU
+    profiler window. ``cfg_kw``, the shapes and ``proj``, with ``DEVICE =
+    "cpu"``, rehearse it small (no launch checks, no times)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import bert_base
+
+    K = paddle.ops.kernels
+    card = DEVICE != "cpu"
+    dev = DEVICE if card else "cpu"
+    paddle.set_device("gpu" if card else "cpu")
+    t_phase = time.perf_counter()
+    res = {"smi": smi}
+    launches = {name: 0 for name in K.launch_counts()}
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        _sync(dev)
+        counts = K.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        return out, counts
+
+    def want_only(counts, want, tag):
+        if not card:
+            return
+        full = {name: 0 for name in counts}
+        full.update(want)
+        check(counts == full, f"compression {tag}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, want {want}")
+
+    cfg = bert_base(dropout=0.0, **(cfg_kw or {}))
+    feed = _bert_arrays(cfg.vocab_size, batch, seq, 11)
+    res["a"], model = _compression_qat(paddle, card, cfg, cfg_kw, feed,
+                                       counted, want_only)
+    res["b"] = _compression_ptq(paddle, card, model, cfg.vocab_size, batch,
+                                seq, counted, want_only)
+    res["c"] = _compression_asp(paddle, card, model, feed, counted,
+                                want_only)
+    del model
+    _free(card)
+    res["d"] = _compression_nn_quant(paddle, card, dict(LLAMA_PROJ,
+                                                        **(proj or {})))
+    res["e"] = _compression_names(paddle, card)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  compression: {res['seconds']:.1f} s on {smi}", flush=True)
+    return res
+
+
 def _free(card):
     gc.collect()
     if card:
@@ -9420,7 +10119,8 @@ def main():
             "resilience", phase_resilience, report["device"]["smi"],
             GPTConfig(**RESILIENCE_CONFIG4))
         report["quant_train"] = run("quant_train", phase_quant_train,
-                                    report["device"]["smi"])
+                                    report["device"]["smi"],
+                                    GPTConfig(**QUANT_TRAIN_CONFIG4))
         report["long_context"] = run("long_context", phase_long_context)
         report["long_context_remat"] = run("long_context_remat",
                                            phase_long_context_remat)
@@ -9443,6 +10143,8 @@ def main():
                                report["device"]["smi"])
         report["domains"] = run("domains", phase_domains,
                                 report["device"]["smi"])
+        report["compression"] = run("compression", phase_compression,
+                                    report["device"]["smi"])
     report["seconds"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -9506,7 +10208,8 @@ def main():
                                 "quant_train", "long_context",
                                 "model_rest", "shared_block",
                                 "paddle_surface", "vision", "amp",
-                                "deploy", "tools", "static")}
+                                "deploy", "tools", "static",
+                                "compression")}
         line.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path.values()),

@@ -22,7 +22,9 @@ model), ``ir`` (FX graph rewrites), ``cost_model``, ``cinn``,
 ``sysconfig``, ``get_flags``/``set_flags`` and ``flops``, and the domain
 libraries: ``sparse`` (COO tensors, rulebook convs, O(nnz) attention),
 ``geometric``, ``fft``, ``signal``, ``linalg`` (``linalg_ns.py``),
-``audio``, ``distribution``, ``text`` and ``strings``. A tensor made with no place lands on the CUDA card
+``audio``, ``distribution``, ``text`` and ``strings``, and the
+compression path: ``quantization`` (QAT, PTQ), ``nn.quant`` (weight-only
+and LLM.int8 linears) and ``incubate.asp`` (n:m pruning). A tensor made with no place lands on the CUDA card
 (``device.set_device("cpu")`` asks for the CPU); where there is no card,
 making it raises. Imports run one way: the surface imports the torch-level
 port (``ops.kernels``, ``optimizer``, ``jit``, ``telemetry``), which imports
@@ -91,6 +93,7 @@ from . import signal  # noqa: F401,E402
 from . import text  # noqa: F401,E402
 from . import audio  # noqa: F401,E402
 from . import geometric  # noqa: F401,E402
+from . import quantization  # noqa: F401,E402
 from .hapi.model import Model, summary  # noqa: F401,E402
 from .framework_io import (  # noqa: F401,E402
     async_save, clear_async_save_task_queue, load, save)

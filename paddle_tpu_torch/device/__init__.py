@@ -199,6 +199,41 @@ def get_available_device():
     return [f"gpu:{i}" for i in range(device_count())]
 
 
+def get_cudnn_version():
+    """cuDNN's version as torch reports it (an int such as 91002), None
+    without cuDNN. The reference answers None on its TPU."""
+    return torch.backends.cudnn.version()
+
+
+class IPUPlace:
+    """Named for source compatibility: the port runs on no IPU."""
+
+
+def is_compiled_with_ipu():
+    return False
+
+
+def is_compiled_with_cinn():
+    return False
+
+
+def is_compiled_with_distribute():
+    """Whether torch was built with ``torch.distributed``."""
+    return torch.distributed.is_available()
+
+
+def is_compiled_with_custom_device(device_type=None):
+    return False
+
+
+def get_all_custom_device_type():
+    return []
+
+
+def get_available_custom_device():
+    return []
+
+
 def synchronize(device=None):
     """Block until all queued work on the card completes."""
     if torch.cuda.is_available():

@@ -3,6 +3,12 @@
 The Hermitian 2-D and n-D transforms are the reference's compositions:
 ``hfft2``/``hfftn`` are ``irfft2``/``irfftn`` of the conjugate under the
 inverse norm, ``ihfft2``/``ihfftn`` the conjugate of ``rfft2``/``rfftn``.
+
+Where the reference departs from Paddle's documented signatures the port
+takes Paddle's: ``axes`` is an int or a sequence of ints, the transforms
+take ``name`` (the reference's take ``name_``), and ``fftfreq``/``rfftfreq``
+return ``dtype`` (the default float type when it is None; the reference
+never reads it).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ __all__ = ["fft", "ifft", "rfft", "irfft", "hfft", "ihfft", "fft2", "ifft2",
 def _mk1(name):
     tfn = getattr(torch.fft, name)
 
-    def op(x, n=None, axis=-1, norm="backward", name_=None):
+    def op(x, n=None, axis=-1, norm="backward", name=None):
         return apply_op(lambda a: tfn(a, n=n, dim=axis, norm=norm), x,
                         _op_name=name)
 
@@ -31,8 +37,8 @@ def _mk1(name):
 def _mkn(name, default_axes):
     tfn = getattr(torch.fft, name)
 
-    def op(x, s=None, axes=default_axes, norm="backward", name_=None):
-        dim = None if axes is None else tuple(axes)
+    def op(x, s=None, axes=default_axes, norm="backward", name=None):
+        dim = _dims(axes)
         return apply_op(lambda a: tfn(a, s=s, dim=dim, norm=norm), x,
                         _op_name=name)
 
@@ -61,7 +67,12 @@ def _inv(norm):
 
 
 def _dims(axes):
-    return None if axes is None else tuple(axes)
+    """``axes`` (None, an int, or a sequence of ints) as torch's ``dim``."""
+    if axes is None:
+        return None
+    if isinstance(axes, int):
+        return (axes,)
+    return tuple(int(a) for a in axes)
 
 
 def hfft2(x, s=None, axes=(-2, -1), norm="backward", name=None):
@@ -88,18 +99,20 @@ def ihfftn(x, s=None, axes=None, norm="backward", name=None):
                     x, _op_name="ihfftn")
 
 
-def _freq(tfn, n, d):
+def _freq(tfn, n, d, dtype):
+    from . import dtypes, framework
     from .device import _current_device
 
-    return Tensor._wrap(tfn(n, d, device=_current_device()))
+    dt = dtypes.to_torch(dtype or framework.get_default_dtype())
+    return Tensor._wrap(tfn(n, d, dtype=dt, device=_current_device()))
 
 
 def fftfreq(n, d=1.0, dtype=None, name=None):
-    return _freq(torch.fft.fftfreq, n, d)
+    return _freq(torch.fft.fftfreq, n, d, dtype)
 
 
 def rfftfreq(n, d=1.0, dtype=None, name=None):
-    return _freq(torch.fft.rfftfreq, n, d)
+    return _freq(torch.fft.rfftfreq, n, d, dtype)
 
 
 def fftshift(x, axes=None, name=None):

@@ -3,7 +3,8 @@ fused ops and layers under ``incubate.nn``, the MoE layer under
 ``incubate.distributed``, and the top level of
 ``paddle_tpu/incubate/__init__.py``: the masked softmaxes,
 ``identity_loss``, the ``LookAhead`` and ``ModelAverage`` wrappers,
-``autotune`` and ``inference``, ``incubate.optimizer.functional``, and
+``autotune`` and ``inference``, ``incubate.optimizer.functional``, ``asp`` (n:m
+pruning) and ``autograd`` (the functional transforms), and
 the graph ops over ``geometric``: ``graph_send_recv``, the ``segment_*``
 reductions, and the three host samplers' names, which raise as the
 reference's do (``geometric.sample_neighbors`` and
@@ -15,6 +16,8 @@ import contextlib
 
 import torch
 
+from . import asp  # noqa: F401
+from . import autograd  # noqa: F401
 from . import distributed  # noqa: F401
 from . import nn  # noqa: F401
 from . import optimizer  # noqa: F401

@@ -262,3 +262,6 @@ def shard_expert_parameters(moe_layer, mesh, axis="dp"):
 __all__ = ["BaseGate", "GShardGate", "MoELayer", "NaiveGate",
            "StackedExperts", "SwitchGate", "balance_loss",
            "shard_expert_parameters"]
+
+
+from . import gate  # noqa: E402,F401

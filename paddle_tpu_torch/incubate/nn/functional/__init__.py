@@ -940,3 +940,6 @@ def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
         _lengths=lengths, **kwargs,
         _op_name="blha_decode" if lengths[3] else "blha_prefill")
     return out, qkv, kc, vc
+
+
+from . import fp8  # noqa: E402,F401

@@ -86,6 +86,34 @@ class GPTConfig:
         self.fused_addrms = fused_addrms
 
 
+def llama_config(size="7b", **overrides):
+    """A ``GPTConfig`` of the reference's presets (``paddle_tpu/models/
+    gpt.py:80``): "tiny", "125m", "350m", "1.3b" or "7b", with
+    ``overrides``."""
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=4,
+                     vocab_size=1024, max_seq_len=512),
+        "125m": dict(hidden_size=768, num_layers=12, num_heads=12,
+                     vocab_size=50304),
+        "350m": dict(hidden_size=1024, num_layers=24, num_heads=16,
+                     vocab_size=50304),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=16,
+                     vocab_size=50304),
+        "7b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                   vocab_size=32000),
+    }
+    cfg = dict(presets[size])
+    cfg.update(overrides)
+    return GPTConfig(**cfg)
+
+
+def causal_lm_loss(model, batch):
+    """``model.loss(input_ids, labels)`` of a ``(input_ids, labels)``
+    batch (the reference's ``:417``)."""
+    input_ids, labels = batch
+    return model.loss(input_ids, labels)
+
+
 def _rope_at_positions(x, pos, base=10000.0):
     """Neox-style (half-split) rope on [B, T, H, D] at absolute positions:
     ``pos`` [B] holds each row's start offset. Frequencies in f32."""

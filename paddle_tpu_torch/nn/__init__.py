@@ -55,3 +55,4 @@ from .layer.compat import (  # noqa: F401
     TripletMarginWithDistanceLoss, Unflatten, ZeroPad1D, ZeroPad3D,
     dynamic_decode)
 from ..param_attr import ParamAttr  # noqa: F401
+from . import quant  # noqa: F401,E402

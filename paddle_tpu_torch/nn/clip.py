@@ -8,6 +8,10 @@ once and shares it between its health bundle and ``ClipGradByGlobalNorm``.
 ``ClipGradByNorm`` scales each tensor by ``min(c / max(n, c), 1)`` on its
 own f32 norm ``n``; ``ClipGradByValue`` clamps each element.
 
+``ClipGradBase`` is the reference's base class (``paddle_tpu/nn/clip.py:9``):
+a subclass defines ``_dygraph_clip(params_grads)``. The three clips derive
+from it and are called on the gradients alone.
+
 The functional helpers take a module or an iterable of parameters:
 ``global_grad_norm`` (never mutates), ``clip_grad_norm_`` (a nonfinite
 norm never scales; ``error_if_nonfinite`` raises instead) and
@@ -28,7 +32,18 @@ def global_grad_sumsq(grads):
     return torch.stack([g.float().square().sum() for g in grads]).sum()
 
 
-class ClipGradByGlobalNorm:
+class ClipGradBase:
+    """Base of the gradient clips: ``clip(params_grads)`` is
+    ``_dygraph_clip(params_grads)``."""
+
+    def _dygraph_clip(self, params_grads):
+        raise NotImplementedError
+
+    def __call__(self, params_grads):
+        return self._dygraph_clip(params_grads)
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
     """Scale every gradient by ``clip_norm / max(global_norm, clip_norm)``,
     in f32, rounding back to the gradient's type. In place."""
 
@@ -51,7 +66,7 @@ class ClipGradByGlobalNorm:
         return grads
 
 
-class ClipGradByNorm:
+class ClipGradByNorm(ClipGradBase):
     """Scale each gradient by ``min(c / max(||g||, c), 1)``, its own f32
     L2 norm against ``clip_norm``. In place."""
 
@@ -70,7 +85,7 @@ class ClipGradByNorm:
         return grads
 
 
-class ClipGradByValue:
+class ClipGradByValue(ClipGradBase):
     """Clamp every gradient element to ``[min, max]`` (``min`` defaults to
     ``-max``). In place."""
 

@@ -19,6 +19,7 @@ from .flash_attention import (  # noqa: F401
 )
 from .fused_cross_entropy import (  # noqa: F401
     chunked_lm_loss_arrays,
+    fused_chunked_cross_entropy,
     int8_head_enabled,
     int8_head_gate,
     resolve_vocab_chunk,

@@ -39,6 +39,7 @@ import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
 from ... import telemetry as _telemetry
+from ...core.dispatch import apply_op
 from ...device import resolve_device
 from ...memory import quantize_rows_int8
 from ...quant.gemm import _int_mm
@@ -222,3 +223,36 @@ def chunked_lm_loss_arrays(h, w, y, *, transpose_y=True, vocab_chunk=None,
     total = _ChunkedCE.apply(hf, w2, torch.where(valid, yf, 0), mask, chunk,
                              bool(int8))
     return total / mask.sum().clamp_min(1.0)
+
+
+def chunked_ce_sum(h, w2, y, mask, *, vocab_chunk=None, int8=False):
+    """Masked sum of the chunked CE (the reference's ``:291``): h [N, H]
+    (or [..., H]); w2 [V, H], vocab-major; y [N] integer labels in range;
+    mask [N] f32. Divide by the mask's sum outside for the mean."""
+    hf = h if h.dim() == 2 else h.reshape(-1, h.shape[-1])
+    chunk = resolve_vocab_chunk(w2.shape[0], vocab_chunk)
+    return _ChunkedCE.apply(hf, w2, y.reshape(-1).long(), mask, chunk,
+                            bool(int8))
+
+
+def fused_chunked_cross_entropy(x, weight, labels, transpose_y=True,
+                                vocab_chunk=None, ignore_index=-100,
+                                int8=None, mesh=None, tp_axis=None,
+                                name=None):
+    """The fused chunked CE LM head on Tensors (the reference's ``:428``):
+    :func:`chunked_lm_loss_arrays` of ``x``, ``weight`` and ``labels``.
+    ``int8=None`` takes :func:`int8_head_enabled` for ``x``'s device. The
+    vocab-sharded variant (``mesh``, ``tp_axis``) waits for the port's
+    multi-GPU path and raises."""
+    if mesh is not None or tp_axis is not None:
+        raise NotImplementedError(
+            "fused_chunked_cross_entropy: the vocab-sharded head (mesh, "
+            "tp_axis) is not ported yet (ROADMAP A.10, multi-GPU)")
+
+    def run(h, w, y):
+        return chunked_lm_loss_arrays(
+            h, w, y, transpose_y=transpose_y, vocab_chunk=vocab_chunk,
+            ignore_index=ignore_index, int8=int8)
+
+    return apply_op(run, x, weight, labels,
+                    _op_name="fused_chunked_cross_entropy")

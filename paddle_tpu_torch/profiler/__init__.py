@@ -18,7 +18,11 @@
   reference calls it once, at ``stop()``.
 - ``ProfilerTarget.CPU`` and ``GPU`` map to torch's CPU and CUDA
   activities (the default: CPU, and GPU when a card is present); ``TPU``,
-  ``XPU`` and ``CUSTOM_DEVICE`` raise. ``timer_only`` starts no torch
+  ``XPU`` and ``CUSTOM_DEVICE`` raise. The CPU ops' table stands in for
+  the device table only when the targets hold no GPU: a GPU window with no
+  device event raises ``device_trace.NoDeviceEvents`` from
+  :meth:`Profiler.device_rows`, :meth:`Profiler.device_summary` and
+  :meth:`Profiler.summary`. ``timer_only`` starts no torch
   profiler; ``record_shapes``, ``profile_memory`` and ``with_flops`` pass
   through to it.
 - A profiler that fails to start raises. The reference swallows the
@@ -135,6 +139,7 @@ class Profiler:
         self._step_times = []
         self._last_step_t = None
         self._host_events = []
+        self._gpu = False
 
     def _activities(self):
         import torch
@@ -169,8 +174,10 @@ class Profiler:
 
                 def schedule(step):
                     return _torch_action(sched(step))
+            acts = self._activities()
+            self._gpu = torch.profiler.ProfilerActivity.CUDA in acts
             self._prof = torch.profiler.profile(
-                activities=self._activities(), schedule=schedule,
+                activities=acts, schedule=schedule,
                 on_trace_ready=self._window_ready, **self._torch_kw)
             self._prof.start()
         self._state = (self._scheduler(0) if self._scheduler is not None
@@ -262,12 +269,15 @@ class Profiler:
     def device_rows(self, logdir=None):
         """The newest recorded window's per-op rows
         (:func:`device_trace.device_op_stats`), or those of the chrome
-        trace at ``logdir``; [] when this session recorded none."""
+        trace at ``logdir``; [] when this session recorded none. A window
+        of a GPU target with no device event raises
+        ``device_trace.NoDeviceEvents``."""
         if logdir is not None:
-            return device_trace.device_op_stats(logdir)
+            return device_trace.device_op_stats(logdir, gpu=self._gpu)
         if not getattr(self, "_trace_written", False):
             return []
-        return device_trace.device_op_stats(self._device_events)
+        return device_trace.device_op_stats(self._device_events,
+                                            gpu=self._gpu)
 
     def device_summary(self, limit=30, by_family=False, logdir=None):
         """Per-op device-time table of the newest recorded window (the

@@ -9,11 +9,13 @@ from a finished window's Kineto results or from the chrome trace JSON a
 window was exported to. The rows and the table keep the reference's
 format.
 
-With no device event at all (a run on the CPU), the table is built from
-the CPU ops, as the reference falls back to XLA:CPU's host plane
-(:179-186); each CPU op counts its self time (its duration less that of
-the ops nested in it on its thread), so the table does not count a
-nested op twice.
+With no device event at all in a window that traced the CPU only, the
+table is built from the CPU ops, as the reference falls back to XLA:CPU's
+host plane (:179-186); each CPU op counts its self time (its duration
+less that of the ops nested in it on its thread), so the table does not
+count a nested op twice. A window that traced the card and holds no
+device event raises :class:`NoDeviceEvents`: its CPU ops would read as a
+plausible device table.
 """
 from __future__ import annotations
 
@@ -165,17 +167,27 @@ def _self_times(cpu):
     return out
 
 
-def device_op_stats(events):
+class NoDeviceEvents(RuntimeError):
+    """A window that traced the card recorded no device event."""
+
+
+def device_op_stats(events, gpu=False):
     """Aggregate a window's device events into per-op totals.
 
     ``events`` as :func:`events_from_kineto` or :func:`events_from_chrome`
-    give them (a path or a trace dict is read first). Returns a list of
-    dicts ``{name, calls, total_us, avg_us, family}``, sorted by total time
-    descending; from the CPU ops' self times when there is no device
-    event."""
+    give them (a path or a trace dict is read first); ``gpu`` says whether
+    the window traced the card. Returns a list of dicts ``{name, calls,
+    total_us, avg_us, family}``, sorted by total time descending. With no
+    device event: from the CPU ops' self times when ``gpu`` is false, else
+    :class:`NoDeviceEvents`."""
     if isinstance(events, (str, os.PathLike, dict)):
         events = events_from_chrome(events)
     dev = [(e[0], e[3]) for e in events if e[1] == "device"]
+    if not dev and gpu:
+        cpu = sum(1 for e in events if e[1] == "cpu")
+        raise NoDeviceEvents(
+            f"a window that traced the card holds {cpu} CPU ops and no "
+            "device event; its table would be the CPU's")
     if not dev:
         dev = [(n, us) for n, us in _self_times(
             [e for e in events if e[1] == "cpu"])

@@ -43,7 +43,11 @@ and a ``Predictor``'s graphed runs against its eager run; the flash
 backward's three dispatcher ops against their wrappers; the domain
 libraries: ``chip_smoke.py``'s SECOND backbone at a small grid against
 the CPU, and BigBird's pattern at seq 512 through the sparse attention
-against dense masked attention.
+against dense masked attention; the compression path:
+``llm_int8_linear`` dispatching ``aten::_int_mm`` on the card, equal to
+its CPU result, and a QAT ``QuantedLinear`` on the card against the CPU:
+its input codes within one level, its output within what the moved codes
+explain.
 Every test skips where there is no CUDA card. This file imports neither
 jax nor the JAX package, so it also runs where neither is installed:
 
@@ -2583,3 +2587,85 @@ def test_bigbird_sparse_attention_on_the_card_matches_dense(surface):
     surface.set_device("gpu")
     res = _domains_bigbird(surface, True, dict(BIGBIRD, seq=512))
     assert res["nnz"] > 0 and res["density"] < 1
+
+
+# -- the compression path --------------------------------------------------------
+def test_llm_int8_linear_on_the_card_equals_the_cpu(surface):
+    """``aten::_int_mm`` is dispatched (cuBLAS; rows padded to 32, k and n
+    to multiples of 8) and the int32 sums equal the CPU's, so the output
+    equals the CPU's up to the f32 outlier product's rounding."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from paddle_tpu_torch.nn import quant
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.RandomState(0)
+    w = (0.05 * rng.randn(100, 60)).astype(np.float32)
+    x = rng.randn(5, 100).astype(np.float32)
+    x[:, [3, 41]] *= 40.0
+    outs = {}
+    for dev in ("cpu", "gpu"):
+        surface.set_device(dev)
+        q, s = quant.weight_quantize(surface.to_tensor(w), algo="llm.int8")
+        with Ops() as ops:
+            y = quant.llm_int8_linear(surface.to_tensor(x), q,
+                                      weight_scale=s)
+        assert "aten._int_mm" in ops.ops
+        a_q, a_s, q_in, _, _ = quant.llm_int8_parts(
+            torch.from_numpy(x).to(q._data.device), q._data, s._data, 6.0)
+        from paddle_tpu_torch.quant.gemm import _int_mm
+
+        outs[dev] = (y.numpy(), _int_mm(a_q, q_in).cpu().numpy(),
+                     q.numpy())
+    np.testing.assert_array_equal(outs["gpu"][2], outs["cpu"][2])
+    np.testing.assert_array_equal(outs["gpu"][1], outs["cpu"][1])
+    np.testing.assert_allclose(outs["gpu"][0], outs["cpu"][0], rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_qat_quanted_linear_on_the_card_within_one_level(surface):
+    """A ``QuantedLinear`` on the card against the CPU, the port's quanter
+    recording its codes: the weight's codes equal, every input code within
+    one level of the CPU's, and the output off the CPU's by no more than
+    the codes that moved explain (a level times the weight's row, for each
+    moved input element) plus f32 rounding; the input's gradient likewise
+    through the weight."""
+    from chip_smoke import _RecordedQuanter
+    from paddle_tpu_torch.convert import layer_state_from_numpy
+    from paddle_tpu_torch.quantization import QuantConfig, QuantedLinear
+
+    rng = np.random.RandomState(1)
+    x = rng.randn(64, 256).astype(np.float32)
+    state = {"weight": (0.05 * rng.randn(256, 128)).astype(np.float32),
+             "bias": (0.1 * rng.randn(128)).astype(np.float32)}
+    outs = {}
+    for dev in ("cpu", "gpu"):
+        surface.set_device(dev)
+        inner = surface.nn.Linear(256, 128)
+        layer_state_from_numpy(state, inner)
+        act, wq = _RecordedQuanter(), _RecordedQuanter()
+        layer = QuantedLinear(inner, QuantConfig(act, wq))
+        t = surface.to_tensor(x, stop_gradient=False)
+        y = layer(t)
+        (y * y).sum().backward()
+        outs[dev] = (y.numpy(), t.grad.numpy(), act.codes[0], wq.codes[0])
+    (qg, sg), (qc, sc) = outs["gpu"][2], outs["cpu"][2]
+    assert torch.equal(outs["gpu"][3][0], outs["cpu"][3][0])
+    assert float(sg) == float(sc)
+    moved = (qg - qc).abs().numpy()
+    assert moved.max() <= 1
+    # |the dequantized weight|: |w| and half a level of its scale
+    aw = np.abs(state["weight"]) + np.abs(state["weight"]).max() / 254.0
+    f32 = 1e-5 * (np.abs(x) @ aw + np.abs(state["bias"]))
+    bound = float(sc) / 127.0 * moved @ aw + f32
+    assert (np.abs(outs["gpu"][0] - outs["cpu"][0]) <= bound).all()
+    gbound = 2 * bound @ aw.T + 1e-5 * (2 * np.abs(outs["cpu"][0]) @ aw.T)
+    assert (np.abs(outs["gpu"][1] - outs["cpu"][1]) <= gbound).all()

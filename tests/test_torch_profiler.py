@@ -260,3 +260,43 @@ def test_classify_buckets_cuda_kernel_names():
     assert device_trace.busy_us([("a", "device", 0.0, 2.0, 0),
                                  ("b", "device", 1.0, 2.0, 0),
                                  ("c", "device", 5.0, 1.0, 0)]) == (4.0, 6.0)
+
+
+def _cpu_only_window():
+    """A window's events with CPU ops and no device event: an op with a
+    nested op on one thread (self times 3 and 2 µs) and one on another."""
+    return [("aten::linear", "cpu", 0.0, 5.0, 1),
+            ("aten::addmm", "cpu", 1.0, 2.0, 1),
+            ("aten::relu", "cpu", 0.0, 4.0, 2)]
+
+
+def test_a_gpu_window_without_device_events_raises(tmp_path):
+    """A window that traced the card and recorded no device event never
+    yields the CPU ops' table; a CPU-only window keeps it."""
+    rows = device_trace.device_op_stats(_cpu_only_window())
+    assert {r["name"]: r["total_us"] for r in rows} == {
+        "aten::linear": 3.0, "aten::addmm": 2.0, "aten::relu": 4.0}
+    with pytest.raises(device_trace.NoDeviceEvents, match="3 CPU ops"):
+        device_trace.device_op_stats(_cpu_only_window(), gpu=True)
+    dev = _cpu_only_window() + [("k", "device", 1.5, 1.0, 0)]
+    assert [r["name"] for r in device_trace.device_op_stats(
+        dev, gpu=True)] == ["k"]
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "cpu_op", "name": n, "ts": s, "dur": d, "tid": t}
+        for n, _, s, d, t in _cpu_only_window()]}
+    path = tmp_path / "w.pt.trace.json"
+    path.write_text(json.dumps(trace))
+    with pytest.raises(device_trace.NoDeviceEvents):
+        device_trace.device_op_stats(str(path), gpu=True)
+    assert len(device_trace.device_op_stats(str(path))) == 3
+    # the Profiler passes whether its targets held the card
+    p = tprof.Profiler(targets=[tprof.ProfilerTarget.CPU])
+    p._trace_written, p._device_events = True, _cpu_only_window()
+    assert len(p.device_rows()) == 3
+    p._gpu = True
+    with pytest.raises(device_trace.NoDeviceEvents):
+        p.device_rows()
+    with pytest.raises(device_trace.NoDeviceEvents):
+        p.device_summary()
+    with pytest.raises(device_trace.NoDeviceEvents):
+        p.device_rows(logdir=str(path))

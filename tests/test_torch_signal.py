@@ -101,6 +101,34 @@ def test_fft_of_complex_input_and_helpers_like_jax():
                                    _np(jp.fft.rfftfreq(n, d)), atol=TOL)
 
 
+@pytest.mark.parametrize("fn", ["fftshift", "ifftshift"])
+@pytest.mark.parametrize("axes", [1, [1], (0, 1), -1])
+def test_fftshift_takes_an_int_list_or_tuple_like_jax(fn, axes):
+    _both(lambda p, a: getattr(p.fft, fn)(a, axes=axes), _x(3, 5))
+
+
+def test_fft_takes_name_and_fftfreq_dtype_as_paddle():
+    """Paddle's signatures where the reference departs from them: the
+    transforms take ``name`` (the reference's raise on it) and ``fftfreq``/
+    ``rfftfreq`` return ``dtype`` (the reference never reads it)."""
+    x = _x(3, 8)
+    np.testing.assert_allclose(
+        _np(tp.fft.fft(tp.to_tensor(x), name="f")),
+        _np(jp.fft.fft(jp.to_tensor(x))), atol=FFT_TOL)
+    np.testing.assert_allclose(
+        _np(tp.fft.fft2(tp.to_tensor(x), axes=1, name="f")),
+        np.fft.fftn(x, axes=(1,)), atol=FFT_TOL, rtol=FFT_TOL)
+    with pytest.raises(TypeError):
+        jp.fft.fft(jp.to_tensor(x), name="f")
+    for fn in ("fftfreq", "rfftfreq"):
+        for dtype, want in ((None, np.float32), ("float64", np.float64),
+                            ("float32", np.float32)):
+            got = getattr(tp.fft, fn)(9, 0.5, dtype=dtype)
+            assert _np(got).dtype == want
+            np.testing.assert_allclose(
+                _np(got), _np(getattr(jp.fft, fn)(9, 0.5)), atol=TOL)
+
+
 def test_fft_hermitian_variants():
     x = _x(8, 8)
     out = tp.fft.ihfft2(tp.to_tensor(x))

@@ -43,7 +43,7 @@ NOT_ON_THE_PORT = {
     "digamma_fn": "helper", "exponent_bias": "helper",
     "inner_alias": "helper",
     # queued in ROADMAP §A
-    "DataParallel": "A.10", "quantization": "A.13 (e)",
+    "DataParallel": "A.10",
     # left out on purpose (no network; no ONNX export)
     "hub": "download", "onnx": "needs paddle2onnx",
 }
@@ -53,6 +53,55 @@ def test_top_level_names_against_jax():
     theirs = {n for n in dir(jp) if not n.startswith("_")}
     ours = {n for n in dir(tp) if not n.startswith("_")}
     assert theirs - ours == set(NOT_ON_THE_PORT)
+
+
+_IMPORT = "the JAX package's own import"
+#: per module, public names of the JAX package's module the port's lacks,
+#: each with its reason
+NOT_IN_THE_PORTS_MODULE = {
+    "device": {"jax": _IMPORT, "os": _IMPORT,
+               "jax_device_for": "JAX-only: maps a Place to a jax.Device"},
+    "incubate.optimizer": {},
+    "nn.clip": {"jnp": _IMPORT},
+    "nn.functional": {
+        "Tensor": _IMPORT, "annotations": _IMPORT, "apply_op": _IMPORT,
+        "framework": _IMPORT, "jax": _IMPORT, "jnp": _IMPORT,
+        "math": _IMPORT, "np": _IMPORT,
+        "sharded_lm_loss_arrays": "A.10 (the vocab-sharded head)"},
+    "nn.functional.fused_cross_entropy": {
+        "functools": _IMPORT, "jax": _IMPORT, "jnp": _IMPORT, "os": _IMPORT,
+        "sharded_lm_loss_arrays": "A.10 (the vocab-sharded head)"},
+    "models.gpt": {"FF": _IMPORT, "jax": _IMPORT, "os": _IMPORT,
+                   "paddle": _IMPORT,
+                   "scan_layers_enabled": "JAX-only: jax.lax.scan switch"},
+    "testing": {},
+    "incubate.distributed.models.moe": {
+        "Tensor": _IMPORT, "apply_op": _IMPORT, "jax": _IMPORT,
+        "jnp": _IMPORT, "paddle": _IMPORT},
+    "incubate.distributed.models.moe.gate": {},
+    "incubate.nn.functional": {"jax": _IMPORT, "jnp": _IMPORT},
+    "incubate.nn.functional.fp8": {"annotations": _IMPORT,
+                                   "apply_op": _IMPORT, "jnp": _IMPORT},
+    "nn": {},
+    "incubate": {},
+    "nn.quant": {"jnp": _IMPORT},
+    "quantization": {"jax": _IMPORT, "jnp": _IMPORT},
+    "quantization.observers": {},
+    "quantization.quanters": {},
+    "incubate.asp": {"jnp": _IMPORT},
+    "incubate.autograd": {},
+}
+
+
+@pytest.mark.parametrize("module", sorted(NOT_IN_THE_PORTS_MODULE))
+def test_module_names_against_jax(module):
+    import importlib
+
+    theirs = importlib.import_module("paddle_tpu." + module)
+    ours = importlib.import_module("paddle_tpu_torch." + module)
+    missing = ({n for n in dir(theirs) if not n.startswith("_")}
+               - {n for n in dir(ours) if not n.startswith("_")})
+    assert missing == set(NOT_IN_THE_PORTS_MODULE[module])
 
 
 def test_set_printoptions_and_small_functions():
@@ -325,3 +374,137 @@ def test_reference_flops_raises():
     """The reference's ``flops`` imports a module it lacks (ROADMAP §C)."""
     with pytest.raises(ModuleNotFoundError):
         jp.flops(jp.nn.Linear(2, 2), [1, 2])
+
+
+# -- the names A.13 (g) added ---------------------------------------------
+def test_device_queries_answer_for_the_card():
+    """The reference's TPU answers None and True; the port's answers are
+    torch's (a deliberate difference)."""
+    assert tp.device.get_cudnn_version() == torch.backends.cudnn.version()
+    assert jp.device.get_cudnn_version() is None
+    assert (tp.device.is_compiled_with_distribute()
+            == torch.distributed.is_available())
+    for name in ("is_compiled_with_ipu", "is_compiled_with_cinn",
+                 "is_compiled_with_custom_device",
+                 "get_all_custom_device_type",
+                 "get_available_custom_device"):
+        assert getattr(tp.device, name)() == getattr(jp.device, name)()
+    assert isinstance(tp.device.IPUPlace(), tp.device.IPUPlace)
+
+
+def test_lbfgs_clip_base_and_submodules():
+    from paddle_tpu_torch.incubate.distributed.models.moe import gate
+    from paddle_tpu_torch.incubate.nn.functional import fp8
+
+    assert tp.incubate.optimizer.LBFGS is tp.optimizer.LBFGS
+    clips = (tp.nn.ClipGradByGlobalNorm(1.0), tp.nn.ClipGradByNorm(1.0),
+             tp.nn.ClipGradByValue(1.0))
+    assert all(isinstance(c, tp.nn.clip.ClipGradBase) for c in clips)
+
+    class Halve(tp.nn.clip.ClipGradBase):
+        def _dygraph_clip(self, params_grads):
+            return [(p, g * 0.5) for p, g in params_grads]
+
+    assert Halve()([(1, 4.0)]) == [(1, 2.0)]
+    with pytest.raises(NotImplementedError):
+        tp.nn.clip.ClipGradBase()([])
+    assert gate.GShardGate is tp.incubate.distributed.models.moe.GShardGate
+    assert fp8.fp8_gemm is tp.incubate.nn.functional.fp8_gemm
+
+
+@pytest.mark.parametrize("size", ["tiny", "7b"])
+def test_llama_config_like_jax(size):
+    from paddle_tpu.models.gpt import llama_config as jcfg
+    from paddle_tpu_torch.models.gpt import llama_config
+
+    want = jcfg(size, max_seq_len=256)
+    got = llama_config(size, max_seq_len=256)
+    for k in ("hidden_size", "num_layers", "num_heads", "num_kv_heads",
+              "vocab_size", "max_seq_len", "intermediate_size"):
+        assert getattr(got, k) == getattr(want, k), k
+
+
+def test_causal_lm_loss_is_the_models_loss():
+    """``causal_lm_loss`` on a tiny Pipe with the JAX Pipe's seeded
+    weights: the port's model's own loss, and the JAX package's
+    ``causal_lm_loss`` on the same batch within f32 rounding."""
+    from paddle_tpu.distributed import fleet
+    from paddle_tpu.models.gpt import GPTConfig as JCfg
+    from paddle_tpu.models.gpt import GPTForCausalLMPipe as JPipe
+    from paddle_tpu.models.gpt import causal_lm_loss as jloss
+    from paddle_tpu_torch.convert import pipe_state_dict_from_jax
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLMPipe,
+                                             causal_lm_loss)
+
+    fleet._reset_for_tests()
+    cfg_kw = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+                  max_seq_len=16, dropout=0.0)
+    jm = JPipe(JCfg(**cfg_kw))
+    rng = np.random.default_rng(0)
+    sd = {k: ((1.0 if k.endswith(("norm.weight", "ln1", "ln2")) else 0.0)
+              + 0.2 * rng.standard_normal(tuple(v.shape))).astype(np.float32)
+          for k, v in jm.state_dict().items()}
+    jm.set_state_dict({k: jp.to_tensor(a) for k, a in sd.items()})
+    cfg = GPTConfig(**cfg_kw)
+    model = GPTForCausalLMPipe(cfg, device="cpu")
+    model.load_state_dict(pipe_state_dict_from_jax(sd, cfg))
+    ids, labels = (rng.integers(0, 64, (2, 8)) for _ in range(2))
+    labels[1, :3] = -100
+    got = causal_lm_loss(model, (torch.from_numpy(ids),
+                                 torch.from_numpy(labels)))
+    assert torch.equal(got, model.loss(torch.from_numpy(ids),
+                                       torch.from_numpy(labels)))
+    want = float(jloss(jm, (jp.to_tensor(ids.astype(np.int32)),
+                            jp.to_tensor(labels))))
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("transpose_y", [True, False])
+def test_fused_chunked_cross_entropy_like_jax(transpose_y):
+    from paddle_tpu.nn.functional import fused_cross_entropy as jfce
+    from paddle_tpu_torch.nn.functional import fused_cross_entropy as tfce
+
+    h, w = _x(2, 6, 16), _x(40, 16, seed=1) * 0.3
+    w = w if transpose_y else np.ascontiguousarray(w.T)
+    y = np.random.RandomState(2).randint(0, 40, (2, 6)).astype(np.int64)
+    y[0, 1] = -100
+    jh, th = jp.to_tensor(h, stop_gradient=False), tp.to_tensor(
+        h, stop_gradient=False)
+    jw, tw = jp.to_tensor(w, stop_gradient=False), tp.to_tensor(
+        w, stop_gradient=False)
+    kw = dict(transpose_y=transpose_y, vocab_chunk=16, int8=False)
+    jl = jfce.fused_chunked_cross_entropy(jh, jw, jp.to_tensor(y), **kw)
+    tl = tp.nn.functional.fused_chunked_cross_entropy(
+        th, tw, tp.to_tensor(y), **kw)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL)
+    jl.backward()
+    tl.backward()
+    for a, b in ((th, jh), (tw, jw)):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b.grad.numpy()),
+                                   atol=TOL, rtol=TOL)
+    # int8=None resolves for x's device: f32 on the CPU
+    np.testing.assert_allclose(float(tfce.fused_chunked_cross_entropy(
+        th, tw, tp.to_tensor(y), transpose_y=transpose_y)), float(tl),
+        rtol=TOL)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        tfce.fused_chunked_cross_entropy(th, tw, tp.to_tensor(y),
+                                         tp_axis="mp")
+
+
+def test_chunked_ce_sum_like_jax():
+    from paddle_tpu.nn.functional.fused_cross_entropy import (
+        chunked_ce_sum as jsum)
+    from paddle_tpu_torch.nn.functional.fused_cross_entropy import (
+        chunked_ce_sum)
+
+    h, w = _x(10, 16), _x(40, 16, seed=1) * 0.3
+    y = np.random.RandomState(3).randint(0, 40, (10,)).astype(np.int32)
+    mask = (np.arange(10) % 3 != 0).astype(np.float32)
+    import jax.numpy as jnp
+
+    want = float(jsum(jnp.asarray(h), jnp.asarray(w), jnp.asarray(y),
+                      jnp.asarray(mask), vocab_chunk=16))
+    got = float(chunked_ce_sum(torch.from_numpy(h), torch.from_numpy(w),
+                               torch.from_numpy(y), torch.from_numpy(mask),
+                               vocab_chunk=16))
+    np.testing.assert_allclose(got, want, rtol=TOL)
